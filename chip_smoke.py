@@ -3,21 +3,41 @@
 
     python3 chip_smoke.py
 
-1. Builds the four hand-written EP kernels from ``src/repro_torch/csrc`` with
-   nvcc for sm_90a (at first use, into ``build/repro_torch/``).
+1. Builds the five hand-written kernels from ``src/repro_torch/csrc`` with
+   nvcc for sm_90a (at first use, into ``build/repro_torch/``), one nvcc per
+   source, all started together.
 2. Serves DBRX-132B at full width, its 40 layers cut to 4 to fit one card,
    through ``DecodeServer`` over 8 EP ranks hosted on the card: batch 128,
    prompt 8, 16 generated tokens. Each kernel's launch count over that run
-   must equal the count the path implies. Then traces one more decode step
-   with the profiler: the card's busy share and its time by kernel.
-3. Holds each kernel against its plain PyTorch version on the inputs one EP
-   rank gets in one MoE layer of that slice (8 ranks, 16 tokens each):
-   bitwise for the two gathers, in copy and in fp8 mode; within 2e-2 for
-   the bf16 GEMM and reduce. Times on the card the kernel, the plain version
-   and, where one PyTorch call computes the same function, that call.
-4. Holds each MoE layer's EP output against the dense fallback on the same
+   must equal the count the path implies.
+3. Serves 256 requests through ``ContinuousDecodeServer`` on the same model
+   and weights: 128 slots over paged KV (page 16), prompts of 4 to 32
+   tokens, 8 to 32 new tokens each, Poisson arrivals of 4 per step. Every
+   request must complete with in-vocabulary tokens, every page must come
+   back, and the launch counts of all five kernels must equal the count the
+   path implies. Then traces one step of each server with the profiler: the
+   card's busy share and its time by kernel.
+4. Holds each EP kernel against its plain PyTorch version on the inputs one
+   EP rank gets in one MoE layer of the first serve (8 ranks, 16 tokens
+   each): bitwise for the two gathers, in copy and in fp8 mode; within 2e-2
+   for the bf16 GEMM and reduce. Holds the paged decode attention kernel
+   against its plain version within 1e-4: at the shapes the continuous serve
+   gives it (bf16 pools of the serve's 512 + 1 pages, table width 4, 4
+   splits, up to 64 tokens), at DBRX widths over long contexts (128
+   requests up to 32768 tokens), both with shuffled tables and garbage in
+   unreferenced pages, and in the shared-pool mode at DeepSeek-V3's
+   absorbed-MLA widths; idle rows must be exactly 0 and the output bitwise
+   unchanged when the garbage changes. Times on the card each kernel, its
+   plain version and, where one PyTorch call computes the same function,
+   that call.
+5. Holds each MoE layer's EP output against the dense fallback on the same
    input (every capacity is zero-drop here): relative error <= 2e-2. Reports
-   the greedy-token agreement of the EP server with a dense one.
+   the greedy-token agreement of the EP server with a dense one. Reruns two
+   requests that joined and left mid-stream alone through a fresh engine:
+   their token streams must be bitwise equal. Holds the paged decode step
+   against the dense step on the same tokens: in bf16 over the 4 layers,
+   bitwise at the first step and the median row's logits within 2e-2 at the
+   second; in f32 with one layer, the logits within 2e-4 at every step.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. The last line is
@@ -44,12 +64,19 @@ from repro_torch.configs.dbrx_132b import full_config  # noqa: E402
 from repro_torch.core import ep_create_handle, route  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import combine_gather_reduce as cg_mod  # noqa: E402
+from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import dispatch_pack as dp_mod  # noqa: E402
 from repro_torch.kernels import grouped_gemm as gg_mod  # noqa: E402
 from repro_torch.kernels import recv_unpack as ru_mod  # noqa: E402
 from repro_torch.models.moe import (_moe_dense_fallback, ep_group,  # noqa: E402
                                     moe_block, router_config)
-from repro_torch.runtime.server import DecodeServer  # noqa: E402
+from repro_torch.models.transformer import (_decode_splits,  # noqa: E402
+                                            init_decode_state,
+                                            init_paged_decode_state,
+                                            lm_decode_step, lm_paged_decode_step)
+from repro_torch.runtime.scheduler import Request  # noqa: E402
+from repro_torch.runtime.server import (ContinuousDecodeServer,  # noqa: E402
+                                        DecodeServer)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_S = 3.35e12
@@ -58,6 +85,17 @@ F32_OPS_S = 67e12            # f32 outside the tensor cores
 
 RANKS, BATCH, PROMPT, GEN, LAYERS = 8, 128, 8, 16, 4
 TOL = 2e-2                   # bf16 tolerance (tests/test_kernels.py tol())
+# the continuous serve: requests, arrivals per step, prompt and new-token
+# ranges (inclusive), page size; slots are the preset's batch
+REQUESTS, RATE, PROMPTS, NEWS, PAGE = 256, 4.0, (4, 32), (8, 32), 16
+CMAX_LEN = PROMPTS[1] + NEWS[1]
+# paged attention sums in f32 over up to 32k positions in another order
+# than its plain version
+PAGED_TOL = 1e-4
+KV_PAGES = 2048              # page-table width of the paged kernel phase
+DEV = torch.device("cuda")
+PAGED = ("paged_decode_attention", "src/repro_torch/csrc/paged_decode_attention.cu",
+         "src/repro/kernels/decode_attention.py:112")
 
 # name -> (wrapper module, source, TPU kernel it replaces, launches per MoE
 # layer per hosted rank in one decode step)
@@ -76,6 +114,26 @@ KERNELS = {
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
+
+
+def reset_counts() -> None:
+    for mod, *_ in KERNELS.values():
+        mod.launches = 0
+    da_mod.launches = da_mod.stage2_launches = 0
+
+
+def counts() -> dict:
+    out = {name: k[0].launches for name, k in KERNELS.items()}
+    out[PAGED[0]] = da_mod.launches
+    out["paged_decode_attention (stage 2)"] = da_mod.stage2_launches
+    return out
+
+
+def check_ep_counts(launches: dict, steps: int, where: str) -> None:
+    for name, (_, _, _, per) in KERNELS.items():
+        want = per * LAYERS * RANKS * steps
+        check(launches[name] == want, f"{name} launched {launches[name]} times "
+              f"on {where}, expected {want}")
 
 
 def call_ms(fn, iters: int, reps: int = 5) -> float:
@@ -116,16 +174,26 @@ def busy_us(iv) -> float:
 
 def device_ms(fn, iters: int) -> float:
     """Mean device time of one call: the card's busy time over ``iters``
-    calls, from the profiler's CUDA trace, so host launch cost is left out."""
+    calls, from the profiler's CUDA trace, so host launch cost is left out.
+    A spin kernel on each side of the calls, left out of the sum, takes the
+    place of the event a profiler session can drop at its edge; a session
+    that saw fewer events than calls (after many sessions in one process
+    the profiler now and then records none) is run again, twice at most."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    iv = device_intervals(prof)
-    check(len(iv) >= iters, f"the profiler saw {len(iv)} device events for {iters} calls")
-    return busy_us(iv) / iters / 1e3
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(iters):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        iv = [e for e in device_intervals(prof) if "spin_kernel" not in e[2]]
+        if len(iv) >= iters:
+            return busy_us(iv) / iters / 1e3
+        print(f"  (profiler session {attempt + 1} saw {len(iv)} device events for "
+              f"{iters} calls; measuring again)")
+    raise RuntimeError(f"the profiler saw {len(iv)} device events for {iters} calls")
 
 
 def bound(nbytes: int, ops: int, ops_rate: float) -> tuple[float, str]:
@@ -172,7 +240,7 @@ def build() -> None:
 
 def kernel_phase(cfg, params) -> dict:
     """Each kernel and its plain version on what rank 0 gets in MoE layer 0."""
-    dev, dt, d = torch.device("cuda"), cfg.dtype, cfg.d_model
+    dev, dt, d = DEV, cfg.dtype, cfg.d_model
     p = {k: v[0] for k, v in params["moe_stack"]["moe"].items()}
     comm = LocalComm(RANKS)
     T = BATCH // RANKS
@@ -303,20 +371,19 @@ def kernel_phase(cfg, params) -> dict:
     return out
 
 
-def trace_phase(srv: DecodeServer, itl_s: float) -> None:
-    """One more decode step of the EP server under the profiler: the card's
-    busy time against the untraced step time ``itl_s``, and where the
-    device time goes."""
-    tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
+def trace_phase(label: str, run, itl_s: float):
+    """One more step under the profiler: the card's busy time against the
+    untraced step time ``itl_s``, and where the device time goes. Returns
+    the device intervals."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        srv.step(tok)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     iv = device_intervals(prof)
     busy = busy_us(iv)
-    print(f"trace of one EP decode step: card busy {busy / 1e3:.2f} ms, "
+    print(f"trace of one {label}: card busy {busy / 1e3:.2f} ms, "
           f"{len(iv)} device events; idle share {1 - busy / (itl_s * 1e6):.3f} of the "
           f"untraced step ({itl_s * 1e3:.2f} ms ITL mean), "
           f"{1 - busy / wall_us:.3f} of the traced one ({wall_us / 1e3:.2f} ms)")
@@ -326,6 +393,7 @@ def trace_phase(srv: DecodeServer, itl_s: float) -> None:
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
     for name, ds in top:
         print(f"  {sum(ds) / 1e3:8.3f} ms  {len(ds):5d}x  {name[:100]}")
+    return iv
 
 
 def serve_phase(srv: DecodeServer, card: str) -> tuple[dict, float]:
@@ -333,19 +401,15 @@ def serve_phase(srv: DecodeServer, card: str) -> tuple[dict, float]:
     cfg = srv.cfg
     prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), dtype=torch.int32,
                             generator=torch.Generator().manual_seed(2))
-    for mod, *_ in KERNELS.values():
-        mod.launches = 0
+    reset_counts()
     metrics = srv.serve(prompts, GEN)
-    launches = {name: k[0].launches for name, k in KERNELS.items()}
-    steps = PROMPT + GEN
-    for name, (_, _, _, per) in KERNELS.items():
-        want = per * LAYERS * RANKS * steps
-        check(launches[name] == want, f"{name} launched {launches[name]} times "
-              f"on the main path, expected {want}")
+    launches = counts()
+    check_ep_counts(launches, PROMPT + GEN, "the DecodeServer path")
+    check(launches[PAGED[0]] == 0, "the dense path launched paged attention")
     toks = srv.last_tokens
     check(toks.shape == (BATCH, GEN + 1) and toks.min() >= 0 and toks.max() < cfg.vocab,
           f"bad token stream {toks.shape}")
-    m = metrics.as_dict()
+    m = {k: v for k, v in metrics.as_dict().items() if v is not None}
     check(all(np.isfinite(v) and v > 0 for v in m.values()), f"bad metrics {m}")
     print(f"serve ({card}): ttft {m['ttft_s']:.4f} s, itl mean {m['itl_mean_s']:.4f} s, "
           f"itl p99 {m['itl_p99_s']:.4f} s, {m['output_tok_s']:.1f} output tok/s, "
@@ -363,10 +427,10 @@ def serve_phase(srv: DecodeServer, card: str) -> tuple[dict, float]:
 
 def oracle_phase(cfg, params) -> None:
     """Each MoE layer's EP output against the dense fallback, same input."""
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    gen = torch.Generator(device=DEV).manual_seed(3)
     for i in range(LAYERS):
         p = {k: v[i] for k, v in params["moe_stack"]["moe"].items()}
-        x = torch.randn((BATCH, 1, cfg.d_model), generator=gen, device="cuda").to(cfg.dtype)
+        x = torch.randn((BATCH, 1, cfg.d_model), generator=gen, device=DEV).to(cfg.dtype)
         ep, _ = moe_block(p, x, cfg, LocalComm(RANKS))
         dn = _moe_dense_fallback(p, x, cfg)
         check(ep.shape == dn.shape == x.shape and bool(torch.isfinite(ep).all()),
@@ -374,6 +438,298 @@ def oracle_phase(cfg, params) -> None:
         rel = float((ep.float() - dn.float()).norm() / dn.float().norm())
         print(f"oracle: MoE layer {i} EP vs dense relative error {rel:.3g} (limit {TOL})")
         check(rel <= TOL, f"MoE layer {i}: EP output off the dense fallback by {rel}")
+
+
+def make_requests(vocab: int) -> list[Request]:
+    """REQUESTS requests from a numpy seed: Poisson arrivals of RATE per
+    step from step 0, prompt and new-token counts uniform in their ranges."""
+    rng = np.random.default_rng(4)
+    per_step = rng.poisson(RATE, size=4 * REQUESTS)
+    arrivals = np.repeat(np.arange(per_step.size), per_step)[:REQUESTS]
+    plens = rng.integers(PROMPTS[0], PROMPTS[1] + 1, REQUESTS)
+    news = rng.integers(NEWS[0], NEWS[1] + 1, REQUESTS)
+    return [Request(i, rng.integers(0, vocab, int(plens[i])), int(news[i]),
+                    arrival_step=int(arrivals[i])) for i in range(REQUESTS)]
+
+
+def continuous_phase(cfg, params, card: str):
+    """This slice's main path: ContinuousDecodeServer.serve_requests, with
+    every launch counter read."""
+    reqs = make_requests(cfg.vocab)
+    srv = ContinuousDecodeServer(cfg, BATCH, CMAX_LEN, ep_size=RANKS,
+                                 params=params, page_size=PAGE)
+    reset_counts()
+    metrics = srv.serve_requests(reqs)
+    launches = counts()
+    sched, steps = srv.reqsched, metrics.serve_steps
+    check(sched.done and metrics.requests_completed == REQUESTS,
+          f"{metrics.requests_completed} of {REQUESTS} requests completed")
+    for r in reqs:
+        toks = sched.tokens_for(r.rid)
+        check(len(toks) == r.max_new_tokens and toks.min() >= 0 and toks.max() < cfg.vocab,
+              f"request {r.rid}: bad token stream {toks}")
+    check(sched.alloc.live_count == 0 and sched._reserved == 0
+          and sched.alloc.free_count == srv.num_pages,
+          f"pages not returned: {sched.alloc.live_count} live, {sched._reserved} reserved")
+    check(metrics.pages_peak <= metrics.pages_dense_equiv,
+          f"pages_peak {metrics.pages_peak} > dense {metrics.pages_dense_equiv}")
+    m = metrics.as_dict()
+    scalars = {k: v for k, v in m.items() if isinstance(v, (int, float))}
+    check(all(np.isfinite(v) and v >= 0 for v in scalars.values()), f"bad metrics {scalars}")
+    check_ep_counts(launches, steps, "the continuous path")
+    for key in (PAGED[0], "paged_decode_attention (stage 2)"):
+        check(launches[key] == LAYERS * steps, f"{key} launched {launches[key]} "
+              f"times on the continuous path, expected {LAYERS * steps}")
+    itls = np.concatenate([np.asarray(r["itl_s"]) for r in m["per_request"] if r["itl_s"]])
+    print(f"continuous serve ({card}): {REQUESTS} requests, {steps} steps, "
+          f"{metrics.total_tokens} tokens, {metrics.output_tok_s:.1f} output tok/s; "
+          f"ttft p50 {m['ttft_p50_s']:.4f} s, p95 {m['ttft_p95_s']:.4f} s, "
+          f"p99 {m['ttft_p99_s']:.4f} s; itl mean {m['itl_mean_s']:.4f} s, "
+          f"p50 {m['itl_p50_s']:.4f} s, p95 {m['itl_p95_s']:.4f} s, "
+          f"p99 {m['itl_p99_s']:.4f} s ({itls.size} intervals); pages peak "
+          f"{metrics.pages_peak} of {metrics.pages_dense_equiv} dense "
+          f"({metrics.pages_peak / metrics.pages_dense_equiv:.3f}); launches {launches}")
+    return srv, metrics, reqs, launches
+
+
+def solo_phase(cfg, params, srv: ContinuousDecodeServer, reqs) -> None:
+    """Two requests that joined after step 0 and left before the last step,
+    each rerun alone through a fresh engine: bitwise-equal streams."""
+    fin = srv.reqsched.finished
+    last = max(s.tok_times[-1] for s in fin.values())
+    picks = [r for r in reqs if r.arrival_step > 0 and fin[r.rid].tok_times[-1] < last]
+    picks = [picks[len(picks) // 4], picks[len(picks) // 2]]
+    for r in picks:
+        solo = ContinuousDecodeServer(cfg, BATCH, CMAX_LEN, ep_size=RANKS,
+                                      params=params, page_size=PAGE)
+        solo.serve_requests([Request(r.rid, r.prompt, r.max_new_tokens)])
+        got, want = solo.reqsched.tokens_for(r.rid), srv.reqsched.tokens_for(r.rid)
+        check(np.array_equal(got, want), f"request {r.rid} alone gives {got}, "
+              f"among co-residents {want}")
+        print(f"solo parity: request {r.rid} (arrived at step {r.arrival_step}, "
+              f"prompt {r.prompt.size}, {r.max_new_tokens} new) bitwise equal alone")
+
+
+def _compare_steps(cfg, params, label: str, steps: int = 4) -> list:
+    """Teacher-forced paged and dense decode steps on the same weights and
+    tokens, every slot active at the same length. Returns, per step, the
+    logits' relative error, whether they are bitwise equal and the median
+    over rows of each row's relative error."""
+    comm, mp = LocalComm(RANKS), 4
+    dense = init_decode_state(cfg, BATCH, steps, DEV)
+    paged = init_paged_decode_state(cfg, BATCH * mp, PAGE, DEV)
+    tbl = torch.arange(BATCH * mp, dtype=torch.int32, device=DEV).view(BATCH, mp)
+    toks = torch.randint(0, cfg.vocab, (BATCH, steps), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(5)).to(DEV)
+    ones = torch.ones(BATCH, dtype=torch.int32, device=DEV)
+    out = []
+    for t in range(steps):
+        tok = toks[:, t:t + 1]
+        ld, dense = lm_decode_step(params, dense, {"tokens": tok}, cfg, comm)
+        lp, paged = lm_paged_decode_step(params, paged, dict(
+            tokens=tok, page_tbl=tbl, kv_lens=ones * t, active=ones), cfg, comm)
+        rel = float((lp - ld).norm() / ld.norm())
+        rows = ((lp - ld).norm(dim=-1) / ld.norm(dim=-1)).flatten()
+        agree = float((lp.argmax(-1) == ld.argmax(-1)).float().mean())
+        print(f"  paged vs dense, {label}, step {t}: logits relative error {rel:.3g}, "
+              f"bitwise {torch.equal(lp, ld)}; per row median {float(rows.median()):.3g}, "
+              f"max {float(rows.max()):.3g}, {int((rows > TOL).sum())} of {BATCH} above "
+              f"{TOL}; greedy tokens equal {agree:.4f}")
+        out.append((rel, torch.equal(lp, ld), float(rows.median())))
+    return out
+
+
+def _first_layer_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _first_layer_f32(v) for k, v in tree.items()}
+    return tree[:1].float()
+
+
+def paged_vs_dense_phase(cfg, params) -> None:
+    """The paged decode step against the dense one. In bf16 the dense path
+    rounds the attention probabilities to bf16 before the PV product and the
+    paged kernel does not, so from step 1 on the two differ by that rounding,
+    amplified through the layers (the MoE routing flips for some rows) and
+    carried into each cache. So over the 4 bf16 layers, step 0, where both
+    attend over one token and neither rounds, must be bitwise equal, and at
+    step 1, after one step of that rounding, the median row's relative error
+    must be within 2e-2; later steps are reported. In f32 (the first layer
+    only: 4 layers of f32 weights do not fit beside the bf16 ones) the
+    logits must agree within 2e-4 relative at every step, the JAX package's
+    tolerance for this comparison
+    (tests/test_paged_kv.py::test_paged_step_matches_dense_step_logits)."""
+    bf16 = _compare_steps(cfg, params, "bf16, 4 layers")
+    check(bf16[0][1], "bf16 step 0: the paged and the dense logits differ")
+    med1 = bf16[1][2]
+    check(med1 <= TOL, f"bf16 step 1: median row off the dense step's by {med1}")
+    cfg32 = dataclasses.replace(cfg, num_layers=1, dtype=torch.float32)
+    p32 = {k: v.float() for k, v in params.items() if k != "moe_stack"}
+    p32["moe_stack"] = _first_layer_f32(params["moe_stack"])
+    worst = max(rel for rel, _, _ in _compare_steps(cfg32, p32, "f32, 1 layer"))
+    del p32
+    torch.cuda.empty_cache()
+    print(f"paged vs dense decode step: bf16 step 0 bitwise equal, step 1 median row "
+          f"relative error {med1:.3g} (limit {TOL}); f32 logits relative error "
+          f"{worst:.3g} (limit 2e-4)")
+    check(worst <= 2e-4, f"f32 paged step logits off the dense step's by {worst}")
+
+
+def paged_case(rng, B, Hq, Hkv, dk, dv, max_pages, lens, share_kv, dt=torch.bfloat16,
+               num_pages=None):
+    """Pools of ``num_pages`` pages (default: the live ones and 1024 spare)
+    with every live page at a shuffled place, garbage in the rest, the pad
+    page last (garbage too), and q, on the card."""
+    dev = DEV
+    pages = -(-lens // PAGE)
+    P = int(pages.sum()) + 1024 if num_pages is None else num_pages
+    check(int(pages.sum()) <= P, f"{int(pages.sum())} live pages exceed a pool of {P}")
+    perm = rng.permutation(P)
+    tbl = np.full((B, max_pages), P, np.int32)
+    offs = np.concatenate([[0], np.cumsum(pages)])
+    for b in range(B):
+        tbl[b, :pages[b]] = perm[offs[b]:offs[b + 1]]
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    kp = torch.randn((P + 1, PAGE, Hkv, dk), generator=gen, device=dev, dtype=dt)
+    vp = None if share_kv else torch.randn((P + 1, PAGE, Hkv, dv), generator=gen,
+                                           device=dev, dtype=dt)
+    q = torch.randn((B, Hq, dk), generator=gen, device=dev, dtype=dt)
+    used = torch.zeros(P + 1, dtype=torch.bool, device=dev)
+    used[torch.from_numpy(perm[:offs[-1]]).to(dev)] = True
+    return q, kp, vp, torch.from_numpy(tbl).to(dev), torch.from_numpy(lens.astype(np.int32)).to(dev), ~used
+
+
+def check_paged(label, q, kp, vp, tbl, lens, unused, chunk, **kw):
+    """Kernel against the plain version (in chunks of ``chunk`` requests),
+    idle rows exactly 0, output bitwise unchanged under new garbage."""
+    got = da_mod.paged_decode_attention(q, kp, vp, tbl, lens, **kw)
+    parts = [slice(i, i + chunk) for i in range(0, q.shape[0], chunk)]
+
+    def plain():
+        return torch.cat([ref.paged_decode_attention(q[c], kp, vp, tbl[c], lens[c], **kw)
+                          for c in parts])
+    want = plain()
+    err = max_err(got, want)
+    check(torch.allclose(got, want, rtol=PAGED_TOL, atol=PAGED_TOL),
+          f"paged_decode_attention ({label}) off its plain version by {err}")
+    check(not got[lens == 0].any(), f"paged_decode_attention ({label}): idle rows not 0")
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    n = int(unused.sum())
+    kp[unused] = torch.randn((n,) + kp.shape[1:], generator=gen, device=DEV).mul_(50).to(kp.dtype)
+    if vp is not None:
+        vp[unused] = torch.randn((n,) + vp.shape[1:], generator=gen, device=DEV).mul_(50).to(vp.dtype)
+    check(torch.equal(da_mod.paged_decode_attention(q, kp, vp, tbl, lens, **kw), got),
+          f"paged_decode_attention ({label}) changed with the unreferenced pages")
+    print(f"paged_decode_attention {label}: max_abs_err {err:.3g} (limit {PAGED_TOL}), "
+          f"{int((lens == 0).sum())} idle rows exactly 0, bitwise unchanged under "
+          f"new garbage in {n} unreferenced pages")
+    return got, err, plain
+
+
+def paged_bound(lens, q, lt, out, Hkv, dk, dv, elt) -> tuple[tuple[float, str], int]:
+    """Bound of one paged attention call: the live K/V rows, q, the lengths,
+    the table entries read and the output, each moved once; 2 (dk + dv)
+    operations per live token and query head at the rate of the pools'
+    type (bf16). Returns the bound and the bytes."""
+    live = int(lens.sum())
+    pages_read = int((-(-lens // PAGE)).sum())
+    nb = (live * Hkv * (dk + dv) * elt + nbytes(q) + nbytes(lt) + pages_read * 4
+          + nbytes(out))
+    return bound(nb, 2 * live * q.shape[1] * (dk + dv), BF16_OPS_S), nb
+
+
+def paged_main_shape_phase(cfg, csrv: ContinuousDecodeServer) -> float:
+    """paged_decode_attention at the shapes the continuous serve gives it:
+    bf16 pools of the server's num_pages + 1 pages, its page-table width and
+    split count, lengths up to CMAX_LEN with idle rows, full rows, exact page
+    multiples and ragged tails. Returns the largest error."""
+    a = cfg.attn
+    Hq, Hkv, d = cfg.padded_heads(), a.n_kv, a.head_dim
+    mp = csrv.max_pages
+    S = _decode_splits(cfg, mp)
+    rng = np.random.default_rng(7)
+    lens = rng.integers(1, mp * PAGE + 1, BATCH)
+    lens[:8] = 0                                            # idle slots
+    lens[8:8 + mp] = np.arange(1, mp + 1) * PAGE            # page multiples, a full row
+    lens[8 + mp:16 + mp] = rng.integers(0, mp, 8) * PAGE + rng.integers(1, PAGE, 8)
+    q, kp, vp, tbl, lt, unused = paged_case(rng, BATCH, Hq, Hkv, d, d, mp, lens, False,
+                                            num_pages=csrv.num_pages)
+    pool = next(iter(csrv.state.values()))["k"]
+    check(kp.shape == pool.shape[1:] and kp.dtype == pool.dtype,
+          f"pool {list(kp.shape)} {kp.dtype} is not the serve's {list(pool.shape[1:])} "
+          f"{pool.dtype}")
+    kw = dict(scale=d ** -0.5, num_kv_splits=S)
+    label = (f"main-path shapes (q [{BATCH}, {Hq}, {d}], pools {list(kp.shape)} "
+             f"bf16, table [{BATCH}, {mp}], {S} splits, kv_lens {lens.min()} to "
+             f"{lens.max()})")
+    out, err, plain = check_paged(label, q, kp, vp, tbl, lt, unused, BATCH, **kw)
+    ms = device_ms(lambda: da_mod.paged_decode_attention(q, kp, vp, tbl, lt, **kw), 50)
+    bnd, nb = paged_bound(lens, q, lt, out, Hkv, d, d, kp.element_size())
+    print(f"paged_decode_attention at main-path shapes: kernel {ms:.4f} ms on the card "
+          f"(stage 1 + stage 2), plain {device_ms(plain, 10):.4f} ms, bound "
+          f"{bnd[0]:.5f} ms ({bnd[1]}, {nb / 1e6:.3f} MB)")
+    return err
+
+
+def paged_kernel_phase(cfg, main_err: float) -> dict:
+    """paged_decode_attention at DBRX decode widths over long contexts, and
+    in the shared-pool mode at DeepSeek-V3's absorbed-MLA widths. The JSON
+    line's error is the largest of these and ``main_err``."""
+    a = cfg.attn
+    Hq, Hkv, d = cfg.padded_heads(), a.n_kv, a.head_dim
+    B, max_pages = BATCH, KV_PAGES
+    S = _decode_splits(cfg, max_pages)
+    rng = np.random.default_rng(6)
+    lens = rng.integers(1, max_pages * PAGE + 1, B)
+    lens[:3] = 0                                            # idle slots
+    lens[3] = max_pages * PAGE                              # a full row
+    lens[4:8] = rng.integers(1, max_pages, 4) * PAGE        # exact page multiples
+    lens[8:12] = rng.integers(1, max_pages - 1, 4) * PAGE + rng.integers(1, PAGE, 4)
+    q, kp, vp, tbl, lt, unused = paged_case(rng, B, Hq, Hkv, d, d, max_pages, lens, False)
+    kw = dict(scale=d ** -0.5, num_kv_splits=S)
+    shape = (f"q [{B}, {Hq}, {d}], pools {list(kp.shape)} bf16 ({2 * kp.numel() * 2 / 1e9:.2f} GB), "
+             f"table [{B}, {max_pages}], {S} splits, kv_lens mean {lens.mean():.0f} max {lens.max()}")
+    print(f"paged_decode_attention at DBRX widths: {shape}")
+    out, err, plain = check_paged("GQA", q, kp, vp, tbl, lt, unused, 16, **kw)
+
+    def kernel():
+        return da_mod.paged_decode_attention(q, kp, vp, tbl, lt, **kw)
+    ms, plain_ms = device_ms(kernel, 10), device_ms(plain, 2)
+    bnd, nbytes_moved = paged_bound(lens, q, lt, out, Hkv, d, d, kp.element_size())
+    # yardstick: SDPA over the same K/V gathered dense (padded to the longest
+    # row), gather excluded; the port never calls it
+    sdpa_ms = 0.0
+    L = max_pages * PAGE
+    for i in range(0, B, 16):
+        c = slice(i, i + 16)
+        idx = tbl[c].long()
+        kd = kp[idx].reshape(16, L, Hkv, d).transpose(1, 2).contiguous()
+        vd = vp[idx].reshape(16, L, Hkv, d).transpose(1, 2).contiguous()
+        mask = (torch.arange(L, device=DEV)[None, :] < lt[c][:, None])[:, None, None, :]
+        qd = q[c][:, :, None, :]
+        sdpa_ms += device_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask, scale=d ** -0.5, enable_gqa=True), 3)
+        del kd, vd
+    print(f"paged_decode_attention GQA: kernel {ms:.4f} ms on the card (stage 1 + "
+          f"stage 2), plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, "
+          f"{nbytes_moved / 1e9:.3f} GB); library none; yardstick only: "
+          f"scaled_dot_product_attention over the K/V gathered dense to {L} "
+          f"tokens, gather excluded, {sdpa_ms:.4f} ms")
+    del q, kp, vp, out
+    torch.cuda.empty_cache()
+
+    # absorbed MLA: one shared pool of [ckv | k_rope] rows, values the
+    # leading r_kv columns (DeepSeek-V3: 128 heads, 512 + 64)
+    Hq, dk, dv, mp = 128, 576, 512, 256
+    lens = np.array([mp * PAGE, 1000, 0, 77, 2 * PAGE])
+    q, kp, _, tbl, lt, unused = paged_case(rng, lens.size, Hq, 1, dk, dv, mp, lens, True)
+    kw = dict(scale=dk ** -0.5, num_kv_splits=4, dv=dv)
+    _, mla_err, _ = check_paged(f"share_kv (q [{lens.size}, {Hq}, {dk}], dv {dv}, kv_lens "
+                                f"{lens.tolist()})", q, kp, None, tbl, lt, unused,
+                                lens.size, **kw)
+    return dict(name=PAGED[0], route="cuda", source=PAGED[1], replaces=PAGED[2],
+                launches=None, max_abs_err=max(err, mla_err, main_err), ms=ms,
+                plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
 
 
 def main() -> int:
@@ -399,13 +755,30 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"init: random weights on the card in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
-    # the main path runs first, before any profiling touches the card
+    # the main paths run first, before any profiling touches the card
     launches, itl_s = serve_phase(srv, card)
-    trace_phase(srv, itl_s)
+    csrv, cm, reqs, claunches = continuous_phase(cfg, srv.params, card)
+    tok = torch.zeros((BATCH, 1), dtype=torch.int32, device=DEV)
+    trace_phase("EP decode step", lambda: srv.step(tok), itl_s)
+    mp = csrv.max_pages
+    feed = dict(tokens=np.zeros((BATCH, 1), np.int32),
+                page_tbl=np.arange(BATCH * mp, dtype=np.int32).reshape(BATCH, mp),
+                kv_lens=np.full(BATCH, CMAX_LEN // 2, np.int32),
+                active=np.ones(BATCH, np.int32))
+    iv = trace_phase(f"continuous step (all {BATCH} slots at {CMAX_LEN // 2} tokens)",
+                     lambda: csrv.step_feed(feed), cm.itl_mean_s)
+    paged_us = sum(e - s for s, e, n in iv if "paged_stage" in n)
+    print(f"  paged attention: {paged_us / 1e3:.3f} ms, {paged_us / busy_us(iv):.4f} "
+          f"of the busy time")
     records = kernel_phase(cfg, srv.params)
+    records[PAGED[0]] = paged_kernel_phase(cfg, paged_main_shape_phase(cfg, csrv))
     oracle_phase(cfg, srv.params)
+    solo_phase(cfg, srv.params, csrv, reqs)
+    paged_vs_dense_phase(cfg, srv.params)
     for name, n in launches.items():
-        records[name]["launches"] = n
+        if name in records:
+            records[name]["launches"] = n
+    records[PAGED[0]]["launches"] = claunches[PAGED[0]]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("dispatch_pack.cu", "recv_unpack.cu", "grouped_gemm.cu",
-           "combine_gather_reduce.cu")
+           "combine_gather_reduce.cu", "paged_decode_attention.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.float8_e4m3fn: 3}
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "ep_dispatch_pack_copy": (_P, _P, _P, _L, _I, _L, _I, _I, _I, _P),
     "ep_dispatch_pack_quant": (_P, _P, _P, _P, _L, _I, _L, _I, _I, _P),
@@ -41,6 +41,9 @@ _SIGNATURES = {
     "ep_recv_unpack_dequant": (_P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _P),
     "ep_grouped_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ep_combine_gather_reduce": (_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P),
+    "ep_paged_decode_stage1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _I, _I, _I, _P),
+    "ep_paged_decode_stage2": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

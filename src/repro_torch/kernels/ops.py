@@ -1,11 +1,13 @@
-"""The EP kernels' entry points: route by where the tensor lies.
+"""The kernels' entry points: route by where the tensor lies.
 
 A tensor on the CPU goes to the plain version in ``kernels/ref.py``. Any
 other tensor goes to the hand-written Hopper kernel, whose wrapper launches
 it or raises (wrong device, dtype, shape or alignment); nothing falls back.
 Unlike the TPU routing in ``src/repro/kernels/ops.py`` there are no
 ``H % 128`` lane gates: the kernels take any H that is a multiple of 8, any
-fp8 block that divides H, and ``recv_unpack`` any row width.
+fp8 block that divides H, and ``recv_unpack`` any row width; nor the
+``dk % 128`` / ``page % 8`` gates of paged decode attention, whose kernel
+takes any page size and head widths that are multiples of 8.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import combine_gather_reduce as _cgr
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dispatch_pack as _dp
 from repro_torch.kernels import grouped_gemm as _gg
 from repro_torch.kernels import recv_unpack as _ru
@@ -53,3 +56,19 @@ def combine_gather_reduce(recv: torch.Tensor, rows: torch.Tensor,
     if _plain(recv):
         return _ref.combine_gather_reduce(recv, rows, w)
     return _cgr.combine_gather_reduce(recv, rows, w)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor | None,
+                           kv_indices: torch.Tensor, kv_lens: torch.Tensor, *,
+                           scale: float, num_kv_splits: int = 1,
+                           dv: int | None = None) -> torch.Tensor:
+    """Split-KV paged decode attention: q [B, Hq, dk] over the pools through
+    the page table -> [B, Hq, dv] f32."""
+    if _plain(q):
+        return _ref.paged_decode_attention(q, k_pages, v_pages, kv_indices,
+                                           kv_lens, scale=scale,
+                                           num_kv_splits=num_kv_splits, dv=dv)
+    return _da.paged_decode_attention(q, k_pages, v_pages, kv_indices, kv_lens,
+                                      scale=scale, num_kv_splits=num_kv_splits,
+                                      dv=dv)

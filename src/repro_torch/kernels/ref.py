@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the EP kernels: the semantics of record.
+"""Plain PyTorch versions of the port's kernels: the semantics of record.
 
 Each hand-written Hopper kernel in this package is held against the function
 of the same name here, on the card (``chip_smoke.py``, the CUDA tests), and
@@ -119,3 +119,82 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     mask = torch.arange(A, device=x.device)[None, :] < counts[:, None]
     out = torch.where(mask[..., None], out, 0.0)
     return out.to(torch.bfloat16 if x.dtype == torch.float8_e4m3fn else x.dtype)
+
+
+NEG_INF = -1e30
+
+
+def paged_decode_stage1(q, k_pages, v_pages, kv_indices, kv_lens, *,
+                        scale, num_kv_splits, dv=None):
+    """Stage 1 of split-KV paged decode attention: per-(request, split)
+    partial outputs and log-sum-exp.
+
+    q: [B, Hq, dk] one decode query per request. k_pages: [P+1, page, Hkv,
+    dk] paged key pool whose last row is the pad page. v_pages: same layout
+    with trailing dv, or None for the absorbed-MLA shared pool, where values
+    are the first ``dv`` key columns (Hkv == 1). kv_indices: [B, max_pages]
+    int32 page table padded with P. kv_lens: [B] int32 live tokens (0 for an
+    idle slot). max_pages must divide by num_kv_splits.
+
+    Returns (o [B, S, Hq, dv] f32, lse [B, S, Hq] f32). An empty split gives
+    o == 0 and lse == NEG_INF exactly; masked positions contribute an exact
+    0 (``where``, not exp underflow), so garbage in unreferenced pages never
+    reaches a live request."""
+    B, max_pages = kv_indices.shape
+    page, Hkv, dk = k_pages.shape[1:]
+    Hq = q.shape[1]
+    G = Hq // Hkv
+    S = num_kv_splits
+    if max_pages % S:
+        raise ValueError(f"max_pages {max_pages} must divide by the split "
+                         f"count {S}")
+    if v_pages is None:
+        if dv is None or Hkv != 1:
+            raise ValueError("the shared pool needs dv and Hkv == 1")
+        v_pages = k_pages[..., :dv]
+    dv = v_pages.shape[-1]
+    idx = kv_indices.long()
+    k = k_pages[idx].reshape(B, max_pages * page, Hkv, dk)
+    v = v_pages[idx].reshape(B, max_pages * page, Hkv, dv)
+    qg = q.reshape(B, Hkv, G, dk).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * scale
+    pos = torch.arange(max_pages * page, device=q.device)
+    valid = pos[None, :] < kv_lens[:, None]                 # [B, Stot]
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    sc = s.reshape(B, Hkv, G, S, -1)                        # split the KV axis
+    vc = v.reshape(B, S, -1, Hkv, dv).float()
+    mc = valid.reshape(B, 1, 1, S, -1)
+    m = sc.amax(-1)                                         # [B, Hkv, G, S]
+    p = torch.where(mc, torch.exp(sc - m[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bhgsk,bskhv->bhgsv", p, vc)
+    live = l > 0
+    safe = torch.where(live, l, 1.0)
+    o = torch.where(live[..., None], acc / safe[..., None], 0.0)
+    lse = torch.where(live, m + torch.log(safe), NEG_INF)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, dv)
+    lse = lse.permute(0, 3, 1, 2).reshape(B, S, Hq)
+    return o, lse
+
+
+def paged_decode_stage2(o_parts: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Stage 2: LSE-weighted reduction across the splits. o_parts [B, S, Hq,
+    dv] f32, lse [B, S, Hq] f32 -> [B, Hq, dv] f32. An empty split has
+    exactly zero weight; a request with no live split returns exactly 0."""
+    mx = lse.amax(dim=1)                                    # [B, Hq]
+    live = lse > NEG_INF / 2
+    w = torch.where(live, torch.exp(lse - mx[:, None]), 0.0)
+    denom = w.sum(dim=1)
+    out = torch.einsum("bsh,bshv->bhv", w, o_parts)
+    safe = torch.where(denom > 0, denom, 1.0)
+    return torch.where((denom > 0)[..., None], out / safe[..., None], 0.0)
+
+
+def paged_decode_attention(q, k_pages, v_pages, kv_indices, kv_lens, *,
+                           scale, num_kv_splits=1, dv=None) -> torch.Tensor:
+    """Two-stage split-KV paged decode attention (the semantics of record
+    for ``csrc/paged_decode_attention.cu``). Returns [B, Hq, dv] f32."""
+    o, lse = paged_decode_stage1(q, k_pages, v_pages, kv_indices, kv_lens,
+                                 scale=scale, num_kv_splits=num_kv_splits,
+                                 dv=dv)
+    return paged_decode_stage2(o, lse)

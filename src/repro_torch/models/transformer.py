@@ -1,4 +1,4 @@
-"""Decoder LM, family ``lm`` (port of the decode path of
+"""Decoder LM, family ``lm`` (port of the dense and paged decode paths of
 ``src/repro/models/transformer.py``).
 
 Parameters keep the JAX layout: per-layer trees stacked along a leading
@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as ATT
+from repro_torch.models import kv_pages as KVP
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import ArchConfig, ParamSpec
 from repro_torch.models.layers import (embed_lookup, embed_spec, ffn_apply,
@@ -88,17 +89,33 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def layer_apply(p, x, cfg: ArchConfig, comm, *, cache):
-    """One decoder layer with a cache -> (x, new_cache, aux)."""
-    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a, new_cache = ATT.attention(p["attn"], h, cfg, cache=cache)
-    x = x + a
+def _ffn_half(p, x, cfg: ArchConfig, comm):
+    """The second half of a layer: x + FFN or MoE of its norm -> (x, aux)."""
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
         f, aux = MOE.moe_block(p["moe"], h, cfg, comm)
     else:
         f, aux = ffn_apply(p["ffn"], h, cfg.act), torch.zeros((), device=x.device)
-    return x + f, new_cache, aux
+    return x + f, aux
+
+
+def layer_apply(p, x, cfg: ArchConfig, comm, *, cache):
+    """One decoder layer with a cache -> (x, new_cache, aux)."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    a, new_cache = ATT.attention(p["attn"], h, cfg, cache=cache)
+    x, aux = _ffn_half(p, x + a, cfg, comm)
+    return x, new_cache, aux
+
+
+def paged_layer_apply(p, x, cfg: ArchConfig, comm, pool, page_tbl, kv_lens,
+                      active, *, num_kv_splits: int):
+    """layer_apply's paged twin: attention against the paged KV pool, the
+    FFN/MoE half the same -> (x, pool, aux)."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    a, pool = ATT.paged_attention(p["attn"], h, cfg, pool, page_tbl, kv_lens,
+                                  active, num_kv_splits=num_kv_splits)
+    x, aux = _ffn_half(p, x + a, cfg, comm)
+    return x, pool, aux
 
 
 def lm_decode_step(params, state, batch, cfg: ArchConfig, comm):
@@ -115,6 +132,57 @@ def lm_decode_step(params, state, batch, cfg: ArchConfig, comm):
             c = ATT.KVCache(k=st.k[i], v=st.v[i], length=st.length)
             x, c, _ = layer_apply(_index(stack, i), x, cfg, comm, cache=c)
         new_state[name] = ATT.KVCache(k=st.k, v=st.v, length=c.length)
+    return _head(params, x, cfg), new_state
+
+
+def _head(params, x, cfg: ArchConfig):
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return logits_out(x, head), new_state
+    return logits_out(x, head)
+
+
+def lm_paged_decode_state_spec(cfg: ArchConfig, num_pages: int, page_size: int):
+    """Paged twin of lm_decode_state_spec: {stack: {"k", "v"}: (shape [n,
+    P+1, page, n_kv, hd], dtype)}. The page table, lengths and active mask
+    are not device state: the scheduler builds them on the host each step."""
+    pool = KVP.paged_kv_pool_spec(cfg, num_pages, page_size)
+    return {name: {kv: ((n,) + sp.shape, sp.dtype) for kv, sp in pool.items()}
+            for name, n in zip(("dense", "moe"), _stack_sizes(cfg)) if n}
+
+
+def init_paged_decode_state(cfg: ArchConfig, num_pages: int, page_size: int,
+                            device: torch.device):
+    """Zeroed stacked page pools on ``device``, one {"k", "v"} per stack."""
+    return {name: {kv: torch.zeros(shape, dtype=dt, device=device)
+                   for kv, (shape, dt) in pools.items()}
+            for name, pools in lm_paged_decode_state_spec(cfg, num_pages,
+                                                          page_size).items()}
+
+
+def _decode_splits(cfg: ArchConfig, max_pages: int) -> int:
+    """Largest split count <= AttnSpec.decode_kv_splits dividing the page
+    table's width."""
+    s = max(min(cfg.attn.decode_kv_splits, max_pages), 1)
+    while max_pages % s:
+        s -= 1
+    return s
+
+
+def lm_paged_decode_step(params, state, batch, cfg: ArchConfig, comm):
+    """One paged decode step. batch: {tokens [B, 1], page_tbl [B, max_pages],
+    kv_lens [B], active [B]}, int32 on the device -> (logits [B, 1, V],
+    state). The pools in ``state`` are written in place. Idle rows (active
+    0, all-pad tables) write into the pad page and attend over nothing; the
+    scheduler discards their logits, and no live row can see them."""
+    x = embed_lookup(params["embed"], batch["tokens"])
+    tbl, lens, act = batch["page_tbl"], batch["kv_lens"], batch["active"]
+    splits = _decode_splits(cfg, tbl.shape[1])
+    for name in ("dense", "moe"):
+        if name not in state:
+            continue
+        pools, stack = state[name], params[f"{name}_stack"]
+        for i in range(pools["k"].shape[0]):
+            pool = {"k": pools["k"][i], "v": pools["v"][i]}
+            x, _, _ = paged_layer_apply(_index(stack, i), x, cfg, comm, pool,
+                                        tbl, lens, act, num_kv_splits=splits)
+    return _head(params, x, cfg), state

@@ -1,7 +1,13 @@
-"""Decode serving loop (port of ``DecodeServer`` in
-``src/repro/runtime/server.py``): batched greedy decoding against dense KV
-caches, with the serving metrics of the paper's Table VII (output tok/s,
+"""Decode serving loops (port of ``DecodeServer`` and
+``ContinuousDecodeServer`` in ``src/repro/runtime/server.py``): greedy
+decoding with the serving metrics of the paper's Table VII (output tok/s,
 TTFT, ITL).
+
+``DecodeServer`` decodes a fixed batch against dense KV caches.
+``ContinuousDecodeServer`` overrides its two engine hooks (``_init_state``,
+``_step_factory``) to decode over per-layer page pools, and adds
+``serve_requests``: continuous batching, where requests join and leave
+between steps.
 
 The EP ranks of the MoE layers are hosted in this process by a
 ``LocalComm(ep_size)``; with ``ep_size=1`` the MoE layers take the dense
@@ -21,8 +27,11 @@ import torch
 from repro_torch.comm import LocalComm
 from repro_torch.device import disable_tf32, resolve_device, synchronize
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.kv_pages import PageAllocator, pages_for_tokens
 from repro_torch.models.transformer import (check_supported, init_decode_state,
-                                            lm_decode_step)
+                                            init_paged_decode_state)
+from repro_torch.runtime.scheduler import ContinuousScheduler
+from repro_torch.runtime.steps import make_paged_serve_step, make_serve_step
 from repro_torch.weights import init_params
 
 
@@ -33,6 +42,19 @@ class ServeMetrics:
     itl_p99_s: float
     output_tok_s: float
     total_tokens: int
+    # continuous batching only: per-request distributions under admission
+    ttft_p50_s: float | None = None
+    ttft_p95_s: float | None = None
+    ttft_p99_s: float | None = None
+    itl_p50_s: float | None = None
+    itl_p95_s: float | None = None
+    requests_completed: int | None = None
+    serve_steps: int | None = None
+    # paged KV: the allocator's high-water mark against the dense B x S_max
+    # reservation, both in pages
+    pages_peak: int | None = None
+    pages_dense_equiv: int | None = None
+    per_request: list | None = None        # per-request ttft/itl records
 
     def as_dict(self):
         return dataclasses.asdict(self)
@@ -54,15 +76,25 @@ class DecodeServer:
             raise ValueError(f"batch {batch} must divide by ep_size {ep_size}")
         self.params = (init_params(cfg, seed, self.device) if params is None
                        else params)
-        self.state = init_decode_state(cfg, batch, max_len, self.device)
+        self.state = self._init_state(batch, max_len)
+        self._serve_step = self._step_factory()
         self.last_tokens: np.ndarray | None = None
+
+    # ---- engine hooks (ContinuousDecodeServer overrides both) ----
+
+    def _init_state(self, batch: int, max_len: int):
+        """Zeroed decode state for this engine's layout (dense KV caches)."""
+        return init_decode_state(self.cfg, batch, max_len, self.device)
+
+    def _step_factory(self):
+        """The serve step for this engine's layout."""
+        return make_serve_step(self.cfg, self.comm)
 
     def step(self, tokens: torch.Tensor) -> torch.Tensor:
         """One greedy decode step: [B, 1] tokens in, [B, 1] next tokens out."""
-        logits, self.state = lm_decode_step(self.params, self.state,
-                                            {"tokens": tokens}, self.cfg,
-                                            self.comm)
-        return logits[:, -1, :self.cfg.vocab].argmax(-1).to(torch.int32)[:, None]
+        tok, self.state = self._serve_step(self.params, self.state,
+                                           {"tokens": tokens})
+        return tok
 
     def prefill(self, prompts):
         """Token-by-token prefill through the decode step (as the JAX
@@ -99,3 +131,121 @@ class DecodeServer:
             ttft_s=ttft, itl_mean_s=float(itls.mean()),
             itl_p99_s=float(np.percentile(itls, 99)),
             output_tok_s=total / (ttft + decode_wall), total_tokens=total)
+
+
+class ContinuousDecodeServer(DecodeServer):
+    """Continuous-batching serving engine over the paged KV pool.
+
+    ``batch`` is the fixed slot count. The page table, lengths and active
+    mask are host-built per-step inputs of fixed shape, owned by the
+    scheduler and copied to the device once per step; no length is ever
+    read back from it. The argmax of each step is read back, because the
+    next step feeds each request's previous token.
+
+    Per-request token streams equal running each request alone through the
+    same engine: rows are independent end to end given zero-drop MoE
+    capacity. A capacity_factor would let co-residents compete for expert
+    slots, so it is refused.
+    """
+
+    def __init__(self, cfg: ArchConfig, batch: int, max_len: int, *,
+                 page_size: int = 8, num_pages: int | None = None, **kwargs):
+        a = cfg.attn
+        if a is None or a.window is not None:
+            raise NotImplementedError(
+                "continuous batching requires non-windowed attention "
+                "(sliding-window paged decode is not implemented)")
+        if a.kv_chunk % page_size:
+            raise ValueError(
+                f"kv_chunk={a.kv_chunk} must be a multiple of "
+                f"page_size={page_size}: chunked prefill attention and the "
+                "paged decode kernel must agree on tiling")
+        if cfg.moe and cfg.moe.capacity_factor is not None:
+            raise ValueError(
+                "continuous batching requires zero-drop MoE routing "
+                "(capacity_factor=None): capacity competition couples "
+                "co-resident requests and breaks solo parity")
+        self.page_size = int(page_size)
+        # page-table width: enough pages for max_len, rounded up so the
+        # configured split count divides it (the extra entries are pad)
+        mp = pages_for_tokens(max_len, self.page_size)
+        s = max(int(a.decode_kv_splits), 1)
+        self.max_pages = -(-mp // s) * s
+        # the default pool is the dense-equivalent reservation, which never
+        # runs out; a smaller pool realizes the memory win
+        self.num_pages = (int(num_pages) if num_pages is not None
+                          else batch * self.max_pages)
+        self.max_len = max_len
+        self.reqsched: ContinuousScheduler | None = None
+        super().__init__(cfg, batch, max_len, **kwargs)
+
+    def _init_state(self, batch: int, max_len: int):
+        return init_paged_decode_state(self.cfg, self.num_pages, self.page_size,
+                                       self.device)
+
+    def _step_factory(self):
+        return make_paged_serve_step(self.cfg, self.comm)
+
+    def step(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The fixed-batch step (and with it ``prefill``, ``decode`` and
+        ``serve``) has no page table; this engine steps through
+        ``step_feed`` and ``serve_requests``."""
+        raise NotImplementedError("the continuous engine steps through "
+                                  "step_feed / serve_requests, not step")
+
+    def step_feed(self, feed: dict) -> torch.Tensor:
+        """One paged step on the scheduler's numpy inputs, copied to the
+        device in one transfer. Returns the next tokens [B, 1] on it."""
+        B, mp = feed["page_tbl"].shape
+        flat = torch.from_numpy(np.concatenate(
+            [feed["tokens"].reshape(-1), feed["page_tbl"].reshape(-1),
+             feed["kv_lens"], feed["active"]]).astype(np.int32)).to(self.device)
+        batch = dict(tokens=flat[:B].view(B, 1),
+                     page_tbl=flat[B:B + B * mp].view(B, mp),
+                     kv_lens=flat[B + B * mp:2 * B + B * mp],
+                     active=flat[2 * B + B * mp:])
+        tok, self.state = self._serve_step(self.params, self.state, batch)
+        return tok
+
+    def serve_requests(self, requests, max_steps: int | None = None
+                       ) -> ServeMetrics:
+        """Run the continuous-batching loop until every request completes
+        (or ``max_steps``)."""
+        allocator = PageAllocator(self.num_pages, self.page_size)
+        sched = ContinuousScheduler(requests, self.batch, self.max_pages,
+                                    allocator)
+        self.reqsched = sched
+        t0 = time.perf_counter()
+        step_idx = 0
+        while not sched.done:
+            if max_steps is not None and step_idx >= max_steps:
+                break
+            feed = sched.advance(step_idx)
+            out = self.step_feed(feed).cpu().numpy()   # waits for the step
+            sched.observe(out, time.perf_counter())
+            step_idx += 1
+        wall = time.perf_counter() - t0
+        recs = [sched.request_metrics(rid) for rid in sorted(sched.finished)]
+        ttfts = np.asarray([r["ttft_s"] for r in recs]) if recs else np.asarray([0.0])
+        itls = np.concatenate([np.asarray(r["itl_s"]) for r in recs
+                               if r["itl_s"]] or [np.zeros(1)])
+        total = int(sum(r["tokens"] for r in recs))
+        return ServeMetrics(
+            ttft_s=float(ttfts.mean()),
+            itl_mean_s=float(itls.mean()),
+            itl_p99_s=float(np.percentile(itls, 99)),
+            output_tok_s=total / wall if wall > 0 else 0.0,
+            total_tokens=total,
+            ttft_p50_s=float(np.percentile(ttfts, 50)),
+            ttft_p95_s=float(np.percentile(ttfts, 95)),
+            ttft_p99_s=float(np.percentile(ttfts, 99)),
+            itl_p50_s=float(np.percentile(itls, 50)),
+            itl_p95_s=float(np.percentile(itls, 95)),
+            requests_completed=len(recs),
+            serve_steps=step_idx,
+            pages_peak=allocator.peak_live,
+            # un-rounded B x ceil(S_max / page): what a dense [B, S_max]
+            # cache pins whatever the live occupancy
+            pages_dense_equiv=self.batch * pages_for_tokens(self.max_len,
+                                                            self.page_size),
+            per_request=recs)

@@ -8,6 +8,8 @@ imports JAX, hence the command (see README):
 
 Data movement (pack, unpack, fp8) must match bit for bit; the GEMM and the
 reduce within 1e-5 (f32) or 2e-2 (bf16), since the sums run in another order.
+Paged decode attention sums in f32 whatever the pool's type, so it is held
+to 1e-4 in both, and must not change a bit when unreferenced pages change.
 """
 import dataclasses
 
@@ -18,6 +20,7 @@ from repro_torch.comm import LocalComm
 from repro_torch.configs.dbrx_132b import smoke_config
 from repro_torch.device import disable_tf32
 from repro_torch.kernels import combine_gather_reduce as cg
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import dispatch_pack as dp
 from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import recv_unpack as ru
@@ -104,3 +107,50 @@ def test_cuda_moe_block_runs_the_kernels_and_matches_dense(hopper, dt):
                                   before)]
     assert grew == [16, 8, 24, 8]
     torch.testing.assert_close(y, _moe_dense_fallback(p, x, cfg), **tol(dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("share_kv", [False, True], ids=["gqa", "share_kv"])
+def test_cuda_paged_decode_attention(hopper, dt, splits, share_kv):
+    """Shuffled tables, ragged tails, full and idle rows, a page size that is
+    not a multiple of the kernel's chunk: within 1e-4 of the plain version,
+    idle rows exactly 0, bitwise unchanged under new garbage in every
+    unreferenced page (the pad page included)."""
+    if share_kv:                                  # absorbed MLA: head tiles of 16, 16, 8
+        Hq, Hkv, dk, dv = 40, 1, 72, 64
+    else:
+        Hq, Hkv, dk, dv = 12, 4, 64, 64
+    B, page, max_pages = 6, 12, 8
+    lens = torch.tensor([1, 95, 0, 96, 37, 50], dtype=torch.int32)
+    P = B * max_pages
+    gen = torch.Generator().manual_seed(7)
+    perm = torch.randperm(P, generator=gen)
+    tbl = torch.full((B, max_pages), P, dtype=torch.int32)
+    used = []
+    for b in range(B):
+        n = -(-int(lens[b]) // page)
+        tbl[b, :n] = perm[b * max_pages:b * max_pages + n].int()
+        used += tbl[b, :n].tolist()
+    kp = _rand((P + 1, page, Hkv, dk), dt, hopper, 1.0, 8)
+    vp = None if share_kv else _rand((P + 1, page, Hkv, dv), dt, hopper, 1.0, 9)
+    q = _rand((B, Hq, dk), dt, hopper, 1.0, 10)
+    tbl, lens = tbl.to(hopper), lens.to(hopper)
+    kw = dict(scale=dk ** -0.5, num_kv_splits=splits, dv=dv if share_kv else None)
+    before = (da.launches, da.stage2_launches)
+    got = da.paged_decode_attention(q, kp, vp, tbl, lens, **kw)
+    assert (da.launches, da.stage2_launches) == (before[0] + 1, before[1] + 1)
+    want = ref.paged_decode_attention(q, kp, vp, tbl, lens, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert not got[2].any()
+    free = torch.ones(P + 1, dtype=torch.bool)
+    free[used] = False
+    free = free.to(hopper)
+    kp[free] = _rand(kp[free].shape, dt, hopper, 50.0, 11)
+    if vp is not None:
+        vp[free] = _rand(vp[free].shape, dt, hopper, 50.0, 12)
+    assert torch.equal(da.paged_decode_attention(q, kp, vp, tbl, lens, **kw), got)
+    with pytest.raises(ValueError, match="divide by the split"):
+        da.paged_decode_attention(q, kp, vp, tbl, lens, **dict(kw, num_kv_splits=3))
+    torch.cuda.synchronize()

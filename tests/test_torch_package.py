@@ -13,18 +13,23 @@ from repro_torch.configs.dbrx_132b import smoke_config
 from repro_torch.kernels import dispatch_pack as dp_mod
 from repro_torch.kernels import grouped_gemm as gg_mod
 from repro_torch.kernels import ops, ref
-from repro_torch.runtime.server import DecodeServer
+from repro_torch.runtime.scheduler import Request
+from repro_torch.runtime.server import ContinuousDecodeServer, DecodeServer
 from repro_torch.weights import init_params
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 
 def test_port_imports_no_jax():
+    """Every module of the package, found by walking it, imports nothing of
+    JAX or the JAX package."""
     code = (
-        "import sys\n"
-        "import repro_torch, repro_torch.runtime.server, repro_torch.weights\n"
-        "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
-        "import repro_torch.configs.dbrx_132b, repro_torch.core.api\n"
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'repro_torch.runtime.scheduler' in sys.modules, mods\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -50,6 +55,12 @@ def test_entry_points_need_cuda_unless_given_cpu(no_cuda):
                        device="cpu")
     toks, itls = srv.decode(srv.prefill(torch.zeros((8, 2), dtype=torch.int32))[0], 2)
     assert toks.shape == (8, 3) and len(itls) == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ContinuousDecodeServer(cfg, batch=8, max_len=8, ep_size=8, page_size=4)
+    csrv = ContinuousDecodeServer(cfg, batch=8, max_len=8, ep_size=8, params=params,
+                                  device="cpu", page_size=4)
+    m = csrv.serve_requests([Request(0, [1, 2], 3)])
+    assert m.requests_completed == 1 and len(csrv.reqsched.tokens_for(0)) == 3
 
 
 def test_unported_options_raise():
@@ -60,10 +71,18 @@ def test_unported_options_raise():
     heat = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, track_expert_heat=True))
     with pytest.raises(NotImplementedError, match="A10"):
         DecodeServer(heat, batch=8, max_len=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        ContinuousDecodeServer(heat, batch=8, max_len=8, device="cpu", page_size=4)
     ht = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_mode="ht"))
     srv = DecodeServer(ht, batch=8, max_len=8, ep_size=8, device="cpu")
     with pytest.raises(NotImplementedError, match="A5"):
         srv.prefill(torch.zeros((8, 1), dtype=torch.int32))
+    csrv = ContinuousDecodeServer(ht, batch=8, max_len=8, ep_size=8, device="cpu",
+                                  page_size=4)
+    with pytest.raises(NotImplementedError, match="A5"):
+        csrv.serve_requests([Request(0, [1], 1)])
+    with pytest.raises(TypeError):                # EPLB options are not accepted yet
+        ContinuousDecodeServer(cfg, batch=8, max_len=8, device="cpu", rebalance_every=4)
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the five hand-written kernels from ``src/repro_torch/csrc`` with
+1. Builds the six hand-written kernels from ``src/repro_torch/csrc`` with
    nvcc for sm_90a (at first use, into ``build/repro_torch/``), one nvcc per
    source, all started together.
 2. Serves DBRX-132B at full width, its 40 layers cut to 4 to fit one card,
@@ -14,30 +14,46 @@
    and weights: 128 slots over paged KV (page 16), prompts of 4 to 32
    tokens, 8 to 32 new tokens each, Poisson arrivals of 4 per step. Every
    request must complete with in-vocabulary tokens, every page must come
-   back, and the launch counts of all five kernels must equal the count the
-   path implies. Then traces one step of each server with the profiler: the
-   card's busy share and its time by kernel.
-4. Holds each EP kernel against its plain PyTorch version on the inputs one
+   back, and the launch counts of all kernels must equal the count the
+   path implies.
+4. Runs the prefill forward, ``get_model(cfg).forward``, of the same model
+   and weights under the ``train_4k`` preset (HT flat EP, fp8 dispatch,
+   capacity factors 1.25) on 8 x 4096 tokens, 4096 per hosted rank: the
+   loss must be finite and the launch counts exact (flash attention once per
+   layer). Reports its wall time after a warm-up, prefill tokens per second,
+   peak memory and each MoE layer's dropped-entry share. Then traces one
+   step of each server and one forward with the profiler: the card's busy
+   share and its time by kernel.
+5. Holds each EP kernel against its plain PyTorch version on the inputs one
    EP rank gets in one MoE layer of the first serve (8 ranks, 16 tokens
    each): bitwise for the two gathers, in copy and in fp8 mode; within 2e-2
-   for the bf16 GEMM and reduce. Holds the paged decode attention kernel
+   for the bf16 GEMM and reduce; and at the prefill's HT shapes (4096
+   tokens per rank, [8, 2560] send blocks, [2, 10240] expert regions): fp8
+   pack and dequant unpack bitwise. Holds the paged decode attention kernel
    against its plain version within 1e-4: at the shapes the continuous serve
    gives it (bf16 pools of the serve's 512 + 1 pages, table width 4, 4
    splits, up to 64 tokens), at DBRX widths over long contexts (128
    requests up to 32768 tokens), both with shuffled tables and garbage in
    unreferenced pages, and in the shared-pool mode at DeepSeek-V3's
    absorbed-MLA widths; idle rows must be exactly 0 and the output bitwise
-   unchanged when the garbage changes. Times on the card each kernel, its
-   plain version and, where one PyTorch call computes the same function,
-   that call.
-5. Holds each MoE layer's EP output against the dense fallback on the same
-   input (every capacity is zero-drop here): relative error <= 2e-2. Reports
-   the greedy-token agreement of the EP server with a dense one. Reruns two
-   requests that joined and left mid-stream alone through a fresh engine:
-   their token streams must be bitwise equal. Holds the paged decode step
-   against the dense step on the same tokens: in bf16 over the 4 layers,
-   bitwise at the first step and the median row's logits within 2e-2 at the
-   second; in f32 with one layer, the logits within 2e-4 at every step.
+   unchanged when the garbage changes. Holds flash attention against its
+   plain version at the prefill's shapes (causal, a window of 1024,
+   non-causal) and at G = 1, in bf16 within 5e-3 relative error over the
+   whole output and 2e-2 per element, and within 1e-4 in f32. Times on the card
+   each kernel, its plain version and, where one PyTorch call computes the
+   same function, that call.
+6. Holds each MoE layer's EP output against the dense fallback on the same
+   input (every capacity is zero-drop here): relative error <= 2e-2; the
+   same for the HT layer at 512 tokens per rank and zero drop, without fp8
+   and with it (both fed the plain quantize-dequantize round trip of x);
+   ``prefill_moe`` with 2 micro-batches must be bitwise equal to
+   ``sequential_prefill``. Reports the greedy-token agreement of the EP
+   server with a dense one. Reruns two requests that joined and left
+   mid-stream alone through a fresh engine: their token streams must be
+   bitwise equal. Holds the paged decode step against the dense step on the
+   same tokens: in bf16 over the 4 layers, bitwise at the first step and
+   the median row's logits within 2e-2 at the second; in f32 with one
+   layer, the logits within 2e-4 at every step.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. The last line is
@@ -45,6 +61,7 @@ repository beside it. The last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -66,14 +83,18 @@ from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import combine_gather_reduce as cg_mod  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import dispatch_pack as dp_mod  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import grouped_gemm as gg_mod  # noqa: E402
 from repro_torch.kernels import recv_unpack as ru_mod  # noqa: E402
-from repro_torch.models.moe import (_moe_dense_fallback, ep_group,  # noqa: E402
-                                    moe_block, router_config)
+from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.moe import (_expert_ffn, _moe_dense_fallback,  # noqa: E402
+                                    ep_group, moe_block, router_config)
 from repro_torch.models.transformer import (_decode_splits,  # noqa: E402
                                             init_decode_state,
                                             init_paged_decode_state,
                                             lm_decode_step, lm_paged_decode_step)
+from repro_torch.runtime.prefill import prefill_moe, sequential_prefill  # noqa: E402
 from repro_torch.runtime.scheduler import Request  # noqa: E402
 from repro_torch.runtime.server import (ContinuousDecodeServer,  # noqa: E402
                                         DecodeServer)
@@ -85,6 +106,12 @@ F32_OPS_S = 67e12            # f32 outside the tensor cores
 
 RANKS, BATCH, PROMPT, GEN, LAYERS = 8, 128, 8, 16, 4
 TOL = 2e-2                   # bf16 tolerance (tests/test_kernels.py tol())
+# flash attention in bf16: ||got - want|| / ||want|| over the whole output.
+# Rounding p to bf16 for the PV product and the output to bf16 give about
+# half of it at the prefill's shapes on an H100; a kernel that skips one of
+# the 64 KV tiles gives nine times it and more (tools/flash_fault_check.py,
+# PERF.md).
+FLASH_REL = 5e-3
 # the continuous serve: requests, arrivals per step, prompt and new-token
 # ranges (inclusive), page size; slots are the preset's batch
 REQUESTS, RATE, PROMPTS, NEWS, PAGE = 256, 4.0, (4, 32), (8, 32), 16
@@ -96,6 +123,11 @@ KV_PAGES = 2048              # page-table width of the paged kernel phase
 DEV = torch.device("cuda")
 PAGED = ("paged_decode_attention", "src/repro_torch/csrc/paged_decode_attention.cu",
          "src/repro/kernels/decode_attention.py:112")
+# the prefill forward: batch rows x tokens (one row of 4096 per hosted rank,
+# the paper's HT regime); tokens per rank of the HT oracle
+PF_BATCH, PF_SEQ, ORACLE_T = 8, 4096, 512
+FLASH = ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:86")
 
 # name -> (wrapper module, source, TPU kernel it replaces, launches per MoE
 # layer per hosted rank in one decode step)
@@ -120,12 +152,14 @@ def reset_counts() -> None:
     for mod, *_ in KERNELS.values():
         mod.launches = 0
     da_mod.launches = da_mod.stage2_launches = 0
+    fa_mod.launches = 0
 
 
 def counts() -> dict:
     out = {name: k[0].launches for name, k in KERNELS.items()}
     out[PAGED[0]] = da_mod.launches
     out["paged_decode_attention (stage 2)"] = da_mod.stage2_launches
+    out[FLASH[0]] = fa_mod.launches
     return out
 
 
@@ -176,9 +210,12 @@ def device_ms(fn, iters: int) -> float:
     """Mean device time of one call: the card's busy time over ``iters``
     calls, from the profiler's CUDA trace, so host launch cost is left out.
     A spin kernel on each side of the calls, left out of the sum, takes the
-    place of the event a profiler session can drop at its edge; a session
-    that saw fewer events than calls (after many sessions in one process
-    the profiler now and then records none) is run again, twice at most."""
+    place of the event a profiler session can drop at its edge. A session
+    that still saw a few events fewer than calls timed a call of one kernel
+    (a call of several gives many more events than calls) and lost some of
+    its events: the mean is then taken over the events it saw. A session
+    that saw fewer (after many sessions in one process the profiler now and
+    then records none) is run again, twice at most."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
@@ -191,6 +228,10 @@ def device_ms(fn, iters: int) -> float:
         iv = [e for e in device_intervals(prof) if "spin_kernel" not in e[2]]
         if len(iv) >= iters:
             return busy_us(iv) / iters / 1e3
+        if len(iv) >= 0.9 * iters:
+            print(f"  (profiler session {attempt + 1} saw {len(iv)} device events for "
+                  f"{iters} calls of one kernel; the mean is over those {len(iv)})")
+            return busy_us(iv) / len(iv) / 1e3
         print(f"  (profiler session {attempt + 1} saw {len(iv)} device events for "
               f"{iters} calls; measuring again)")
     raise RuntimeError(f"the profiler saw {len(iv)} device events for {iters} calls")
@@ -371,10 +412,11 @@ def kernel_phase(cfg, params) -> dict:
     return out
 
 
-def trace_phase(label: str, run, itl_s: float):
+def trace_phase(label: str, run, itl_s: float, untraced: str = "ITL mean"):
     """One more step under the profiler: the card's busy time against the
-    untraced step time ``itl_s``, and where the device time goes. Returns
-    the device intervals."""
+    untraced step time ``itl_s`` (``untraced`` names it), and where the
+    device time goes. Returns the device intervals and the traced wall time
+    in seconds."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -385,7 +427,7 @@ def trace_phase(label: str, run, itl_s: float):
     busy = busy_us(iv)
     print(f"trace of one {label}: card busy {busy / 1e3:.2f} ms, "
           f"{len(iv)} device events; idle share {1 - busy / (itl_s * 1e6):.3f} of the "
-          f"untraced step ({itl_s * 1e3:.2f} ms ITL mean), "
+          f"untraced step ({itl_s * 1e3:.2f} ms {untraced}), "
           f"{1 - busy / wall_us:.3f} of the traced one ({wall_us / 1e3:.2f} ms)")
     by_name: dict[str, list[float]] = {}
     for s, e, name in iv:
@@ -393,7 +435,7 @@ def trace_phase(label: str, run, itl_s: float):
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
     for name, ds in top:
         print(f"  {sum(ds) / 1e3:8.3f} ms  {len(ds):5d}x  {name[:100]}")
-    return iv
+    return iv, wall_us / 1e6
 
 
 def serve_phase(srv: DecodeServer, card: str) -> tuple[dict, float]:
@@ -732,6 +774,307 @@ def paged_kernel_phase(cfg, main_err: float) -> dict:
                 bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
 
 
+@contextlib.contextmanager
+def handle_probe(sink: list):
+    """While open, each MoE layer's ``ep_create_handle`` call appends (the
+    dropped share of its routed entries, its seconds with the card
+    synchronised on both sides) to ``sink``."""
+    orig = moe_mod.ep_create_handle
+
+    def probe(group, topk_idx, topk_weights, num_tokens=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = orig(group, topk_idx, topk_weights, num_tokens)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        A = group.ht_expert_cap if group.mode == "ht" else group.ll_expert_cap
+        kept = sum(int(h.plan.disp_counts.clamp(max=A).sum()) for h in hs)
+        total = sum(int(h.tokens_per_expert.sum()) for h in hs)
+        sink.append((1 - kept / total, dt))
+        return hs
+    moe_mod.ep_create_handle = probe
+    try:
+        yield
+    finally:
+        moe_mod.ep_create_handle = orig
+
+
+def prefill_config():
+    full = full_config("train_4k")
+    return full, dataclasses.replace(full, num_layers=LAYERS)
+
+
+def prefill_phase(params, card: str):
+    """This slice's main path: the prefill forward ``get_model(cfg).forward``
+    under the train_4k preset, every launch counter read. Returns the
+    launches, the untimed forward and the untraced forward's seconds."""
+    full, cfg = prefill_config()
+    m = cfg.moe
+    comm = LocalComm(RANKS)
+    group = ep_group(cfg, comm, PF_SEQ)
+    print(f"prefill forward: DBRX-132B train_4k preset, {LAYERS} of {full.num_layers} "
+          f"layers, batch {PF_BATCH} x {PF_SEQ} tokens over {RANKS} hosted ranks "
+          f"({PF_BATCH * PF_SEQ // RANKS} per rank); EP {group.mode} (flat), fp8 "
+          f"dispatch {m.quantize_dispatch} (block {group.cfg.quant_block}), capacity "
+          f"factors {m.capacity_factor}/{m.expert_capacity_factor}: ht_pair_cap "
+          f"{group.ht_pair_cap}, ht_expert_cap {group.ht_expert_cap}")
+    rng = np.random.default_rng(10)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (PF_BATCH, PF_SEQ))
+                                        .astype(np.int32)).to(DEV)}
+    forward = get_model(cfg).forward
+    probes: list = []
+    reset_counts()
+    with handle_probe(probes):
+        loss, aux = forward(params, batch, cfg, comm)
+        torch.cuda.synchronize()
+    launches = counts()
+    check(bool(torch.isfinite(loss)), f"prefill loss {loss.item()} is not finite")
+    check_ep_counts(launches, 1, "the prefill forward")
+    check(launches[FLASH[0]] == LAYERS, f"flash_attention launched "
+          f"{launches[FLASH[0]]} times in the forward, expected {LAYERS}")
+    check(launches[PAGED[0]] == 0, "the prefill forward launched paged attention")
+    check(len(probes) == LAYERS, f"{len(probes)} MoE handles for {LAYERS} layers")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss2, _ = forward(params, batch, cfg, comm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ntok = PF_BATCH * PF_SEQ
+    print(f"prefill forward ({card}): loss {loss.item():.6f} (aux {aux['aux'].item():.6f}; "
+          f"ln of the vocabulary {np.log(cfg.vocab):.4f}), repeat bitwise equal "
+          f"{torch.equal(loss, loss2)}; wall {wall:.3f} s after a warm-up, "
+          f"{ntok / wall:.1f} prefill tok/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; dropped-entry share by "
+          f"layer {[round(d, 6) for d, _ in probes]}; launches {launches}")
+    return launches, wall, cfg, batch
+
+
+def prefill_trace_phase(params, cfg, batch, wall: float) -> None:
+    """One traced forward: busy share, time by kernel, flash attention's
+    share, and the plan's share of the traced forward (handle creation with
+    the card synchronised on both sides)."""
+    probes: list = []
+    with handle_probe(probes):
+        iv, traced = trace_phase("prefill forward", lambda: get_model(cfg).forward(
+            params, batch, cfg, LocalComm(RANKS)), wall, "forward")
+    flash_us = sum(e - s for s, e, n in iv if "flash_" in n)
+    plan_s = sum(dt for _, dt in probes)
+    print(f"  flash attention: {flash_us / 1e3:.3f} ms, {flash_us / busy_us(iv):.4f} of "
+          f"the busy time; EP plans (handle creation of {LAYERS} layers x {RANKS} "
+          f"ranks): {plan_s:.3f} s, {plan_s / traced:.4f} of the traced forward")
+
+
+def ht_kernel_phase(cfg, params) -> None:
+    """The EP kernels at the prefill's HT shapes: rank 0 of MoE layer 0 at
+    4096 tokens per rank. fp8 pack and dequant unpack bitwise against their
+    plain versions; every kernel timed beside its plain version and bound."""
+    dev, dt, d = DEV, cfg.dtype, cfg.d_model
+    p = {k: v[0] for k, v in params["moe_stack"]["moe"].items()}
+    comm = LocalComm(RANKS)
+    group = ep_group(cfg, comm, PF_SEQ)
+    L, qb = group.local_experts, group.cfg.quant_block
+    gen = torch.Generator(device=dev).manual_seed(12)
+    xs = [torch.randn((PF_SEQ, d), generator=gen, device=dev).to(dt) for _ in range(RANKS)]
+    rs = [route(x.float() @ p["router"], router_config(cfg.moe)) for x in xs]
+    hs = ep_create_handle(group, [r.topk_idx for r in rs], [r.topk_weights for r in rs])
+    pl = hs[0].plan
+    x0, g0 = xs[0], pl.disp_send_gmap
+    q, sc = dp_mod.dispatch_pack(x0, g0, quant_block=qb)
+    wq, ws = ref.dispatch_pack(x0, g0, qb)
+    check(torch.equal(q.view(torch.uint8), wq.view(torch.uint8)) and torch.equal(sc, ws),
+          "dispatch_pack (fp8) differs from its plain version at HT shapes")
+    live = int((g0 < PF_SEQ).sum())
+    bnd = bound(nbytes(x0, live) + nbytes(q) + nbytes(sc) + nbytes(g0), 3 * live * d,
+                F32_OPS_S)
+    print(f"HT shapes (rank 0, MoE layer 0): dispatch_pack fp8 [{PF_SEQ}, {d}] -> "
+          f"{list(q.shape)} + scales {list(sc.shape)}, {live} live slots: bitwise equal; "
+          f"kernel {device_ms(lambda: dp_mod.dispatch_pack(x0, g0, quant_block=qb), 20):.4f} ms, "
+          f"plain {device_ms(lambda: ref.dispatch_pack(x0, g0, qb), 5):.4f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]})")
+    packs = [ref.dispatch_pack(x, h.plan.disp_send_gmap, qb) for x, h in zip(xs, hs)]
+    qrecv = comm.all_to_all([a for a, _ in packs])[0].reshape(-1, d)
+    srecv = comm.all_to_all([b for _, b in packs])[0].reshape(qrecv.shape[0], -1)
+    del packs
+    gr = pl.disp_recv_gmap
+    y3d = ru_mod.recv_unpack(qrecv, gr, srecv, out_dtype=dt)
+    check(torch.equal(y3d, ref.recv_unpack(qrecv, gr, srecv, dt)),
+          "recv_unpack (fp8 dequant) differs from its plain version at HT shapes")
+    live = int((gr < qrecv.shape[0]).sum())
+    bnd = bound(nbytes(qrecv, live) + nbytes(srecv, live) + nbytes(y3d) + nbytes(gr),
+                live * d, F32_OPS_S)
+    print(f"  recv_unpack fp8 dequant {list(qrecv.shape)} -> {list(y3d.shape)}, {live} "
+          f"live rows: bitwise equal; kernel "
+          f"{device_ms(lambda: ru_mod.recv_unpack(qrecv, gr, srecv, out_dtype=dt), 20):.4f} ms, "
+          f"plain {device_ms(lambda: ref.recv_unpack(qrecv, gr, srecv, dt), 5):.4f} ms, "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    counts_ = pl.disp_counts
+    w1 = p["w_gate"][:L]
+    c = counts_.clamp(max=group.ht_expert_cap)
+    rows, live_e = int(c.sum()), int((c > 0).sum())
+    got = gg_mod.grouped_gemm(y3d, w1, counts_)
+    err = max_err(got, ref.grouped_gemm(y3d, w1, counts_))
+    bnd = bound(live_e * nbytes(w1[0]) + nbytes(y3d[0], rows) + nbytes(got) + nbytes(counts_),
+                2 * rows * d * w1.shape[2], BF16_OPS_S)
+    print(f"  grouped_gemm gate {list(y3d.shape)} @ {list(w1.shape)}, counts "
+          f"{counts_.tolist()}: max_abs_err {err:.3g}; kernel "
+          f"{device_ms(lambda: gg_mod.grouped_gemm(y3d, w1, counts_), 5):.4f} ms, plain "
+          f"{device_ms(lambda: ref.grouped_gemm(y3d, w1, counts_), 2):.4f} ms, library "
+          f"{device_ms(lambda: torch.bmm(y3d, w1), 5):.4f} ms (torch.bmm), bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]})")
+    del got, qrecv, srecv
+    crecv = torch.randn((RANKS * group.ht_pair_cap, d), generator=gen, device=dev).to(dt)
+    crows, cw = pl.comb_recv_rows, hs[0].topk_weights
+    got = cg_mod.combine_gather_reduce(crecv, crows, cw)
+    err = max_err(got, ref.combine_gather_reduce(crecv, crows, cw))
+    valid = int((crows < crecv.shape[0]).sum())
+    bnd = bound(nbytes(crecv, valid) + nbytes(crows) + nbytes(cw) + nbytes(got),
+                2 * valid * d, F32_OPS_S)
+    lib = "none (sentinel rows)"
+    if valid == crows.numel():      # no sentinel: embedding_bag is the same sum
+        idx, wb = crows.long(), cw.to(dt)
+        lib = f"{device_ms(lambda: F.embedding_bag(idx, crecv, per_sample_weights=wb, mode='sum'), 20):.4f} ms (embedding_bag)"
+    print(f"  combine_gather_reduce {list(crecv.shape)} rows {list(crows.shape)} "
+          f"({valid} valid): max_abs_err {err:.3g}; kernel "
+          f"{device_ms(lambda: cg_mod.combine_gather_reduce(crecv, crows, cw), 20):.4f} ms, "
+          f"plain {device_ms(lambda: ref.combine_gather_reduce(crecv, crows, cw), 5):.4f} ms, "
+          f"library {lib}, bound {bnd[0]:.4f} ms ({bnd[1]})")
+
+
+def flash_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(largest absolute error, Frobenius-norm relative error)."""
+    d = got.float() - want.float()
+    return float(d.abs().max()), float(d.norm() / want.float().norm())
+
+
+def flash_case(label, q, k, v, tol, **kw) -> float:
+    """flash_attention_bshd against the plain version on [B, S, H, d]
+    tensors; returns the largest error. bf16 (``tol`` = TOL): relative error
+    within FLASH_REL and every element within TOL; f32: every element within
+    ``tol``."""
+    got = fa_mod.flash_attention_bshd(q, k, v, **kw)
+    want = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                               **kw).transpose(1, 2)
+    err, rel = flash_errors(got, want)
+    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    limits = f"limit {tol}"
+    if q.dtype == torch.bfloat16:
+        ok = ok and rel <= FLASH_REL
+        limits += f"; relative {rel:.3g}, limit {FLASH_REL}"
+    print(f"flash_attention {label}: q {list(q.shape)}, k/v {list(k.shape)} {q.dtype}: "
+          f"max_abs_err {err:.3g} ({limits})")
+    check(ok, f"flash_attention ({label}) off its plain version by {err} (relative {rel})")
+    return err
+
+
+def flash_main_inputs(cfg) -> tuple:
+    """q, k, v [B, S, H, d] bf16 at the prefill's shapes (seed 13) and the
+    scale: the inputs of the main-path cases."""
+    a = cfg.attn
+    B, S, Hq, Hkv, d = PF_BATCH, PF_SEQ, cfg.padded_heads(), a.n_kv, a.head_dim
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    q, k, v = (torch.randn((B, S, h, d), generator=gen, device=DEV).to(torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    return q, k, v, d ** -0.5
+
+
+# the main-path cases of flash attention: label -> options
+FLASH_CASES = {"causal (main path)": {}, "window 1024": dict(window=1024),
+               "non-causal": dict(causal=False)}
+
+
+def flash_kernel_phase(cfg) -> dict:
+    """flash_attention at the prefill's shapes ([B, S, H, d] as the model
+    gives it): causal, a window of 1024 and non-causal, G = 1 at a smaller
+    shape, each within FLASH_REL relative and TOL per element of the plain
+    version; f32 within 1e-4. Times the kernel, its plain version and SDPA
+    on the main case."""
+    q, k, v, scale = flash_main_inputs(cfg)
+    B, S, Hq, d = q.shape
+    Hkv = k.shape[2]
+    gen = torch.Generator(device=DEV).manual_seed(15)
+
+    def rand(*shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=DEV).to(dt)
+    kw = dict(scale=scale)
+    err = max(flash_case(f"{label}, G {Hq // Hkv}", q, k, v, TOL, **kw, **extra)
+              for label, extra in FLASH_CASES.items())
+    g1 = [rand(2, 2048, Hkv, d) for _ in range(3)]
+    err = max(err, flash_case("G 1", *g1, TOL, **kw))
+    f32 = [rand(1, 1024, n, d, dt=torch.float32) for n in (8, 2, 2)]
+    flash_case("f32, G 4", *f32, 1e-4, **kw)
+    del g1, f32
+
+    def kernel():
+        return fa_mod.flash_attention_bshd(q, k, v, **kw)
+
+    def plain():
+        return ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True, **kw)
+    check(torch.allclose(library().transpose(1, 2).float(), kernel().float(), rtol=TOL, atol=TOL),
+          "scaled_dot_product_attention disagrees with the kernel")
+    ms, plain_ms, library_ms = device_ms(kernel, 10), device_ms(plain, 2), device_ms(library, 10)
+    ops = 4 * B * Hq * d * S * (S + 1) // 2
+    bnd = bound(ref.hbm_bytes(B, Hq, Hkv, S, S, d, 2), ops, BF16_OPS_S)
+    win_ms = device_ms(lambda: fa_mod.flash_attention_bshd(q, k, v, window=1024, **kw), 10)
+    nc_ms = device_ms(lambda: fa_mod.flash_attention_bshd(q, k, v, causal=False, **kw), 10)
+    print(f"flash_attention at main-path shapes: kernel {ms:.4f} ms on the card "
+          f"({call_ms(kernel, 10):.4f} ms per call from the host), plain {plain_ms:.4f} ms, "
+          f"library {library_ms:.4f} ms (scaled_dot_product_attention, is_causal, "
+          f"enable_gqa), bound {bnd[0]:.4f} ms ({bnd[1]}: {ops / 1e12:.3f} TFLOP, "
+          f"{ref.hbm_bytes(B, Hq, Hkv, S, S, d, 2) / 1e9:.3f} GB), "
+          f"{ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s; window 1024 {win_ms:.4f} ms, "
+          f"non-causal {nc_ms:.4f} ms")
+    return dict(name=FLASH[0], route="cuda", source=FLASH[1], replaces=FLASH[2],
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=library_ms)
+
+
+def ht_oracle_phase(cfg, params) -> None:
+    """The HT layer (MoE layer 0's weights, 512 tokens per rank) against the
+    dense fallback at zero drop, without fp8 and with it; both sides get the
+    plain quantize->dequantize round trip of x in the fp8 case, so only the
+    kernels' second quantization of that x separates them. Then
+    ``prefill_moe`` against ``sequential_prefill`` under the preset (fp8,
+    capacity 1.25), 2 micro-batches: bitwise."""
+    p = {k: v[0] for k, v in params["moe_stack"]["moe"].items()}
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    x = torch.randn((RANKS, ORACLE_T, cfg.d_model), generator=gen, device=DEV).to(cfg.dtype)
+    zero = dict(capacity_factor=None, expert_capacity_factor=None)
+    for fp8 in (False, True):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, quantize_dispatch=fp8,
+                                                             **zero))
+        xin = ref.dequantize_fp8(*ref.quantize_fp8(x, 128), cfg.dtype) if fp8 else x
+        ep, _ = moe_block(p, xin, c, LocalComm(RANKS))
+        dn = _moe_dense_fallback(p, xin, c)
+        check(ep.shape == dn.shape == x.shape and bool(torch.isfinite(ep).all()),
+              "HT oracle: bad EP output")
+        rel = float((ep.float() - dn.float()).norm() / dn.float().norm())
+        print(f"HT oracle (zero drop, fp8 {fp8}, {ORACLE_T} tokens per rank): EP vs dense "
+              f"relative error {rel:.3g} (limit {TOL})")
+        check(rel <= TOL, f"HT layer (fp8 {fp8}) off the dense fallback by {rel}")
+    L = cfg.moe.num_experts // RANKS
+    rcfg = router_config(cfg.moe)
+
+    def router_fn(xt):
+        r = route(xt.float() @ p["router"], rcfg)
+        return r.topk_idx, r.topk_weights
+
+    def expert_fn(rank, y3d, counts_):
+        sl = slice(rank * L, (rank + 1) * L)
+        return _expert_ffn(y3d, counts_, p["w_gate"][sl], p["w_up"][sl], p["w_down"][sl])
+    group = ep_group(cfg, LocalComm(RANKS), ORACLE_T // 2)
+    xs = list(x.unbind(0))
+    pipe = prefill_moe(group, router_fn, expert_fn, xs, 2)
+    seq = sequential_prefill(group, router_fn, expert_fn, xs, 2)
+    check(all(torch.equal(a, b) for a, b in zip(pipe, seq)),
+          "prefill_moe differs from sequential_prefill")
+    print(f"prefill_moe (2 micro-batches of {ORACLE_T // 2} tokens per rank, fp8, "
+          f"capacity 1.25) bitwise equal to sequential_prefill")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -758,6 +1101,7 @@ def main() -> int:
     # the main paths run first, before any profiling touches the card
     launches, itl_s = serve_phase(srv, card)
     csrv, cm, reqs, claunches = continuous_phase(cfg, srv.params, card)
+    plaunches, pf_wall, pcfg, pbatch = prefill_phase(srv.params, card)
     tok = torch.zeros((BATCH, 1), dtype=torch.int32, device=DEV)
     trace_phase("EP decode step", lambda: srv.step(tok), itl_s)
     mp = csrv.max_pages
@@ -765,20 +1109,25 @@ def main() -> int:
                 page_tbl=np.arange(BATCH * mp, dtype=np.int32).reshape(BATCH, mp),
                 kv_lens=np.full(BATCH, CMAX_LEN // 2, np.int32),
                 active=np.ones(BATCH, np.int32))
-    iv = trace_phase(f"continuous step (all {BATCH} slots at {CMAX_LEN // 2} tokens)",
+    iv, _ = trace_phase(f"continuous step (all {BATCH} slots at {CMAX_LEN // 2} tokens)",
                      lambda: csrv.step_feed(feed), cm.itl_mean_s)
     paged_us = sum(e - s for s, e, n in iv if "paged_stage" in n)
     print(f"  paged attention: {paged_us / 1e3:.3f} ms, {paged_us / busy_us(iv):.4f} "
           f"of the busy time")
+    prefill_trace_phase(srv.params, pcfg, pbatch, pf_wall)
     records = kernel_phase(cfg, srv.params)
+    ht_kernel_phase(pcfg, srv.params)
     records[PAGED[0]] = paged_kernel_phase(cfg, paged_main_shape_phase(cfg, csrv))
+    records[FLASH[0]] = flash_kernel_phase(pcfg)
     oracle_phase(cfg, srv.params)
+    ht_oracle_phase(pcfg, srv.params)
     solo_phase(cfg, srv.params, csrv, reqs)
     paged_vs_dense_phase(cfg, srv.params)
     for name, n in launches.items():
         if name in records:
             records[name]["launches"] = n
     records[PAGED[0]]["launches"] = claunches[PAGED[0]]
+    records[FLASH[0]]["launches"] = plaunches[FLASH[0]]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

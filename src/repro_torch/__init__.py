@@ -6,6 +6,8 @@ imports torch and numpy and nothing of JAX or ``repro``. It covers the LL
 ``runtime.server.DecodeServer``, with its four EP kernels hand-written for
 Hopper, and continuous batching over paged KV served by
 ``runtime.server.ContinuousDecodeServer``, with its split-KV paged decode
-attention hand-written for Hopper (``kernels/``, sources in ``csrc/``).
+attention hand-written for Hopper, and the HT-mode prefill forward
+``models.get_model(cfg).forward``, with its flash attention hand-written for
+Hopper (``kernels/``, sources in ``csrc/``).
 """
 from repro_torch.device import disable_tf32, resolve_device  # noqa: F401

@@ -31,7 +31,12 @@ class LocalComm:
         if len(sends) != self.size:
             raise ValueError(f"all_to_all got {len(sends)} buffers for "
                              f"{self.size} ranks")
-        return list(torch.stack(sends).transpose(0, 1).contiguous().unbind(0))
+        dt = sends[0].dtype
+        if dt.is_floating_point and dt.itemsize == 1:
+            # fp8 payloads move as their bytes: not every copy kernel takes fp8
+            sends = [s.view(torch.uint8) for s in sends]
+        out = torch.stack(sends).transpose(0, 1).contiguous().view(dt)
+        return list(out.unbind(0))
 
     def all_gather(self, xs: list[torch.Tensor]) -> list[torch.Tensor]:
         """xs[r]: [T, ...] -> every rank gets [N, T, ...] in rank order."""

@@ -1,5 +1,5 @@
-"""repro_torch.core: the unified EP API over a communicator (LL mode,
-``nccl_ep`` layout in this slice)."""
+"""repro_torch.core: the unified EP API over a communicator (LL mode in the
+``nccl_ep`` layout, HT mode on its flat path)."""
 from repro_torch.core.api import (  # noqa: F401
     EpGroup, EpGroupConfig, EpHandle, EpPending, ep_combine, ep_complete,
     ep_create_group, ep_create_handle, ep_dispatch,

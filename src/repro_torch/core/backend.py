@@ -79,7 +79,7 @@ class BaseBackend:
 
 
 _REGISTRY: dict[str, BaseBackend] = {}
-_WAITING = {"ht": "ROADMAP A5", "baseline": "ROADMAP A5"}
+_WAITING = {"baseline": "ROADMAP A5"}
 
 
 def register_backend(backend: BaseBackend) -> BaseBackend:

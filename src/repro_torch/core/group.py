@@ -105,6 +105,10 @@ def ep_create_group(cfg: EpGroupConfig, comm=None, *, ep_size: int | None = None
     if inner_size is None:
         inner_size = ep_size
     outer_size = ep_size // inner_size
+    if cfg.resolved_mode() == "ht" and outer_size > 1:
+        raise NotImplementedError(
+            "HT over more than one pod is the hierarchical path: it needs "
+            "sub-group all-to-alls, which are not ported yet (ROADMAP A2, A5)")
 
     E, K, B = cfg.num_experts, cfg.top_k, cfg.max_tokens_per_rank
     N = ep_size

@@ -8,7 +8,9 @@ data movement: dispatch send is ``dispatch_pack`` (gather plus optional fp8)
 then the all-to-all, dispatch recv is ``recv_unpack`` into the expert-major
 [L, A, H] tensor, combine send is ``dispatch_pack`` over the expert output,
 and combine recv is ``combine_gather_reduce``. Every function takes one
-value per hosted rank. The ``deepep`` layout waits for ROADMAP B5.
+value per hosted rank and tags its pendings with the group's mode: the flat
+HT path (``core/ht.py``) runs these same functions over its own maps. The
+``deepep`` layout waits for ROADMAP B5.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ def _per_rank(value, n: int) -> list:
 
 def ll_create_handle(group: EpGroup, topk_idx: list, topk_weights: list,
                      num_tokens=None) -> list[EpHandle]:
-    """All-gather the routing and derive each hosted rank's plan. The
-    plan is the only place slot arithmetic happens."""
+    """All-gather the routing and derive each hosted rank's plan for the
+    group's mode. The plan is the only place slot arithmetic happens."""
     ranks = group.comm.ranks
     masked = [P.mask_padding(group, t, n)
               for t, n in zip(topk_idx, _per_rank(num_tokens, len(ranks)))]
@@ -58,7 +60,7 @@ def ll_dispatch_send(group: EpGroup, handles: list, xs: list) -> list[EpPending]
         scales = group.comm.all_to_all([p[1] for p in packed])
     else:
         scales = [None] * len(recvs)
-    return [EpPending(mode="ll", op="dispatch", recv=r, recv_scales=s)
+    return [EpPending(mode=group.mode, op="dispatch", recv=r, recv_scales=s)
             for r, s in zip(recvs, scales)]
 
 
@@ -77,7 +79,7 @@ def ll_combine_send(group: EpGroup, handles: list, y3ds: list) -> list[EpPending
     sends = [K.dispatch_pack(S.flat_rows(y), P.ensure_plan(group, h).comb_send_gmap,
                              out_dtype=group.cfg.payload_dtype)[0]
              for h, y in zip(handles, y3ds)]
-    return [EpPending(mode="ll", op="combine", recv=r)
+    return [EpPending(mode=group.mode, op="combine", recv=r)
             for r in group.comm.all_to_all(sends)]
 
 

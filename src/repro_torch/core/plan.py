@@ -1,7 +1,7 @@
-"""EpPlan: the precomputed slot-map engine, LL ``nccl_ep`` layout (port of
-the LL pieces of ``src/repro/core/plan.py``).
+"""EpPlan: the precomputed slot-map engine, LL ``nccl_ep`` layout and the
+flat HT path (port of those pieces of ``src/repro/core/plan.py``).
 
-Every gather map and count of every LL phase is derived once, at handle
+Every gather map and count of every phase is derived once, at handle
 creation, so dispatch and combine are single gather passes over int32 maps
 (the one-pass-per-phase invariant). A map value equal to the source row
 count is the empty sentinel. The JAX functions read their rank from
@@ -34,7 +34,7 @@ def dest_of(group: EpGroup, experts: torch.Tensor):
 
 @dataclasses.dataclass
 class EpPlan:
-    """One rank's precomputed LL maps (all int32)."""
+    """One rank's precomputed maps (all int32), LL ``nccl_ep`` or HT flat."""
 
     disp_send_gmap: torch.Tensor    # [N, C_d] slot -> local token row (sentinel T)
     disp_recv_gmap: torch.Tensor    # [L, A] expert slot -> recv row (sentinel N*C_d)
@@ -45,7 +45,10 @@ class EpPlan:
 
 def build_plan(group: EpGroup, rank: int, topk_idx: torch.Tensor,
                topk_global: torch.Tensor, num_tokens: int) -> EpPlan:
-    """Derive rank ``rank``'s slot maps for the group's mode and layout."""
+    """Derive rank ``rank``'s slot maps for the group's mode and layout.
+    HT is the flat path: ``ep_create_group`` refuses a hierarchical group."""
+    if group.mode == "ht":
+        return _ht_flat_plan(group, rank, topk_idx, topk_global, num_tokens)
     if group.mode != "ll":
         raise NotImplementedError(
             f"EP mode {group.mode!r} is not ported yet (ROADMAP A5)")
@@ -183,6 +186,56 @@ def _ll_ncclep_plan(group: EpGroup, me: int, topk_idx: torch.Tensor,
     c_pos2, _ = S.positions_by_dest(dst.reshape(-1), N, ent_valid2)
     row = torch.where(ent_valid2 & (c_pos2 < Cc),
                       dst_c.reshape(-1) * Cc + c_pos2, N * Cc)
+    return EpPlan(
+        disp_send_gmap=disp_send_gmap, disp_recv_gmap=disp_recv_gmap,
+        disp_counts=counts, comb_send_gmap=comb_send_gmap,
+        comb_recv_rows=row.reshape(T, Kk).to(i32),
+    )
+
+
+# --------------------------------------------------------------------------
+# HT flat path (paper §V, single EP axis)
+# --------------------------------------------------------------------------
+
+def _ht_flat_plan(group: EpGroup, me: int, topk_idx: torch.Tensor,
+                  topk_g: torch.Tensor, num_tokens: int) -> EpPlan:
+    """Entry-level all-to-all: every (t, k) is its own slot in the me->d
+    block; combine mirrors the dispatch slots exactly (the deterministic
+    Fig. 4 layout). Entries past the pair capacity C or the expert region A
+    are dropped."""
+    N, L = group.ep_size, group.local_experts
+    C, A = group.ht_pair_cap, group.ht_expert_cap
+    T, Kk = topk_idx.shape
+    dev = topk_idx.device
+    i32 = torch.int32
+
+    # ---- sender side
+    dst = dest_of(group, topk_idx)[0].reshape(-1)           # [T*K]
+    valid = (torch.arange(T, device=dev) < num_tokens)[:, None].expand(T, Kk).reshape(-1)
+    c_pos, _ = S.positions_by_dest(dst, N, valid)
+    t_of = torch.arange(T, device=dev)[:, None].expand(T, Kk).reshape(-1)
+    disp_send_gmap = S.build_gather_map(dst, c_pos, t_of, valid, N, C, sentinel=T)
+
+    # ---- receiver side: every sender's counter restricted to me
+    dst_g, slot_g = dest_of(group, topk_g)                  # [N, T, K]
+    e_l = slot_g.clamp(0, L - 1).reshape(-1)
+    flat_mine = (dst_g == me).reshape(N, T * Kk)
+    pos_r = (torch.cumsum(flat_mine.to(i32), 1) - 1).to(i32)
+    ent_valid = (flat_mine & (pos_r < C)).reshape(-1)
+    rows = torch.arange(N, device=dev, dtype=i32)[:, None] * C + pos_r
+    a_pos, counts = S.positions_by_dest(e_l, L, ent_valid)
+    disp_recv_gmap = S.build_gather_map(e_l, a_pos, rows.reshape(-1), ent_valid,
+                                        L, A, sentinel=N * C)
+
+    # ---- combine send: y3d rows back into the mirrored [N, C] blocks
+    y_row = e_l * A + a_pos
+    r_of = torch.arange(N, device=dev, dtype=i32)[:, None].expand(N, T * Kk).reshape(-1)
+    comb_send_gmap = S.build_gather_map(r_of, pos_r.reshape(-1), y_row,
+                                        ent_valid & (a_pos < A), N, C,
+                                        sentinel=L * A)
+
+    # ---- combine recv: my own dispatch slots
+    row = torch.where(valid & (c_pos < C), dst.clamp(0, N - 1) * C + c_pos, N * C)
     return EpPlan(
         disp_send_gmap=disp_send_gmap, disp_recv_gmap=disp_recv_gmap,
         disp_counts=counts, comb_send_gmap=comb_send_gmap,

@@ -7,7 +7,9 @@ Unlike the TPU routing in ``src/repro/kernels/ops.py`` there are no
 ``H % 128`` lane gates: the kernels take any H that is a multiple of 8, any
 fp8 block that divides H, and ``recv_unpack`` any row width; nor the
 ``dk % 128`` / ``page % 8`` gates of paged decode attention, whose kernel
-takes any page size and head widths that are multiples of 8.
+takes any page size and head widths that are multiples of 8; nor the TPU
+gate of ``flash_attention_bshd``, which picks the kernel or the plain version
+by device and has no chunked-XLA fallback.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import combine_gather_reduce as _cgr
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dispatch_pack as _dp
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import grouped_gemm as _gg
 from repro_torch.kernels import recv_unpack as _ru
 
@@ -72,3 +75,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return _da.paged_decode_attention(q, k_pages, v_pages, kv_indices, kv_lens,
                                       scale=scale, num_kv_splits=num_kv_splits,
                                       dv=dv)
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         scale: float, window: int | None = None,
+                         causal: bool = True) -> torch.Tensor:
+    """Flash attention on the [B, S, H, d] layout: q [B, Sq, Hq, d], k/v
+    [B, Sk, Hkv, d] -> [B, Sq, Hq, d]."""
+    if _plain(q):
+        out = _ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), scale=scale,
+                                   window=window, causal=causal)
+        return out.transpose(1, 2)
+    return _fa.flash_attention_bshd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    scale=scale, window=window, causal=causal)

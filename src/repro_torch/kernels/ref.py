@@ -198,3 +198,62 @@ def paged_decode_attention(q, k_pages, v_pages, kv_indices, kv_lens, *,
                                  scale=scale, num_kv_splits=num_kv_splits,
                                  dv=dv)
     return paged_decode_stage2(o, lse)
+
+
+FLASH_BK = 128    # KV tile of the plain flash_attention, the Pallas kernel's bk
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, window: int | None = None,
+                    causal: bool = True) -> torch.Tensor:
+    """Causal (optionally sliding-window) GQA attention: q [B, Hq, Sq, d],
+    k/v [B, Hkv, Sk, d] -> [B, Hq, Sq, d] in q's dtype; query head h reads
+    kv head h // G. Positions start at 0 on both sides.
+
+    The Pallas kernel's online softmax in f32 over KV tiles of ``FLASH_BK``:
+    masked scores are the finite NEG_INF, and the output divides by
+    max(l, 1e-30). Each tile updates only the query rows it can reach (a
+    fully masked tile leaves a row's m, l and acc exactly as they were once
+    the row has seen a live key, and a row that has not is wiped by the
+    first live one), so memory stays at [B, Hq, Sq, FLASH_BK]."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, Sq, d).float()
+    q_pos = torch.arange(Sq, device=q.device)
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hkv, G, Sq), device=q.device)
+    acc = torch.zeros((B, Hkv, G, Sq, d), device=q.device)
+    for k0 in range(0, Sk, FLASH_BK):
+        k1 = min(k0 + FLASH_BK, Sk)
+        lo = min(k0, Sq) if causal else 0
+        hi = Sq if window is None else max(lo, min(Sq, k1 - 1 + window))
+        if lo == hi:
+            continue
+        rows = slice(lo, hi)
+        kt, vt = k[:, :, k0:k1].float(), v[:, :, k0:k1].float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg[:, :, :, rows], kt) * scale
+        k_pos = torch.arange(k0, k1, device=q.device)
+        qp = q_pos[rows, None]
+        mask = torch.ones((hi - lo, k1 - k0), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= qp
+        if window is not None:
+            mask &= (qp - k_pos[None, :]) < window
+        s = torch.where(mask, s, NEG_INF)
+        m_prev = m[..., rows]
+        m_new = torch.maximum(m_prev, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_prev - m_new)
+        l[..., rows] = l[..., rows] * corr + p.sum(-1)
+        acc[..., rows, :] = acc[..., rows, :] * corr[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p, vt)
+        m[..., rows] = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(B, Hq, Sq, d).to(q.dtype)
+
+
+def hbm_bytes(B, Hq, Hkv, Sq, Sk, d, dtype_bytes=2) -> int:
+    """flash_attention's definitional device-memory traffic: Q + K + V + O,
+    each once."""
+    return dtype_bytes * (B * Hq * Sq * d * 2 + B * Hkv * Sk * d * 2)

@@ -1,1 +1,3 @@
-"""Model layers and the LM decode stack of the port."""
+"""Model layers, the LM forward and decode stacks, and the registry of the
+port."""
+from repro_torch.models.registry import ModelFns, get_model  # noqa: F401

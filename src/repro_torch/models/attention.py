@@ -1,11 +1,16 @@
-"""GQA attention with RoPE for decoding: the decode-with-cache branch and
-``paged_attention`` of ``src/repro/models/attention.py`` (port).
+"""GQA attention with RoPE (port of ``src/repro/models/attention.py``): the
+forward without a cache (prefill and training), the decode-with-cache
+branch and ``paged_attention``.
 
-There was no kernel for the dense cache on the TPU either: decode attention
-over it is plain ``_sdpa``. The cache is updated in place (the JAX step
-returns a new cache instead); the filled length is a host int. The paged
-path writes its pool in place too and attends through
-``kernels.ops.paged_decode_attention``.
+Without a cache, causal attention at ``S >= CHUNKED_ATTN_THRESHOLD`` with
+no softcap and ``S % 128 == 0`` goes through
+``kernels.ops.flash_attention_bshd`` on every device (the JAX package takes
+that route only on the TPU); softcap or a ragged S takes ``_sdpa_chunked``,
+shorter or non-causal sequences ``_sdpa``. There was no kernel for the dense
+cache on the TPU either: decode attention over it is plain ``_sdpa``. The
+cache is updated in place (the JAX step returns a new cache instead); the
+filled length is a host int. The paged path writes its pool in place too
+and attends through ``kernels.ops.paged_decode_attention``.
 """
 from __future__ import annotations
 
@@ -53,6 +58,50 @@ def _scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window):
     return m
 
 
+# Sequence length at and above which attention without a cache walks KV
+# chunks with an online softmax instead of building the [Sq, Sk] scores.
+CHUNKED_ATTN_THRESHOLD = 2048
+
+
+def _sdpa_chunked(q, k, v, softcap, scale, window, chunk=1024):
+    """Causal grouped attention with an online softmax over KV chunks of
+    ``chunk`` (``AttnSpec.kv_chunk``). q: [B, Sq, Hq, hd], k/v: [B, Sk, Hkv,
+    hd]. A ragged tail (Sk % chunk) is zero-padded and masked out exactly;
+    probabilities are cast to q's dtype before the PV product, as in JAX."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    pad = (-Sk) % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = q.reshape(B, Sq, Hkv, G, hd).float()
+    q_pos = torch.arange(Sq, device=q.device)
+    m = torch.full((B, Hkv, G, Sq), -1e30, device=q.device)
+    l = torch.zeros((B, Hkv, G, Sq), device=q.device)
+    acc = torch.zeros((B, Hkv, G, Sq, hd), device=q.device)
+    for ci in range((Sk + pad) // chunk):
+        k_c = k[:, ci * chunk:(ci + 1) * chunk]
+        v_c = v[:, ci * chunk:(ci + 1) * chunk]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_c.float()) * scale
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * softcap
+        k_pos = ci * chunk + torch.arange(chunk, device=q.device)
+        msk = (k_pos[None, :] <= q_pos[:, None]) & (k_pos < Sk)[None, :]
+        if window is not None:
+            msk &= (q_pos[:, None] - k_pos[None, :]) < window
+        s = torch.where(msk[None, None, None], s, -1e30)
+        m2 = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m2[..., None])
+        corr = torch.exp(m - m2)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p.to(q.dtype).float(), v_c.float())
+        m = m2
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
 def _sdpa(q, k, v, mask, softcap, scale):
     """q: [B, Sq, Hq, hd], k/v: [B, Sk, Hkv, hd]: grouped attention with f32
     scores and f32 accumulation of the (q.dtype) probabilities times v."""
@@ -69,17 +118,36 @@ def _sdpa(q, k, v, mask, softcap, scale):
     return o.reshape(B, Sq, Hq, hd).to(q.dtype)
 
 
-def attention(p, x: torch.Tensor, cfg: ArchConfig, *, cache: KVCache,
-              positions=None, window="cfg", attn: AttnSpec | None = None):
-    """Decode step: append this step's K/V to the cache (in place) and
-    attend over the filled prefix. Returns (out [B, S, D], new_cache)."""
+def attention(p, x: torch.Tensor, cfg: ArchConfig, *, positions=None,
+              cache: KVCache | None = None, window="cfg",
+              attn: AttnSpec | None = None, kv_override=None, causal: bool = True):
+    """Without a cache: attention over x itself (prefill, training). With
+    one: append this step's K/V to the cache (in place) and attend over the
+    filled prefix. Returns (out [B, S, D], new_cache)."""
     a = attn or cfg.attn
     if window == "cfg":
         window = a.window
-    if cache is None:
-        raise NotImplementedError("attention without a KV cache (training and "
-                                  "fused prefill) is not ported yet (ROADMAP A8)")
+    if kv_override is not None:
+        raise NotImplementedError("cross-attention (kv_override, encdec) is not "
+                                  "ported yet (ROADMAP A12)")
     B, S, _ = x.shape
+    if cache is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        q, k, v = _project_qkv(p, x, a, cfg, positions)
+        scale = a.head_dim ** -0.5
+        if causal and S >= CHUNKED_ATTN_THRESHOLD:
+            if a.logit_softcap is None and S % 128 == 0:
+                out = K.flash_attention_bshd(q, k, v, scale=scale, window=window)
+            else:
+                out = _sdpa_chunked(q, k, v, a.logit_softcap, scale, window,
+                                    chunk=a.kv_chunk)
+        else:
+            q_pos = torch.arange(S, device=x.device)
+            mask = (_scores_mask(q_pos, q_pos, window) if causal
+                    else torch.ones((S, S), dtype=torch.bool, device=x.device))
+            out = _sdpa(q, k, v, mask, a.logit_softcap, scale)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), None
     if positions is None:
         positions = (torch.arange(S, device=x.device)[None] + cache.length).expand(B, S)
     q, k, v = _project_qkv(p, x, a, cfg, positions)

@@ -63,14 +63,20 @@ def _expert_ffn(y3d, counts, w1, w3, w2):
 
 
 def ep_group(cfg: ArchConfig, comm, tokens_per_rank: int):
-    """The EP group of ``cfg``'s MoE layers over ``comm``."""
+    """The EP group of ``cfg``'s MoE layers over ``comm``. A config that
+    asks for the hierarchical HT path (more than one EP axis) is refused."""
     m = cfg.moe
-    return ep_create_group(EpGroupConfig(
+    gcfg = EpGroupConfig(
         num_experts=m.num_experts, max_tokens_per_rank=tokens_per_rank,
         hidden=cfg.d_model, top_k=m.top_k, mode=m.ep_mode, ll_layout=m.ll_layout,
         capacity_factor=m.capacity_factor,
         expert_capacity_factor=m.expert_capacity_factor,
-        payload_dtype=cfg.dtype, quantize_dispatch=m.quantize_dispatch), comm)
+        payload_dtype=cfg.dtype, quantize_dispatch=m.quantize_dispatch)
+    if gcfg.resolved_mode() == "ht" and m.ht_hierarchical and len(m.ep_axis) > 1:
+        raise NotImplementedError(
+            "the hierarchical HT path needs sub-group all-to-alls, which are "
+            "not ported yet (ROADMAP A2, A5)")
+    return ep_create_group(gcfg, comm)
 
 
 def moe_block(p, x: torch.Tensor, cfg: ArchConfig, comm):

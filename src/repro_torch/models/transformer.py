@@ -1,9 +1,10 @@
-"""Decoder LM, family ``lm`` (port of the dense and paged decode paths of
-``src/repro/models/transformer.py``).
+"""Decoder LM, family ``lm`` (port of the training/prefill forward and the
+dense and paged decode paths of ``src/repro/models/transformer.py``).
 
 Parameters keep the JAX layout: per-layer trees stacked along a leading
 [n_layers] axis in ``dense_stack`` and ``moe_stack``. The layer stack is a
-Python loop over those slices (JAX scans it).
+Python loop over those slices (JAX scans it, with remat for training; the
+port's forward has no backward yet, so it keeps nothing to recompute).
 """
 from __future__ import annotations
 
@@ -13,8 +14,8 @@ from repro_torch.models import attention as ATT
 from repro_torch.models import kv_pages as KVP
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import ArchConfig, ParamSpec
-from repro_torch.models.layers import (embed_lookup, embed_spec, ffn_apply,
-                                       ffn_spec, logits_out, rmsnorm,
+from repro_torch.models.layers import (cross_entropy, embed_lookup, embed_spec,
+                                       ffn_apply, ffn_spec, logits_out, rmsnorm,
                                        rmsnorm_spec)
 
 
@@ -99,8 +100,9 @@ def _ffn_half(p, x, cfg: ArchConfig, comm):
     return x + f, aux
 
 
-def layer_apply(p, x, cfg: ArchConfig, comm, *, cache):
-    """One decoder layer with a cache -> (x, new_cache, aux)."""
+def layer_apply(p, x, cfg: ArchConfig, comm, *, cache=None):
+    """One decoder layer -> (x, new_cache, aux); without a cache it attends
+    over x itself and new_cache is None."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     a, new_cache = ATT.attention(p["attn"], h, cfg, cache=cache)
     x, aux = _ffn_half(p, x + a, cfg, comm)
@@ -116,6 +118,37 @@ def paged_layer_apply(p, x, cfg: ArchConfig, comm, pool, page_tbl, kv_lens,
                                   active, num_kv_splits=num_kv_splits)
     x, aux = _ffn_half(p, x + a, cfg, comm)
     return x, pool, aux
+
+
+def _stack_apply(x, stack, cfg: ArchConfig, comm):
+    """Every layer of a stacked parameter tree in order, without caches
+    (JAX: ``_scan_stack``) -> (x, the layers' summed aux)."""
+    aux = torch.zeros((), device=x.device)
+    for i in range(stack["ln1"].shape[0]):
+        x, _, a = layer_apply(_index(stack, i), x, cfg, comm)
+        aux = aux + a
+    return x, aux
+
+
+def lm_forward(params, batch, cfg: ArchConfig, comm):
+    """Training/prefill forward. batch: {tokens [B, S], optional targets
+    [B, S] (default: tokens shifted left, wrapping), optional loss_mask
+    [B, S]}. Returns (loss, {"aux": aux}): the mean next-token cross-entropy
+    plus the MoE layers' router aux and z losses."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    x = embed_lookup(params["embed"], tokens)
+    aux = torch.zeros((), device=x.device)
+    for name in ("dense", "moe"):
+        if f"{name}_stack" in params:
+            x, a = _stack_apply(x, params[f"{name}_stack"], cfg, comm)
+            aux = aux + a
+    logits = _head(params, x, cfg)
+    targets = batch.get("targets")
+    if targets is None:
+        targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    loss = cross_entropy(logits, targets, batch.get("loss_mask"))
+    return loss + aux, dict(aux=aux)
 
 
 def lm_decode_step(params, state, batch, cfg: ArchConfig, comm):

@@ -1,1 +1,2 @@
-"""Serving runtime of the port (``server.DecodeServer``)."""
+"""Runtime of the port: the decode servers (``server``) and the
+micro-batched HT prefill driver (``prefill``)."""

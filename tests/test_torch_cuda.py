@@ -10,6 +10,8 @@ Data movement (pack, unpack, fp8) must match bit for bit; the GEMM and the
 reduce within 1e-5 (f32) or 2e-2 (bf16), since the sums run in another order.
 Paged decode attention sums in f32 whatever the pool's type, so it is held
 to 1e-4 in both, and must not change a bit when unreferenced pages change.
+Flash attention is held to 1e-4 in f32 and 2e-2 in bf16, where the kernel
+rounds the probabilities to bf16 for the PV product.
 """
 import dataclasses
 
@@ -22,6 +24,7 @@ from repro_torch.device import disable_tf32
 from repro_torch.kernels import combine_gather_reduce as cg
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import dispatch_pack as dp
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import recv_unpack as ru
 from repro_torch.kernels import ref
@@ -154,3 +157,53 @@ def test_cuda_paged_decode_attention(hopper, dt, splits, share_kv):
     with pytest.raises(ValueError, match="divide by the split"):
         da.paged_decode_attention(q, kp, vp, tbl, lens, **dict(kw, num_kv_splits=3))
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,d", [(1, 128), (6, 128), (4, 64)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 77), (False, None),
+                                           (False, 150)])
+def test_cuda_flash_attention(hopper, dt, G, d, causal, window):
+    """Ragged lengths (Sq 200 over Sk 328: tails in both tile sizes), GQA
+    without repetition, the model's [B, S, H, d] layout; one launch per
+    call. bf16: relative error (Frobenius norm) within 5e-3, about twice
+    what rounding p and the output to bf16 gives, and every element within
+    2e-2."""
+    B, Hkv, Sq, Sk = 2, 2, 200, 328
+    q = _rand((B, Hkv * G, Sq, d), dt, hopper, 1.0, 13)
+    k = _rand((B, Hkv, Sk, d), dt, hopper, 1.0, 14)
+    v = _rand((B, Hkv, Sk, d), dt, hopper, 1.0, 15)
+    kw = dict(scale=d ** -0.5, window=window, causal=causal)
+    bshd = [a.transpose(1, 2).contiguous() for a in (q, k, v)]
+    before = fa.launches
+    got = fa.flash_attention_bshd(*bshd, **kw).transpose(1, 2)
+    assert fa.launches == before + 1 and got.dtype == dt
+    want = ref.flash_attention(q, k, v, **kw)
+    if dt == torch.bfloat16:
+        rel = (got.float() - want.float()).norm() / want.float().norm()
+        assert rel <= 5e-3, rel
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bshd(*(a[..., :32].contiguous() for a in bshd), **kw)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_moe_block_ht_matches_dense(hopper):
+    """The HT flat MoE layer at zero drop over 8 hosted ranks launches each
+    EP kernel as the path implies and equals the dense fallback (f32)."""
+    cfg = dataclasses.replace(smoke_config(), dtype=torch.float32)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_mode="ht",
+                                                           expert_capacity_factor=None))
+    params = init_params(cfg, seed=0, device=hopper)
+    p = {k: v[0] for k, v in params["moe_stack"]["moe"].items()}
+    x = _rand((8, 32, cfg.d_model), torch.float32, hopper, 1.0, 16)
+    before = (dp.launches, ru.launches, gg.launches, cg.launches)
+    y, _ = moe_block(p, x, cfg, LocalComm(8))
+    grew = [a - b for a, b in zip((dp.launches, ru.launches, gg.launches, cg.launches),
+                                  before)]
+    assert grew == [16, 8, 24, 8]
+    torch.testing.assert_close(y, _moe_dense_fallback(p, x, cfg), rtol=1e-5, atol=1e-5)

@@ -73,11 +73,11 @@ def test_unported_options_raise():
         DecodeServer(heat, batch=8, max_len=8, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         ContinuousDecodeServer(heat, batch=8, max_len=8, device="cpu", page_size=4)
-    ht = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_mode="ht"))
-    srv = DecodeServer(ht, batch=8, max_len=8, ep_size=8, device="cpu")
+    base = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_mode="baseline"))
+    srv = DecodeServer(base, batch=8, max_len=8, ep_size=8, device="cpu")
     with pytest.raises(NotImplementedError, match="A5"):
         srv.prefill(torch.zeros((8, 1), dtype=torch.int32))
-    csrv = ContinuousDecodeServer(ht, batch=8, max_len=8, ep_size=8, device="cpu",
+    csrv = ContinuousDecodeServer(base, batch=8, max_len=8, ep_size=8, device="cpu",
                                   page_size=4)
     with pytest.raises(NotImplementedError, match="A5"):
         csrv.serve_requests([Request(0, [1], 1)])

@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-1. Builds the six hand-written kernels from ``src/repro_torch/csrc`` with
-   nvcc for sm_90a (at first use, into ``build/repro_torch/``), one nvcc per
-   source, all started together.
+1. Builds the eight hand-written kernel sources of ``src/repro_torch/csrc``
+   with nvcc for sm_90a (at first use, into ``build/repro_torch/``), one
+   nvcc per source, all started together.
 2. Serves DBRX-132B at full width, its 40 layers cut to 4 to fit one card,
    through ``DecodeServer`` over 8 EP ranks hosted on the card: batch 128,
-   prompt 8, 16 generated tokens. Each kernel's launch count over that run
-   must equal the count the path implies.
+   prompt 8, 16 generated tokens, in the preset's LL ``nccl_ep`` layout,
+   then in the LL ``deepep`` layout with fp8 dispatch and through the
+   baseline a2a dispatcher on the same weights and prompts. Each kernel's
+   launch count over each serve must equal the count its path implies; the
+   baseline's tokens must equal the ``nccl_ep`` serve's.
 3. Serves 256 requests through ``ContinuousDecodeServer`` on the same model
    and weights: 128 slots over paged KV (page 16), prompts of 4 to 32
    tokens, 8 to 32 new tokens each, Poisson arrivals of 4 per step. Every
@@ -29,7 +32,12 @@
    each): bitwise for the two gathers, in copy and in fp8 mode; within 2e-2
    for the bf16 GEMM and reduce; and at the prefill's HT shapes (4096
    tokens per rank, [8, 2560] send blocks, [2, 10240] expert regions): fp8
-   pack and dequant unpack bitwise. Holds the paged decode attention kernel
+   pack and dequant unpack bitwise. The standalone fp8 pair bitwise:
+   dequantize on what one rank receives in the ``deepep`` serve, quantize
+   at the decode and HT x of a rank in bf16 and f32, blocks 128 and 64,
+   and against ``dispatch_pack``'s quant mode; ``combine_reduce`` within
+   2e-2 (bf16) and 1e-5 (f32) at 16 and 4096 tokens of K = 4. Holds the
+   paged decode attention kernel
    against its plain version within 1e-4: at the shapes the continuous serve
    gives it (bf16 pools of the serve's 512 + 1 pages, table width 4, 4
    splits, up to 64 tokens), at DBRX widths over long contexts (128
@@ -43,7 +51,8 @@
    each kernel, its plain version and, where one PyTorch call computes the
    same function, that call.
 6. Holds each MoE layer's EP output against the dense fallback on the same
-   input (every capacity is zero-drop here): relative error <= 2e-2; the
+   input (every capacity is zero-drop here): relative error <= 2e-2, in the
+   ``nccl_ep``, ``deepep`` (with and without fp8) and baseline layouts; the
    same for the HT layer at 512 tokens per rank and zero drop, without fp8
    and with it (both fed the plain quantize-dequantize round trip of x);
    ``prefill_moe`` with 2 micro-batches must be bitwise equal to
@@ -53,7 +62,8 @@
    bitwise equal. Holds the paged decode step against the dense step on the
    same tokens: in bf16 over the 4 layers, bitwise at the first step and
    the median row's logits within 2e-2 at the second; in f32 with one
-   layer, the logits within 2e-4 at every step.
+   layer, the logits within 2e-4 at every step. Reads each layout's send
+   and receive buffer bytes per rank and MoE layer from its tensors.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. The last line is
@@ -78,12 +88,14 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch.comm import LocalComm  # noqa: E402
 from repro_torch.configs.dbrx_132b import full_config  # noqa: E402
-from repro_torch.core import ep_create_handle, route  # noqa: E402
+from repro_torch.core import ep_create_handle, route, slots  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import combine_gather_reduce as cg_mod  # noqa: E402
+from repro_torch.kernels import combine_reduce as cr_mod  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import dispatch_pack as dp_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import fp8 as fp8_mod  # noqa: E402
 from repro_torch.kernels import grouped_gemm as gg_mod  # noqa: E402
 from repro_torch.kernels import recv_unpack as ru_mod  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
@@ -121,26 +133,55 @@ CMAX_LEN = PROMPTS[1] + NEWS[1]
 PAGED_TOL = 1e-4
 KV_PAGES = 2048              # page-table width of the paged kernel phase
 DEV = torch.device("cuda")
-PAGED = ("paged_decode_attention", "src/repro_torch/csrc/paged_decode_attention.cu",
-         "src/repro/kernels/decode_attention.py:112")
 # the prefill forward: batch rows x tokens (one row of 4096 per hosted rank,
 # the paper's HT regime); tokens per rank of the HT oracle
 PF_BATCH, PF_SEQ, ORACLE_T = 8, 4096, 512
-FLASH = ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention.py:86")
 
-# name -> (wrapper module, source, TPU kernel it replaces, launches per MoE
-# layer per hosted rank in one decode step)
+# name -> (source, TPU kernel it replaces)
 KERNELS = {
-    "dispatch_pack": (dp_mod, "src/repro_torch/csrc/dispatch_pack.cu",
-                      "src/repro/kernels/dispatch_pack.py:42", 2),
-    "recv_unpack": (ru_mod, "src/repro_torch/csrc/recv_unpack.cu",
-                    "src/repro/kernels/recv_unpack.py:43", 1),
-    "grouped_gemm": (gg_mod, "src/repro_torch/csrc/grouped_gemm.cu",
-                     "src/repro/kernels/grouped_gemm.py:53", 3),
-    "combine_gather_reduce": (cg_mod, "src/repro_torch/csrc/combine_gather_reduce.cu",
-                              "src/repro/kernels/combine_gather_reduce.py:44", 1),
+    "dispatch_pack": ("src/repro_torch/csrc/dispatch_pack.cu",
+                      "src/repro/kernels/dispatch_pack.py:42"),
+    "recv_unpack": ("src/repro_torch/csrc/recv_unpack.cu",
+                    "src/repro/kernels/recv_unpack.py:43"),
+    "grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu",
+                     "src/repro/kernels/grouped_gemm.py:53"),
+    "combine_gather_reduce": ("src/repro_torch/csrc/combine_gather_reduce.cu",
+                              "src/repro/kernels/combine_gather_reduce.py:44"),
+    "paged_decode_attention": ("src/repro_torch/csrc/paged_decode_attention.cu",
+                               "src/repro/kernels/decode_attention.py:112"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:86"),
+    "quantize_fp8": ("src/repro_torch/csrc/fp8.cu", "src/repro/kernels/fp8.py:50"),
+    "dequantize_fp8": ("src/repro_torch/csrc/fp8.cu", "src/repro/kernels/fp8.py:76"),
+    "combine_reduce": ("src/repro_torch/csrc/combine_reduce.cu",
+                       "src/repro/kernels/combine_reduce.py:32"),
 }
+PAGED, FLASH = "paged_decode_attention", "flash_attention"
+# launch counter -> (wrapper module, its attribute)
+COUNTERS = {
+    "dispatch_pack": (dp_mod, "launches"), "recv_unpack": (ru_mod, "launches"),
+    "grouped_gemm": (gg_mod, "launches"),
+    "combine_gather_reduce": (cg_mod, "launches"),
+    PAGED: (da_mod, "launches"),
+    "paged_decode_attention (stage 2)": (da_mod, "stage2_launches"),
+    FLASH: (fa_mod, "launches"), "quantize_fp8": (fp8_mod, "quantize_launches"),
+    "dequantize_fp8": (fp8_mod, "dequantize_launches"),
+    "combine_reduce": (cr_mod, "launches"),
+}
+# EP launches per MoE layer, per hosted rank, per decode step (or forward),
+# by path; HT flat runs the nccl_ep phases over its own maps. No path calls
+# quantize_fp8 or combine_reduce.
+EP_LAUNCHES = {
+    "nccl_ep": dict(dispatch_pack=2, recv_unpack=1, dequantize_fp8=0, grouped_gemm=3,
+                    combine_gather_reduce=1, quantize_fp8=0, combine_reduce=0),
+    "deepep_fp8": dict(dispatch_pack=1, recv_unpack=0, dequantize_fp8=1, grouped_gemm=3,
+                       combine_gather_reduce=1, quantize_fp8=0, combine_reduce=0),
+    "baseline": dict(dispatch_pack=1, recv_unpack=0, dequantize_fp8=0, grouped_gemm=3,
+                     combine_gather_reduce=1, quantize_fp8=0, combine_reduce=0),
+}
+# the MoE options of each served layout over the decode_32k preset
+LAYOUTS = {"deepep_fp8": dict(ll_layout="deepep", quantize_dispatch=True),
+           "baseline": dict(ep_mode="baseline")}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -149,25 +190,27 @@ def check(ok: bool, msg: str) -> None:
 
 
 def reset_counts() -> None:
-    for mod, *_ in KERNELS.values():
-        mod.launches = 0
-    da_mod.launches = da_mod.stage2_launches = 0
-    fa_mod.launches = 0
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def counts() -> dict:
-    out = {name: k[0].launches for name, k in KERNELS.items()}
-    out[PAGED[0]] = da_mod.launches
-    out["paged_decode_attention (stage 2)"] = da_mod.stage2_launches
-    out[FLASH[0]] = fa_mod.launches
-    return out
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
 
 
-def check_ep_counts(launches: dict, steps: int, where: str) -> None:
-    for name, (_, _, _, per) in KERNELS.items():
+def check_ep_counts(launches: dict, steps: int, where: str, path: str = "nccl_ep") -> None:
+    for name, per in EP_LAUNCHES[path].items():
         want = per * LAYERS * RANKS * steps
         check(launches[name] == want, f"{name} launched {launches[name]} times "
               f"on {where}, expected {want}")
+
+
+def record(name: str, err: float, ms: float, plain_ms: float, bnd, library_ms) -> dict:
+    """A kernel's line of the JSON; ``launches`` is filled from a main path."""
+    return dict(name=name, route="cuda", source=KERNELS[name][0],
+                replaces=KERNELS[name][1], launches=None, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=library_ms)
 
 
 def call_ms(fn, iters: int, reps: int = 5) -> float:
@@ -267,8 +310,8 @@ def build() -> None:
     _build.library()
     how = ("built" if _build.build_seconds is not None
            else "loaded an existing build of the same sources")
-    print(f"kernels: {how} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc -gencode arch=compute_90a,code=sm_90a, one process per source)")
+    print(f"kernels: {how} in {time.perf_counter() - t0:.1f} s, {len(_build.SOURCES)} "
+          f"sources (nvcc -gencode arch=compute_90a,code=sm_90a, one process per source)")
     fn = None
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
@@ -298,15 +341,12 @@ def kernel_phase(cfg, params) -> dict:
           f"{pl.disp_counts.tolist()}")
     out = {}
 
-    def record(name, err, kernel, plain, bnd, library, shape, iters=50):
+    def timed(name, err, kernel, plain, bnd, library, shape, iters=50):
         """Time the kernel, its plain version and the library call on the
         card; keep the kernel's line for the JSON."""
         ms, plain_ms = device_ms(kernel, iters), device_ms(plain, iters)
         library_ms = None if library is None else device_ms(library, iters)
-        out[name] = dict(name=name, route="cuda", source=KERNELS[name][1],
-                         replaces=KERNELS[name][2], launches=None,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bnd[0], bound_by=bnd[1], library_ms=library_ms)
+        out[name] = record(name, err, ms, plain_ms, bnd, library_ms)
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
         print(f"{name} {shape}: max_abs_err {err:.3g}, kernel {ms:.4f} ms on the "
               f"card ({call_ms(kernel, iters):.4f} ms per call from the host), "
@@ -322,11 +362,11 @@ def kernel_phase(cfg, params) -> dict:
     check(torch.equal(q.view(torch.uint8), wq.view(torch.uint8)) and torch.equal(s, ws),
           "dispatch_pack (fp8) differs from its plain version")
     live = int((g0 < T).sum())
-    record("dispatch_pack", max_err(got, want),
-           lambda: dp_mod.dispatch_pack(x0, g0, out_dtype=dt),
-           lambda: ref.dispatch_pack(x0, g0, None, dt),
-           bound(nbytes(x0, live) + nbytes(got) + nbytes(g0), 0, F32_OPS_S), None,
-           f"[{T},{d}] -> {list(got.shape)}")
+    timed("dispatch_pack", max_err(got, want),
+          lambda: dp_mod.dispatch_pack(x0, g0, out_dtype=dt),
+          lambda: ref.dispatch_pack(x0, g0, None, dt),
+          bound(nbytes(x0, live) + nbytes(got) + nbytes(g0), 0, F32_OPS_S), None,
+          f"[{T},{d}] -> {list(got.shape)}")
     fp8_ms = device_ms(lambda: dp_mod.dispatch_pack(x0, g0, quant_block=128), 50)
     fp8_bnd = bound(nbytes(x0, live) + nbytes(q) + nbytes(s) + nbytes(g0),
                     3 * live * d, F32_OPS_S)
@@ -348,11 +388,11 @@ def kernel_phase(cfg, params) -> dict:
                       ref.recv_unpack(qrecv, gr, srecv, dt)),
           "recv_unpack (fp8 dequant) differs from its plain version")
     live = int((gr < recv0.shape[0]).sum())
-    record("recv_unpack", max_err(y3d, want),
-           lambda: ru_mod.recv_unpack(recv0, gr),
-           lambda: ref.recv_unpack(recv0, gr),
-           bound(nbytes(recv0, live) + nbytes(y3d) + nbytes(gr), 0, F32_OPS_S), None,
-           f"{list(recv0.shape)} -> {list(y3d.shape)}")
+    timed("recv_unpack", max_err(y3d, want),
+          lambda: ru_mod.recv_unpack(recv0, gr),
+          lambda: ref.recv_unpack(recv0, gr),
+          bound(nbytes(recv0, live) + nbytes(y3d) + nbytes(gr), 0, F32_OPS_S), None,
+          f"{list(recv0.shape)} -> {list(y3d.shape)}")
 
     # ---- grouped_gemm: rank 0's gate projection (up is the same shape) and
     # its down projection, with the ragged counts of this routing
@@ -375,11 +415,11 @@ def kernel_phase(cfg, params) -> dict:
                      2 * rows * x.shape[2] * w.shape[2], BF16_OPS_S)
 
     # rows past the count are zero in y3d and hmid, so bmm computes the same
-    record("grouped_gemm", max(max_err(got, want), max_err(got_d, want_d)),
-           lambda: gg_mod.grouped_gemm(y3d, w1, counts),
-           lambda: ref.grouped_gemm(y3d, w1, counts),
-           gemm_bound(y3d, w1, got), lambda: torch.bmm(y3d, w1),
-           f"{list(y3d.shape)} @ {list(w1.shape)}", iters=10)
+    timed("grouped_gemm", max(max_err(got, want), max_err(got_d, want_d)),
+          lambda: gg_mod.grouped_gemm(y3d, w1, counts),
+          lambda: ref.grouped_gemm(y3d, w1, counts),
+          gemm_bound(y3d, w1, got), lambda: torch.bmm(y3d, w1),
+          f"{list(y3d.shape)} @ {list(w1.shape)}", iters=10)
     dbnd = gemm_bound(hmid, w2, got_d)
     print(f"grouped_gemm down {list(hmid.shape)} @ {list(w2.shape)}: kernel "
           f"{device_ms(lambda: gg_mod.grouped_gemm(hmid, w2, counts), 10):.4f} ms, "
@@ -403,12 +443,12 @@ def kernel_phase(cfg, params) -> dict:
 
         def library():
             return F.embedding_bag(idx, crecv, per_sample_weights=wb, mode="sum")
-    record("combine_gather_reduce", max_err(got, want),
-           lambda: cg_mod.combine_gather_reduce(crecv, crows, cw),
-           lambda: ref.combine_gather_reduce(crecv, crows, cw),
-           bound(nbytes(crecv, valid) + nbytes(crows) + nbytes(cw) + nbytes(got),
-                 2 * valid * d, F32_OPS_S), library,
-           f"{list(crecv.shape)} rows {list(crows.shape)}")
+    timed("combine_gather_reduce", max_err(got, want),
+          lambda: cg_mod.combine_gather_reduce(crecv, crows, cw),
+          lambda: ref.combine_gather_reduce(crecv, crows, cw),
+          bound(nbytes(crecv, valid) + nbytes(crows) + nbytes(cw) + nbytes(got),
+                2 * valid * d, F32_OPS_S), library,
+          f"{list(crecv.shape)} rows {list(crows.shape)}")
     return out
 
 
@@ -438,33 +478,69 @@ def trace_phase(label: str, run, itl_s: float, untraced: str = "ITL mean"):
     return iv, wall_us / 1e6
 
 
-def serve_phase(srv: DecodeServer, card: str) -> tuple[dict, float]:
-    """The main path: DecodeServer.serve, with every launch counter read."""
+def serve_prompts(vocab: int) -> torch.Tensor:
+    """The fixed-batch serves' prompts, the same for every server."""
+    return torch.randint(0, vocab, (BATCH, PROMPT), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(2))
+
+
+def serve_run(srv: DecodeServer, card: str, path: str) -> tuple[dict, dict]:
+    """``DecodeServer.serve`` on the seeded prompts, every launch counter
+    read, the counts held to ``path``'s. Returns the launches and the
+    metrics."""
     cfg = srv.cfg
-    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), dtype=torch.int32,
-                            generator=torch.Generator().manual_seed(2))
     reset_counts()
-    metrics = srv.serve(prompts, GEN)
+    metrics = srv.serve(serve_prompts(cfg.vocab), GEN)
     launches = counts()
-    check_ep_counts(launches, PROMPT + GEN, "the DecodeServer path")
-    check(launches[PAGED[0]] == 0, "the dense path launched paged attention")
+    check_ep_counts(launches, PROMPT + GEN, f"the {path} DecodeServer path", path)
+    check(launches[PAGED] == 0 and launches[FLASH] == 0,
+          "the dense decode path launched paged or flash attention")
     toks = srv.last_tokens
     check(toks.shape == (BATCH, GEN + 1) and toks.min() >= 0 and toks.max() < cfg.vocab,
           f"bad token stream {toks.shape}")
     m = {k: v for k, v in metrics.as_dict().items() if v is not None}
     check(all(np.isfinite(v) and v > 0 for v in m.values()), f"bad metrics {m}")
-    print(f"serve ({card}): ttft {m['ttft_s']:.4f} s, itl mean {m['itl_mean_s']:.4f} s, "
-          f"itl p99 {m['itl_p99_s']:.4f} s, {m['output_tok_s']:.1f} output tok/s, "
-          f"{m['total_tokens']} tokens; launches {launches}")
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print(f"serve, {path} ({card}): ttft {m['ttft_s']:.4f} s, itl mean "
+          f"{m['itl_mean_s']:.4f} s, itl p99 {m['itl_p99_s']:.4f} s, "
+          f"{m['output_tok_s']:.1f} output tok/s, {m['total_tokens']} tokens; "
+          f"launches {launches}")
+    return launches, m
 
-    dense = DecodeServer(cfg, BATCH, PROMPT + GEN + 1, ep_size=1, params=srv.params)
-    dm = dense.serve(prompts, GEN).as_dict()
-    agree = dense.last_tokens == toks
+
+def serve_phase(srv: DecodeServer, card: str) -> tuple[dict, float]:
+    """The first main path: the preset's LL nccl_ep serve, then a dense
+    server on the same weights for the token agreement."""
+    launches, m = serve_run(srv, card, "nccl_ep")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    dense = DecodeServer(srv.cfg, BATCH, PROMPT + GEN + 1, ep_size=1, params=srv.params)
+    dm = dense.serve(serve_prompts(srv.cfg.vocab), GEN).as_dict()
+    agree = dense.last_tokens == srv.last_tokens
     print(f"dense server (no EP, same weights): itl mean {dm['itl_mean_s']:.4f} s, "
           f"{dm['output_tok_s']:.1f} output tok/s; greedy tokens equal to the EP "
           f"run: {agree.mean():.4f} of all, {agree[:, 0].mean():.4f} of the first")
     return launches, m["itl_mean_s"]
+
+
+def layout_serve_phase(srv: DecodeServer, card: str) -> dict:
+    """The serve again in the LL deepep layout with fp8 dispatch and through
+    the baseline dispatcher, on the same weights and prompts. The baseline
+    computes every row with the same kernels in the same k order as
+    nccl_ep, so its tokens must equal the nccl_ep serve's; fp8 changes
+    tokens, so the deepep agreement is reported. Returns, per layout, the
+    server, its launches and its ITL mean."""
+    out = {}
+    for path, moe in LAYOUTS.items():
+        cfg = dataclasses.replace(srv.cfg, moe=dataclasses.replace(srv.cfg.moe, **moe))
+        lsrv = DecodeServer(cfg, BATCH, PROMPT + GEN + 1, ep_size=RANKS, params=srv.params)
+        launches, m = serve_run(lsrv, card, path)
+        agree = lsrv.last_tokens == srv.last_tokens
+        print(f"  greedy tokens equal to the nccl_ep serve: {agree.mean():.4f} of all, "
+              f"{agree[:, 0].mean():.4f} of the first; bitwise equal stream "
+              f"{bool(agree.all())}")
+        if path == "baseline":
+            check(bool(agree.all()), "the baseline serve's tokens differ from nccl_ep's")
+        out[path] = (lsrv, launches, m["itl_mean_s"])
+    return out
 
 
 def oracle_phase(cfg, params) -> None:
@@ -480,6 +556,147 @@ def oracle_phase(cfg, params) -> None:
         rel = float((ep.float() - dn.float()).norm() / dn.float().norm())
         print(f"oracle: MoE layer {i} EP vs dense relative error {rel:.3g} (limit {TOL})")
         check(rel <= TOL, f"MoE layer {i}: EP output off the dense fallback by {rel}")
+
+
+class RecordingComm(LocalComm):
+    """``LocalComm`` that logs, for each all-to-all, the bytes of rank 0's
+    send and receive buffers, read from the tensors."""
+
+    def __init__(self, n: int):
+        super().__init__(n)
+        self.log: list[tuple[int, int]] = []
+
+    def all_to_all(self, sends):
+        recvs = super().all_to_all(sends)
+        self.log.append((sends[0].nbytes, recvs[0].nbytes))
+        return recvs
+
+
+def layout_oracle_phase(cfg, params) -> None:
+    """Each MoE layer in the deepep layout (fp8 and bf16 payloads) and
+    through the baseline against the dense fallback on the same input; with
+    fp8 both sides get the plain quantize->dequantize round trip of x. Then
+    one line with each layout's all-to-all buffer bytes per rank and layer."""
+    gen = torch.Generator(device=DEV).manual_seed(16)
+    cases = {"nccl_ep": {}, "deepep_fp8": LAYOUTS["deepep_fp8"],
+             "deepep": dict(ll_layout="deepep"), "baseline": LAYOUTS["baseline"]}
+    sizes = {}
+    for label, moe in cases.items():
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
+        for i in range(LAYERS if label != "nccl_ep" else 1):
+            p = {k: v[i] for k, v in params["moe_stack"]["moe"].items()}
+            x = torch.randn((BATCH, 1, cfg.d_model), generator=gen, device=DEV).to(cfg.dtype)
+            if c.moe.quantize_dispatch:
+                x = ref.dequantize_fp8(*ref.quantize_fp8(x, 128), cfg.dtype)
+            comm = RecordingComm(RANKS)
+            ep, _ = moe_block(p, x, c, comm)
+            if i == 0:      # dispatch: payload (and scales); combine: the last
+                disp = comm.log[:-1]
+                sizes[label] = (sum(a for a, _ in disp), sum(b for _, b in disp),
+                                *comm.log[-1])
+            if label == "nccl_ep":      # oracle_phase holds this layout
+                continue
+            dn = _moe_dense_fallback(p, x, c)
+            check(ep.shape == dn.shape == x.shape and bool(torch.isfinite(ep).all()),
+                  f"{label} MoE layer {i}: bad EP output")
+            rel = float((ep.float() - dn.float()).norm() / dn.float().norm())
+            print(f"oracle: {label} MoE layer {i} EP vs dense relative error {rel:.3g} "
+                  f"(limit {TOL})")
+            check(rel <= TOL, f"{label} MoE layer {i} off the dense fallback by {rel}")
+    mib = 2 ** 20
+    print("all-to-all buffer bytes per rank and MoE layer (send / receive, from the "
+          "tensors): " + "; ".join(
+              f"{k} dispatch {a / mib:.4f} / {b / mib:.4f} MiB, combine {c / mib:.4f} / "
+              f"{d / mib:.4f} MiB" for k, (a, b, c, d) in sizes.items()))
+
+
+def fp8_kernel_phase(cfg, params) -> dict:
+    """The standalone fp8 pair. dequantize_fp8 on what rank 0 receives in
+    MoE layer 0 of the deepep serve ([L, N·B] rows after the transpose),
+    bitwise; quantize_fp8 bitwise at the decode and HT x of a rank, bf16 and
+    f32, blocks 128 and 64, and bitwise equal to dispatch_pack's quant mode
+    through an identity map. Returns both records."""
+    dev, dt, d = DEV, cfg.dtype, cfg.d_model
+    c = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **LAYOUTS["deepep_fp8"]))
+    p = {k: v[0] for k, v in params["moe_stack"]["moe"].items()}
+    comm = LocalComm(RANKS)
+    T = BATCH // RANKS
+    group = ep_group(c, comm, T)
+    L, qb = group.local_experts, group.cfg.quant_block
+    gen = torch.Generator(device=dev).manual_seed(17)
+    xs = [torch.randn((T, d), generator=gen, device=dev).to(dt) for _ in range(RANKS)]
+    rs = [route(x.float() @ p["router"], router_config(c.moe)) for x in xs]
+    hs = ep_create_handle(group, [r.topk_idx for r in rs], [r.topk_weights for r in rs])
+    packs = [ref.dispatch_pack(x, h.plan.disp_send_gmap, qb) for x, h in zip(xs, hs)]
+    q = slots.swap_blocks(comm.all_to_all([a for a, _ in packs])[0], RANKS, L)
+    sc = slots.swap_blocks(comm.all_to_all([b for _, b in packs])[0], RANKS, L)
+    got = fp8_mod.dequantize_fp8(q, sc, dt)
+    want = ref.dequantize_fp8(q, sc, dt)
+    check(torch.equal(got, want), "dequantize_fp8 differs from its plain version")
+    bnd = bound(nbytes(q) + nbytes(sc) + nbytes(got), q.numel(), F32_OPS_S)
+    ms = device_ms(lambda: fp8_mod.dequantize_fp8(q, sc, dt), 50)
+    plain_ms = device_ms(lambda: ref.dequantize_fp8(q, sc, dt), 50)
+    print(f"dequantize_fp8 {list(q.shape)} fp8 + {list(sc.shape)} f32 -> {dt}: bitwise "
+          f"equal; kernel {ms:.5f} ms on the card ({call_ms(lambda: fp8_mod.dequantize_fp8(q, sc, dt), 50):.4f} "
+          f"ms per call from the host), plain {plain_ms:.5f} ms, library none, bound "
+          f"{bnd[0]:.5f} ms ({bnd[1]}, {(nbytes(q) + nbytes(sc) + nbytes(got)) / 1e6:.3f} MB)")
+    records = {"dequantize_fp8": record("dequantize_fp8", 0.0, ms, plain_ms, bnd, None)}
+    del packs, q, sc, got, want
+
+    for rows, xdt, block in ((T, dt, 128), (PF_SEQ, dt, 128), (T, torch.float32, 128),
+                             (PF_SEQ, torch.float32, 128), (T, dt, 64), (PF_SEQ, dt, 64)):
+        x = (torch.randn((rows, d), generator=gen, device=dev) * 30).to(xdt)
+        x[1, :block] = 0.0                                  # an all-zero block: scale 1
+        qk, sk = fp8_mod.quantize_fp8(x, block)
+        wq, ws = ref.quantize_fp8(x, block)
+        check(torch.equal(qk.view(torch.uint8), wq.view(torch.uint8)) and torch.equal(sk, ws),
+              f"quantize_fp8 [{rows}, {d}] {xdt} block {block} differs from its plain version")
+        ident = torch.arange(rows, device=dev, dtype=torch.int32).view(1, rows)
+        pq, ps = dp_mod.dispatch_pack(x, ident, quant_block=block)
+        check(torch.equal(pq[0].view(torch.uint8), qk.view(torch.uint8))
+              and torch.equal(ps[0], sk),
+              f"quantize_fp8 [{rows}, {d}] {xdt} block {block} differs from dispatch_pack")
+        bnd = bound(nbytes(x) + nbytes(qk) + nbytes(sk), 2 * x.numel(), F32_OPS_S)
+        ms = device_ms(lambda: fp8_mod.quantize_fp8(x, block), 50 if rows == T else 20)
+        plain_ms = device_ms(lambda: ref.quantize_fp8(x, block), 20 if rows == T else 5)
+        print(f"quantize_fp8 [{rows}, {d}] {xdt} block {block}: bitwise equal to its plain "
+              f"version and to dispatch_pack's quant mode; kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms, library none, bound {bnd[0]:.5f} ms ({bnd[1]})")
+        if (rows, xdt, block) == (T, dt, 128):
+            records["quantize_fp8"] = record("quantize_fp8", max_err(qk, wq), ms,
+                                             plain_ms, bnd, None)
+    return records
+
+
+def combine_reduce_phase(d: int) -> dict:
+    """combine_reduce at K = 4 over 16 and 4096 tokens of width d: bf16 within
+    2e-2, f32 within 1e-5 of its plain version. The library is one
+    ``torch.bmm(w.unsqueeze(1), y)`` on f32 copies, the copies made outside
+    the timed call. Returns the record of the bf16 case at 16 tokens."""
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    out = None
+    for rows, dt, tol in ((BATCH // RANKS, torch.bfloat16, TOL), (PF_SEQ, torch.bfloat16, TOL),
+                          (BATCH // RANKS, torch.float32, 1e-5), (PF_SEQ, torch.float32, 1e-5)):
+        y = torch.randn((rows, 4, d), generator=gen, device=DEV).to(dt)
+        w = torch.rand((rows, 4), generator=gen, device=DEV)
+        got = cr_mod.combine_reduce(y, w)
+        want = ref.combine_reduce(y, w)
+        err = max_err(got, want)
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"combine_reduce [{rows}, 4, {d}] {dt} off its plain version by {err}")
+        yf, wf = y.float(), w.float().unsqueeze(1)
+        iters = 50 if rows < PF_SEQ else 10
+        ms = device_ms(lambda: cr_mod.combine_reduce(y, w), iters)
+        plain_ms = device_ms(lambda: ref.combine_reduce(y, w), iters)
+        library_ms = device_ms(lambda: torch.bmm(wf, yf), iters)
+        bnd = bound(nbytes(y) + nbytes(w) + nbytes(got), 2 * y.numel(), F32_OPS_S)
+        print(f"combine_reduce [{rows}, 4, {d}] {dt}: max_abs_err {err:.3g} (limit {tol}); "
+              f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, library {library_ms:.5f} ms "
+              f"(torch.bmm on f32 copies), bound {bnd[0]:.5f} ms ({bnd[1]})")
+        if out is None:
+            out = record("combine_reduce", err, ms, plain_ms, bnd, library_ms)
+        del y, w, yf, wf, got, want
+    return out
 
 
 def make_requests(vocab: int) -> list[Request]:
@@ -519,7 +736,7 @@ def continuous_phase(cfg, params, card: str):
     scalars = {k: v for k, v in m.items() if isinstance(v, (int, float))}
     check(all(np.isfinite(v) and v >= 0 for v in scalars.values()), f"bad metrics {scalars}")
     check_ep_counts(launches, steps, "the continuous path")
-    for key in (PAGED[0], "paged_decode_attention (stage 2)"):
+    for key in (PAGED, "paged_decode_attention (stage 2)"):
         check(launches[key] == LAYERS * steps, f"{key} launched {launches[key]} "
               f"times on the continuous path, expected {LAYERS * steps}")
     itls = np.concatenate([np.asarray(r["itl_s"]) for r in m["per_request"] if r["itl_s"]])
@@ -768,10 +985,7 @@ def paged_kernel_phase(cfg, main_err: float) -> dict:
     _, mla_err, _ = check_paged(f"share_kv (q [{lens.size}, {Hq}, {dk}], dv {dv}, kv_lens "
                                 f"{lens.tolist()})", q, kp, None, tbl, lt, unused,
                                 lens.size, **kw)
-    return dict(name=PAGED[0], route="cuda", source=PAGED[1], replaces=PAGED[2],
-                launches=None, max_abs_err=max(err, mla_err, main_err), ms=ms,
-                plain_ms=plain_ms,
-                bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+    return record(PAGED, max(err, mla_err, main_err), ms, plain_ms, bnd, None)
 
 
 @contextlib.contextmanager
@@ -830,9 +1044,9 @@ def prefill_phase(params, card: str):
     launches = counts()
     check(bool(torch.isfinite(loss)), f"prefill loss {loss.item()} is not finite")
     check_ep_counts(launches, 1, "the prefill forward")
-    check(launches[FLASH[0]] == LAYERS, f"flash_attention launched "
-          f"{launches[FLASH[0]]} times in the forward, expected {LAYERS}")
-    check(launches[PAGED[0]] == 0, "the prefill forward launched paged attention")
+    check(launches[FLASH] == LAYERS, f"flash_attention launched "
+          f"{launches[FLASH]} times in the forward, expected {LAYERS}")
+    check(launches[PAGED] == 0, "the prefill forward launched paged attention")
     check(len(probes) == LAYERS, f"{len(probes)} MoE handles for {LAYERS} layers")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1027,9 +1241,7 @@ def flash_kernel_phase(cfg) -> dict:
           f"{ref.hbm_bytes(B, Hq, Hkv, S, S, d, 2) / 1e9:.3f} GB), "
           f"{ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s; window 1024 {win_ms:.4f} ms, "
           f"non-causal {nc_ms:.4f} ms")
-    return dict(name=FLASH[0], route="cuda", source=FLASH[1], replaces=FLASH[2],
-                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bnd[0], bound_by=bnd[1], library_ms=library_ms)
+    return record(FLASH, err, ms, plain_ms, bnd, library_ms)
 
 
 def ht_oracle_phase(cfg, params) -> None:
@@ -1062,10 +1274,12 @@ def ht_oracle_phase(cfg, params) -> None:
         r = route(xt.float() @ p["router"], rcfg)
         return r.topk_idx, r.topk_weights
 
+    group = ep_group(cfg, LocalComm(RANKS), ORACLE_T // 2)
+
     def expert_fn(rank, y3d, counts_):
         sl = slice(rank * L, (rank + 1) * L)
-        return _expert_ffn(y3d, counts_, p["w_gate"][sl], p["w_up"][sl], p["w_down"][sl])
-    group = ep_group(cfg, LocalComm(RANKS), ORACLE_T // 2)
+        return _expert_ffn(group, y3d, counts_, p["w_gate"][sl], p["w_up"][sl],
+                           p["w_down"][sl])
     xs = list(x.unbind(0))
     pipe = prefill_moe(group, router_fn, expert_fn, xs, 2)
     seq = sequential_prefill(group, router_fn, expert_fn, xs, 2)
@@ -1100,10 +1314,13 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     # the main paths run first, before any profiling touches the card
     launches, itl_s = serve_phase(srv, card)
+    layouts = layout_serve_phase(srv, card)
     csrv, cm, reqs, claunches = continuous_phase(cfg, srv.params, card)
     plaunches, pf_wall, pcfg, pbatch = prefill_phase(srv.params, card)
     tok = torch.zeros((BATCH, 1), dtype=torch.int32, device=DEV)
     trace_phase("EP decode step", lambda: srv.step(tok), itl_s)
+    for path, (lsrv, _, litl) in layouts.items():
+        trace_phase(f"{path} decode step", lambda: lsrv.step(tok), litl)
     mp = csrv.max_pages
     feed = dict(tokens=np.zeros((BATCH, 1), np.int32),
                 page_tbl=np.arange(BATCH * mp, dtype=np.int32).reshape(BATCH, mp),
@@ -1117,17 +1334,25 @@ def main() -> int:
     prefill_trace_phase(srv.params, pcfg, pbatch, pf_wall)
     records = kernel_phase(cfg, srv.params)
     ht_kernel_phase(pcfg, srv.params)
-    records[PAGED[0]] = paged_kernel_phase(cfg, paged_main_shape_phase(cfg, csrv))
-    records[FLASH[0]] = flash_kernel_phase(pcfg)
+    records[PAGED] = paged_kernel_phase(cfg, paged_main_shape_phase(cfg, csrv))
+    records[FLASH] = flash_kernel_phase(pcfg)
+    records.update(fp8_kernel_phase(cfg, srv.params))
+    records["combine_reduce"] = combine_reduce_phase(cfg.d_model)
     oracle_phase(cfg, srv.params)
+    layout_oracle_phase(cfg, srv.params)
     ht_oracle_phase(pcfg, srv.params)
     solo_phase(cfg, srv.params, csrv, reqs)
     paged_vs_dense_phase(cfg, srv.params)
     for name, n in launches.items():
         if name in records:
             records[name]["launches"] = n
-    records[PAGED[0]]["launches"] = claunches[PAGED[0]]
-    records[FLASH[0]]["launches"] = plaunches[FLASH[0]]
+    records[PAGED]["launches"] = claunches[PAGED]
+    records[FLASH]["launches"] = plaunches[FLASH]
+    for name in ("quantize_fp8", "dequantize_fp8", "combine_reduce"):
+        records[name]["launches"] = layouts["deepep_fp8"][1][name]
+    check(sorted(records) == sorted(KERNELS)
+          and all(r["launches"] is not None for r in records.values()),
+          f"kernel records {sorted(records)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ that ``ep_complete`` finishes.
 """
 from __future__ import annotations
 
+from repro_torch.core import baseline as _baseline  # noqa: F401  (registers baseline)
 from repro_torch.core import ht as _ht  # noqa: F401  (registers the HT backend)
 from repro_torch.core import ll as _ll  # noqa: F401  (registers the LL backend)
 from repro_torch.core.backend import EpPending, get_backend

@@ -79,7 +79,6 @@ class BaseBackend:
 
 
 _REGISTRY: dict[str, BaseBackend] = {}
-_WAITING = {"baseline": "ROADMAP A5"}
 
 
 def register_backend(backend: BaseBackend) -> BaseBackend:
@@ -92,8 +91,5 @@ def get_backend(mode: str) -> BaseBackend:
     """The only mode dispatch in the API layer."""
     if mode in _REGISTRY:
         return _REGISTRY[mode]
-    if mode in _WAITING:
-        raise NotImplementedError(
-            f"EP mode {mode!r} is not ported yet ({_WAITING[mode]})")
     raise KeyError(f"no EP backend registered for mode {mode!r}; "
                    f"known: {sorted(_REGISTRY)}")

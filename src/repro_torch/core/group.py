@@ -33,8 +33,6 @@ class EpGroupConfig:
     hidden: int
     top_k: int
     mode: Literal["ll", "ht", "baseline", "auto"] = "auto"
-    # "nccl_ep" = the paper's memory-optimized LL layout; "deepep" waits for
-    # the standalone fp8 kernel (ROADMAP B5)
     ll_layout: Literal["nccl_ep", "deepep"] = "nccl_ep"
     capacity_factor: float | None = None      # None = zero-drop capacities
     # LL 3D expert-region factor; None = num_ranks * max_tokens_per_rank rows

@@ -1,16 +1,22 @@
-"""Low-Latency (LL) mode, ``nccl_ep`` layout (port of
+"""Low-Latency (LL) mode, ``nccl_ep`` and ``deepep`` layouts (port of
 ``src/repro/core/ll.py``).
 
-A token is sent once per destination rank into a per-rank block of C_d
-slots; combine responses are packed per (t, k). Both sides read the slot
-maps precomputed in the handle's plan, so each phase body is one pass of
-data movement: dispatch send is ``dispatch_pack`` (gather plus optional fp8)
-then the all-to-all, dispatch recv is ``recv_unpack`` into the expert-major
-[L, A, H] tensor, combine send is ``dispatch_pack`` over the expert output,
-and combine recv is ``combine_gather_reduce``. Every function takes one
-value per hosted rank and tags its pendings with the group's mode: the flat
-HT path (``core/ht.py``) runs these same functions over its own maps. The
-``deepep`` layout waits for ROADMAP B5.
+``nccl_ep``: a token is sent once per destination rank into a per-rank
+block of C_d slots; combine responses are packed per (t, k). Both sides read
+the slot maps precomputed in the handle's plan, so each phase body is one
+pass of data movement: dispatch send is ``dispatch_pack`` (gather plus
+optional fp8) then the all-to-all, dispatch recv is ``recv_unpack`` into the
+expert-major [L, A, H] tensor, combine send is ``dispatch_pack`` over the
+expert output, and combine recv is ``combine_gather_reduce``.
+
+``deepep``: one slot per (local expert, source token), O(E·B·P) buffers; a
+token routed to k experts is sent k times. The dispatch send and the
+combine recv are the ``nccl_ep`` phases over the ``deepep`` maps; the
+dispatch recv is a transpose ([N, L·B] -> [L, N·B]) plus the standalone
+``dequantize_fp8`` for an fp8 payload, and the combine send the transpose
+back. Every function takes one value per hosted rank and tags its pendings
+with the group's mode: the flat HT path (``core/ht.py``) and the baseline
+(``core/baseline.py``) run these functions over their own maps.
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ from repro_torch.core import plan as P
 from repro_torch.core import slots as S
 from repro_torch.core.backend import BaseBackend, EpPending, register_backend
 from repro_torch.core.group import EpGroup, EpHandle
-from repro_torch.core.recv import unpack_recv
+from repro_torch.core.recv import dequant_rows, unpack_recv
 from repro_torch.kernels import ops as K
 
 
@@ -66,6 +72,8 @@ def ll_dispatch_send(group: EpGroup, handles: list, xs: list) -> list[EpPending]
 
 def ll_complete_dispatch(group: EpGroup, handles: list, pendings: list):
     """Unpack [N, C_d, H] into [L, A, H]; returns [(out3d, counts [L])]."""
+    if P.positional_layout(group):
+        return positional_dispatch_recv(group, handles, pendings)
     outs = []
     for h, p in zip(handles, pendings):
         plan = P.ensure_plan(group, h)
@@ -74,8 +82,32 @@ def ll_complete_dispatch(group: EpGroup, handles: list, pendings: list):
     return outs
 
 
+def positional_dispatch_recv(group: EpGroup, handles: list, pendings: list):
+    """Rows landed by position: [N, L·c, H] -> [L, N·c, H] is a transpose,
+    then the block dequant of an fp8 payload (``deepep``; the baseline with
+    c its per-expert capacity and no scales)."""
+    N, L = group.ep_size, group.local_experts
+    outs = []
+    for h, p in zip(handles, pendings):
+        sc = None if p.recv_scales is None else S.swap_blocks(p.recv_scales, N, L)
+        outs.append((dequant_rows(S.swap_blocks(p.recv, N, L), sc),
+                     P.ensure_plan(group, h).disp_counts))
+    return outs
+
+
+def positional_combine_send(group: EpGroup, handles: list, y3ds: list) -> list[EpPending]:
+    """The transpose back, [L, N·c, H] -> [N, L·c, H], at the payload
+    dtype, and the exchange."""
+    N, L = group.ep_size, group.local_experts
+    sends = [S.swap_blocks(y, L, N).to(group.cfg.payload_dtype) for y in y3ds]
+    return [EpPending(mode=group.mode, op="combine", recv=r)
+            for r in group.comm.all_to_all(sends)]
+
+
 def ll_combine_send(group: EpGroup, handles: list, y3ds: list) -> list[EpPending]:
     """Pack each rank's owned responses per source rank and exchange."""
+    if P.positional_layout(group):
+        return positional_combine_send(group, handles, y3ds)
     sends = [K.dispatch_pack(S.flat_rows(y), P.ensure_plan(group, h).comb_send_gmap,
                              out_dtype=group.cfg.payload_dtype)[0]
              for h, y in zip(handles, y3ds)]
@@ -92,7 +124,7 @@ def ll_complete_combine(group: EpGroup, handles: list, pendings: list):
 
 
 class LLBackend(BaseBackend):
-    """LL mode behind the EpBackend protocol."""
+    """LL mode behind the EpBackend protocol (both layouts)."""
 
     mode = "ll"
 

@@ -1,5 +1,6 @@
-"""EpPlan: the precomputed slot-map engine, LL ``nccl_ep`` layout and the
-flat HT path (port of those pieces of ``src/repro/core/plan.py``).
+"""EpPlan: the precomputed slot-map engine for LL (``nccl_ep`` and
+``deepep`` layouts), the flat HT path and the baseline a2a dispatcher (port
+of those pieces of ``src/repro/core/plan.py``).
 
 Every gather map and count of every phase is derived once, at handle
 creation, so dispatch and combine are single gather passes over int32 maps
@@ -34,28 +35,37 @@ def dest_of(group: EpGroup, experts: torch.Tensor):
 
 @dataclasses.dataclass
 class EpPlan:
-    """One rank's precomputed maps (all int32), LL ``nccl_ep`` or HT flat."""
+    """One rank's precomputed maps (all int32). The positional layouts (LL
+    ``deepep``, baseline) land rows by position, so their recv and combine
+    send read no map and leave those two fields None."""
 
     disp_send_gmap: torch.Tensor    # [N, C_d] slot -> local token row (sentinel T)
-    disp_recv_gmap: torch.Tensor    # [L, A] expert slot -> recv row (sentinel N*C_d)
-    disp_counts: torch.Tensor       # [L] capacity-aware recv counts
-    comb_send_gmap: torch.Tensor    # [N, C_c] slot -> y3d flat row (sentinel L*A)
+    disp_counts: torch.Tensor       # [L] recv counts (capacity-aware in nccl_ep, HT)
     comb_recv_rows: torch.Tensor    # [T, K] entry -> recv flat row (sentinel N*C_c)
+    disp_recv_gmap: torch.Tensor | None = None  # [L, A] expert slot -> recv row
+    comb_send_gmap: torch.Tensor | None = None  # [N, C_c] slot -> y3d flat row
 
 
 def build_plan(group: EpGroup, rank: int, topk_idx: torch.Tensor,
                topk_global: torch.Tensor, num_tokens: int) -> EpPlan:
     """Derive rank ``rank``'s slot maps for the group's mode and layout.
     HT is the flat path: ``ep_create_group`` refuses a hierarchical group."""
-    if group.mode == "ht":
+    mode = group.mode
+    if mode == "ll":
+        if group.cfg.ll_layout == "deepep":
+            return _ll_deepep_plan(group, rank, topk_idx, topk_global, num_tokens)
+        return _ll_ncclep_plan(group, rank, topk_idx, topk_global, num_tokens)
+    if mode == "ht":
         return _ht_flat_plan(group, rank, topk_idx, topk_global, num_tokens)
-    if group.mode != "ll":
-        raise NotImplementedError(
-            f"EP mode {group.mode!r} is not ported yet (ROADMAP A5)")
-    if group.cfg.ll_layout != "nccl_ep":
-        raise NotImplementedError(
-            "the deepep LL layout needs the standalone fp8 kernel (ROADMAP B5)")
-    return _ll_ncclep_plan(group, rank, topk_idx, topk_global, num_tokens)
+    return _baseline_plan(group, rank, topk_idx, topk_global, num_tokens)
+
+
+def positional_layout(group: EpGroup) -> bool:
+    """Whether the group's rows land by position (LL ``deepep``, baseline):
+    slot (expert, source rank, token) is fixed, so the recv and the combine
+    send are transposes, and an expert's rows are not packed from row 0."""
+    return group.mode == "baseline" or (group.mode == "ll"
+                                        and group.cfg.ll_layout == "deepep")
 
 
 def ensure_plan(group: EpGroup, handle) -> EpPlan:
@@ -193,6 +203,30 @@ def _ll_ncclep_plan(group: EpGroup, me: int, topk_idx: torch.Tensor,
     )
 
 
+def _ll_deepep_plan(group: EpGroup, me: int, topk_idx: torch.Tensor,
+                    topk_g: torch.Tensor, num_tokens: int) -> EpPlan:
+    """Per-(expert, src-rank)-slot layout: slot ids are positional
+    (e_l·B + t), so recv and combine send are pure transposes; only the
+    send map and the combine rows are precomputed."""
+    N, L = group.ep_size, group.local_experts
+    B = group.cfg.max_tokens_per_rank
+    T, Kk = topk_idx.shape
+    if T > B:
+        raise ValueError(f"the deepep layout holds B={B} tokens per rank, got {T}")
+    dev = topk_idx.device
+    dst, e_l = dest_of(group, topk_idx)                      # [T, K]
+    token_valid = torch.arange(T, device=dev) < num_tokens
+    t_idx = torch.arange(T, device=dev)[:, None].expand(T, Kk)
+    disp_send_gmap = S.build_gather_map(
+        dst.reshape(-1), (e_l * B + t_idx).reshape(-1), t_idx.reshape(-1),
+        token_valid[:, None].expand(T, Kk).reshape(-1), N, L * B, sentinel=T)
+    row = torch.where(token_valid[:, None], dst * (L * B) + e_l * B + t_idx,
+                      N * L * B)
+    return EpPlan(disp_send_gmap=disp_send_gmap,
+                  disp_counts=recv_counts(group, me, topk_g),
+                  comb_recv_rows=row.to(torch.int32))
+
+
 # --------------------------------------------------------------------------
 # HT flat path (paper §V, single EP axis)
 # --------------------------------------------------------------------------
@@ -241,3 +275,30 @@ def _ht_flat_plan(group: EpGroup, me: int, topk_idx: torch.Tensor,
         disp_counts=counts, comb_send_gmap=comb_send_gmap,
         comb_recv_rows=row.reshape(T, Kk).to(i32),
     )
+
+
+# --------------------------------------------------------------------------
+# baseline (Megatron AllToAll dispatcher, paper §I)
+# --------------------------------------------------------------------------
+
+def _baseline_plan(group: EpGroup, me: int, topk_idx: torch.Tensor,
+                   topk_g: torch.Tensor, num_tokens: int) -> EpPlan:
+    """Per-(expert, src) capacity blocks of Ce slots: dispatch permute and
+    combine unpermute share the same position chain. Padded rows already
+    route to the sentinel expert E (``mask_padding``)."""
+    from repro_torch.core.baseline import _per_expert_cap  # baseline imports plan
+    N, L = group.ep_size, group.local_experts
+    T, Kk = topk_idx.shape
+    Ce = _per_expert_cap(group)
+    dev = topk_idx.device
+    dst, e_l = dest_of(group, topk_idx)                      # [T, K]
+    valid = (topk_idx < group.cfg.num_experts).reshape(-1)
+    block = torch.where(valid, (dst * L + e_l).reshape(-1), N * L)
+    pos, _ = S.positions_by_dest(block, N * L, valid)
+    t_of = torch.arange(T, device=dev)[:, None].expand(T, Kk).reshape(-1)
+    gmap = S.build_gather_map(block, pos, t_of, valid, N * L, Ce, sentinel=T)
+    row = torch.where(valid & (pos < Ce), block.clamp(0, N * L - 1) * Ce + pos,
+                      N * L * Ce)
+    return EpPlan(disp_send_gmap=gmap.reshape(N, L * Ce),
+                  disp_counts=recv_counts(group, me, topk_g),
+                  comb_recv_rows=row.reshape(T, Kk).to(torch.int32))

@@ -1,6 +1,7 @@
-"""The single recv-side unpack site (port of ``src/repro/core/recv.py``):
-one fused ``recv_unpack`` pass through a slot map, dequantizing an fp8
-payload in the same pass."""
+"""The recv-side unpack sites (port of ``src/repro/core/recv.py``): one
+fused ``recv_unpack`` pass through a slot map, dequantizing an fp8 payload
+in the same pass; and ``dequant_rows`` for the layouts that land rows by
+position (LL ``deepep``), where unpack is a transpose and no map is read."""
 from __future__ import annotations
 
 import torch
@@ -16,3 +17,11 @@ def unpack_recv(recv: torch.Tensor, gmap: torch.Tensor,
     an fp8 payload. Returns gmap.shape + (H,)."""
     s_flat = S.flat_rows(scales) if scales is not None else None
     return K.recv_unpack(S.flat_rows(recv), gmap, s_flat, out_dtype)
+
+
+def dequant_rows(rows: torch.Tensor, scales: torch.Tensor | None) -> torch.Tensor:
+    """Block-dequantize rows that landed by position (no slot map). Scales
+    None means an unquantized payload, returned unchanged."""
+    if scales is None:
+        return rows
+    return K.dequantize_fp8(rows, scales)

@@ -57,3 +57,17 @@ def build_gather_map(dest: torch.Tensor, pos: torch.Tensor, src: torch.Tensor,
 def flat_rows(x: torch.Tensor) -> torch.Tensor:
     """Collapse leading dims so gather maps can address [M, H] rows."""
     return x.reshape((-1,) + tuple(x.shape[-1:]))
+
+
+def swap_blocks(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """[a, b·c, ...] -> [b, a·c, ...], contiguous: the block of c rows at
+    (i, j) moves to (j, i). The positional layouts' recv and combine
+    send (LL ``deepep``: [N, L·B] <-> [L, N·B]; baseline the same with its
+    per-expert capacity). 1-byte floats move as their bytes: not every copy
+    kernel takes fp8."""
+    dt = x.dtype
+    if dt.is_floating_point and dt.itemsize == 1:
+        x = x.view(torch.uint8)
+    tail = tuple(x.shape[2:])
+    out = x.reshape((a, b, -1) + tail).transpose(0, 1).reshape((b, -1) + tail)
+    return out.view(dt)

@@ -82,6 +82,54 @@ __device__ inline void store8(void* p, int64_t i, int dt, const float v[8]) {
   }
 }
 
+// Block-wise fp8 e4m3 quantization of the `qb` elements at element `base` of
+// src (dtype sdt) into dst, by one warp: amax over the block by shuffles,
+// scale = amax / 448 (1 for an all-zero block), each element divided by the
+// scale and rounded to e4m3 with satfinite. A true division, never a
+// multiply by 1/scale, keeps the plain version's bits. Returns the scale in
+// every lane. dispatch_pack's quant mode and quantize_fp8 both call it, so
+// the two agree bit for bit. With `vec` (qb % 8 == 0, a 16-byte aligned
+// source row, an 8-byte aligned dst) a lane takes eight elements at a time
+// and stores their eight bytes at once.
+__device__ inline float quant_block_warp(const void* src, int64_t base, int qb,
+                                         int sdt, __nv_fp8_storage_t* dst,
+                                         bool vec) {
+  const int lane = threadIdx.x % 32;
+  float amax = 0.f;
+  if (vec) {
+    for (int j = lane * 8; j < qb; j += 32 * 8) {
+      float v[8];
+      load8(src, base + j, sdt, v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) amax = fmaxf(amax, fabsf(v[k]));
+    }
+  } else {
+    for (int j = lane; j < qb; j += 32)
+      amax = fmaxf(amax, fabsf(load_elem(src, base + j, sdt)));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float scale = amax > 0.f ? amax / 448.f : 1.f;
+  if (vec) {
+    for (int j = lane * 8; j < qb; j += 32 * 8) {
+      float v[8];
+      load8(src, base + j, sdt, v);
+      uint2 u;
+      __nv_fp8_storage_t* b = reinterpret_cast<__nv_fp8_storage_t*>(&u);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        b[k] = __nv_cvt_float_to_fp8(v[k] / scale, __NV_SATFINITE, __NV_E4M3);
+      *reinterpret_cast<uint2*>(dst + base + j) = u;
+    }
+  } else {
+    for (int j = lane; j < qb; j += 32)
+      dst[base + j] = __nv_cvt_float_to_fp8(load_elem(src, base + j, sdt) / scale,
+                                            __NV_SATFINITE, __NV_E4M3);
+  }
+  return scale;
+}
+
 // Copy one row of `width` elements from src (dtype sdt) to dst (dtype ddt),
 // the whole block cooperating. src == nullptr writes a zero row. Same-dtype
 // rows move as raw bytes (16 at a time when `vec`), so the copy is exact;

@@ -5,9 +5,10 @@
 // copy and quant kernels). The work is a row gather, so it is bound by
 // bytes: each live slot reads one token row and writes one packed row. One
 // block per slot row loads its slot index once, then moves the row with
-// 16-byte loads (copy mode) or reduces amax per quant block with one warp per
-// block (quant mode). A sentinel slot (index outside [0, T)) writes a zero
-// row, and in quant mode a scale of 1.0, as quantizing a zero row would.
+// 16-byte loads (copy mode) or quantizes each quant block with one warp
+// (quant mode: common.cuh quant_block_warp, which fp8.cu's quantize_fp8
+// calls too). A sentinel slot (index outside [0, T)) writes a zero row, and
+// in quant mode a scale of 1.0, as quantizing a zero row would.
 #include "common.cuh"
 
 __global__ void dispatch_pack_copy_kernel(const void* __restrict__ x,
@@ -41,22 +42,12 @@ __global__ void dispatch_pack_quant_kernel(const void* __restrict__ x,
   }
   const void* xrow =
       static_cast<const char*>(x) + static_cast<int64_t>(src) * H * dtype_size(xdt);
-  const int lane = threadIdx.x % 32;
+  // the wrapper guarantees 16-byte aligned token rows and H % 8 == 0
+  const bool vec = qb % 8 == 0;
   const int nwarps = blockDim.x / 32;
   for (int64_t b = threadIdx.x / 32; b < nblk; b += nwarps) {
-    const int64_t base = b * qb;
-    float amax = 0.f;
-    for (int j = lane; j < qb; j += 32)
-      amax = fmaxf(amax, fabsf(load_elem(xrow, base + j, xdt)));
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    const float scale = amax > 0.f ? amax / 448.f : 1.f;
-    // a true division (not a multiply by 1/scale) keeps the plain version's bits
-    for (int j = lane; j < qb; j += 32)
-      qrow[base + j] = __nv_cvt_float_to_fp8(load_elem(xrow, base + j, xdt) / scale,
-                                             __NV_SATFINITE, __NV_E4M3);
-    if (lane == 0) srow[b] = scale;
+    const float scale = quant_block_warp(xrow, b * qb, qb, xdt, qrow, vec);
+    if (threadIdx.x % 32 == 0) srow[b] = scale;
   }
 }
 

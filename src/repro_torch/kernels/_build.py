@@ -24,7 +24,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("dispatch_pack.cu", "recv_unpack.cu", "grouped_gemm.cu",
            "combine_gather_reduce.cu", "paged_decode_attention.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "fp8.cu", "combine_reduce.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,6 +47,9 @@ _SIGNATURES = {
     "ep_paged_decode_stage2": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ep_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L,
                            _L, _L, _L, _F, _I, _I, _I, _P),
+    "ep_quantize_fp8": (_P, _P, _P, _L, _L, _I, _I, _I, _P),
+    "ep_dequantize_fp8": (_P, _P, _P, _L, _L, _I, _I, _I, _P),
+    "ep_combine_reduce": (_P, _P, _P, _I, _L, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -4,12 +4,12 @@ A tensor on the CPU goes to the plain version in ``kernels/ref.py``. Any
 other tensor goes to the hand-written Hopper kernel, whose wrapper launches
 it or raises (wrong device, dtype, shape or alignment); nothing falls back.
 Unlike the TPU routing in ``src/repro/kernels/ops.py`` there are no
-``H % 128`` lane gates: the kernels take any H that is a multiple of 8, any
-fp8 block that divides H, and ``recv_unpack`` any row width; nor the
-``dk % 128`` / ``page % 8`` gates of paged decode attention, whose kernel
-takes any page size and head widths that are multiples of 8; nor the TPU
-gate of ``flash_attention_bshd``, which picks the kernel or the plain version
-by device and has no chunked-XLA fallback.
+``H % 128`` lane gates or ``M % 8`` row gates: the kernels take any H that
+is a multiple of 8, any fp8 block that divides H, and ``recv_unpack`` any
+row width; nor the ``dk % 128`` / ``page % 8`` gates of paged decode
+attention, whose kernel takes any page size and head widths that are
+multiples of 8; nor the TPU gate of ``flash_attention_bshd``, which picks
+the kernel or the plain version by device and has no chunked-XLA fallback.
 """
 from __future__ import annotations
 
@@ -17,15 +17,39 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import combine_gather_reduce as _cgr
+from repro_torch.kernels import combine_reduce as _cr
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dispatch_pack as _dp
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import fp8 as _fp8
 from repro_torch.kernels import grouped_gemm as _gg
 from repro_torch.kernels import recv_unpack as _ru
 
 
 def _plain(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+def combine_reduce(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[T, K, H] responses reduced under [T, K] weights -> [T, H]."""
+    if _plain(y):
+        return _ref.combine_reduce(y, w)
+    return _cr.combine_reduce(y, w)
+
+
+def quantize_fp8(x: torch.Tensor, block: int = 128):
+    """Block-wise fp8 e4m3: [..., H] -> (q, scales [..., H/block])."""
+    if _plain(x):
+        return _ref.quantize_fp8(x, block)
+    return _fp8.quantize_fp8(x, block)
+
+
+def dequantize_fp8(q: torch.Tensor, scales: torch.Tensor,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of quantize_fp8: q times its block's scale."""
+    if _plain(q):
+        return _ref.dequantize_fp8(q, scales, out_dtype)
+    return _fp8.dequantize_fp8(q, scales, out_dtype)
 
 
 def dispatch_pack(x: torch.Tensor, gmap: torch.Tensor,

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import (EpGroupConfig, ep_combine, ep_complete,
                               ep_create_group, ep_create_handle, ep_dispatch)
+from repro_torch.core import plan as P
 from repro_torch.core.routing import RouterConfig, route
 from repro_torch.kernels import ops as K
 from repro_torch.models.config import ArchConfig, ParamSpec
@@ -54,8 +55,14 @@ def router_config(m) -> RouterConfig:
     )
 
 
-def _expert_ffn(y3d, counts, w1, w3, w2):
+def _expert_ffn(group, y3d, counts, w1, w3, w2):
     """Grouped SwiGLU over [L, A, D], rows past each count left zero."""
+    if P.positional_layout(group):
+        # rows land by position (baseline, LL deepep), not packed from row 0,
+        # so every row is computed: unfilled rows are zero rows and combine
+        # never reads them. The reference passes the counts for deepep and
+        # zeroes valid rows (ROADMAP Queue C, tests/test_torch_layouts.py)
+        counts = torch.full_like(counts, y3d.shape[1])
     g = K.grouped_gemm(y3d, w1, counts)
     u = K.grouped_gemm(y3d, w3, counts)
     h = (F.silu(g.float()) * u.float()).to(y3d.dtype)
@@ -101,7 +108,7 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig, comm):
     # staged send/complete is every backend's primitive (as in JAX); the
     # seam is where a micro-batching scheduler would overlap expert compute
     recv = ep_complete(group, handles, ep_dispatch(group, handles, xs, send_only=True))
-    y3ds = [_expert_ffn(y3d, counts,
+    y3ds = [_expert_ffn(group, y3d, counts,
                         p["w_gate"][r * L:(r + 1) * L], p["w_up"][r * L:(r + 1) * L],
                         p["w_down"][r * L:(r + 1) * L])
             for r, (y3d, counts) in zip(comm.ranks, recv)]

@@ -6,8 +6,9 @@ imports JAX, hence the command (see README):
 
     PYTHONPATH=src python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_cuda.py
 
-Data movement (pack, unpack, fp8) must match bit for bit; the GEMM and the
-reduce within 1e-5 (f32) or 2e-2 (bf16), since the sums run in another order.
+Data movement (pack, unpack, fp8 quantize and dequantize) must match bit for
+bit; the GEMM and the reductions within 1e-5 (f32) or 2e-2 (bf16), since the
+sums run in another order.
 Paged decode attention sums in f32 whatever the pool's type, so it is held
 to 1e-4 in both, and must not change a bit when unreferenced pages change.
 Flash attention is held to 1e-4 in f32 and 2e-2 in bf16, where the kernel
@@ -22,9 +23,11 @@ from repro_torch.comm import LocalComm
 from repro_torch.configs.dbrx_132b import smoke_config
 from repro_torch.device import disable_tf32
 from repro_torch.kernels import combine_gather_reduce as cg
+from repro_torch.kernels import combine_reduce as cr
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import dispatch_pack as dp
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fp8
 from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import recv_unpack as ru
 from repro_torch.kernels import ref
@@ -207,3 +210,81 @@ def test_cuda_moe_block_ht_matches_dense(hopper):
                                   before)]
     assert grew == [16, 8, 24, 8]
     torch.testing.assert_close(y, _moe_dense_fallback(p, x, cfg), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [128, 64, 104])
+def test_cuda_fp8_quantize_dequantize_bitwise(hopper, dt, block):
+    """quantize_fp8 and dequantize_fp8 bitwise against their plain versions
+    (an all-zero block included; block 104 divides H = 520 but is not a
+    power of two), and quantize bitwise against dispatch_pack's quant mode
+    through an identity map: the two share one device function."""
+    M, H = 40, (520 if block == 104 else 512)
+    x = _rand((M, H), dt, hopper, 30.0, 17)
+    x[3, :block] = 0.0
+    before = (fp8.quantize_launches, fp8.dequantize_launches)
+    q, s = fp8.quantize_fp8(x, block)
+    wq, ws = ref.quantize_fp8(x, block)
+    assert torch.equal(q.view(torch.uint8), wq.view(torch.uint8)) and torch.equal(s, ws)
+    assert s[3, 0].item() == 1.0
+    for od in (torch.bfloat16, torch.float32, torch.float16):
+        assert torch.equal(fp8.dequantize_fp8(q, s, od), ref.dequantize_fp8(q, s, od))
+    assert (fp8.quantize_launches, fp8.dequantize_launches) == (before[0] + 1, before[1] + 3)
+    ident = torch.arange(M, device=hopper, dtype=torch.int32).view(1, M)
+    pq, ps = dp.dispatch_pack(x, ident, quant_block=block)
+    assert torch.equal(pq[0].view(torch.uint8), q.view(torch.uint8)) and torch.equal(ps[0], s)
+    q3, s3 = fp8.quantize_fp8(x.view(4, M // 4, H), block)       # any leading shape
+    assert torch.equal(q3.view(torch.uint8).reshape(M, H), q.view(torch.uint8))
+    assert torch.equal(s3.reshape(M, -1), s)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_combine_reduce(hopper, dt):
+    T, K, H = 24, 4, 264
+    y = _rand((T, K, H), dt, hopper, 1.0, 18)
+    w = torch.rand((T, K), device=hopper)
+    before = cr.launches
+    got = cr.combine_reduce(y, w)
+    assert cr.launches == before + 1 and got.dtype == dt
+    torch.testing.assert_close(got, ref.combine_reduce(y, w), **tol(dt))
+    y8 = y.to(torch.float8_e4m3fn)                                # fp8 in, bf16 out
+    torch.testing.assert_close(cr.combine_reduce(y8, w), ref.combine_reduce(y8, w),
+                               rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["deepep", "deepep_fp8", "baseline"])
+def test_cuda_moe_block_positional_layouts_match_dense(hopper, layout):
+    """The LL deepep layer (bf16 payload in f32, fp8 payload in bf16 at
+    d_model 256) and the baseline layer over 8 hosted ranks launch the
+    kernels their path implies and equal the dense fallback: within 1e-5 in
+    f32, and with fp8 within 2e-2 relative of the dense layer fed the plain
+    quantize->dequantize round trip of x."""
+    moe = {"deepep": dict(ll_layout="deepep"), "baseline": dict(ep_mode="baseline"),
+           "deepep_fp8": dict(ll_layout="deepep", quantize_dispatch=True)}[layout]
+    fp8_path = layout == "deepep_fp8"
+    cfg = smoke_config()
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16 if fp8_path else torch.float32,
+                              d_model=256 if fp8_path else cfg.d_model,
+                              moe=dataclasses.replace(cfg.moe, **moe))
+    params = init_params(cfg, seed=0, device=hopper)
+    p = {k: v[0] for k, v in params["moe_stack"]["moe"].items()}
+    x = _rand((16, 2, cfg.d_model), cfg.dtype, hopper, 1.0, 19)
+    if fp8_path:
+        x = ref.dequantize_fp8(*ref.quantize_fp8(x, 128), cfg.dtype)
+
+    def count():
+        return (dp.launches, ru.launches, fp8.dequantize_launches, gg.launches, cg.launches)
+    before = count()
+    y, _ = moe_block(p, x, cfg, LocalComm(8))
+    grew = [a - b for a, b in zip(count(), before)]
+    assert grew == [8, 0, 8 if fp8_path else 0, 24, 8]
+    dense = _moe_dense_fallback(p, x, cfg)
+    if fp8_path:
+        assert (y.float() - dense.float()).norm() / dense.float().norm() <= 2e-2
+    else:
+        torch.testing.assert_close(y, dense, rtol=1e-5, atol=1e-5)

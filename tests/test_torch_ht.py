@@ -193,12 +193,15 @@ def test_hierarchical_and_baseline_refused():
         ep_group(hier, LocalComm(N), T)
     assert ep_group(dataclasses.replace(hier, moe=dataclasses.replace(
         hier.moe, ep_axis=("data",))), LocalComm(N), T).mode == "ht"
+    # the baseline was refused until its backend landed; its handle now
+    # carries the a2a plan: [N, L·Ce] send blocks, positional recv (no map)
     base, _ = configs()
     base = dataclasses.replace(base, mode="baseline")
     topk, w, _ = routing(24)
-    with pytest.raises(NotImplementedError, match="A5"):
-        ep_create_handle(ep_create_group(base, LocalComm(N)),
-                         [torch.from_numpy(t) for t in topk], [torch.from_numpy(t) for t in w])
+    hs = ep_create_handle(ep_create_group(base, LocalComm(N)),
+                          [torch.from_numpy(t) for t in topk], [torch.from_numpy(t) for t in w])
+    assert hs[0].plan.disp_send_gmap.shape == (N, E // N * T)
+    assert hs[0].plan.disp_recv_gmap is None
 
 
 def _ht_smoke_cfgs(fp8: bool):

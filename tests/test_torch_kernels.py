@@ -185,3 +185,65 @@ def test_grouped_gemm(dt, jax_path):
     assert got.dtype == DTYPES[dt][1]
     np.testing.assert_allclose(to_np(got), to_np(want), **tol(dt))
     assert not to_np(got)[0, 37:].any() and not to_np(got)[1].any()
+
+
+def e4m3_codes(q):
+    """fp8 bytes -> (sign, magnitude code): e4m3 codes grow with |value|,
+    so two values one e4m3 step apart have magnitude codes one apart."""
+    b = to_np(q).astype(np.int32)
+    return b >> 7, b & 0x7F
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_quantize_dequantize_fp8_against_pallas(dt, jax_path):
+    """The standalone fp8 pair (B5) through the port's routing against
+    JAX's, plain or Pallas in interpret mode ([64, 256], block 128, so the
+    kernels run). Against the plain version: bitwise. Against the
+    interpret-mode quantize kernel, whose scales sit up to one ulp off its
+    own plain version: scales within 2e-7 relative, every fp8 value within
+    one e4m3 step, and so the round trip within one step times the scale.
+    Dequantizing the same payload is bitwise either way. That some scales
+    do differ pins the reference's fault (ROADMAP Queue C)."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((64, 256)) * 20
+    x[5, :128] = 0.0                                        # all-zero block -> scale 1
+    jx, tx = pair(x, dt)
+    tq, ts = tops.quantize_fp8(tx, 128)
+    jq, js = jops.quantize_fp8(jx, 128)
+    assert ts[5, 0].item() == 1.0 and not to_np(tq)[5, :128].any()
+    if jax_path == "ref":
+        np.testing.assert_array_equal(to_np(tq), to_np(jq))
+        np.testing.assert_array_equal(to_np(ts), to_np(js))
+    else:
+        np.testing.assert_allclose(to_np(ts), to_np(js), rtol=2e-7, atol=0)
+        assert (to_np(ts) != to_np(js)).any()
+        (ts_sign, t_mag), (j_sign, j_mag) = e4m3_codes(tq), e4m3_codes(jq)
+        assert np.all((ts_sign == j_sign) | (t_mag == 0) | (j_mag == 0))
+        assert np.abs(t_mag - j_mag).max() <= 1
+        t_rt = to_np(tref.dequantize_fp8(tq, ts, torch.float32))
+        j_rt = to_np(jref.dequantize_fp8(jq, js, jnp.float32))
+        step = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(t_rt), np.abs(j_rt))
+                                        / np.repeat(to_np(ts), 128, -1) + 1e-30)) - 3)
+        step = np.maximum(step, 2.0 ** -9) * np.repeat(to_np(ts), 128, -1)
+        assert np.all(np.abs(t_rt - j_rt) <= step * (1 + 1e-6))
+    # both sides dequantize the port's payload
+    jq_same = jnp.asarray(to_np(tq)).view(jnp.float8_e4m3fn)
+    for name in DTYPES:
+        np.testing.assert_array_equal(
+            to_np(tops.dequantize_fp8(tq, ts, DTYPES[name][1])),
+            to_np(jops.dequantize_fp8(jq_same, jnp.asarray(to_np(ts)), DTYPES[name][0])))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_combine_reduce_against_pallas(dt, jax_path):
+    """B8 through the port's routing against JAX's, plain or Pallas in
+    interpret mode ([16, 4, 256]): within 1e-6 in f32 (the sums run in
+    another order), 2e-2 in bf16."""
+    rng = np.random.default_rng(10)
+    jy, ty = pair(rng.standard_normal((16, 4, 256)), dt)
+    jw, tw = pair(rng.random((16, 4)))
+    got = tops.combine_reduce(ty, tw)
+    want = jops.combine_reduce(jy, jw)
+    assert got.dtype == DTYPES[dt][1]
+    t = dict(rtol=1e-6, atol=1e-6) if dt == "f32" else tol(dt)
+    np.testing.assert_allclose(to_np(got), to_np(want), **t)

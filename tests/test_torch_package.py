@@ -73,14 +73,15 @@ def test_unported_options_raise():
         DecodeServer(heat, batch=8, max_len=8, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         ContinuousDecodeServer(heat, batch=8, max_len=8, device="cpu", page_size=4)
+    # the baseline dispatcher was refused until its backend landed; both
+    # servers now run it
     base = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_mode="baseline"))
     srv = DecodeServer(base, batch=8, max_len=8, ep_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        srv.prefill(torch.zeros((8, 1), dtype=torch.int32))
+    tok, _ = srv.prefill(torch.zeros((8, 1), dtype=torch.int32))
+    assert tok.shape == (8, 1)
     csrv = ContinuousDecodeServer(base, batch=8, max_len=8, ep_size=8, device="cpu",
                                   page_size=4)
-    with pytest.raises(NotImplementedError, match="A5"):
-        csrv.serve_requests([Request(0, [1], 1)])
+    assert csrv.serve_requests([Request(0, [1], 1)]).requests_completed == 1
     with pytest.raises(TypeError):                # EPLB options are not accepted yet
         ContinuousDecodeServer(cfg, batch=8, max_len=8, device="cpu", rebalance_every=4)
 
@@ -97,3 +98,25 @@ def test_cpu_tensors_take_the_plain_versions():
     assert dp_mod.launches == gg_mod.launches == 0
     with pytest.raises(ValueError, match="CUDA tensors"):
         dp_mod.dispatch_pack(x, gmap)          # the kernel wrapper never runs on CPU
+
+
+def test_cpu_tensors_take_the_plain_fp8_and_combine_reduce():
+    """The standalone fp8 pair and combine_reduce route CPU tensors to their
+    plain versions; their wrappers refuse CPU tensors and never launch."""
+    from repro_torch.kernels import combine_reduce as cr_mod
+    from repro_torch.kernels import fp8 as fp8_mod
+    fp8_mod.quantize_launches = fp8_mod.dequantize_launches = cr_mod.launches = 0
+    x = torch.randn(4, 256)
+    q, s = ops.quantize_fp8(x, 64)
+    wq, ws = ref.quantize_fp8(x, 64)
+    assert torch.equal(q.view(torch.uint8), wq.view(torch.uint8)) and torch.equal(s, ws)
+    assert torch.equal(ops.dequantize_fp8(q, s), ref.dequantize_fp8(q, s))
+    y, w = torch.randn(4, 3, 16), torch.rand(4, 3)
+    assert torch.equal(ops.combine_reduce(y, w), ref.combine_reduce(y, w))
+    assert fp8_mod.quantize_launches == fp8_mod.dequantize_launches == cr_mod.launches == 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fp8_mod.quantize_fp8(x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fp8_mod.dequantize_fp8(q, s)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cr_mod.combine_reduce(y, w)

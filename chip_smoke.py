@@ -30,9 +30,17 @@
 5. Holds each EP kernel against its plain PyTorch version on the inputs one
    EP rank gets in one MoE layer of the first serve (8 ranks, 16 tokens
    each): bitwise for the two gathers, in copy and in fp8 mode; within 2e-2
-   for the bf16 GEMM and reduce; and at the prefill's HT shapes (4096
-   tokens per rank, [8, 2560] send blocks, [2, 10240] expert regions): fp8
-   pack and dequant unpack bitwise. The standalone fp8 pair bitwise:
+   for the reduce; and at the prefill's HT shapes (4096 tokens per rank,
+   [8, 2560] send blocks, [2, 10240] expert regions): fp8 pack and dequant
+   unpack bitwise. Holds the bf16 grouped GEMM at the four shapes the paths
+   give it: the decode gate [2, 128, 6144] @ [2, 6144, 10752] and down
+   [2, 128, 10752] @ [2, 10752, 6144] projections with the ``nccl_ep``
+   routing's counts and with every row live (the ``deepep`` and baseline
+   layouts), and the HT gate and down projections over [2, 10240] expert
+   regions with the ``train_4k`` routing's counts: within 2e-2 per element
+   and 5e-3 relative over the whole output, rows past the count exactly
+   zero, two calls bitwise equal; each timed beside its plain version,
+   ``torch.bmm`` and its bound. The standalone fp8 pair bitwise:
    dequantize on what one rank receives in the ``deepep`` serve, quantize
    at the decode and HT x of a rank in bf16 and f32, blocks 128 and 64,
    and against ``dispatch_pack``'s quant mode; ``combine_reduce`` within
@@ -73,6 +81,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+from collections import Counter
 import json
 import pathlib
 import subprocess
@@ -124,6 +133,10 @@ TOL = 2e-2                   # bf16 tolerance (tests/test_kernels.py tol())
 # the 64 KV tiles gives nine times it and more (tools/flash_fault_check.py,
 # PERF.md).
 FLASH_REL = 5e-3
+# grouped_gemm in bf16: the same relative limit over the whole output. Its
+# f32 sums run in another order than the plain version's and the output is
+# rounded to bf16: about 2e-4 at the path shapes on an H100.
+GEMM_REL = 5e-3
 # the continuous serve: requests, arrivals per step, prompt and new-token
 # ranges (inclusive), page size; slots are the preset's batch
 REQUESTS, RATE, PROMPTS, NEWS, PAGE = 256, 4.0, (4, 32), (8, 32), 16
@@ -253,12 +266,15 @@ def device_ms(fn, iters: int) -> float:
     """Mean device time of one call: the card's busy time over ``iters``
     calls, from the profiler's CUDA trace, so host launch cost is left out.
     A spin kernel on each side of the calls, left out of the sum, takes the
-    place of the event a profiler session can drop at its edge. A session
-    that still saw a few events fewer than calls timed a call of one kernel
-    (a call of several gives many more events than calls) and lost some of
-    its events: the mean is then taken over the events it saw. A session
-    that saw fewer (after many sessions in one process the profiler now and
-    then records none) is run again, twice at most."""
+    place of the event a profiler session can drop at its edge. Every call
+    launches the same kernels, so a session that saw each kernel a multiple
+    of ``iters`` times lost nothing. One that saw a single kernel a few
+    times fewer than calls lost some of its events: the mean is then taken
+    over the events it saw. Any other session (after many sessions in one
+    process the profiler now and then records none, or drops some of a
+    several-kernel call's events) is run again, twice at most; after that
+    the calls are timed with CUDA events (``call_ms``), which for a small
+    kernel is the host's launch rate, and the fallback is printed."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
@@ -269,15 +285,19 @@ def device_ms(fn, iters: int) -> float:
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         iv = [e for e in device_intervals(prof) if "spin_kernel" not in e[2]]
-        if len(iv) >= iters:
+        seen = Counter(name for _, _, name in iv)
+        if iv and all(n % iters == 0 for n in seen.values()):
             return busy_us(iv) / iters / 1e3
-        if len(iv) >= 0.9 * iters:
+        if len(seen) == 1 and 0.9 * iters <= len(iv) < iters:
             print(f"  (profiler session {attempt + 1} saw {len(iv)} device events for "
                   f"{iters} calls of one kernel; the mean is over those {len(iv)})")
             return busy_us(iv) / len(iv) / 1e3
         print(f"  (profiler session {attempt + 1} saw {len(iv)} device events for "
               f"{iters} calls; measuring again)")
-    raise RuntimeError(f"the profiler saw {len(iv)} device events for {iters} calls")
+    ms = call_ms(fn, iters)
+    print(f"  (three profiler sessions lost device events: {ms:.4f} ms from CUDA "
+          f"events over {iters} back-to-back calls instead)")
+    return ms
 
 
 def bound(nbytes: int, ops: int, ops_rate: float) -> tuple[float, str]:
@@ -395,37 +415,23 @@ def kernel_phase(cfg, params) -> dict:
           f"{list(recv0.shape)} -> {list(y3d.shape)}")
 
     # ---- grouped_gemm: rank 0's gate projection (up is the same shape) and
-    # its down projection, with the ragged counts of this routing
+    # its down projection, with the ragged counts of this routing (the
+    # nccl_ep layout), then both with every row of the 128-row expert
+    # region live (the deepep and baseline layouts)
     counts = pl.disp_counts
     w1, w3, w2 = p["w_gate"][:L], p["w_up"][:L], p["w_down"][:L]
-    got = gg_mod.grouped_gemm(y3d, w1, counts)
     want = ref.grouped_gemm(y3d, w1, counts)
-    check(torch.allclose(got.float(), want.float(), rtol=TOL, atol=TOL),
-          "grouped_gemm (gate) differs from its plain version beyond 2e-2")
     hmid = (F.silu(want.float()) * ref.grouped_gemm(y3d, w3, counts).float()).to(dt)
-    got_d = gg_mod.grouped_gemm(hmid, w2, counts)
-    want_d = ref.grouped_gemm(hmid, w2, counts)
-    check(torch.allclose(got_d.float(), want_d.float(), rtol=TOL, atol=TOL),
-          "grouped_gemm (down) differs from its plain version beyond 2e-2")
-    c = counts.clamp(max=A)
-    rows, live_e = int(c.sum()), int((c > 0).sum())
-
-    def gemm_bound(x, w, o):
-        return bound(live_e * nbytes(w[0]) + nbytes(x[0], rows) + nbytes(o) + nbytes(counts),
-                     2 * rows * x.shape[2] * w.shape[2], BF16_OPS_S)
-
     # rows past the count are zero in y3d and hmid, so bmm computes the same
-    timed("grouped_gemm", max(max_err(got, want), max_err(got_d, want_d)),
-          lambda: gg_mod.grouped_gemm(y3d, w1, counts),
-          lambda: ref.grouped_gemm(y3d, w1, counts),
-          gemm_bound(y3d, w1, got), lambda: torch.bmm(y3d, w1),
-          f"{list(y3d.shape)} @ {list(w1.shape)}", iters=10)
-    dbnd = gemm_bound(hmid, w2, got_d)
-    print(f"grouped_gemm down {list(hmid.shape)} @ {list(w2.shape)}: kernel "
-          f"{device_ms(lambda: gg_mod.grouped_gemm(hmid, w2, counts), 10):.4f} ms, "
-          f"plain {device_ms(lambda: ref.grouped_gemm(hmid, w2, counts), 10):.4f} ms, "
-          f"library {device_ms(lambda: torch.bmm(hmid, w2), 10):.4f} ms, "
-          f"bound {dbnd[0]:.4f} ms ({dbnd[1]})")
+    gate = gemm_case("decode gate, nccl_ep counts", y3d, w1, counts, 10, 10)
+    out["grouped_gemm"] = record("grouped_gemm", *gate)
+    gemm_case("decode down, nccl_ep counts", hmid, w2, counts, 10, 10)
+    full = torch.full_like(counts, A)
+    xf = torch.randn((L, A, d), generator=gen, device=dev).to(dt)
+    gemm_case("decode gate, full counts", xf, w1, full, 10, 10)
+    hf = (F.silu(ref.grouped_gemm(xf, w1, full).float())
+          * ref.grouped_gemm(xf, w3, full).float()).to(dt)
+    gemm_case("decode down, full counts", hf, w2, full, 10, 10)
 
     # ---- combine_gather_reduce: rank 0's combine recv
     y3ds = [torch.randn((L, A, d), generator=gen, device=dev).to(dt) for _ in range(RANKS)]
@@ -475,6 +481,9 @@ def trace_phase(label: str, run, itl_s: float, untraced: str = "ITL mean"):
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
     for name, ds in top:
         print(f"  {sum(ds) / 1e3:8.3f} ms  {len(ds):5d}x  {name[:100]}")
+    gemm = [e - s for s, e, n in iv if "grouped_gemm_bf16" in n]
+    print(f"  grouped_gemm: {sum(gemm) / 1e3:.3f} ms in {len(gemm)} calls, "
+          f"{sum(gemm) / busy:.4f} of the busy time")
     return iv, wall_us / 1e6
 
 
@@ -1122,20 +1131,13 @@ def ht_kernel_phase(cfg, params) -> None:
           f"plain {device_ms(lambda: ref.recv_unpack(qrecv, gr, srecv, dt), 5):.4f} ms, "
           f"bound {bnd[0]:.4f} ms ({bnd[1]})")
     counts_ = pl.disp_counts
-    w1 = p["w_gate"][:L]
-    c = counts_.clamp(max=group.ht_expert_cap)
-    rows, live_e = int(c.sum()), int((c > 0).sum())
-    got = gg_mod.grouped_gemm(y3d, w1, counts_)
-    err = max_err(got, ref.grouped_gemm(y3d, w1, counts_))
-    bnd = bound(live_e * nbytes(w1[0]) + nbytes(y3d[0], rows) + nbytes(got) + nbytes(counts_),
-                2 * rows * d * w1.shape[2], BF16_OPS_S)
-    print(f"  grouped_gemm gate {list(y3d.shape)} @ {list(w1.shape)}, counts "
-          f"{counts_.tolist()}: max_abs_err {err:.3g}; kernel "
-          f"{device_ms(lambda: gg_mod.grouped_gemm(y3d, w1, counts_), 5):.4f} ms, plain "
-          f"{device_ms(lambda: ref.grouped_gemm(y3d, w1, counts_), 2):.4f} ms, library "
-          f"{device_ms(lambda: torch.bmm(y3d, w1), 5):.4f} ms (torch.bmm), bound "
-          f"{bnd[0]:.4f} ms ({bnd[1]})")
-    del got, qrecv, srecv
+    w1, w3, w2 = p["w_gate"][:L], p["w_up"][:L], p["w_down"][:L]
+    del qrecv, srecv
+    gemm_case("HT gate", y3d, w1, counts_, 5, 2)
+    hmid = (F.silu(ref.grouped_gemm(y3d, w1, counts_).float())
+            * ref.grouped_gemm(y3d, w3, counts_).float()).to(dt)
+    gemm_case("HT down", hmid, w2, counts_, 5, 2)
+    del hmid
     crecv = torch.randn((RANKS * group.ht_pair_cap, d), generator=gen, device=dev).to(dt)
     crows, cw = pl.comb_recv_rows, hs[0].topk_weights
     got = cg_mod.combine_gather_reduce(crecv, crows, cw)
@@ -1152,6 +1154,42 @@ def ht_kernel_phase(cfg, params) -> None:
           f"{device_ms(lambda: cg_mod.combine_gather_reduce(crecv, crows, cw), 20):.4f} ms, "
           f"plain {device_ms(lambda: ref.combine_gather_reduce(crecv, crows, cw), 5):.4f} ms, "
           f"library {lib}, bound {bnd[0]:.4f} ms ({bnd[1]})")
+
+
+def gemm_case(label: str, x: torch.Tensor, w: torch.Tensor, counts: torch.Tensor,
+              iters: int, plain_iters: int) -> tuple:
+    """grouped_gemm at one of its path shapes against its plain version:
+    within TOL per element, within GEMM_REL over the whole output, rows
+    past the count exactly zero, two calls bitwise equal. Times the kernel,
+    the plain version and ``torch.bmm`` (which computes every row) on the
+    card; returns (max_abs_err, ms, plain_ms, bound, bmm_ms)."""
+    got = gg_mod.grouped_gemm(x, w, counts)
+    want = ref.grouped_gemm(x, w, counts)
+    err, rel = flash_errors(got, want)
+    L, A, H = x.shape
+    c = counts.clamp(max=A)
+    check(torch.allclose(got.float(), want.float(), rtol=TOL, atol=TOL),
+          f"grouped_gemm ({label}) differs from its plain version beyond 2e-2")
+    check(rel <= GEMM_REL, f"grouped_gemm ({label}): relative error {rel:.3g} over "
+          f"the output, above {GEMM_REL}")
+    check(all(not got[l, int(c[l]):].any() for l in range(L)),
+          f"grouped_gemm ({label}): rows past the count are not zero")
+    check(torch.equal(got, gg_mod.grouped_gemm(x, w, counts)),
+          f"grouped_gemm ({label}): two calls differ")
+    rows, live_e = int(c.sum()), int((c > 0).sum())
+    bnd = bound(live_e * nbytes(w[0]) + nbytes(x[0], rows) + nbytes(got) + nbytes(counts),
+                2 * rows * H * w.shape[2], BF16_OPS_S)
+    del got, want
+    ms = device_ms(lambda: gg_mod.grouped_gemm(x, w, counts), iters)
+    plain_ms = device_ms(lambda: ref.grouped_gemm(x, w, counts), plain_iters)
+    bmm_ms = device_ms(lambda: torch.bmm(x, w), iters)
+    sched = gg_mod.plan(L, A, H, w.shape[2]).schedule
+    print(f"grouped_gemm {label}: {list(x.shape)} @ {list(w.shape)}, counts "
+          f"{counts.tolist()}, {sched} schedule: max_abs_err {err:.3g}, relative "
+          f"{rel:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{bmm_ms:.4f} ms (torch.bmm), bound {bnd[0]:.4f} ms ({bnd[1]}); "
+          f"{ms / bnd[0]:.2f}x the bound, {ms / bmm_ms:.2f}x torch.bmm")
+    return err, ms, plain_ms, bnd, bmm_ms
 
 
 def flash_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "ep_dispatch_pack_quant": (_P, _P, _P, _P, _L, _I, _L, _I, _I, _P),
     "ep_recv_unpack_copy": (_P, _P, _P, _L, _I, _L, _I, _I, _I, _P),
     "ep_recv_unpack_dequant": (_P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _P),
-    "ep_grouped_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ep_grouped_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "ep_combine_gather_reduce": (_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P),
     "ep_paged_decode_stage1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _F, _I, _I, _I, _P),

@@ -2,16 +2,38 @@
 ragged row count.
 
 Replaces ``src/repro/kernels/grouped_gemm.py:53 grouped_gemm`` (Pallas,
-scalar-prefetched counts, tiles past the count skipped). At the DBRX decode
-slice each call multiplies a few dozen valid rows per expert by 2·6144·10752
-bf16 weights (264 MB), so it is bound by the weights' bytes, not by the
-tensor cores. The kernel (``csrc/grouped_gemm.cu``) tiles the output 64x128
-per block with tensor-core fragments over a three-stage cp.async ring, so
-every live row tile streams its weight columns once with two tiles in
-flight; a block whose rows all lie past ``counts[l]`` writes zeros and
-loads nothing. f32 operands take a CUDA-core tiled path with exact f32.
+scalar-prefetched counts, tiles past the count skipped). The bf16 kernel
+(``csrc/grouped_gemm.cu``) is warp-specialised for sm_90a: one producer
+thread loads 128-byte swizzled tiles by TMA into a ring under mbarriers,
+two consumer warpgroups multiply them with ``wgmma`` (the weights read as
+stored, through the transpose-B flag), and a persistent grid of lanes walks
+tiles of 128 rows x ``bn`` columns. ``plan`` picks the schedule from the
+static shape (A, H, F) alone, never from ``counts``:
+
+* **stream** (A <= 128, every decode layout). Bound by the weights' bytes
+  (2 x 6144 x 10752 bf16 per projection at DBRX's decode slice, 264 MB):
+  one tile covers every row of its expert, so each weight byte is read
+  once per call whatever the count; six stages keep 96 KB of weights in
+  flight per SM under an evict-first L2 policy. The tiles that fill whole
+  waves of the 132 SMs go whole; the k blocks of the rest are laid end to
+  end and cut into 132 equal shares (stream-K), so every SM streams the
+  same bytes. A split tile's first piece adds the others' f32 partials to
+  its own in piece order, so the sum order depends only on (A, H, F).
+* **compute** (A > 128, HT prefill). Bound by the tensor cores: 128 x 256
+  tiles, four stages, every tile whole, walked in bands of eight row tiles
+  so that concurrent tiles share their strips of x and w in L2.
+
+A tile whose rows all lie past ``counts[l]`` loads nothing and writes
+zeros. f32 operands take a CUDA-core tiled path with exact f32.
+
+Everything here but the launch runs on the CPU too, so the tests hold the
+plan (coverage, pieces, TMA boxes and strides) without a card.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -20,6 +42,123 @@ from repro_torch.kernels import _build
 launches = 0   # kernel launches by this wrapper (chip_smoke reads it)
 
 _DT = (torch.bfloat16, torch.float32)
+
+SMS = 132                  # an H100 SXM's SMs: the lanes of the stream schedule
+BM, BK, BOX = 128, 64, 64  # rows per tile, k per stage, TMA box edge (128 B of bf16)
+STREAM_MAX_A = 128         # one tile holds every row of an expert up to here
+STREAM_BN, COMPUTE_BN = 128, 256
+GROUP_M = 8                # row tiles per band of the compute walk
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one bf16 call is cut into work (see the module docstring): the
+    first ``sk_tiles`` tiles are split over lanes in k, the rest go whole,
+    one lane each in turn."""
+    schedule: str          # "stream" or "compute"
+    bn: int                # columns per tile (128 rows each)
+    kb_total: int          # 64-deep k blocks
+    m_tiles: int
+    n_tiles: int
+    group_m: int
+    tiles: int             # L * m_tiles * n_tiles
+    sk_tiles: int
+    sk_per: int            # k blocks of split tiles per lane
+    max_pieces: int        # most lanes sharing one split tile
+    grid: int              # lanes: blocks of the persistent grid
+    x_map: tuple           # TMA map of x: dims (H, A, L), strides (bytes), box
+    w_map: tuple           # TMA map of w: dims (F, H, L), strides (bytes), box
+
+    def scratch_floats(self) -> int:
+        """f32 partials of the split tiles (0 without any)."""
+        return self.sk_tiles * self.max_pieces * BM * self.bn
+
+    @functools.cached_property
+    def c_args(self) -> ctypes.Array:
+        """``args`` as the int64 array handed to the C entry (kept, so a
+        decode step's calls build it once per shape)."""
+        a = self.args()
+        return (ctypes.c_int64 * len(a))(*a)
+
+    def args(self) -> list[int]:
+        """The int64 plan the C entry reads."""
+        return [self.bn, self.kb_total, self.m_tiles, self.n_tiles, self.group_m,
+                self.tiles, self.sk_tiles, self.sk_per, self.max_pieces, self.grid,
+                int(self.schedule == "stream"), *self.x_map, *self.w_map]
+
+
+@functools.lru_cache(maxsize=64)
+def plan(L: int, A: int, H: int, F: int) -> Plan:
+    """The schedule of a bf16 call, from its static shape alone.
+
+    stream: the tiles that fill whole waves of the 132 lanes go whole; the
+    k blocks of the rest are laid end to end and cut into equal shares of
+    the lanes (stream-K), so every SM streams the same bytes; a split
+    tile's pieces are summed in piece order. compute: every tile whole."""
+    K = -(-H // BK)
+    if A <= STREAM_MAX_A:
+        schedule, bn, group_m = "stream", STREAM_BN, 1
+    else:
+        schedule, bn, group_m = "compute", COMPUTE_BN, GROUP_M
+    m_tiles, n_tiles = -(-A // BM), -(-F // bn)
+    tiles = L * m_tiles * n_tiles
+    sk_tiles = sk_per = max_pieces = 0
+    grid = min(SMS, tiles)
+    if schedule == "stream" and K:
+        sk_tiles = tiles % SMS if tiles >= SMS else tiles
+        if sk_tiles:
+            sk_per = -(-sk_tiles * K // SMS)
+            if tiles < SMS:
+                grid = -(-sk_tiles * K // sk_per)
+            max_pieces = max((((t + 1) * K - 1) // sk_per - t * K // sk_per + 1)
+                             for t in range(sk_tiles))
+    x_map = (H, A, L, H * 2, A * H * 2, BOX, BOX)
+    w_map = (F, H, L, F * 2, H * F * 2, BOX, BOX)
+    return Plan(schedule, bn, K, m_tiles, n_tiles, group_m, tiles, sk_tiles, sk_per,
+                max_pieces, grid, x_map, w_map)
+
+
+def tile_coords(p: Plan, t: int) -> tuple[int, int, int]:
+    """Tile t -> (expert, row tile, column tile), as the kernel's
+    ``tile_coords`` maps it: row tiles in bands of ``group_m``, column-major
+    inside a band."""
+    per_l = p.m_tiles * p.n_tiles
+    l, r = divmod(t, per_l)
+    band = p.group_m * p.n_tiles
+    m_first = (r // band) * p.group_m
+    gm = min(p.group_m, p.m_tiles - m_first)
+    within = r % band
+    return l, m_first + within % gm, within // gm
+
+
+def lane_work(p: Plan, lane: int) -> list[tuple[int, int, int, int, int]]:
+    """The pieces (tile, kb0, kb1, piece, pieces) lane ``lane`` takes, in
+    order, as the kernel's ``walk_next`` walks them."""
+    K, out = p.kb_total, []
+    if p.sk_tiles:
+        it, end = lane * p.sk_per, min((lane + 1) * p.sk_per, p.sk_tiles * K)
+        while it < end:
+            t, kb0 = divmod(it, K)
+            kb1 = min(K, kb0 + end - it)
+            first, last = t * K // p.sk_per, ((t + 1) * K - 1) // p.sk_per
+            out.append((t, kb0, kb1, lane - first, last - first + 1))
+            it += kb1 - kb0
+    out += [(t, 0, K, 0, 1) for t in range(p.sk_tiles + lane, p.tiles, p.grid)]
+    return out
+
+
+_sems: dict[int, torch.Tensor] = {}
+
+
+def _semaphores(dev: torch.device, n: int) -> torch.Tensor:
+    """A zeroed int32 counter per split tile, kept per card so that a call
+    launches nothing but the kernel: the tile's first piece sets its counter
+    back to 0, so the buffer stays zero between calls on one stream."""
+    buf = _sems.get(dev.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _sems[dev.index] = buf
+    return buf
 
 
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
@@ -45,7 +184,18 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"{name}: H={H} and F={F} must be multiples of 8 with "
                          "16-byte aligned operands")
     out = torch.empty((L, A, F), dtype=x.dtype, device=x.device)
+    args, scratch, sems = None, None, None
+    if x.dtype == torch.bfloat16 and L * A * F > 0:
+        p = plan(L, A, H, F)
+        args = p.c_args
+        if p.sk_tiles:
+            scratch = torch.empty(p.scratch_floats(), dtype=torch.float32,
+                                  device=x.device)
+            sems = _semaphores(x.device, p.sk_tiles)
     _build.launch("ep_grouped_gemm", x.data_ptr(), w.data_ptr(),
-                  counts.data_ptr(), out.data_ptr(), L, A, H, F, dt)
+                  counts.data_ptr(), out.data_ptr(), L, A, H, F, dt,
+                  None if args is None else ctypes.addressof(args),
+                  None if scratch is None else scratch.data_ptr(),
+                  None if sems is None else sems.data_ptr())
     launches += 1
     return out

@@ -8,7 +8,9 @@ imports JAX, hence the command (see README):
 
 Data movement (pack, unpack, fp8 quantize and dequantize) must match bit for
 bit; the GEMM and the reductions within 1e-5 (f32) or 2e-2 (bf16), since the
-sums run in another order.
+sums run in another order. The bf16 GEMM must also be deterministic and
+row-invariant: a row's bits depend only on that row of x and its expert's
+weights, which the decode layouts' bitwise checks in chip_smoke.py rely on.
 Paged decode attention sums in f32 whatever the pool's type, so it is held
 to 1e-4 in both, and must not change a bit when unreferenced pages change.
 Flash attention is held to 1e-4 in f32 and 2e-2 in bf16, where the kernel
@@ -95,6 +97,43 @@ def test_cuda_grouped_gemm_and_combine(hopper, dt):
     wts = torch.rand((T, K), device=hopper)
     torch.testing.assert_close(cg.combine_gather_reduce(recv, rows, wts),
                                ref.combine_gather_reduce(recv, rows, wts), **tol(dt))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 3])
+@pytest.mark.parametrize("A", [128, 136, 1000], ids=["stream", "compute-136", "compute-1000"])
+def test_cuda_grouped_gemm_bf16_schedules(hopper, A, L):
+    """Both bf16 schedules (A = 128 streams the weights with a K split; A >
+    128 is the compute schedule) at H and F that are multiples of 8 but not
+    of 64, counts on every tile edge: within tol of the plain version, rows
+    past the count exactly zero whatever x holds there, two calls bitwise
+    equal, rows below a count bitwise the same as with every row live, and
+    with every row live a permutation of x's rows permutes the output
+    bitwise."""
+    H, F = 264, 200
+    dt = torch.bfloat16
+    x = _rand((L, A, H), dt, hopper, 1.0, 11) + 0.25          # no symmetry to hide a swap
+    w = _rand((L, H, F), dt, hopper, 0.1, 12)
+    w[:, :, :3] += 0.5
+    edges = [0, 1, 63, 64, 65, 127, 128, A, A + 1]
+    full = torch.full((L,), A, device=hopper, dtype=torch.int32)
+    all_rows = gg.grouped_gemm(x, w, full)
+    torch.testing.assert_close(all_rows, ref.grouped_gemm(x, w, full), **tol(dt))
+    for i in range(len(edges)):
+        counts = torch.tensor([edges[(i + l) % len(edges)] for l in range(L)],
+                              device=hopper, dtype=torch.int32)
+        before = gg.launches
+        got = gg.grouped_gemm(x, w, counts)
+        assert gg.launches == before + 1
+        torch.testing.assert_close(got, ref.grouped_gemm(x, w, counts), **tol(dt))
+        assert torch.equal(got, gg.grouped_gemm(x, w, counts))
+        for l in range(L):
+            c = min(int(counts[l]), A)
+            assert not got[l, c:].any()
+            assert torch.equal(got[l, :c], all_rows[l, :c])
+    perm = torch.randperm(A, generator=torch.Generator().manual_seed(13)).to(hopper)
+    assert torch.equal(gg.grouped_gemm(x[:, perm].contiguous(), w, full), all_rows[:, perm])
     torch.cuda.synchronize()
 
 

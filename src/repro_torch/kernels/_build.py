@@ -25,7 +25,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("dispatch_pack.cu", "recv_unpack.cu", "grouped_gemm.cu",
            "combine_gather_reduce.cu", "paged_decode_attention.cu",
            "flash_attention.cu", "fp8.cu", "combine_reduce.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -4,14 +4,20 @@ attention for forwards without a KV cache (prefill, training).
 Replaces ``src/repro/kernels/flash_attention.py:86 flash_attention`` (Pallas,
 KV tiles walked innermost with m, l and the accumulator in VMEM scratch,
 fully masked tiles skipped). At prefill lengths it is bound by the tensor
-cores. The kernel (``csrc/flash_attention.cu``) runs one block of 4 warps
-per (batch, query head, 64-row query tile), heaviest causal tiles first,
-keeps Q and the f32 accumulator in registers, streams 64-key K/V tiles
-through a two-stage cp.async ring and multiplies with mma.sync (bf16 in,
-f32 accumulate; the probabilities are rounded to bf16 for the PV product,
-where the reference keeps them in f32). f32 inputs take a CUDA-core path
-in exact f32. It reads q, k and v through their strides in the
-``[B, S, H, d]`` layout the model gives, so it needs no transposes.
+cores. The bf16 kernel (``csrc/flash_attention.cu``) is warp-specialised
+for sm_90a: a persistent grid walks work tiles of 128 query rows of one
+(batch, query head), heaviest causal tiles first; a producer thread loads Q
+and 128-key K/V tiles by TMA from the model's ``[B, S, H, d]`` layout into
+an mbarrier ring; two consumer warpgroups of 64 rows multiply on
+``wgmma`` (S = Q·Kᵀ from shared memory, O += P·V with P in registers,
+rounded to bf16 where the reference keeps it in f32), overlap one tile's
+softmax with the next products and ping-pong the tensor cores between them;
+only the KV tiles that cross a mask edge test each element. f32 inputs take
+a CUDA-core path in exact f32. It reads q, k and v through their strides,
+so it needs no transposes.
+
+``tile_coords``, ``kv_tiles`` and ``lane_tiles`` mirror the bf16 kernel's
+walk, so that the CPU tests can hold it against the reference's masks.
 """
 from __future__ import annotations
 
@@ -23,6 +29,56 @@ launches = 0   # kernel launches by this wrapper (chip_smoke reads it)
 
 _DT = (torch.bfloat16, torch.float32)
 _HEAD_DIMS = (64, 128)
+
+BQ = 128      # query rows per work tile of the bf16 kernel
+BKV = 128     # keys per KV tile
+SMS = 132     # an H100 SXM's SMs: the kernel launches min(tiles, SMs) lanes
+
+
+def tile_coords(B: int, Hq: int, Sq: int, t: int,
+                causal: bool = True) -> tuple[int, int, int]:
+    """Work tile t -> (batch, query head, first row), heaviest first: under
+    a causal mask the last query tiles reach the most keys, without one the
+    first (a window cuts the keys before a tile, never after it). Heads run
+    fastest, so the G heads of one kv head run side by side."""
+    m_tiles = -(-Sq // BQ)
+    mt, bh = t // (B * Hq), t % (B * Hq)
+    if causal:
+        mt = m_tiles - 1 - mt
+    return bh // Hq, bh % Hq, mt * BQ
+
+
+def work_tiles(B: int, Hq: int, Sq: int) -> int:
+    return B * Hq * -(-Sq // BQ)
+
+
+def lane_tiles(B: int, Hq: int, Sq: int, lanes: int = SMS) -> list[list[int]]:
+    """The work tiles of each lane of the persistent grid, in its order:
+    lane i takes tiles i, i + lanes, ..."""
+    n = work_tiles(B, Hq, Sq)
+    return [list(range(lane, n, lanes)) for lane in range(min(n, lanes))]
+
+
+def kv_tiles(q0: int, Sq: int, Sk: int, causal: bool = True,
+             window: int | None = None) -> list[tuple[int, bool]]:
+    """The KV tiles that rows [q0, min(q0 + BQ, Sq)) walk, in the kernel's
+    order (last first), each with whether it takes the per-element mask:
+    it crosses Sk's tail, the causal diagonal or the window's far edge.
+    Tiles that no row reaches are left out (never loaded)."""
+    q_last = min(q0 + BQ, Sq) - 1
+    nk = -(-Sk // BKV)
+    hi = min(nk - 1, q_last // BKV) if causal else nk - 1
+    lo = 0
+    if window:
+        first = q0 - window - BKV + 2     # tile j is reached iff j * BKV >= first
+        lo = max(0, -(-first // BKV))
+    tiles = []
+    for j in range(hi, lo - 1, -1):
+        k0, k_last = j * BKV, j * BKV + BKV - 1
+        masked = (k_last >= Sk or (causal and k_last > q0)
+                  or (bool(window) and q_last - k0 >= window))
+        tiles.append((j, masked))
+    return tiles
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -13,8 +13,9 @@ row-invariant: a row's bits depend only on that row of x and its expert's
 weights, which the decode layouts' bitwise checks in chip_smoke.py rely on.
 Paged decode attention sums in f32 whatever the pool's type, so it is held
 to 1e-4 in both, and must not change a bit when unreferenced pages change.
-Flash attention is held to 1e-4 in f32 and 2e-2 in bf16, where the kernel
-rounds the probabilities to bf16 for the PV product.
+Flash attention is held to 1e-4 in f32 and 2e-2 in bf16 (5e-3 relative over
+the output), where the kernel rounds the probabilities to bf16 for the PV
+product, and two calls must give the same bits.
 """
 import dataclasses
 
@@ -209,18 +210,43 @@ def test_cuda_paged_decode_attention(hopper, dt, splits, share_kv):
 def test_cuda_flash_attention(hopper, dt, G, d, causal, window):
     """Ragged lengths (Sq 200 over Sk 328: tails in both tile sizes), GQA
     without repetition, the model's [B, S, H, d] layout; one launch per
-    call. bf16: relative error (Frobenius norm) within 5e-3, about twice
+    call, two calls bitwise equal. bf16: relative error (Frobenius norm)
+    within 5e-3, about twice
     what rounding p and the output to bf16 gives, and every element within
     2e-2."""
-    B, Hkv, Sq, Sk = 2, 2, 200, 328
-    q = _rand((B, Hkv * G, Sq, d), dt, hopper, 1.0, 13)
-    k = _rand((B, Hkv, Sk, d), dt, hopper, 1.0, 14)
-    v = _rand((B, Hkv, Sk, d), dt, hopper, 1.0, 15)
+    bshd, kw = _flash_case(hopper, dt, G, d, causal, window, 200, 328)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bshd(*(a[..., :32].contiguous() for a in bshd), **kw)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 300), (False, None),
+                                           (False, 300)])
+def test_cuda_flash_attention_many_query_tiles(hopper, dt, causal, window):
+    """Sq = Sk = 1000 at G = 6: eight 128-row query tiles with a ragged
+    last one, several KV tiles per query tile (unmasked ones among them)
+    and more work tiles than a persistent lane takes at once; the limits
+    of test_cuda_flash_attention."""
+    _flash_case(hopper, dt, 6, 128, causal, window, 1000, 1000)
+
+
+def _flash_case(dev, dt, G, d, causal, window, Sq, Sk):
+    """One call of flash_attention_bshd on [B, S, H, d] tensors against the
+    plain version, one launch; a second call bitwise equal to the first.
+    Returns the inputs and options."""
+    B, Hkv = 2, 2
+    q = _rand((B, Hkv * G, Sq, d), dt, dev, 1.0, 13)
+    k = _rand((B, Hkv, Sk, d), dt, dev, 1.0, 14)
+    v = _rand((B, Hkv, Sk, d), dt, dev, 1.0, 15)
     kw = dict(scale=d ** -0.5, window=window, causal=causal)
     bshd = [a.transpose(1, 2).contiguous() for a in (q, k, v)]
     before = fa.launches
-    got = fa.flash_attention_bshd(*bshd, **kw).transpose(1, 2)
+    got = fa.flash_attention_bshd(*bshd, **kw)
     assert fa.launches == before + 1 and got.dtype == dt
+    assert torch.equal(fa.flash_attention_bshd(*bshd, **kw), got)
+    got = got.transpose(1, 2)
     want = ref.flash_attention(q, k, v, **kw)
     if dt == torch.bfloat16:
         rel = (got.float() - want.float()).norm() / want.float().norm()
@@ -228,9 +254,7 @@ def test_cuda_flash_attention(hopper, dt, G, d, causal, window):
         torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
     else:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_bshd(*(a[..., :32].contiguous() for a in bshd), **kw)
-    torch.cuda.synchronize()
+    return bshd, kw
 
 
 @pytest.mark.gpu

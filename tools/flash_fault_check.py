@@ -7,8 +7,8 @@ Needs one card and nvcc. Runs the kernel on ``chip_smoke.py``'s main-path
 inputs (DBRX-132B's prefill: q [8, 4096, 48, 128], k/v [8, 4096, 8, 128]
 bf16) in its three main cases (causal, a window of 1024, non-causal), then
 builds a copy of the kernel sources, in a temporary directory, in which the
-bf16 kernel skips KV tile 32 (keys 2048 to 2111: their scores are masked),
-and runs that copy on the same inputs. Prints, for each case and each
+bf16 kernel skips KV tile 16 (keys 2048 to 2175: their scores are masked
+before the softmax), and runs that copy on the same inputs. Prints, for each case and each
 build, the largest absolute error and the relative error (Frobenius norm)
 against the plain version. Exits non-zero unless every case of the sound
 kernel passes ``chip_smoke.py``'s limits and every case of the faulted one
@@ -31,10 +31,10 @@ from repro_torch.configs.dbrx_132b import full_config  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
-SKIPPED_TILE = 32
-ANCHOR = "    const int k0 = j * BKV;\n    float mx0 = NEG_INF, mx1 = NEG_INF;\n"
-FAULT = (f"    if (j == {SKIPPED_TILE})\n"
-         "      for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = NEG_INF;\n")
+SKIPPED_TILE = 16
+ANCHOR = "  float mx0 = NEG_INF, mx1 = NEG_INF;\n"
+FAULT = (f"  if (c0 / BKV == {SKIPPED_TILE})\n"
+         "    for (int i = 0; i < 64; ++i) s[i] = NEG_INF;\n")
 
 
 def passes(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float, float]:

@@ -29,10 +29,13 @@
    share and its time by kernel.
 5. Holds each EP kernel against its plain PyTorch version on the inputs one
    EP rank gets in one MoE layer of the first serve (8 ranks, 16 tokens
-   each): bitwise for the two gathers, in copy and in fp8 mode; within 2e-2
-   for the reduce; and at the prefill's HT shapes (4096 tokens per rank,
-   [8, 2560] send blocks, [2, 10240] expert regions): fp8 pack and dequant
-   unpack bitwise. Holds the bf16 grouped GEMM at the four shapes the paths
+   each): bitwise for the two gathers, in copy and in fp8 mode, the pack in
+   copy mode also at the combine send ([256, 6144] rows into [8, 32] slots);
+   within 2e-2 for the reduce; and at the prefill's HT shapes (4096 tokens
+   per rank, [8, 2560] send blocks, [2, 10240] expert regions): fp8 pack,
+   dequant unpack and the combine send's copy-mode pack bitwise. The
+   copy-mode gathers are timed beside ``index_select`` over rows padded with
+   one zero row. Holds the bf16 grouped GEMM at the four shapes the paths
    give it: the decode gate [2, 128, 6144] @ [2, 6144, 10752] and down
    [2, 128, 10752] @ [2, 10752, 6144] projections with the ``nccl_ep``
    routing's counts and with every row live (the ``deepep`` and baseline
@@ -343,6 +346,39 @@ def build() -> None:
             print(f"  ptxas {fn}: {line.strip()}")
 
 
+def padded_gather(rows: torch.Tensor, gmap: torch.Tensor):
+    """The library yardstick of the copy-mode gathers (dispatch_pack,
+    recv_unpack): one ``index_select`` over ``rows`` with one zero row
+    appended for the sentinel, the padding and the index made outside the
+    timed call. The port never calls it."""
+    padded = torch.cat([rows, torch.zeros_like(rows[:1])])
+    idx = gmap.flatten().long()
+    return lambda: torch.index_select(padded, 0, idx)
+
+
+def copy_case(label: str, rows: torch.Tensor, gmap: torch.Tensor, iters: int) -> None:
+    """dispatch_pack in copy mode at one of its path shapes: bitwise equal to
+    its plain version; the kernel, its plain version and the library
+    yardstick timed beside the bound."""
+    dt = rows.dtype
+    got, _ = dp_mod.dispatch_pack(rows, gmap, out_dtype=dt)
+    check(torch.equal(got, ref.dispatch_pack(rows, gmap, None, dt)[0]),
+          f"dispatch_pack (copy, {label}) differs from its plain version")
+    live = int((gmap < rows.shape[0]).sum())
+    bnd = bound(nbytes(rows, live) + nbytes(got) + nbytes(gmap), 0, F32_OPS_S)
+
+    def kernel():
+        return dp_mod.dispatch_pack(rows, gmap, out_dtype=dt)
+    ms = device_ms(kernel, iters)
+    plain_ms = device_ms(lambda: ref.dispatch_pack(rows, gmap, None, dt), iters)
+    lib_ms = device_ms(padded_gather(rows, gmap), iters)
+    print(f"dispatch_pack copy, {label}: {list(rows.shape)} -> {list(got.shape)}, {live} "
+          f"live slots: bitwise equal; kernel {ms:.5f} ms ({call_ms(kernel, iters):.4f} ms "
+          f"per call from the host), plain {plain_ms:.5f} ms, library {lib_ms:.5f} ms "
+          f"(index_select over rows padded with a zero row), bound {bnd[0]:.5f} ms "
+          f"({bnd[1]})")
+
+
 def kernel_phase(cfg, params) -> dict:
     """Each kernel and its plain version on what rank 0 gets in MoE layer 0."""
     dev, dt, d = DEV, cfg.dtype, cfg.d_model
@@ -386,8 +422,8 @@ def kernel_phase(cfg, params) -> dict:
     timed("dispatch_pack", max_err(got, want),
           lambda: dp_mod.dispatch_pack(x0, g0, out_dtype=dt),
           lambda: ref.dispatch_pack(x0, g0, None, dt),
-          bound(nbytes(x0, live) + nbytes(got) + nbytes(g0), 0, F32_OPS_S), None,
-          f"[{T},{d}] -> {list(got.shape)}")
+          bound(nbytes(x0, live) + nbytes(got) + nbytes(g0), 0, F32_OPS_S),
+          padded_gather(x0, g0), f"[{T},{d}] -> {list(got.shape)}")
     fp8_ms = device_ms(lambda: dp_mod.dispatch_pack(x0, g0, quant_block=128), 50)
     fp8_bnd = bound(nbytes(x0, live) + nbytes(q) + nbytes(s) + nbytes(g0),
                     3 * live * d, F32_OPS_S)
@@ -412,8 +448,8 @@ def kernel_phase(cfg, params) -> dict:
     timed("recv_unpack", max_err(y3d, want),
           lambda: ru_mod.recv_unpack(recv0, gr),
           lambda: ref.recv_unpack(recv0, gr),
-          bound(nbytes(recv0, live) + nbytes(y3d) + nbytes(gr), 0, F32_OPS_S), None,
-          f"{list(recv0.shape)} -> {list(y3d.shape)}")
+          bound(nbytes(recv0, live) + nbytes(y3d) + nbytes(gr), 0, F32_OPS_S),
+          padded_gather(recv0, gr), f"{list(recv0.shape)} -> {list(y3d.shape)}")
 
     # ---- grouped_gemm: rank 0's gate projection (up is the same shape) and
     # its down projection, with the ragged counts of this routing (the
@@ -436,6 +472,9 @@ def kernel_phase(cfg, params) -> dict:
 
     # ---- combine_gather_reduce: rank 0's combine recv
     y3ds = [torch.randn((L, A, d), generator=gen, device=dev).to(dt) for _ in range(RANKS)]
+    # ---- dispatch_pack again: rank 0's combine send (copy mode, the same
+    # kernel as the dispatch send at another shape)
+    copy_case("decode combine send", y3ds[0].reshape(-1, d), pl.comb_send_gmap, 50)
     crecv = comm.all_to_all([ref.dispatch_pack(y.reshape(-1, d), pn.comb_send_gmap, None, dt)[0]
                              for y, pn in zip(y3ds, plans)])[0].reshape(-1, d)
     crows, cw = pl.comb_recv_rows, hs[0].topk_weights
@@ -746,9 +785,13 @@ def continuous_phase(cfg, params, card: str):
     scalars = {k: v for k, v in m.items() if isinstance(v, (int, float))}
     check(all(np.isfinite(v) and v >= 0 for v in scalars.values()), f"bad metrics {scalars}")
     check_ep_counts(launches, steps, "the continuous path")
-    for key in (PAGED, "paged_decode_attention (stage 2)"):
-        check(launches[key] == LAYERS * steps, f"{key} launched {launches[key]} "
-              f"times on the continuous path, expected {LAYERS * steps}")
+    # stage 2 runs only where a request of the table's width could be split
+    # (not at the serve's 64 tokens)
+    split = da_mod.splits_possible(_decode_splits(cfg, srv.max_pages), srv.max_pages, PAGE)
+    for key, want in ((PAGED, LAYERS * steps),
+                      ("paged_decode_attention (stage 2)", LAYERS * steps if split else 0)):
+        check(launches[key] == want, f"{key} launched {launches[key]} "
+              f"times on the continuous path, expected {want}")
     itls = np.concatenate([np.asarray(r["itl_s"]) for r in m["per_request"] if r["itl_s"]])
     print(f"continuous serve ({card}): {REQUESTS} requests, {steps} steps, "
           f"{metrics.total_tokens} tokens, {metrics.output_tok_s:.1f} output tok/s; "
@@ -931,11 +974,15 @@ def paged_main_shape_phase(cfg, csrv: ContinuousDecodeServer) -> float:
              f"bf16, table [{BATCH}, {mp}], {S} splits, kv_lens {lens.min()} to "
              f"{lens.max()})")
     out, err, plain = check_paged(label, q, kp, vp, tbl, lt, unused, BATCH, **kw)
-    ms = device_ms(lambda: da_mod.paged_decode_attention(q, kp, vp, tbl, lt, **kw), 50)
+
+    def kernel():
+        return da_mod.paged_decode_attention(q, kp, vp, tbl, lt, **kw)
+    ms = device_ms(kernel, 50)
     bnd, nb = paged_bound(lens, q, lt, out, Hkv, d, d, kp.element_size())
     print(f"paged_decode_attention at main-path shapes: kernel {ms:.4f} ms on the card "
-          f"(stage 1 + stage 2), plain {device_ms(plain, 10):.4f} ms, bound "
-          f"{bnd[0]:.5f} ms ({bnd[1]}, {nb / 1e6:.3f} MB)")
+          f"({call_ms(kernel, 50):.4f} ms per call from the host; stage 2 launched: "
+          f"{da_mod.splits_possible(S, mp, PAGE)}), plain {device_ms(plain, 10):.4f} ms, "
+          f"bound {bnd[0]:.5f} ms ({bnd[1]}, {nb / 1e6:.3f} MB)")
     return err
 
 
@@ -1134,6 +1181,8 @@ def ht_kernel_phase(cfg, params) -> None:
     counts_ = pl.disp_counts
     w1, w3, w2 = p["w_gate"][:L], p["w_up"][:L], p["w_down"][:L]
     del qrecv, srecv
+    # the HT combine send: dispatch_pack's copy mode over the expert regions
+    copy_case("HT combine send", y3d.reshape(-1, d), pl.comb_send_gmap, 20)
     gemm_case("HT gate", y3d, w1, counts_, 5, 2)
     hmid = (F.silu(ref.grouped_gemm(y3d, w1, counts_).float())
             * ref.grouped_gemm(y3d, w3, counts_).float()).to(dt)
@@ -1374,7 +1423,7 @@ def main() -> int:
                 active=np.ones(BATCH, np.int32))
     iv, _ = trace_phase(f"continuous step (all {BATCH} slots at {CMAX_LEN // 2} tokens)",
                      lambda: csrv.step_feed(feed), cm.itl_mean_s)
-    paged_us = sum(e - s for s, e, n in iv if "paged_stage" in n)
+    paged_us = sum(e - s for s, e, n in iv if "paged_" in n)
     print(f"  paged attention: {paged_us / 1e3:.3f} ms, {paged_us / busy_us(iv):.4f} "
           f"of the busy time")
     prefill_trace_phase(srv.params, pcfg, pbatch, pf_wall)

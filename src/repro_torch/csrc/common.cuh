@@ -87,8 +87,9 @@ __device__ inline void store8(void* p, int64_t i, int dt, const float v[8]) {
 // scale = amax / 448 (1 for an all-zero block), each element divided by the
 // scale and rounded to e4m3 with satfinite. A true division, never a
 // multiply by 1/scale, keeps the plain version's bits. Returns the scale in
-// every lane. dispatch_pack's quant mode and quantize_fp8 both call it, so
-// the two agree bit for bit. With `vec` (qb % 8 == 0, a 16-byte aligned
+// every lane. quantize_fp8 calls it, and dispatch_pack's quant mode for a
+// block width that is not 8 * 2^k (its own lane-group path computes the same
+// max, division and rounding for the rest). With `vec` (qb % 8 == 0, a 16-byte aligned
 // source row, an 8-byte aligned dst) a lane takes eight elements at a time
 // and stores their eight bytes at once.
 __device__ inline float quant_block_warp(const void* src, int64_t base, int qb,

@@ -5,8 +5,9 @@
 // by bytes: quantize reads each element once and writes one byte per element
 // plus one f32 scale per block; dequantize reads the byte and its block's
 // scale and writes one element. quantize runs one warp per (row, quant
-// block) through common.cuh quant_block_warp, the device function that
-// dispatch_pack's quant mode calls, so the two agree bit for bit. dequantize
+// block) through common.cuh quant_block_warp: the same max, one division and
+// one rounding per element as dispatch_pack's quant mode, so the two agree bit
+// for bit (chip_smoke.py and the card tests hold them to it). dequantize
 // gives each thread eight consecutive elements of one block (one 8-byte
 // load), reads that block's scale once, multiplies in f32 and rounds once to
 // the output type, as the plain version does. Without 8-aligned blocks both

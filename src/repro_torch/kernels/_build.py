@@ -36,15 +36,15 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
-    "ep_dispatch_pack_copy": (_P, _P, _P, _L, _I, _L, _I, _I, _I, _P),
+    "ep_dispatch_pack_copy": (_P, _P, _P, _L, _I, _L, _I, _I, _P),
     "ep_dispatch_pack_quant": (_P, _P, _P, _P, _L, _I, _L, _I, _I, _P),
     "ep_recv_unpack_copy": (_P, _P, _P, _L, _I, _L, _I, _I, _I, _P),
     "ep_recv_unpack_dequant": (_P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _P),
     "ep_grouped_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "ep_combine_gather_reduce": (_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P),
-    "ep_paged_decode_stage1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _I, _I, _I, _P),
-    "ep_paged_decode_stage2": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "ep_paged_decode_stage1": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _I, _I, _I, _P),
+    "ep_paged_decode_stage2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ep_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L,
                            _L, _L, _L, _F, _I, _I, _I, _P),
     "ep_quantize_fp8": (_P, _P, _P, _L, _L, _I, _I, _I, _P),

@@ -5,10 +5,17 @@ Replaces ``src/repro/kernels/decode_attention.py:112 paged_decode_attention``
 (the Pallas pair ``_stage1_kernel``, ``_stage2_kernel``). Bound on the H100
 by bytes: every live K/V row is read once. The kernel
 (``csrc/paged_decode_attention.cu``) runs stage 1 as one block per (request,
-split, kv head, tile of at most 16 query heads) that walks its split's live
-tokens through the page table in chunks of 16, with an online softmax in f32,
-and never reads a token at or past ``kv_len``; stage 2 reduces the splits in
-a fixed order. Both stages launch from here, each with its own count.
+split, kv head, tile of at most 16 query heads) that streams its split's
+live tokens through the page table into a ring of stages in the pool's own
+type, with q and the sums in registers and an online softmax in f32, and
+never reads a token at or past ``kv_len``. bf16 GQA with head widths of 64
+or 128 (DBRX) moves each row with one bulk copy on the TMA engine and runs
+both products on tensor cores (``mma.sync``, P as a bf16 high and low
+part); every other case uses 16-byte ``cp.async`` and CUDA cores. How a request is split depends only on its own ``kv_len`` and the
+caller's split count (``kv_splits``): a request of one split is written
+directly, and stage 2, launched only when a request of the table's width
+could be split (``splits_possible``), merges the splits of the others in a
+fixed order. Each stage has its own launch count.
 """
 from __future__ import annotations
 
@@ -17,9 +24,34 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0          # stage-1 launches by this wrapper (chip_smoke reads it)
-stage2_launches = 0   # stage-2 launches
+stage2_launches = 0   # stage-2 launches (only calls where splits_possible)
+
+TILE = 32             # tokens per stage-1 tile (csrc: TT)
+MIN_SPLIT = 256       # fewest tokens of a split but the last (csrc: MIN_SPLIT)
 
 _IN = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def kv_splits(kv_len: int, num_kv_splits: int) -> tuple[int, int]:
+    """(splits, span) of one request, as the kernel cuts it (``split_span``
+    in the .cu): at most ``num_kv_splits`` splits, every one but the last
+    ``span`` tokens (a multiple of ``TILE``, at least ``MIN_SPLIT``); split s
+    covers tokens [s * span, min((s + 1) * span, kv_len)). An idle
+    request (kv_len 0) has one empty split. Nothing but the request's own
+    length and the caller's bound goes in, so a request's bits do not depend
+    on its neighbours."""
+    if kv_len <= 0:
+        return 1, TILE
+    n = max(1, min(num_kv_splits, kv_len // MIN_SPLIT))
+    span = -(-(-(-kv_len // n)) // TILE) * TILE
+    return -(-kv_len // span), span
+
+
+def splits_possible(num_kv_splits: int, max_pages: int, page: int) -> bool:
+    """Whether a request of this table could be cut into more than one split
+    (its kv_len is at most the table's ``max_pages * page`` tokens): only
+    then do the partials exist and stage 2 launch."""
+    return kv_splits(max_pages * page, num_kv_splits)[0] > 1
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -71,16 +103,22 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     kdt = _build.dtype_code(name, k_pages.dtype, _IN)
     if not _build.aligned16(q, k_pages, *(() if share else (v_pages,))):
         raise ValueError(f"{name}: q and the pools must be 16-byte aligned")
-    o = torch.empty((B, S, Hq, dv), dtype=torch.float32, device=q.device)
-    lse = torch.empty((B, S, Hq), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, Hq, dv), dtype=torch.float32, device=q.device)
+    o = lse = None
+    split = splits_possible(S, max_pages, page)
+    if split:
+        o = torch.empty((B, S, Hq, dv), dtype=torch.float32, device=q.device)
+        lse = torch.empty((B, S, Hq), dtype=torch.float32, device=q.device)
     vp = k_pages if share else v_pages
     _build.launch("ep_paged_decode_stage1", q.data_ptr(), k_pages.data_ptr(),
                   vp.data_ptr(), kv_indices.data_ptr(), kv_lens.data_ptr(),
-                  o.data_ptr(), lse.data_ptr(), B, S, Hq, Hkv, dk, dv, page,
-                  max_pages, float(scale), qdt, kdt, int(share))
+                  out.data_ptr(), None if o is None else o.data_ptr(),
+                  None if lse is None else lse.data_ptr(), B, S, Hq, Hkv, dk, dv,
+                  page, max_pages, float(scale), qdt, kdt, int(share))
     launches += 1
-    out = torch.empty((B, Hq, dv), dtype=torch.float32, device=q.device)
-    _build.launch("ep_paged_decode_stage2", o.data_ptr(), lse.data_ptr(),
-                  out.data_ptr(), B, S, Hq, dv)
-    stage2_launches += 1
+    if split:
+        _build.launch("ep_paged_decode_stage2", o.data_ptr(), lse.data_ptr(),
+                      kv_lens.data_ptr(), out.data_ptr(), B, S, Hq, dv,
+                      max_pages * page)
+        stage2_launches += 1
     return out

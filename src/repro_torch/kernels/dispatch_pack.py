@@ -3,11 +3,15 @@
 Replaces ``src/repro/kernels/dispatch_pack.py:42 dispatch_pack`` (Pallas,
 scalar-prefetched gather). Bound on the H100 by bytes: one token row read
 and one packed row written per live slot; at the DBRX decode slice a call
-moves 8·16 rows of 6144 bf16. The kernel (``csrc/dispatch_pack.cu``) runs
-one block per slot row that loads its slot index once and moves the row in
-16-byte pieces; in quant mode one warp per 128-wide block reduces amax in
-f32, divides (never multiplies by a reciprocal) and rounds to e4m3 with
-satfinite, so the result is bit-equal to ``ref.dispatch_pack``.
+moves 8·16 rows of 6144 bf16. The kernels (``csrc/dispatch_pack.cu``): copy
+mode runs a grid over (slot row, chunk of 768 16-byte pieces) whose threads
+issue all six of their loads before their stores, and writes a sentinel slot's zero
+row without a load; a dtype change converts through f32. Quant mode runs a
+persistent grid over the slot rows (the next row's slot index read ahead)
+in which a group of ``quant_block / 8`` lanes (at most 32) holds a whole
+block in registers: amax in f32, a true division (never a multiply by a
+reciprocal) and rounding to e4m3 with satfinite, bit-equal to
+``ref.dispatch_pack``; other block widths take one warp per block.
 """
 from __future__ import annotations
 
@@ -52,6 +56,6 @@ def dispatch_pack(x: torch.Tensor, gmap: torch.Tensor, *,
     odt = _build.dtype_code(name, odt_t, _OUT)
     out = torch.empty((N, C, H), dtype=odt_t, device=x.device)
     _build.launch("ep_dispatch_pack_copy", x.data_ptr(), gmap.data_ptr(),
-                  out.data_ptr(), N * C, T, H, xdt, odt, 1)
+                  out.data_ptr(), N * C, T, H, xdt, odt)
     launches += 1
     return out, None

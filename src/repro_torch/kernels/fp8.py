@@ -5,8 +5,9 @@ dequantize_fp8`` (Pallas, (row-block, hidden-block) tiles). Bound on the
 H100 by bytes. On the LL ``deepep`` path dequantize turns each rank's
 received rows, [2, 128, 6144] fp8 with [2, 128, 48] scales at the DBRX
 decode slice, into the bf16 expert input. The kernels (``csrc/fp8.cu``):
-quantize runs one warp per (row, quant block) through the device function
-that ``dispatch_pack``'s quant mode calls, so the two agree bit for bit;
+quantize runs one warp per (row, quant block), computing what
+``dispatch_pack``'s quant mode computes (amax, one true division, one
+rounding), so the two agree bit for bit;
 dequantize multiplies each value by its block's scale in f32 and rounds
 once, bit-equal to ``ref.dequantize_fp8``.
 """

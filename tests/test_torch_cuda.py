@@ -186,7 +186,10 @@ def test_cuda_paged_decode_attention(hopper, dt, splits, share_kv):
     kw = dict(scale=dk ** -0.5, num_kv_splits=splits, dv=dv if share_kv else None)
     before = (da.launches, da.stage2_launches)
     got = da.paged_decode_attention(q, kp, vp, tbl, lens, **kw)
-    assert (da.launches, da.stage2_launches) == (before[0] + 1, before[1] + 1)
+    # stage 2 runs only when a request of the table's width could be split:
+    # never at 96 tokens (the long-row test below takes that path)
+    assert not da.splits_possible(splits, max_pages, page)
+    assert (da.launches, da.stage2_launches) == (before[0] + 1, before[1])
     want = ref.paged_decode_attention(q, kp, vp, tbl, lens, **kw)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert not got[2].any()
@@ -199,6 +202,99 @@ def test_cuda_paged_decode_attention(hopper, dt, splits, share_kv):
     assert torch.equal(da.paged_decode_attention(q, kp, vp, tbl, lens, **kw), got)
     with pytest.raises(ValueError, match="divide by the split"):
         da.paged_decode_attention(q, kp, vp, tbl, lens, **dict(kw, num_kv_splits=3))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_paged_decode_attention_dbrx_long_rows(hopper, dt):
+    """DBRX's head layout (48 query heads over 8 kv heads of 128, page 16)
+    with rows of several thousand tokens, so that requests are cut into
+    splits: within 1e-4 of the plain version, idle rows exactly 0, two calls
+    bitwise equal, and each request bitwise the same alone as among its
+    neighbours (the split depends only on its own length)."""
+    Hq, Hkv, d, page, max_pages = 48, 8, 128, 16, 512
+    lens = torch.tensor([5000, 0, 1, 16, 300, max_pages * page, 4097], dtype=torch.int32)
+    B = lens.numel()
+    gen = torch.Generator().manual_seed(23)
+    pages = [-(-int(n) // page) for n in lens]
+    P = sum(pages) + 64
+    perm = torch.randperm(P, generator=gen)
+    tbl = torch.full((B, max_pages), P, dtype=torch.int32)
+    off = 0
+    for b, n in enumerate(pages):
+        tbl[b, :n] = perm[off:off + n].int()
+        off += n
+    kp = _rand((P + 1, page, Hkv, d), dt, hopper, 1.0, 20)
+    vp = _rand((P + 1, page, Hkv, d), dt, hopper, 1.0, 21)
+    q = _rand((B, Hq, d), dt, hopper, 1.0, 22)
+    tbl, lens = tbl.to(hopper), lens.to(hopper)
+    kw = dict(scale=d ** -0.5, num_kv_splits=4)
+    before = (da.launches, da.stage2_launches)
+    got = da.paged_decode_attention(q, kp, vp, tbl, lens, **kw)
+    assert (da.launches, da.stage2_launches) == (before[0] + 1, before[1] + 1)
+    want = torch.cat([ref.paged_decode_attention(q[b:b + 1], kp, vp, tbl[b:b + 1],
+                                                 lens[b:b + 1], **kw) for b in range(B)])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert not got[1].any()
+    assert torch.equal(da.paged_decode_attention(q, kp, vp, tbl, lens, **kw), got)
+    for b in (0, 4, 5):
+        alone = da.paged_decode_attention(q[b:b + 1].contiguous(), kp, vp,
+                                          tbl[b:b + 1].contiguous(),
+                                          lens[b:b + 1].contiguous(), **kw)
+        assert torch.equal(alone[0], got[b])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_cuda_dispatch_pack_quant_mostly_sentinel(hopper, dt):
+    """Quant mode at DBRX's width (H 6144, block 128) with more than half of
+    the slots sentinel: bitwise equal to the plain version (zero rows with
+    scale 1.0, an all-zero block's scale 1.0), and bitwise equal to
+    quantize_fp8 on the live rows."""
+    T, H, N, C = 48, 6144, 8, 40
+    x = _rand((T, H), dt, hopper, 30.0, 24)
+    x[7, 256:384] = 0.0
+    gen = torch.Generator().manual_seed(25)
+    gmap = torch.full((N, C), T, dtype=torch.int32)
+    live = torch.rand((N, C), generator=gen) < 0.4
+    gmap[live] = torch.randint(0, T, (int(live.sum()),), generator=gen, dtype=torch.int32)
+    gmap[0, 0] = 7
+    assert int((gmap == T).sum()) > N * C // 2
+    gmap = gmap.to(hopper)
+    q, s = dp.dispatch_pack(x, gmap, quant_block=128)
+    wq, ws = ref.dispatch_pack(x, gmap, quant_block=128)
+    assert torch.equal(q.view(torch.uint8), wq.view(torch.uint8)) and torch.equal(s, ws)
+    assert s[0, 0, 2].item() == 1.0
+    fq, fs = fp8.quantize_fp8(x, 128)
+    rows = gmap.flatten().long()
+    keep = rows < T
+    assert torch.equal(q.view(torch.uint8).reshape(N * C, H)[keep],
+                       fq.view(torch.uint8)[rows[keep]])
+    assert torch.equal(s.reshape(N * C, -1)[keep], fs[rows[keep]])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,od", [(torch.bfloat16, torch.float32),
+                                   (torch.float32, torch.bfloat16),
+                                   (torch.float16, torch.float32),
+                                   (torch.bfloat16, torch.float16)])
+def test_cuda_dispatch_pack_copy_dtype_change(hopper, dt, od):
+    """Copy mode with a dtype change at the decode combine send's shape
+    ([256, 6144] rows into [8, 32] slots, sentinels included): bitwise equal
+    to the plain version's gather then cast, sentinel rows exactly 0."""
+    T, H, N, C = 256, 6144, 8, 32
+    x = _rand((T, H), dt, hopper, 3.0, 26)
+    gmap = torch.randint(0, T + 1, (N, C), generator=torch.Generator().manual_seed(27),
+                         dtype=torch.int32)
+    gmap[3, :5] = T
+    gmap = gmap.to(hopper)
+    got, _ = dp.dispatch_pack(x, gmap, out_dtype=od)
+    want, _ = ref.dispatch_pack(x, gmap, out_dtype=od)
+    assert got.dtype == od and torch.equal(got, want)
+    assert not got[3, :5].any()
     torch.cuda.synchronize()
 
 

@@ -31,9 +31,10 @@
    EP rank gets in one MoE layer of the first serve (8 ranks, 16 tokens
    each): bitwise for the two gathers, in copy and in fp8 mode, the pack in
    copy mode also at the combine send ([256, 6144] rows into [8, 32] slots);
-   within 2e-2 for the reduce; and at the prefill's HT shapes (4096 tokens
-   per rank, [8, 2560] send blocks, [2, 10240] expert regions): fp8 pack,
-   dequant unpack and the combine send's copy-mode pack bitwise. The
+   within 2e-2 for the reduce, and bitwise between two of its calls; and at
+   the prefill's HT shapes (4096 tokens per rank, [8, 2560] send blocks,
+   [2, 10240] expert regions): fp8 pack, dequant unpack and the combine
+   send's copy-mode pack bitwise, the reduce as at decode. The
    copy-mode gathers are timed beside ``index_select`` over rows padded with
    one zero row. Holds the bf16 grouped GEMM at the four shapes the paths
    give it: the decode gate [2, 128, 6144] @ [2, 6144, 10752] and down
@@ -59,9 +60,10 @@
    plain version at the prefill's shapes (causal, a window of 1024,
    non-causal) and at G = 1, in bf16 within 5e-3 relative error over the
    whole output and 2e-2 per element, and within 1e-4 in f32; two calls
-   bitwise equal, and SDPA within 2e-2 of it. Times on the card
-   each kernel, its plain version and, where one PyTorch call computes the
-   same function, that call.
+   bitwise equal, and SDPA within 2e-2 of it in each of the three cases
+   (the window as a boolean band mask, on the memory-efficient backend).
+   Times on the card each kernel, its plain version and, where one PyTorch
+   call computes the same function, that call.
 6. Holds each MoE layer's EP output against the dense fallback on the same
    input (every capacity is zero-drop here): relative error <= 2e-2, in the
    ``nccl_ep``, ``deepep`` (with and without fp8) and baseline layouts; the
@@ -95,6 +97,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
@@ -482,6 +485,8 @@ def kernel_phase(cfg, params) -> dict:
     want = ref.combine_gather_reduce(crecv, crows, cw)
     check(torch.allclose(got.float(), want.float(), rtol=TOL, atol=TOL),
           "combine_gather_reduce differs from its plain version beyond 2e-2")
+    check(torch.equal(cg_mod.combine_gather_reduce(crecv, crows, cw), got),
+          "combine_gather_reduce: two calls differ")
     valid = int((crows < crecv.shape[0]).sum())
     library = None
     if valid == crows.numel():      # no sentinel: embedding_bag is the same sum
@@ -1191,7 +1196,13 @@ def ht_kernel_phase(cfg, params) -> None:
     crecv = torch.randn((RANKS * group.ht_pair_cap, d), generator=gen, device=dev).to(dt)
     crows, cw = pl.comb_recv_rows, hs[0].topk_weights
     got = cg_mod.combine_gather_reduce(crecv, crows, cw)
-    err = max_err(got, ref.combine_gather_reduce(crecv, crows, cw))
+    want = ref.combine_gather_reduce(crecv, crows, cw)
+    err = max_err(got, want)
+    check(torch.allclose(got.float(), want.float(), rtol=TOL, atol=TOL),
+          "combine_gather_reduce differs from its plain version beyond 2e-2 at HT shapes")
+    check(torch.equal(cg_mod.combine_gather_reduce(crecv, crows, cw), got),
+          "combine_gather_reduce: two calls differ at HT shapes")
+    del want
     valid = int((crows < crecv.shape[0]).sum())
     bnd = bound(nbytes(crecv, valid) + nbytes(crows) + nbytes(cw) + nbytes(got),
                 2 * valid * d, F32_OPS_S)
@@ -1200,7 +1211,7 @@ def ht_kernel_phase(cfg, params) -> None:
         idx, wb = crows.long(), cw.to(dt)
         lib = f"{device_ms(lambda: F.embedding_bag(idx, crecv, per_sample_weights=wb, mode='sum'), 20):.4f} ms (embedding_bag)"
     print(f"  combine_gather_reduce {list(crecv.shape)} rows {list(crows.shape)} "
-          f"({valid} valid): max_abs_err {err:.3g}; kernel "
+          f"({valid} valid): max_abs_err {err:.3g}, two calls bitwise equal; kernel "
           f"{device_ms(lambda: cg_mod.combine_gather_reduce(crecv, crows, cw), 20):.4f} ms, "
           f"plain {device_ms(lambda: ref.combine_gather_reduce(crecv, crows, cw), 5):.4f} ms, "
           f"library {lib}, bound {bnd[0]:.4f} ms ({bnd[1]})")
@@ -1328,6 +1339,28 @@ def flash_kernel_phase(cfg) -> dict:
     bnd = bound(ref.hbm_bytes(B, Hq, Hkv, S, S, d, 2), ops, BF16_OPS_S)
     win_ms = device_ms(lambda: fa_mod.flash_attention_bshd(q, k, v, window=W, **kw), 10)
     nc_ms = device_ms(lambda: fa_mod.flash_attention_bshd(q, k, v, causal=False, **kw), 10)
+    # the library cells of the other two cases: SDPA non-causal (the same
+    # flash backend as the causal call), and SDPA with a boolean band mask for
+    # the window, which flash SDPA does not take: the memory-efficient backend,
+    # given K/V repeated to the query heads outside the timed call
+    pos = torch.arange(S, device=DEV)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
+    kr, vr = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (kt, vt))
+
+    def nc_library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=False, enable_gqa=True, **kw)
+
+    def win_library():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qt, kr, vr, attn_mask=band, **kw)
+    for label, lib, extra in (("non-causal", nc_library, dict(causal=False)),
+                              (f"window {W}", win_library, dict(window=W))):
+        want = fa_mod.flash_attention_bshd(q, k, v, **kw, **extra)
+        check(torch.allclose(lib().transpose(1, 2).float(), want.float(), rtol=TOL, atol=TOL),
+              f"scaled_dot_product_attention ({label}) disagrees with the kernel")
+        del want
+    nc_lib_ms, win_lib_ms = device_ms(nc_library, 10), device_ms(win_library, 10)
+    del kr, vr, band
     print(f"flash_attention at main-path shapes: kernel {ms:.4f} ms on the card "
           f"({call_ms(kernel, 10):.4f} ms per call from the host), plain {plain_ms:.4f} ms, "
           f"library {library_ms:.4f} ms (scaled_dot_product_attention, is_causal, "
@@ -1335,7 +1368,11 @@ def flash_kernel_phase(cfg) -> dict:
           f"{ref.hbm_bytes(B, Hq, Hkv, S, S, d, 2) / 1e9:.3f} GB), "
           f"{ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {ms / library_ms:.3f}x the library; "
           f"window {W} {win_ms:.4f} ms ({win_ops / (win_ms * 1e-3) / 1e12:.1f} TFLOP/s), "
-          f"non-causal {nc_ms:.4f} ms ({nc_ops / (nc_ms * 1e-3) / 1e12:.1f} TFLOP/s)")
+          f"library {win_lib_ms:.4f} ms (SDPA with a boolean band mask, memory-efficient "
+          f"backend), bound {bound(ref.hbm_bytes(B, Hq, Hkv, S, S, d, 2), win_ops, BF16_OPS_S)[0]:.4f} ms; "
+          f"non-causal {nc_ms:.4f} ms ({nc_ops / (nc_ms * 1e-3) / 1e12:.1f} TFLOP/s), "
+          f"library {nc_lib_ms:.4f} ms (SDPA, is_causal=False, enable_gqa), bound "
+          f"{bound(ref.hbm_bytes(B, Hq, Hkv, S, S, d, 2), nc_ops, BF16_OPS_S)[0]:.4f} ms")
     return record(FLASH, err, ms, plain_ms, bnd, library_ms)
 
 

@@ -1,5 +1,5 @@
 // Shared helpers for the EP kernels: dtype codes, row loads and stores of
-// eight elements at a time, and the row copy used by the two gathers.
+// eight elements at a time, and the fp8 block quantizer.
 //
 // The dtype codes match repro_torch/kernels/_build.py DTYPE_CODES.
 #pragma once
@@ -129,39 +129,4 @@ __device__ inline float quant_block_warp(const void* src, int64_t base, int qb,
                                             __NV_SATFINITE, __NV_E4M3);
   }
   return scale;
-}
-
-// Copy one row of `width` elements from src (dtype sdt) to dst (dtype ddt),
-// the whole block cooperating. src == nullptr writes a zero row. Same-dtype
-// rows move as raw bytes (16 at a time when `vec`), so the copy is exact;
-// a dtype change converts through f32 with round-to-nearest-even.
-__device__ inline void copy_row(const void* src, int sdt, void* dst, int ddt,
-                                int64_t width, bool vec) {
-  if (src != nullptr && sdt == ddt) {
-    int64_t nbytes = width * dtype_size(sdt);
-    const char* s = static_cast<const char*>(src);
-    char* d = static_cast<char*>(dst);
-    if (vec && nbytes % 16 == 0) {
-      for (int64_t b = threadIdx.x * 16; b < nbytes; b += blockDim.x * 16)
-        *reinterpret_cast<uint4*>(d + b) = *reinterpret_cast<const uint4*>(s + b);
-    } else {
-      for (int64_t b = threadIdx.x; b < nbytes; b += blockDim.x) d[b] = s[b];
-    }
-    return;
-  }
-  if (vec) {
-    for (int64_t i = threadIdx.x * 8; i < width; i += blockDim.x * 8) {
-      float v[8];
-      if (src != nullptr) {
-        load8(src, i, sdt, v);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = 0.f;
-      }
-      store8(dst, i, ddt, v);
-    }
-  } else {
-    for (int64_t i = threadIdx.x; i < width; i += blockDim.x)
-      store_elem(dst, i, ddt, src != nullptr ? load_elem(src, i, sdt) : 0.f);
-  }
 }

@@ -7,15 +7,15 @@
 // design does about each cost of a first, simpler kernel (one block per slot
 // row, 2.4x to 3.5x its bound on an H100):
 //
-// - Copy mode (the decode dispatch and combine sends, the HT combine send).
-//   A grid over (slot row, chunk of 768 16-byte pieces, a whole row of
-//   DBRX's 6144 bf16): each thread reads its row's slot index, issues all six
-//   of its 16-byte loads, then the six stores, so a decode call ([8, 16]
-//   slots of 12 KB) has every load in flight in the first wave instead of
-//   six dependent load/store pairs per thread. A sentinel slot (index outside [0, T))
-//   stores zeros without a load. A dtype change goes through f32 with
-//   round-to-nearest-even, eight elements a thread-step (common.cuh load8 /
-//   store8), as before.
+// - Copy mode (the decode dispatch and combine sends, the HT combine send)
+//   runs the row gather it shares with recv_unpack (gather.cuh gather_rows):
+//   a grid over (slot row, chunk of 768 16-byte pieces, a whole row of
+//   DBRX's 6144 bf16) whose threads issue all six of their 16-byte loads
+//   before their stores, so a decode call ([8, 16] slots of 12 KB) has every
+//   load in flight in the first wave instead of six dependent load/store
+//   pairs per thread. A sentinel slot (index outside [0, T)) stores zeros
+//   without a load. A dtype change goes through f32 with
+//   round-to-nearest-even, eight elements a thread-step.
 // - Quant mode (the HT and deepep dispatch sends). A persistent grid walks the
 //   slot rows, reading the next row's slot index ahead. A quant block of qb =
 //   8 * 2^k elements (k <= 7; 128 on the path) belongs to a group of
@@ -31,74 +31,14 @@
 //   Any other block width keeps the one-warp-per-block helper that fp8.cu's
 //   quantize_fp8 calls (common.cuh quant_block_warp). Both compute the same
 //   function, exactly: a max, one division and one rounding per element.
-#include "common.cuh"
+#include "gather.cuh"
 
 namespace {
 
-constexpr int COPY_THREADS = 128;
-constexpr int COPY_UNROLL = 6;        // pieces per thread, all loaded before any store
-constexpr int COPY_CHUNK = COPY_THREADS * COPY_UNROLL;
 constexpr int QUANT_THREADS = 256;
 constexpr int QUANT_WARPS = QUANT_THREADS / 32;
 constexpr int SCALE_SMEM = 4096;      // floats of a row's scales staged in shared memory
 constexpr int MAX_DEVICES = 64;
-
-// Same dtype: a row is `pieces` 16-byte pieces, moved raw (exact).
-__global__ void __launch_bounds__(COPY_THREADS) pack_copy_kernel(
-    const uint4* __restrict__ x, const int* __restrict__ gmap, uint4* __restrict__ out,
-    int T, int64_t pieces) {
-  const int64_t r = blockIdx.x;
-  const int src = __ldg(gmap + r);
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * COPY_CHUNK + threadIdx.x;
-  uint4* orow = out + r * pieces;
-  uint4 v[COPY_UNROLL];
-  if (src >= 0 && src < T) {
-    const uint4* xrow = x + static_cast<int64_t>(src) * pieces;
-#pragma unroll
-    for (int u = 0; u < COPY_UNROLL; ++u) {
-      const int64_t i = base + u * COPY_THREADS;
-      if (i < pieces) v[u] = __ldg(xrow + i);
-    }
-  } else {
-#pragma unroll
-    for (int u = 0; u < COPY_UNROLL; ++u) v[u] = make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int u = 0; u < COPY_UNROLL; ++u) {
-    const int64_t i = base + u * COPY_THREADS;
-    if (i < pieces) orow[i] = v[u];
-  }
-}
-
-// A dtype change: `units` groups of 8 elements a row, each through f32.
-__global__ void __launch_bounds__(COPY_THREADS) pack_convert_kernel(
-    const void* __restrict__ x, const int* __restrict__ gmap, void* __restrict__ out, int T,
-    int64_t H, int xdt, int odt) {
-  const int64_t r = blockIdx.x;
-  const int src = __ldg(gmap + r);
-  const int64_t units = H / 8;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * COPY_CHUNK + threadIdx.x;
-  const bool live = src >= 0 && src < T;
-  const char* xrow = static_cast<const char*>(x) + static_cast<int64_t>(live ? src : 0) * H *
-                                                       dtype_size(xdt);
-  char* orow = static_cast<char*>(out) + r * H * dtype_size(odt);
-  float v[COPY_UNROLL][8];
-#pragma unroll
-  for (int u = 0; u < COPY_UNROLL; ++u) {
-    const int64_t i = base + u * COPY_THREADS;
-    if (live && i < units) {
-      load8(xrow, i * 8, xdt, v[u]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[u][k] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < COPY_UNROLL; ++u) {
-    const int64_t i = base + u * COPY_THREADS;
-    if (i < units) store8(orow, i * 8, odt, v[u]);
-  }
-}
 
 // Quant mode, qb = LANES * 8 * CHUNKS: a group of LANES lanes holds one
 // block in registers. The grid strides over the slot rows; a block's warps
@@ -262,21 +202,9 @@ int launch_quant(const void* x, const int* gmap, void* q, void* scales, int64_t 
 extern "C" int ep_dispatch_pack_copy(const void* x, const void* gmap, void* out,
                                      int64_t rows, int T, int64_t H, int xdt, int odt,
                                      void* stream) {
-  if (rows <= 0 || H <= 0 || H % 8) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* g = static_cast<const int*>(gmap);
-  if (xdt == odt) {
-    const int64_t pieces = H * dtype_size(xdt) / 16;
-    dim3 grid(static_cast<unsigned>(rows),
-              static_cast<unsigned>((pieces + COPY_CHUNK - 1) / COPY_CHUNK));
-    pack_copy_kernel<<<grid, COPY_THREADS, 0, st>>>(static_cast<const uint4*>(x), g,
-                                                   static_cast<uint4*>(out), T, pieces);
-  } else {
-    dim3 grid(static_cast<unsigned>(rows),
-              static_cast<unsigned>((H / 8 + COPY_CHUNK - 1) / COPY_CHUNK));
-    pack_convert_kernel<<<grid, COPY_THREADS, 0, st>>>(x, g, out, T, H, xdt, odt);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (H % 8) return static_cast<int>(cudaGetLastError());
+  return gather_rows(x, static_cast<const int*>(gmap), out, rows, T, H, xdt, odt,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ep_dispatch_pack_quant(const void* x, const void* gmap, void* q,

@@ -25,7 +25,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("dispatch_pack.cu", "recv_unpack.cu", "grouped_gemm.cu",
            "combine_gather_reduce.cu", "paged_decode_attention.cu",
            "flash_attention.cu", "fp8.cu", "combine_reduce.cu")
-HEADERS = ("common.cuh", "hopper.cuh")
+HEADERS = ("common.cuh", "gather.cuh", "hopper.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,7 +41,7 @@ _SIGNATURES = {
     "ep_recv_unpack_copy": (_P, _P, _P, _L, _I, _L, _I, _I, _I, _P),
     "ep_recv_unpack_dequant": (_P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _P),
     "ep_grouped_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    "ep_combine_gather_reduce": (_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P),
+    "ep_combine_gather_reduce": (_P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
     "ep_paged_decode_stage1": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _I, _I, _I, _P),
     "ep_paged_decode_stage2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -5,9 +5,12 @@ Replaces ``src/repro/kernels/combine_gather_reduce.py:44
 combine_gather_reduce`` (Pallas, k as the innermost sequential grid axis).
 Bound on the H100 by bytes: K row reads and one row write per token; at the
 DBRX decode slice 16 tokens gather 4 rows of 6144 bf16 each. The kernel
-(``csrc/combine_gather_reduce.cu``) runs one block per (token, 1024-wide H
-tile); each thread holds eight f32 sums in registers over k = 0..K-1 in a
-fixed order and casts once, so results do not vary from run to run.
+(``csrc/combine_gather_reduce.cu``) runs blocks of 64 threads over (token,
+tile of 64 16-byte pieces), so the decode call has more blocks than the
+card has SMs; each thread reads its token's K indices and weights once,
+issues the loads of all its rows (up to 8 at a time) before the first FMA,
+sums in f32 over k = 0..K-1 in that fixed order and casts once, so results
+do not vary from run to run. A sentinel row is not loaded.
 """
 from __future__ import annotations
 
@@ -41,6 +44,6 @@ def combine_gather_reduce(recv: torch.Tensor, rows: torch.Tensor,
                          "16-byte aligned rows")
     out = torch.empty((T, H), dtype=recv.dtype, device=recv.device)
     _build.launch("ep_combine_gather_reduce", recv.data_ptr(), rows.data_ptr(),
-                  w.data_ptr(), out.data_ptr(), T, R, H, K, rdt, rdt)
+                  w.data_ptr(), out.data_ptr(), T, R, H, K, rdt)
     launches += 1
     return out

@@ -447,3 +447,125 @@ def test_cuda_moe_block_positional_layouts_match_dense(hopper, layout):
         assert (y.float() - dense.float()).norm() / dense.float().norm() <= 2e-2
     else:
         torch.testing.assert_close(y, dense, rtol=1e-5, atol=1e-5)
+
+
+def _mostly_sentinel_map(shape, n, live_share, seed):
+    """An int32 slot map of ``shape`` over rows [0, n), about ``live_share``
+    of its slots live and the rest the sentinel n, made on the host."""
+    gen = torch.Generator().manual_seed(seed)
+    gmap = torch.full(shape, n, dtype=torch.int32)
+    live = torch.rand(shape, generator=gen) < live_share
+    gmap[live] = torch.randint(0, n, (int(live.sum()),), generator=gen, dtype=torch.int32)
+    return gmap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt,H", [(torch.bfloat16, 6144), (torch.float32, 6144),
+                                  (torch.float8_e4m3fn, 6144), (torch.float8_e4m3fn, 6152)],
+                         ids=["bf16", "f32", "fp8", "fp8-any-width"])
+def test_cuda_recv_unpack_copy_decode_mostly_sentinel(hopper, dt, H):
+    """B2's copy mode at the decode recv's shape ([128, H] into [2, 128]
+    slots, about 70 of the 256 live): bitwise equal to the plain version,
+    sentinel slots exactly zero, one launch. fp8 rows of 6144 bytes take the
+    shared gather, of 6152 the element-by-element route."""
+    R = 128
+    recv = _rand((R, H), torch.float32, hopper, 30.0, 28).to(dt)
+    gmap = _mostly_sentinel_map((2, 128), R, 70 / 256, 29)
+    assert int((gmap < R).sum()) < 128
+    gmap = gmap.to(hopper)
+    before = ru.launches
+    got = ru.recv_unpack(recv, gmap)
+    assert ru.launches == before + 1 and got.shape == (2, 128, H) and got.dtype == dt
+    want = ref.recv_unpack(recv, gmap)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert not got.view(torch.uint8)[gmap == R].any()
+    assert ru.copy_route(H, dt, dt, recv.data_ptr(), got.data_ptr()) == int(H != 6152)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [128, 104])
+@pytest.mark.parametrize("od", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset-payload"])
+def test_cuda_recv_unpack_dequant_bitwise(hopper, block, od, aligned):
+    """B2's fused fp8 dequant, blocks of 128 (16-byte pieces into bf16,
+    8-byte into f32) and 104 (8-byte pieces; a payload one byte off
+    alignment goes element by element), bf16 and f32 out, with sentinel
+    slots and an all-zero block: bitwise equal to the plain version;
+    sentinel rows exactly zero."""
+    R, H = 96, (6144 if block == 128 else 1040)
+    x = _rand((R, H), torch.float32, hopper, 30.0, 30)
+    x[4, :block] = 0.0
+    q, s = ref.quantize_fp8(x, block)
+    if not aligned:
+        buf = torch.empty(R * H + 1, dtype=torch.uint8, device=hopper)
+        buf[1:].copy_(q.view(torch.uint8).flatten())
+        q = buf[1:].view(torch.float8_e4m3fn).view(R, H)
+    gmap = _mostly_sentinel_map((3, 40), R, 0.5, 31)
+    gmap[0, 0] = 4
+    gmap = gmap.to(hopper)
+    before = ru.launches
+    got = ru.recv_unpack(q, gmap, s, out_dtype=od)
+    assert ru.launches == before + 1
+    want = ref.recv_unpack(q, gmap, s, od)
+    assert got.dtype == od and torch.equal(got, want)
+    assert not got[gmap == R].any()
+    piece = ru.dequant_piece(block, od, q.data_ptr(), got.data_ptr())
+    assert piece == (1 if not aligned else 16 if block == 128 and od == torch.bfloat16 else 8)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+def test_cuda_dispatch_pack_and_recv_unpack_share_the_copy(hopper, dt):
+    """B1's and B2's copy modes run one row gather: on the same rows and map
+    (sentinel T for both) they give the same bits, equal to both plain
+    versions, with the dtype unchanged and through a dtype change."""
+    T, H, N, C = 200, 6144, 8, 32
+    x = _rand((T, H), dt, hopper, 3.0, 32)
+    gmap = _mostly_sentinel_map((N, C), T, 0.4, 33).to(hopper)
+    for od in (dt, torch.bfloat16 if dt != torch.bfloat16 else torch.float32):
+        packed, _ = dp.dispatch_pack(x, gmap, out_dtype=od)
+        unpacked = ru.recv_unpack(x, gmap, out_dtype=od)
+        assert torch.equal(packed, unpacked)
+        assert torch.equal(packed, ref.dispatch_pack(x, gmap, out_dtype=od)[0])
+        assert torch.equal(unpacked, ref.recv_unpack(x, gmap, out_dtype=od))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 4, 6, 8])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+def test_cuda_combine_gather_reduce_any_k(hopper, K, dt):
+    """B4 over K in {1, 4, 6, 8} in f32, bf16 and f16 at a width that leaves
+    a part tile (1032): within 1e-5 (f32) or 2e-2 of the plain version; a
+    token whose K rows are all sentinels gives an exact zero row; two calls
+    give the same bits; a token's bits do not change when the other tokens'
+    rows and weights change; indices and weights off 16-byte alignment (the
+    scalar loads) give the same bits as aligned ones."""
+    R, T, H = 64, 16, 1032
+    recv = _rand((R, H), dt, hopper, 1.0, 34)
+    gen = torch.Generator().manual_seed(35 + K)
+    rows = torch.randint(0, R + 1, (T, K), generator=gen, dtype=torch.int32)
+    rows[3] = R
+    rows, w = rows.to(hopper), torch.rand((T, K), generator=gen).to(hopper)
+    before = cg.launches
+    got = cg.combine_gather_reduce(recv, rows, w)
+    assert cg.launches == before + 1 and got.dtype == dt
+    t = tol(torch.bfloat16 if dt == torch.float16 else dt)
+    torch.testing.assert_close(got, ref.combine_gather_reduce(recv, rows, w), **t)
+    assert not got[3].any()
+    assert torch.equal(cg.combine_gather_reduce(recv, rows, w), got)
+    rows2, w2 = rows.clone(), w.clone()
+    keep = torch.arange(T, device=hopper) == 5
+    rows2[~keep] = torch.randint(0, R + 1, (T - 1, K), generator=gen,
+                                 dtype=torch.int32).to(hopper)
+    w2[~keep] = torch.rand((T - 1, K), generator=gen).to(hopper)
+    assert torch.equal(cg.combine_gather_reduce(recv, rows2, w2)[5], got[5])
+    ibuf = torch.empty(T * K + 1, dtype=torch.int32, device=hopper)
+    wbuf = torch.empty(T * K + 1, dtype=torch.float32, device=hopper)
+    ibuf[1:].copy_(rows.flatten())
+    wbuf[1:].copy_(w.flatten())
+    off = cg.combine_gather_reduce(recv, ibuf[1:].view(T, K), wbuf[1:].view(T, K))
+    assert torch.equal(off, got)
+    torch.cuda.synchronize()

@@ -247,3 +247,51 @@ def test_combine_reduce_against_pallas(dt, jax_path):
     assert got.dtype == DTYPES[dt][1]
     t = dict(rtol=1e-6, atol=1e-6) if dt == "f32" else tol(dt)
     np.testing.assert_allclose(to_np(got), to_np(want), **t)
+
+
+@pytest.mark.parametrize("H,rdt,odt,ptrs,want", [
+    (6144, torch.bfloat16, torch.bfloat16, (0, 4096), 1),       # the decode recv
+    (6144, torch.float8_e4m3fn, torch.float8_e4m3fn, (16, 32), 1),
+    (6152, torch.float8_e4m3fn, torch.float8_e4m3fn, (16, 32), 0),  # 8 + 16k bytes
+    (6152, torch.float8_e4m3fn, torch.bfloat16, (16, 32), 1),   # converts 8 at a time
+    (48, torch.float32, torch.float32, (0, 0), 1),
+    (5, torch.bfloat16, torch.bfloat16, (0, 0), 0),             # any width
+    (6144, torch.bfloat16, torch.bfloat16, (2, 0), 0),          # unaligned rows
+    (6144, torch.bfloat16, torch.float32, (0, 8), 0),
+])
+def test_recv_unpack_copy_route(H, rdt, odt, ptrs, want):
+    """B2's copy takes the row gather it shares with B1 only where that
+    kernel's 16-byte pieces fit the rows; otherwise it goes element by
+    element."""
+    from repro_torch.kernels import recv_unpack as tru
+    assert tru.copy_route(H, rdt, odt, *ptrs) == want
+
+
+@pytest.mark.parametrize("blk,odt,recv_ptr,out_ptr,want", [
+    (128, torch.bfloat16, 0, 0, 16), (128, torch.float16, 16, 32, 16),
+    (128, torch.float32, 0, 0, 8), (128, torch.bfloat16, 8, 0, 8),
+    (104, torch.bfloat16, 0, 0, 8), (104, torch.float32, 16, 0, 8),
+    (64, torch.bfloat16, 4, 0, 1), (12, torch.bfloat16, 0, 0, 1),
+    (128, torch.bfloat16, 0, 8, 1), (16, torch.bfloat16, 16, 16, 16),
+    (8, torch.bfloat16, 8, 16, 8),
+])
+def test_recv_unpack_dequant_piece(blk, odt, recv_ptr, out_ptr, want):
+    """B2's dequant reads 16 payload bytes a thread-step where the quant
+    block, the payload's alignment and a 2-byte output allow it (DBRX's
+    block of 128 into bf16), 8 where only that fits (a block of 104, an f32
+    output), else one at a time; a misaligned output takes the element
+    route."""
+    from repro_torch.kernels import recv_unpack as tru
+    assert tru.dequant_piece(blk, odt, recv_ptr, out_ptr) == want
+
+
+def test_combine_gather_reduce_decode_grid_fills_the_card():
+    """B4's blocks (``GR_THREADS`` 16-byte pieces each, one token) number at
+    least the H100's 132 SMs at DBRX's decode combine (16 tokens, H 6144
+    bf16)."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "combine_gather_reduce.cu").read_text()
+    threads = int(re.search(r"constexpr int GR_THREADS = (\d+);", src).group(1))
+    pieces = 6144 * 2 // 16
+    assert 16 * -(-pieces // threads) >= 132

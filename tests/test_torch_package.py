@@ -120,3 +120,23 @@ def test_cpu_tensors_take_the_plain_fp8_and_combine_reduce():
         fp8_mod.dequantize_fp8(q, s)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cr_mod.combine_reduce(y, w)
+
+
+def test_c_entries_match_their_ctypes_signatures():
+    """Every ``extern "C"`` entry of the kernel sources has the argument list
+    ``_build._SIGNATURES`` gives ctypes, type by type: a pointer as
+    c_void_p, int64_t as c_int64, int as c_int, float as c_float. A
+    mismatch would pass garbage without any error."""
+    import re
+    from repro_torch.kernels import _build
+    kinds = {"int64_t": "L", "int": "I", "float": "F"}
+    ctypes_kinds = {_build._P: "P", _build._L: "L", _build._I: "I", _build._F: "F"}
+    seen = {}
+    for name in _build.SOURCES:
+        text = (_build.CSRC / name).read_text()
+        for fn, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            seen[fn] = tuple("P" if "*" in a else kinds[a.split()[-2]]
+                             for a in (" ".join(x.split()) for x in args.split(",")))
+    assert set(seen) == set(_build._SIGNATURES)
+    for fn, sig in _build._SIGNATURES.items():
+        assert seen[fn] == tuple(ctypes_kinds[t] for t in sig), fn

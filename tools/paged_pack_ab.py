@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""B6 ``paged_decode_attention`` and B1 ``dispatch_pack``, two versions of
-the port on one card, at the shapes of the port's paths.
+"""B1 ``dispatch_pack``, B2 ``recv_unpack``, B4 ``combine_gather_reduce`` and
+B6 ``paged_decode_attention``, two versions of the port on one card, at the
+shapes of the port's paths.
 
     python3 tools/paged_pack_ab.py --old DIR [--new DIR]
 
@@ -9,15 +10,17 @@ one's), for example an older commit unpacked with ``git archive`` into the
 ignored ``build/``. Each version runs in its own process (its kernels built
 from its own ``csrc/`` into its own ``build/``), in the order old, new, new,
 old, on the same inputs made from fixed seeds. Each process checks its
-kernels against its plain versions (B1 bitwise, B6 within 1e-4), times each
-call on the card with the profiler's device intervals (``chip_smoke.device_ms``)
-and the host's time for one call of the small shapes (``host_ms``: wall time
-of back-to-back calls, the card synchronised outside the loop), and prints
-one JSON line. The parent prints every run and the mean of each
-version's two, beside the bound of each shape (``chip_smoke.bound``) and the
-library yardstick: ``torch.index_select`` over the token rows padded with
-one zero row (the padding made outside the timed call), which computes B1's
-copy mode. Needs one CUDA card.
+kernels against its plain versions (B1 and B2 bitwise, B4 within 2e-2 and
+bitwise between two calls, B6 within 1e-4), times each call on the card
+with the profiler's device intervals (``chip_smoke.device_ms``) and the
+host's time for one call of the small shapes (``host_ms``: wall time of
+back-to-back calls, the card synchronised outside the loop), and prints one
+JSON line. The parent prints every run and the mean of each version's two,
+beside the bound of each shape (``chip_smoke.bound``) and the library
+yardstick: ``torch.index_select`` over the rows padded with one zero row
+(the padding made outside the timed call), which computes B1's and B2's
+copy mode, and ``embedding_bag`` for B4 where no row is a sentinel. Needs
+one CUDA card.
 
 The shapes: B6 at the continuous serve's (q [128, 48, 128] bf16, pools of
 513 pages of 16, table [128, 4], 4 splits, lengths 0 to 64) and at 32k
@@ -26,8 +29,14 @@ tokens (table [128, 2048], mean length 16,650), the inputs of
 mode at the decode dispatch send ([16, 6144] -> [8, 16, 6144]), the decode
 combine send ([256, 6144] -> [8, 32, 6144]) and the HT combine send
 ([20480, 6144] -> [8, 2560, 6144]), and in fp8 mode at the HT dispatch
-send ([4096, 6144] -> [8, 2560, 6144] + scales), with the slot maps of the
-DBRX-132B presets' plans (``decode_32k``, ``train_4k``) over 8 ranks.
+send ([4096, 6144] -> [8, 2560, 6144] + scales); B2 in copy mode at the
+decode dispatch recv ([128, 6144] -> [2, 128, 6144]) and in fp8 mode at
+the HT dispatch recv ([20480, 6144] fp8 + [20480, 48] scales -> [2, 10240,
+6144] bf16); B4 at the decode combine recv (recv [256, 6144], rows [16, 4])
+and at HT's (recv [20480, 6144], rows [4096, 4]); with the slot maps of the
+DBRX-132B presets' plans (``decode_32k``, ``train_4k``) over 8 ranks, the
+received buffers made by the plain pack and the all-to-all of
+``chip_smoke.kernel_phase`` and ``ht_kernel_phase``.
 """
 from __future__ import annotations
 
@@ -42,8 +51,8 @@ RANKS = 8
 
 
 def _plan(cfg, tokens: int, seed: int):
-    """Rank 0's plan and x, and its group, for a seeded routing of
-    ``tokens`` tokens per rank."""
+    """The group, every rank's handle and x, and the generator, for a
+    seeded routing of ``tokens`` tokens per rank."""
     import torch
     from repro_torch.comm import LocalComm
     from repro_torch.core import ep_create_handle, route
@@ -56,7 +65,7 @@ def _plan(cfg, tokens: int, seed: int):
           for _ in range(RANKS)]
     rs = [route(x.float() @ router, router_config(cfg.moe)) for x in xs]
     hs = ep_create_handle(group, [r.topk_idx for r in rs], [r.topk_weights for r in rs])
-    return group, hs[0].plan, xs[0], gen
+    return group, hs, xs, gen
 
 
 def host_ms(fn, iters: int = 200, reps: int = 7) -> float:
@@ -88,9 +97,13 @@ def measure(src: str) -> dict:
     # package imported above
     sys.path.insert(1, str(ROOT))
     import chip_smoke as cs
+    import torch.nn.functional as F
+    from repro_torch.comm import LocalComm
     from repro_torch.configs.dbrx_132b import full_config
+    from repro_torch.kernels import combine_gather_reduce as cg
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import dispatch_pack as dp
+    from repro_torch.kernels import recv_unpack as ru
     from repro_torch.kernels import ref
 
     out = {"package": str(pathlib.Path(repro_torch.__file__).resolve().parent)}
@@ -161,17 +174,76 @@ def measure(src: str) -> dict:
             rec["library_ms"] = cs.device_ms(lambda: torch.index_select(xp, 0, idx), iters)
         out[f"B1 {label}"] = rec
 
-    group, pl, x0, gen = _plan(cfg, cs.BATCH // RANKS, 1)
-    pack("copy, decode dispatch send", x0, pl.disp_send_gmap, 50)
+    def unpack(label, recv, gmap, iters, scales=None):
+        dt = None if scales is None else cfg.dtype
+
+        def fn():
+            return ru.recv_unpack(recv, gmap, scales, out_dtype=dt)
+        got = fn()
+        cs.check(torch.equal(got, ref.recv_unpack(recv, gmap, scales, dt)),
+                 f"B2 {label} differs from its plain version")
+        live = int((gmap < recv.shape[0]).sum())
+        nb = cs.nbytes(recv, live) + cs.nbytes(got) + cs.nbytes(gmap)
+        ops = 0
+        if scales is not None:
+            nb += cs.nbytes(scales, live)
+            ops = live * recv.shape[1]
+        rec = dict(ms=cs.device_ms(fn, iters), bound_ms=cs.bound(nb, ops, cs.F32_OPS_S)[0])
+        if scales is None:
+            rec["host_ms"] = host_ms(fn)
+            rec["library_ms"] = cs.device_ms(cs.padded_gather(recv, gmap), iters)
+        out[f"B2 {label}"] = rec
+
+    def reduce(label, recv, rows, w, iters):
+        def fn():
+            return cg.combine_gather_reduce(recv, rows, w)
+        got = fn()
+        want = ref.combine_gather_reduce(recv, rows, w)
+        cs.check(torch.allclose(got.float(), want.float(), rtol=cs.TOL, atol=cs.TOL),
+                 f"B4 {label} off its plain version beyond 2e-2")
+        cs.check(torch.equal(fn(), got), f"B4 {label}: two calls differ")
+        valid = int((rows < recv.shape[0]).sum())
+        nb = cs.nbytes(recv, valid) + cs.nbytes(rows) + cs.nbytes(w) + cs.nbytes(got)
+        rec = dict(ms=cs.device_ms(fn, iters),
+                   bound_ms=cs.bound(nb, 2 * valid * recv.shape[1], cs.F32_OPS_S)[0])
+        if rows.shape[0] <= 256:
+            rec["host_ms"] = host_ms(fn)
+        if valid == rows.numel():      # no sentinel: embedding_bag is the same sum
+            idx, wb = rows.long(), w.to(recv.dtype)
+            rec["library_ms"] = cs.device_ms(lambda: F.embedding_bag(
+                idx, recv, per_sample_weights=wb, mode="sum"), iters)
+        out[f"B4 {label}"] = rec
+
+    comm = LocalComm(RANKS)
+    group, hs, xs, gen = _plan(cfg, cs.BATCH // RANKS, 1)
+    pl, d, dt = hs[0].plan, cfg.d_model, cfg.dtype
+    pack("copy, decode dispatch send", xs[0], pl.disp_send_gmap, 50)
+    recv0 = comm.all_to_all([ref.dispatch_pack(x, h.plan.disp_send_gmap, None, dt)[0]
+                             for x, h in zip(xs, hs)])[0].reshape(-1, d)
+    unpack("copy, decode dispatch recv", recv0, pl.disp_recv_gmap, 50)
     L, A = group.local_experts, group.ll_expert_cap
-    y = torch.randn((L * A, cfg.d_model), generator=gen, device="cuda").to(cfg.dtype)
-    pack("copy, decode combine send", y, pl.comb_send_gmap, 50)
+    ys = [torch.randn((L * A, d), generator=gen, device="cuda").to(dt) for _ in range(RANKS)]
+    pack("copy, decode combine send", ys[0], pl.comb_send_gmap, 50)
+    crecv = comm.all_to_all([ref.dispatch_pack(y, h.plan.comb_send_gmap, None, dt)[0]
+                             for y, h in zip(ys, hs)])[0].reshape(-1, d)
+    reduce("decode combine recv", crecv, pl.comb_recv_rows, hs[0].topk_weights, 50)
+    del recv0, ys, crecv
     pcfg = full_config("train_4k")
-    group, pl, x0, gen = _plan(pcfg, cs.PF_SEQ, 12)
-    pack("fp8, HT dispatch send", x0, pl.disp_send_gmap, 20, group.cfg.quant_block)
+    group, hs, xs, gen = _plan(pcfg, cs.PF_SEQ, 12)
+    pl, qb = hs[0].plan, group.cfg.quant_block
+    pack("fp8, HT dispatch send", xs[0], pl.disp_send_gmap, 20, qb)
+    packs = [ref.dispatch_pack(x, h.plan.disp_send_gmap, qb) for x, h in zip(xs, hs)]
+    qrecv = comm.all_to_all([a for a, _ in packs])[0].reshape(-1, d)
+    srecv = comm.all_to_all([b for _, b in packs])[0].reshape(qrecv.shape[0], -1)
+    del packs
+    unpack("fp8, HT dispatch recv", qrecv, pl.disp_recv_gmap, 20, srecv)
+    del qrecv, srecv
     y = torch.randn((group.local_experts * group.ht_expert_cap, pcfg.d_model),
                     generator=gen, device="cuda").to(pcfg.dtype)
     pack("copy, HT combine send", y, pl.comb_send_gmap, 20)
+    crecv = torch.randn((RANKS * group.ht_pair_cap, d), generator=gen,
+                        device="cuda").to(pcfg.dtype)
+    reduce("HT combine recv", crecv, pl.comb_recv_rows, hs[0].topk_weights, 20)
     return out
 
 

@@ -47,8 +47,10 @@
    ``torch.bmm`` and its bound. The standalone fp8 pair bitwise:
    dequantize on what one rank receives in the ``deepep`` serve, quantize
    at the decode and HT x of a rank in bf16 and f32, blocks 128 and 64,
-   and against ``dispatch_pack``'s quant mode; ``combine_reduce`` within
-   2e-2 (bf16) and 1e-5 (f32) at 16 and 4096 tokens of K = 4. Holds the
+   against ``dispatch_pack``'s quant mode and between two calls;
+   ``combine_reduce`` within 2e-2 (bf16) and 1e-5 (f32) at 16 and 4096
+   tokens of K = 4, bitwise between two calls and against
+   ``combine_gather_reduce`` over identity rows. Holds the
    paged decode attention kernel
    against its plain version within 1e-4: at the shapes the continuous serve
    gives it (bf16 pools of the serve's 512 + 1 pages, table width 4, 4
@@ -668,8 +670,9 @@ def fp8_kernel_phase(cfg, params) -> dict:
     """The standalone fp8 pair. dequantize_fp8 on what rank 0 receives in
     MoE layer 0 of the deepep serve ([L, N·B] rows after the transpose),
     bitwise; quantize_fp8 bitwise at the decode and HT x of a rank, bf16 and
-    f32, blocks 128 and 64, and bitwise equal to dispatch_pack's quant mode
-    through an identity map. Returns both records."""
+    f32, blocks 128 and 64, bitwise equal to dispatch_pack's quant mode
+    through an identity map (the two share one quantizer) and between two
+    calls. Returns both records."""
     dev, dt, d = DEV, cfg.dtype, cfg.d_model
     c = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **LAYOUTS["deepep_fp8"]))
     p = {k: v[0] for k, v in params["moe_stack"]["moe"].items()}
@@ -710,11 +713,14 @@ def fp8_kernel_phase(cfg, params) -> dict:
         check(torch.equal(pq[0].view(torch.uint8), qk.view(torch.uint8))
               and torch.equal(ps[0], sk),
               f"quantize_fp8 [{rows}, {d}] {xdt} block {block} differs from dispatch_pack")
+        q2, s2 = fp8_mod.quantize_fp8(x, block)
+        check(torch.equal(q2.view(torch.uint8), qk.view(torch.uint8)) and torch.equal(s2, sk),
+              f"quantize_fp8 [{rows}, {d}] {xdt} block {block}: two calls differ")
         bnd = bound(nbytes(x) + nbytes(qk) + nbytes(sk), 2 * x.numel(), F32_OPS_S)
         ms = device_ms(lambda: fp8_mod.quantize_fp8(x, block), 50 if rows == T else 20)
         plain_ms = device_ms(lambda: ref.quantize_fp8(x, block), 20 if rows == T else 5)
         print(f"quantize_fp8 [{rows}, {d}] {xdt} block {block}: bitwise equal to its plain "
-              f"version and to dispatch_pack's quant mode; kernel {ms:.5f} ms, plain "
+              f"version, to dispatch_pack's quant mode and between two calls; kernel {ms:.5f} ms, plain "
               f"{plain_ms:.5f} ms, library none, bound {bnd[0]:.5f} ms ({bnd[1]})")
         if (rows, xdt, block) == (T, dt, 128):
             records["quantize_fp8"] = record("quantize_fp8", max_err(qk, wq), ms,
@@ -724,9 +730,12 @@ def fp8_kernel_phase(cfg, params) -> dict:
 
 def combine_reduce_phase(d: int) -> dict:
     """combine_reduce at K = 4 over 16 and 4096 tokens of width d: bf16 within
-    2e-2, f32 within 1e-5 of its plain version. The library is one
-    ``torch.bmm(w.unsqueeze(1), y)`` on f32 copies, the copies made outside
-    the timed call. Returns the record of the bf16 case at 16 tokens."""
+    2e-2, f32 within 1e-5 of its plain version, bitwise between two calls,
+    and bitwise equal to combine_gather_reduce over ``y.view(T·K, d)`` with
+    identity rows (the two share one reduce; the weights are f32). The
+    library is one ``torch.bmm(w.unsqueeze(1), y)`` on f32 copies, the copies
+    made outside the timed call. Returns the record of the bf16 case at 16
+    tokens."""
     gen = torch.Generator(device=DEV).manual_seed(18)
     out = None
     for rows, dt, tol in ((BATCH // RANKS, torch.bfloat16, TOL), (PF_SEQ, torch.bfloat16, TOL),
@@ -738,14 +747,21 @@ def combine_reduce_phase(d: int) -> dict:
         err = max_err(got, want)
         check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
               f"combine_reduce [{rows}, 4, {d}] {dt} off its plain version by {err}")
+        check(torch.equal(cr_mod.combine_reduce(y, w), got),
+              f"combine_reduce [{rows}, 4, {d}] {dt}: two calls differ")
+        ident = torch.arange(rows * 4, device=DEV, dtype=torch.int32).view(rows, 4)
+        check(torch.equal(cg_mod.combine_gather_reduce(y.view(rows * 4, d), ident, w), got),
+              f"combine_reduce [{rows}, 4, {d}] {dt} differs from combine_gather_reduce "
+              "over identity rows")
         yf, wf = y.float(), w.float().unsqueeze(1)
         iters = 50 if rows < PF_SEQ else 10
         ms = device_ms(lambda: cr_mod.combine_reduce(y, w), iters)
         plain_ms = device_ms(lambda: ref.combine_reduce(y, w), iters)
         library_ms = device_ms(lambda: torch.bmm(wf, yf), iters)
         bnd = bound(nbytes(y) + nbytes(w) + nbytes(got), 2 * y.numel(), F32_OPS_S)
-        print(f"combine_reduce [{rows}, 4, {d}] {dt}: max_abs_err {err:.3g} (limit {tol}); "
-              f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, library {library_ms:.5f} ms "
+        print(f"combine_reduce [{rows}, 4, {d}] {dt}: max_abs_err {err:.3g} (limit {tol}), "
+              f"bitwise between two calls and equal to combine_gather_reduce over identity "
+              f"rows; kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, library {library_ms:.5f} ms "
               f"(torch.bmm on f32 copies), bound {bnd[0]:.5f} ms ({bnd[1]})")
         if out is None:
             out = record("combine_reduce", err, ms, plain_ms, bnd, library_ms)

@@ -1,5 +1,5 @@
 // Shared helpers for the EP kernels: dtype codes, row loads and stores of
-// eight elements at a time, and the fp8 block quantizer.
+// eight elements at a time, and the one-warp fp8 block quantizer.
 //
 // The dtype codes match repro_torch/kernels/_build.py DTYPE_CODES.
 #pragma once
@@ -87,11 +87,12 @@ __device__ inline void store8(void* p, int64_t i, int dt, const float v[8]) {
 // scale = amax / 448 (1 for an all-zero block), each element divided by the
 // scale and rounded to e4m3 with satfinite. A true division, never a
 // multiply by 1/scale, keeps the plain version's bits. Returns the scale in
-// every lane. quantize_fp8 calls it, and dispatch_pack's quant mode for a
-// block width that is not 8 * 2^k (its own lane-group path computes the same
-// max, division and rounding for the rest). With `vec` (qb % 8 == 0, a 16-byte aligned
-// source row, an 8-byte aligned dst) a lane takes eight elements at a time
-// and stores their eight bytes at once.
+// every lane. quant.cuh's quantizer (dispatch_pack's quant mode and
+// quantize_fp8) calls it for a block width that is not 8 * 2^k, or a source
+// off 16-byte alignment; its lane-group kernel computes the same max,
+// division and rounding for the rest. With `vec` (qb % 8 == 0, a 16-byte
+// aligned source row, an 8-byte aligned dst) a lane takes eight elements at
+// a time and stores their eight bytes at once.
 __device__ inline float quant_block_warp(const void* src, int64_t base, int qb,
                                          int sdt, __nv_fp8_storage_t* dst,
                                          bool vec) {

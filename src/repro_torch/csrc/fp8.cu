@@ -4,30 +4,29 @@
 // (the Pallas kernels over (row-block, hidden-block) tiles). Both are bound
 // by bytes: quantize reads each element once and writes one byte per element
 // plus one f32 scale per block; dequantize reads the byte and its block's
-// scale and writes one element. quantize runs one warp per (row, quant
-// block) through common.cuh quant_block_warp: the same max, one division and
-// one rounding per element as dispatch_pack's quant mode, so the two agree bit
-// for bit (chip_smoke.py and the card tests hold them to it). dequantize
-// gives each thread eight consecutive elements of one block (one 8-byte
-// load), reads that block's scale once, multiplies in f32 and rounds once to
-// the output type, as the plain version does. Without 8-aligned blocks both
-// fall back to one element at a time.
-#include "common.cuh"
-
-__global__ void quantize_fp8_kernel(const void* __restrict__ x,
-                                    __nv_fp8_storage_t* __restrict__ q,
-                                    float* __restrict__ scales, int64_t M,
-                                    int64_t H, int qb, int xdt, bool vec) {
-  const int64_t nblk = H / qb;
-  // warp-uniform: a warp leaves whole, so the shuffles see all 32 lanes
-  const int64_t w = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
-  if (w >= M * nblk) return;
-  const int64_t row = w / nblk, b = w % nblk;
-  const float scale = quant_block_warp(
-      static_cast<const char*>(x) + row * H * dtype_size(xdt), b * qb, qb, xdt,
-      q + row * H, vec);
-  if (threadIdx.x % 32 == 0) scales[w] = scale;
-}
+// scale and writes one element.
+//
+// quantize runs the quantizer dispatch_pack's quant mode runs (quant.cuh
+// quantize_rows) with row r its own source (SameRows: no index load, no
+// sentinel), so the two agree bit for bit (chip_smoke.py and the card tests
+// hold them to it). What that does about each cost of the first kernel (one
+// warp per (row, quant block), 2.3x to 7.7x its bound on an H100 at DBRX's
+// HT widths): a block of qb = 8 * 2^k (k <= 7) elements belongs to a group
+// of min(qb / 8, 32) lanes, so no lane idles where a warp's 32 lanes shared
+// one block of 128 (half of them idle) or 64 (three quarters idle); the
+// group holds the block in registers, so it is read once for both the amax
+// and the rounding, not twice; up to four of a warp's blocks are loaded
+// before the first is reduced, on a persistent grid of up to 8 blocks an
+// SM. Other block widths and a source off 16-byte alignment keep one warp
+// per block (common.cuh quant_block_warp). Either way one true division
+// (never a multiply by 1/scale) and one rounding per element, bit-equal to
+// the plain version.
+//
+// dequantize gives each thread eight consecutive elements of one block (one
+// 8-byte load), reads that block's scale once, multiplies in f32 and rounds
+// once to the output type, as the plain version does. Without 8-aligned
+// blocks it falls back to one element at a time.
+#include "quant.cuh"
 
 __global__ void dequantize_fp8_kernel(const __nv_fp8_storage_t* __restrict__ q,
                                       const float* __restrict__ scales,
@@ -53,14 +52,8 @@ __global__ void dequantize_fp8_kernel(const __nv_fp8_storage_t* __restrict__ q,
 
 extern "C" int ep_quantize_fp8(const void* x, void* q, void* scales, int64_t M,
                                int64_t H, int qb, int xdt, int vec, void* stream) {
-  const int threads = 128;
-  const int64_t warps = M * (H / qb);
-  if (warps > 0)
-    quantize_fp8_kernel<<<(warps + threads / 32 - 1) / (threads / 32), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        x, static_cast<__nv_fp8_storage_t*>(q), static_cast<float*>(scales), M, H,
-        qb, xdt, vec != 0);
-  return static_cast<int>(cudaGetLastError());
+  return quantize_rows(x, SameRows{}, q, scales, M, H, qb, xdt, vec != 0,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int ep_dequantize_fp8(const void* q, const void* scales, void* out,

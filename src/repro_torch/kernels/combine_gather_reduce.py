@@ -5,7 +5,8 @@ Replaces ``src/repro/kernels/combine_gather_reduce.py:44
 combine_gather_reduce`` (Pallas, k as the innermost sequential grid axis).
 Bound on the H100 by bytes: K row reads and one row write per token; at the
 DBRX decode slice 16 tokens gather 4 rows of 6144 bf16 each. The kernel
-(``csrc/combine_gather_reduce.cu``) runs blocks of 64 threads over (token,
+(``csrc/combine_gather_reduce.cu``, on the reduce it shares with
+``combine_reduce``, ``csrc/reduce.cuh``) runs blocks of 64 threads over (token,
 tile of 64 16-byte pieces), so the decode call has more blocks than the
 card has SMs; each thread reads its token's K indices and weights once,
 issues the loads of all its rows (up to 8 at a time) before the first FMA,

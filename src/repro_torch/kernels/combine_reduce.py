@@ -5,9 +5,15 @@ Replaces ``src/repro/kernels/combine_reduce.py:32 combine_reduce`` (Pallas,
 [bt, K, bh] tiles reduced over K on the VPU). No call site in the port
 reaches it: ``combine_gather_reduce`` fuses the gather into the same sum.
 Bound on the H100 by bytes: each of the T·K·H responses read once and each
-output written once. The kernel (``csrc/combine_reduce.cu``) runs one block
-per (token, 1024-wide H tile); each thread holds eight f32 sums in
-registers over k = 0..K-1 in a fixed order and casts once.
+output written once. The kernel (``csrc/combine_reduce.cu``) runs the
+reduce ``combine_gather_reduce`` runs (``csrc/reduce.cuh``) with token t's
+rows at ``t·K + k`` of ``y`` viewed as [T·K, H]: blocks of 64 threads over
+(token, 64 16-byte output pieces), each thread issuing the loads of all K
+rows (up to 8 at a time) before the first FMA, where the first kernel
+walked k with a load and an FMA in a chain. The weights are read in their
+own dtype; the sum runs in f32 over k = 0..K-1 in a fixed order and is
+cast once, so with f32 weights it equals ``combine_gather_reduce`` over
+identity rows bit for bit.
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ and one packed row written per live slot; at the DBRX decode slice a call
 moves 8·16 rows of 6144 bf16. The kernels (``csrc/dispatch_pack.cu``): copy
 mode runs a grid over (slot row, chunk of 768 16-byte pieces) whose threads
 issue all six of their loads before their stores, and writes a sentinel slot's zero
-row without a load; a dtype change converts through f32. Quant mode runs a
+row without a load; a dtype change converts through f32. Quant mode runs
+the quantizer it shares with ``quantize_fp8`` (``csrc/quant.cuh``): a
 persistent grid over the slot rows (the next row's slot index read ahead)
 in which a group of ``quant_block / 8`` lanes (at most 32) holds a whole
 block in registers: amax in f32, a true division (never a multiply by a

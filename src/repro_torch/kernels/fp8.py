@@ -4,14 +4,24 @@ Replaces ``src/repro/kernels/fp8.py:50 quantize_fp8`` and ``:76
 dequantize_fp8`` (Pallas, (row-block, hidden-block) tiles). Bound on the
 H100 by bytes. On the LL ``deepep`` path dequantize turns each rank's
 received rows, [2, 128, 6144] fp8 with [2, 128, 48] scales at the DBRX
-decode slice, into the bf16 expert input. The kernels (``csrc/fp8.cu``):
-quantize runs one warp per (row, quant block), computing what
-``dispatch_pack``'s quant mode computes (amax, one true division, one
-rounding), so the two agree bit for bit;
-dequantize multiplies each value by its block's scale in f32 and rounds
-once, bit-equal to ``ref.dequantize_fp8``.
+decode slice, into the bf16 expert input; quantize has no call site. The
+kernels (``csrc/fp8.cu``): quantize runs the quantizer ``dispatch_pack``'s
+quant mode runs (``csrc/quant.cuh``), each row its own source, so the two
+agree bit for bit: a block of ``8·2^k`` elements (k <= 7) on a 16-byte
+aligned ``x`` is held in registers by a group of ``block / 8`` lanes (at
+most 32) on a persistent grid, read once for its amax and its rounding
+where the first kernel's warp per block read it twice with lanes idle;
+an all-zero block is stored without dividing (a zero dividend takes the
+division's slow path); a call of few rows is cut into more, shorter rows
+(``row_split``) to cover more SMs; any other block or alignment takes one
+warp per block. Both divide by the scale (never multiply by its
+reciprocal) and round once. Dequantize
+multiplies each value by its block's scale in f32 and rounds once,
+bit-equal to ``ref.dequantize_fp8``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -42,10 +52,34 @@ def quantize_fp8(x: torch.Tensor, block: int = 128):
     s = torch.empty(x.shape[:-1] + (H // block,), dtype=torch.float32,
                     device=x.device)
     vec = block % 8 == 0 and _build.aligned16(x)
+    M = x.numel() // H
+    p = row_split(M, H, block, _sm_count(x.device.index))
     _build.launch("ep_quantize_fp8", x.data_ptr(), q.data_ptr(), s.data_ptr(),
-                  x.numel() // H, H, block, xdt, int(vec))
+                  M * p, H // p, block, xdt, int(vec))
     quantize_launches += 1
     return q, s
+
+
+def row_split(M: int, H: int, block: int, sms: int) -> int:
+    """Parts p of each row for quantize's launch: [M, H] is quantized as
+    [M·p, H/p], the same bytes in and out, since blocks never straddle a
+    part. The quantizer's grid has one block per row, up to 8 an SM, so a
+    few rows (16 at DBRX's decode) would leave most SMs idle: p grows, as a
+    divisor of the row's H/block quant blocks, while M·p < sms and a part
+    keeps at least one round of the 256-thread block (8 elements a thread,
+    max(2048, 8·block) elements)."""
+    nblk, least, p = H // block, max(2048, 8 * block), 1
+    for d in range(2, nblk + 1):
+        if M * p >= sms or H // d < least:
+            break
+        if nblk % d == 0:
+            p = d
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def dequantize_fp8(q: torch.Tensor, scales: torch.Tensor,

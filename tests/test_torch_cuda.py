@@ -569,3 +569,70 @@ def test_cuda_combine_gather_reduce_any_k(hopper, K, dt):
     off = cg.combine_gather_reduce(recv, ibuf[1:].view(T, K), wbuf[1:].view(T, K))
     assert torch.equal(off, got)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128, 256, 512, 1024, 104])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+def test_cuda_quantize_fp8_every_block_width(hopper, block, dt):
+    """B5 quantize at every block width of B1's lane-group kernel (8·2^k) and
+    at 104, in f32, bf16 and f16, over 1, 40 and more rows than the
+    persistent grid has blocks, with one all-zero block (scale 1.0): bitwise
+    against its plain version and against dispatch_pack's quant mode
+    through an identity map, bitwise between two calls; a source one
+    element off 16-byte alignment (the one-warp route) gives the same bits."""
+    H = 1040 if block == 104 else 2048
+    more = torch.cuda.get_device_properties(hopper).multi_processor_count * 8 + 44
+    for M in (1, 40, more):
+        x = _rand((M, H), dt, hopper, 30.0, 40 + M)
+        x[M // 2, block:2 * block] = 0.0
+        q, s = fp8.quantize_fp8(x, block)
+        wq, ws = ref.quantize_fp8(x, block)
+        assert torch.equal(q.view(torch.uint8), wq.view(torch.uint8)) and torch.equal(s, ws)
+        assert s[M // 2, 1].item() == 1.0
+        ident = torch.arange(M, device=hopper, dtype=torch.int32).view(1, M)
+        pq, ps = dp.dispatch_pack(x, ident, quant_block=block)
+        assert torch.equal(pq[0].view(torch.uint8), q.view(torch.uint8)) and torch.equal(ps[0], s)
+        q2, s2 = fp8.quantize_fp8(x, block)
+        assert torch.equal(q2.view(torch.uint8), q.view(torch.uint8)) and torch.equal(s2, s)
+        buf = torch.empty(M * H + 1, dtype=dt, device=hopper)
+        off = buf[1:].view(M, H)
+        off.copy_(x)
+        assert off.data_ptr() % 16 != 0
+        oq, os_ = fp8.quantize_fp8(off, block)
+        assert torch.equal(oq.view(torch.uint8), q.view(torch.uint8)) and torch.equal(os_, s)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 4, 6, 8])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16,
+                                torch.float8_e4m3fn])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_cuda_combine_reduce_any_k(hopper, K, dt, wdt):
+    """B8 over K in {1, 4, 6, 8}, y in f32, bf16, f16 and fp8 (bf16 out),
+    weights in f32 and bf16, at a width that leaves a part tile (1032):
+    within 1e-5 (f32 out) or 2e-2 (bf16, f16) of the plain version; two
+    calls give the same bits; a token's bits do not change when the other
+    tokens' responses and weights change; with f32 weights and y in f32,
+    bf16 or f16, the same bits as combine_gather_reduce over identity rows
+    (the two share one reduce)."""
+    T, H = 16, 1032
+    gen = torch.Generator().manual_seed(50 + K)
+    y = _rand((T, K, H), torch.float32, hopper, 1.0, 51 + K).to(dt)
+    w = torch.rand((T, K), generator=gen).to(hopper).to(wdt)
+    before = cr.launches
+    got = cr.combine_reduce(y, w)
+    out_dt = dt if dt != torch.float8_e4m3fn else torch.bfloat16
+    assert cr.launches == before + 1 and got.dtype == out_dt
+    t = tol(torch.float32 if dt == torch.float32 else torch.bfloat16)
+    torch.testing.assert_close(got, ref.combine_reduce(y, w), **t)
+    assert torch.equal(cr.combine_reduce(y, w), got)
+    y2 = _rand((T, K, H), torch.float32, hopper, 1.0, 60 + K).to(dt)
+    w2 = torch.rand((T, K), generator=gen).to(hopper).to(wdt)
+    y2[5], w2[5] = y[5], w[5]
+    assert torch.equal(cr.combine_reduce(y2, w2)[5], got[5])
+    if wdt == torch.float32 and dt != torch.float8_e4m3fn:
+        rows = torch.arange(T * K, device=hopper, dtype=torch.int32).view(T, K)
+        assert torch.equal(cg.combine_gather_reduce(y.view(T * K, H), rows, w), got)
+    torch.cuda.synchronize()

@@ -286,12 +286,39 @@ def test_recv_unpack_dequant_piece(blk, odt, recv_ptr, out_ptr, want):
 
 
 def test_combine_gather_reduce_decode_grid_fills_the_card():
-    """B4's blocks (``GR_THREADS`` 16-byte pieces each, one token) number at
-    least the H100's 132 SMs at DBRX's decode combine (16 tokens, H 6144
-    bf16)."""
+    """B4's blocks (``GR_THREADS`` 16-byte pieces each, one token; the
+    reduce it shares with B8, ``csrc/reduce.cuh``) number at least the
+    H100's 132 SMs at DBRX's decode combine (16 tokens, H 6144 bf16)."""
     import re
     from repro_torch.kernels import _build
-    src = (_build.CSRC / "combine_gather_reduce.cu").read_text()
+    src = (_build.CSRC / "reduce.cuh").read_text()
     threads = int(re.search(r"constexpr int GR_THREADS = (\d+);", src).group(1))
     pieces = 6144 * 2 // 16
     assert 16 * -(-pieces // threads) >= 132
+
+
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128, 256, 512, 1024, 104])
+def test_quantize_fp8_row_split(block):
+    """B5's launch quantizes [M, H] as [M·p, H/p], the same bytes: p divides
+    the row's H/block quant blocks, a part keeps one round of the 256-thread
+    block (max(2048, 8·block) elements), p is 1 once M fills the 132 SMs,
+    and a split stops growing once M·p does. At DBRX's decode (16 rows of
+    6144, block 128) a row is cut in 3 parts of 2048."""
+    from repro_torch.kernels import fp8 as tfp8
+    sms = 132
+    for H in (6144, 2048, 1040, 520):
+        if H % block:
+            continue
+        nblk = H // block
+        for M in (1, 16, 40, 131, 132, 4096):
+            p = tfp8.row_split(M, H, block, sms)
+            assert nblk % p == 0
+            assert p == 1 or H // p >= max(2048, 8 * block)
+            if M >= sms:
+                assert p == 1
+            # no larger divisor with a whole round would have been needed
+            bigger = [d for d in range(p + 1, nblk + 1)
+                      if nblk % d == 0 and H // d >= max(2048, 8 * block)]
+            assert not bigger or M * p >= sms
+    assert tfp8.row_split(16, 6144, 128, sms) == 3
+    assert tfp8.row_split(4096, 6144, 128, sms) == 1

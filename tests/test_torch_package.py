@@ -140,3 +140,19 @@ def test_c_entries_match_their_ctypes_signatures():
     assert set(seen) == set(_build._SIGNATURES)
     for fn, sig in _build._SIGNATURES.items():
         assert seen[fn] == tuple(ctypes_kinds[t] for t in sig), fn
+
+
+def test_every_included_header_is_hashed():
+    """Every ``#include "..."`` of a kernel source or header names a file in
+    ``_build.HEADERS``, and every entry there exists: the library's name is
+    a hash of the sources and those headers, so an edit to a header missing
+    from it would load a stale library."""
+    import re
+    from repro_torch.kernels import _build
+    files = sorted(_build.CSRC.glob("*.cu")) + sorted(_build.CSRC.glob("*.cuh"))
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
+    included = {name for p in files
+                for name in re.findall(r'^\s*#include\s+"([^"]+)"', p.read_text(), re.M)}
+    assert included <= set(_build.HEADERS), included - set(_build.HEADERS)
+    for name in _build.HEADERS:
+        assert (_build.CSRC / name).is_file(), name

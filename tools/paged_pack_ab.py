@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""B1 ``dispatch_pack``, B2 ``recv_unpack``, B4 ``combine_gather_reduce`` and
-B6 ``paged_decode_attention``, two versions of the port on one card, at the
-shapes of the port's paths.
+"""B1 ``dispatch_pack``, B2 ``recv_unpack``, B4 ``combine_gather_reduce``, B5
+``quantize_fp8`` and ``dequantize_fp8``, B6 ``paged_decode_attention`` and B8
+``combine_reduce``, two versions of the port on one card, at the shapes of
+the port's paths and of ``chip_smoke.py``'s kernel phases.
 
     python3 tools/paged_pack_ab.py --old DIR [--new DIR]
 
@@ -10,7 +11,8 @@ one's), for example an older commit unpacked with ``git archive`` into the
 ignored ``build/``. Each version runs in its own process (its kernels built
 from its own ``csrc/`` into its own ``build/``), in the order old, new, new,
 old, on the same inputs made from fixed seeds. Each process checks its
-kernels against its plain versions (B1 and B2 bitwise, B4 within 2e-2 and
+kernels against its plain versions (B1, B2 and B5 bitwise, B5's quantize
+also between two calls, B4 and B8 within 2e-2 in bf16 (B8 1e-5 in f32) and
 bitwise between two calls, B6 within 1e-4), times each call on the card
 with the profiler's device intervals (``chip_smoke.device_ms``) and the
 host's time for one call of the small shapes (``host_ms``: wall time of
@@ -19,8 +21,9 @@ JSON line. The parent prints every run and the mean of each version's two,
 beside the bound of each shape (``chip_smoke.bound``) and the library
 yardstick: ``torch.index_select`` over the rows padded with one zero row
 (the padding made outside the timed call), which computes B1's and B2's
-copy mode, and ``embedding_bag`` for B4 where no row is a sentinel. Needs
-one CUDA card.
+copy mode, ``embedding_bag`` for B4 where no row is a sentinel, and
+``torch.bmm(w.unsqueeze(1), y)`` on f32 copies (made outside the timed
+call) for B8. Needs one CUDA card.
 
 The shapes: B6 at the continuous serve's (q [128, 48, 128] bf16, pools of
 513 pages of 16, table [128, 4], 4 splits, lengths 0 to 64) and at 32k
@@ -36,7 +39,14 @@ the HT dispatch recv ([20480, 6144] fp8 + [20480, 48] scales -> [2, 10240,
 and at HT's (recv [20480, 6144], rows [4096, 4]); with the slot maps of the
 DBRX-132B presets' plans (``decode_32k``, ``train_4k``) over 8 ranks, the
 received buffers made by the plain pack and the all-to-all of
-``chip_smoke.kernel_phase`` and ``ht_kernel_phase``.
+``chip_smoke.kernel_phase`` and ``ht_kernel_phase``; B5's quantize at x
+[16, 6144] bf16 block 128 (a rank's decode tokens) and [4096, 6144] (a
+rank's prefill tokens) in bf16 block 128, f32 block 128 and bf16 block 64,
+each x with one all-zero block (and the decode x also without one), and
+its dequantize at one rank's ``deepep`` recv ([2, 128, 6144] fp8 with
+[2, 128, 48] scales, to bf16; random payload and scales, whose values do
+not change the work); B8 at y [16, 4, 6144] bf16 and [4096, 4, 6144] bf16
+and f32 with f32 weights, the shapes of ``chip_smoke.combine_reduce_phase``.
 """
 from __future__ import annotations
 
@@ -101,8 +111,10 @@ def measure(src: str) -> dict:
     from repro_torch.comm import LocalComm
     from repro_torch.configs.dbrx_132b import full_config
     from repro_torch.kernels import combine_gather_reduce as cg
+    from repro_torch.kernels import combine_reduce as cr
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import dispatch_pack as dp
+    from repro_torch.kernels import fp8
     from repro_torch.kernels import recv_unpack as ru
     from repro_torch.kernels import ref
 
@@ -244,6 +256,77 @@ def measure(src: str) -> dict:
     crecv = torch.randn((RANKS * group.ht_pair_cap, d), generator=gen,
                         device="cuda").to(pcfg.dtype)
     reduce("HT combine recv", crecv, pl.comb_recv_rows, hs[0].topk_weights, 20)
+    del y, crecv
+
+    def quant(label, x, block, iters):
+        def fn():
+            return fp8.quantize_fp8(x, block)
+        q, s = fn()
+        wq, ws = ref.quantize_fp8(x, block)
+        cs.check(torch.equal(q.view(torch.uint8), wq.view(torch.uint8)) and torch.equal(s, ws),
+                 f"B5 quantize {label} differs from its plain version")
+        q2, s2 = fn()
+        cs.check(torch.equal(q2.view(torch.uint8), q.view(torch.uint8)) and torch.equal(s2, s),
+                 f"B5 quantize {label}: two calls differ")
+        nb = cs.nbytes(x) + cs.nbytes(q) + cs.nbytes(s)
+        rec = dict(ms=cs.device_ms(fn, iters),
+                   bound_ms=cs.bound(nb, 2 * x.numel(), cs.F32_OPS_S)[0])
+        if x.shape[0] <= 256:
+            rec["host_ms"] = host_ms(fn)
+        out[f"B5 quantize {label}"] = rec
+
+    # each x has one all-zero block (scale 1), as chip_smoke's; the decode
+    # shape also without it, where no dividend is zero
+    for rows, xdt, block, zero in ((cs.BATCH // RANKS, dt, 128, True),
+                                   (cs.BATCH // RANKS, dt, 128, False),
+                                   (cs.PF_SEQ, dt, 128, True),
+                                   (cs.PF_SEQ, torch.float32, 128, True),
+                                   (cs.PF_SEQ, dt, 64, True)):
+        x = (torch.randn((rows, d), generator=gen, device="cuda") * 30).to(xdt)
+        if zero:
+            x[1, :block] = 0.0
+        name = str(xdt).removeprefix("torch.") + ("" if zero else ", no zero block")
+        quant(f"[{rows}, {d}] {name} block {block}", x, block, 50 if rows <= 256 else 20)
+        del x
+
+    L = group.local_experts
+    q = (torch.randn((L, cs.BATCH, d), generator=gen, device="cuda") * 100).clamp(
+        -448, 448).to(torch.float8_e4m3fn)            # torch's cast makes NaN past 448
+    sc = torch.rand((L, cs.BATCH, d // 128), generator=gen, device="cuda")
+
+    def dequant():
+        return fp8.dequantize_fp8(q, sc, dt)
+    got = dequant()
+    cs.check(torch.equal(got, ref.dequantize_fp8(q, sc, dt)),
+             "B5 dequantize differs from its plain version")
+    nb = cs.nbytes(q) + cs.nbytes(sc) + cs.nbytes(got)
+    out["B5 dequantize, deepep recv"] = dict(
+        ms=cs.device_ms(dequant, 50), bound_ms=cs.bound(nb, q.numel(), cs.F32_OPS_S)[0],
+        host_ms=host_ms(dequant))
+    del q, sc, got
+
+    for rows, ydt, tol in ((cs.BATCH // RANKS, dt, cs.TOL), (cs.PF_SEQ, dt, cs.TOL),
+                           (cs.PF_SEQ, torch.float32, 1e-5)):
+        y = torch.randn((rows, 4, d), generator=gen, device="cuda").to(ydt)
+        w = torch.rand((rows, 4), generator=gen, device="cuda")
+
+        def fn():
+            return cr.combine_reduce(y, w)
+        got = fn()
+        name = str(ydt).removeprefix("torch.")
+        cs.check(torch.allclose(got.float(), ref.combine_reduce(y, w).float(), rtol=tol,
+                                atol=tol), f"B8 [{rows}, 4, {d}] {name} off its plain version")
+        cs.check(torch.equal(fn(), got), f"B8 [{rows}, 4, {d}] {name}: two calls differ")
+        iters = 50 if rows <= 256 else 10
+        nb = cs.nbytes(y) + cs.nbytes(w) + cs.nbytes(got)
+        yf, wf = y.float(), w.unsqueeze(1)
+        rec = dict(ms=cs.device_ms(fn, iters),
+                   bound_ms=cs.bound(nb, 2 * y.numel(), cs.F32_OPS_S)[0],
+                   library_ms=cs.device_ms(lambda: torch.bmm(wf, yf), iters))
+        if rows <= 256:
+            rec["host_ms"] = host_ms(fn)
+        out[f"B8 [{rows}, 4, {d}] {name}"] = rec
+        del y, w, yf, wf, got
     return out
 
 

@@ -9,25 +9,42 @@
 2. Serves DBRX-132B at full width, its 40 layers cut to 4 to fit one card,
    through ``DecodeServer`` over 8 EP ranks hosted on the card: batch 128,
    prompt 8, 16 generated tokens, in the preset's LL ``nccl_ep`` layout,
-   then in the LL ``deepep`` layout with fp8 dispatch and through the
-   baseline a2a dispatcher on the same weights and prompts. Each kernel's
-   launch count over each serve must equal the count its path implies; the
-   baseline's tokens must equal the ``nccl_ep`` serve's.
+   then in the LL ``deepep`` layout with fp8 dispatch, through the
+   baseline a2a dispatcher and without EP (dense), on the same weights and
+   prompts. Both servers step through their compiled step: the step is
+   captured once as a CUDA graph and replayed. Each layout is served twice
+   captured and twice through the uncompiled ``_step_factory()`` step (the
+   eager reference), alternating: every token stream must be bitwise equal,
+   and the baseline's equal the ``nccl_ep`` serve's. The launch counters
+   advance only where a wrapper runs: per step in an eager serve, for the
+   warm-up and the capture in a captured one; each must equal the count
+   the path implies. Reports each serve's ITL mean and p99, each graph's
+   capture time and private pool bytes. Then ``pipeline_depth=2`` in
+   ``nccl_ep``: its tokens must equal depth 1's.
 3. Serves 256 requests through ``ContinuousDecodeServer`` on the same model
-   and weights: 128 slots over paged KV (page 16), prompts of 4 to 32
-   tokens, 8 to 32 new tokens each, Poisson arrivals of 4 per step. Every
-   request must complete with in-vocabulary tokens, every page must come
-   back, and the launch counts of all kernels must equal the count the
-   path implies.
-4. Runs the prefill forward, ``get_model(cfg).forward``, of the same model
+   and weights, twice captured and twice eager: 128 slots over paged KV
+   (page 16), prompts of 4 to 32 tokens, 8 to 32 new tokens each, Poisson
+   arrivals of 4 per step. Every request must complete with in-vocabulary
+   tokens, bitwise equal in every run, every page must come back, and the
+   launch counts of all kernels must equal the count the path implies.
+4. Steady-state EP decode (``runtime/decode.py``): MoE layer 0 over the 8
+   ranks, a micro-batch pair of 16 tokens per rank, in the three layouts:
+   ``decode_loop`` over 4 steps (a changed routing, a replayed one) and a
+   captured ``pipelined_decode_step`` on replay must be bitwise equal to
+   ``naive_decode_step``; reports the device time of each pair, of a
+   refresh against ``ep_create_handle``, and the two streams' overlap.
+   Then traces one replayed step of each captured server: the card's busy
+   time, its device events and idle share against the captured ITL, and
+   the EP launches per replayed step from the kernels' names, which must
+   equal the path's count. Every graph is released.
+5. Runs the prefill forward, ``get_model(cfg).forward``, of the same model
    and weights under the ``train_4k`` preset (HT flat EP, fp8 dispatch,
    capacity factors 1.25) on 8 x 4096 tokens, 4096 per hosted rank: the
    loss must be finite and the launch counts exact (flash attention once per
    layer). Reports its wall time after a warm-up, prefill tokens per second,
-   peak memory and each MoE layer's dropped-entry share. Then traces one
-   step of each server and one forward with the profiler: the card's busy
-   share and its time by kernel.
-5. Holds each EP kernel against its plain PyTorch version on the inputs one
+   peak memory and each MoE layer's dropped-entry share, then traces one
+   forward with the profiler: the card's busy share and its time by kernel.
+6. Holds each EP kernel against its plain PyTorch version on the inputs one
    EP rank gets in one MoE layer of the first serve (8 ranks, 16 tokens
    each): bitwise for the two gathers, in copy and in fp8 mode, the pack in
    copy mode also at the combine send ([256, 6144] rows into [8, 32] slots);
@@ -66,7 +83,7 @@
    (the window as a boolean band mask, on the memory-efficient backend).
    Times on the card each kernel, its plain version and, where one PyTorch
    call computes the same function, that call.
-6. Holds each MoE layer's EP output against the dense fallback on the same
+7. Holds each MoE layer's EP output against the dense fallback on the same
    input (every capacity is zero-drop here): relative error <= 2e-2, in the
    ``nccl_ep``, ``deepep`` (with and without fp8) and baseline layouts; the
    same for the HT layer at 512 tokens per rank and zero drop, without fp8
@@ -89,6 +106,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 from collections import Counter
 import json
 import pathlib
@@ -106,7 +124,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch.comm import LocalComm  # noqa: E402
 from repro_torch.configs.dbrx_132b import full_config  # noqa: E402
-from repro_torch.core import ep_create_handle, route, slots  # noqa: E402
+from repro_torch.core import ep_create_handle, ep_handle_refresh, route, slots  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import combine_gather_reduce as cg_mod  # noqa: E402
 from repro_torch.kernels import combine_reduce as cr_mod  # noqa: E402
@@ -124,10 +142,14 @@ from repro_torch.models.transformer import (_decode_splits,  # noqa: E402
                                             init_decode_state,
                                             init_paged_decode_state,
                                             lm_decode_step, lm_paged_decode_step)
-from repro_torch.runtime.prefill import prefill_moe, sequential_prefill  # noqa: E402
+from repro_torch.runtime.decode import (decode_loop, naive_decode_step,  # noqa: E402
+                                        pipelined_decode_step)
+from repro_torch.runtime.prefill import _handle, prefill_moe, sequential_prefill  # noqa: E402
 from repro_torch.runtime.scheduler import Request  # noqa: E402
 from repro_torch.runtime.server import (ContinuousDecodeServer,  # noqa: E402
                                         DecodeServer)
+from repro_torch.runtime.steps import capture_stream  # noqa: E402
+from repro_torch.weights import init_params  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_S = 3.35e12
@@ -135,6 +157,12 @@ BF16_OPS_S = 989e12
 F32_OPS_S = 67e12            # f32 outside the tensor cores
 
 RANKS, BATCH, PROMPT, GEN, LAYERS = 8, 128, 8, 16, 4
+# the fixed-batch servers' cache length: two slots beyond the served tokens,
+# for the traced replayed step and the traced eager step
+MAX_LEN = PROMPT + GEN + 2
+# serves of each fixed-batch layout and of the continuous serve per mode
+# (captured, eager)
+SERVES = 2
 TOL = 2e-2                   # bf16 tolerance (tests/test_kernels.py tol())
 # flash attention in bf16: ||got - want|| / ||want|| over the whole output.
 # Rounding p to bf16 for the PV product and the output to bf16 give about
@@ -204,6 +232,13 @@ EP_LAUNCHES = {
 # the MoE options of each served layout over the decode_32k preset
 LAYOUTS = {"deepep_fp8": dict(ll_layout="deepep", quantize_dispatch=True),
            "baseline": dict(ep_mode="baseline")}
+
+
+def leaves(tree) -> list:
+    """The tensors of a nested dict."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    return [tree]
 
 
 def check(ok: bool, msg: str) -> None:
@@ -277,13 +312,14 @@ def device_ms(fn, iters: int) -> float:
     A spin kernel on each side of the calls, left out of the sum, takes the
     place of the event a profiler session can drop at its edge. Every call
     launches the same kernels, so a session that saw each kernel a multiple
-    of ``iters`` times lost nothing. One that saw a single kernel a few
-    times fewer than calls lost some of its events: the mean is then taken
-    over the events it saw. Any other session (after many sessions in one
-    process the profiler now and then records none, or drops some of a
-    several-kernel call's events) is run again, twice at most; after that
-    the calls are timed with CUDA events (``call_ms``), which for a small
-    kernel is the host's launch rate, and the fallback is printed."""
+    of ``iters`` times lost nothing. One in which each kernel was seen
+    within a tenth of a multiple of ``iters`` times (k a call) lost a few of
+    its events: the time of a call is then the sum over kernels of k times
+    the kernel's mean duration. Any other session (after many sessions in
+    one process the profiler now and then records none, or drops many of a
+    call's events) is run again, twice at most; after that the calls are
+    timed with CUDA events (``call_ms``), which for a small kernel is the
+    host's launch rate, and the fallback is printed."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
@@ -297,10 +333,16 @@ def device_ms(fn, iters: int) -> float:
         seen = Counter(name for _, _, name in iv)
         if iv and all(n % iters == 0 for n in seen.values()):
             return busy_us(iv) / iters / 1e3
-        if len(seen) == 1 and 0.9 * iters <= len(iv) < iters:
+        per_call = {name: round(n / iters) for name, n in seen.items()}
+        if iv and all(k >= 1 and abs(seen[name] - k * iters) <= max(1, k * iters // 10)
+                      for name, k in per_call.items()):
+            dur: Counter = Counter()
+            for s, e, name in iv:
+                dur[name] += e - s
             print(f"  (profiler session {attempt + 1} saw {len(iv)} device events for "
-                  f"{iters} calls of one kernel; the mean is over those {len(iv)})")
-            return busy_us(iv) / len(iv) / 1e3
+                  f"{iters} calls, a few short; each kernel's mean time times its "
+                  f"launches per call)")
+            return sum(dur[n] / seen[n] * k for n, k in per_call.items()) / 1e3
         print(f"  (profiler session {attempt + 1} saw {len(iv)} device events for "
               f"{iters} calls; measuring again)")
     ms = call_ms(fn, iters)
@@ -540,15 +582,44 @@ def serve_prompts(vocab: int) -> torch.Tensor:
                          generator=torch.Generator().manual_seed(2))
 
 
-def serve_run(srv: DecodeServer, card: str, path: str) -> tuple[dict, dict]:
+def layout_cfg(cfg, path: str):
+    """The decode_32k preset in a served layout ("dense" is the nccl_ep
+    config served without EP)."""
+    if path in LAYOUTS:
+        return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **LAYOUTS[path]))
+    return cfg
+
+
+def eager(srv: DecodeServer) -> DecodeServer:
+    """Step ``srv`` through its uncompiled ``_step_factory()`` step: the
+    eager reference of the captured step."""
+    srv._serve_step = srv._step_factory()
+    return srv
+
+
+def graph_line(step) -> str:
+    """A captured step's capture time and the bytes of its graph's private
+    memory pool, from the allocator's segments."""
+    pool = tuple(step.graph.pool())
+    segs = [s for s in torch.cuda.memory_snapshot() if tuple(s["segment_pool_id"]) == pool]
+    return (f"capture {step.capture_s:.4f} s; graph private pool "
+            f"{sum(s['total_size'] for s in segs)} bytes reserved, "
+            f"{sum(s['allocated_size'] for s in segs)} allocated")
+
+
+def serve_run(srv: DecodeServer, card: str, path: str, mode: str) -> tuple[dict, dict]:
     """``DecodeServer.serve`` on the seeded prompts, every launch counter
-    read, the counts held to ``path``'s. Returns the launches and the
+    read. The eager run's counts must be the path's per step; the captured
+    run's are those of two steps: the warm-up, and the capture that records
+    the launches every later step replays. Returns the launches and the
     metrics."""
     cfg = srv.cfg
     reset_counts()
     metrics = srv.serve(serve_prompts(cfg.vocab), GEN)
     launches = counts()
-    check_ep_counts(launches, PROMPT + GEN, f"the {path} DecodeServer path", path)
+    if path != "dense":
+        check_ep_counts(launches, PROMPT + GEN if mode == "eager" else 2,
+                        f"the {path} DecodeServer path ({mode})", path)
     check(launches[PAGED] == 0 and launches[FLASH] == 0,
           "the dense decode path launched paged or flash attention")
     toks = srv.last_tokens
@@ -556,47 +627,85 @@ def serve_run(srv: DecodeServer, card: str, path: str) -> tuple[dict, dict]:
           f"bad token stream {toks.shape}")
     m = {k: v for k, v in metrics.as_dict().items() if v is not None}
     check(all(np.isfinite(v) and v > 0 for v in m.values()), f"bad metrics {m}")
-    print(f"serve, {path} ({card}): ttft {m['ttft_s']:.4f} s, itl mean "
-          f"{m['itl_mean_s']:.4f} s, itl p99 {m['itl_p99_s']:.4f} s, "
-          f"{m['output_tok_s']:.1f} output tok/s, {m['total_tokens']} tokens; "
+    graph = ""
+    if mode == "captured":
+        check(srv._serve_step.graph is not None, f"the {path} server captured no graph")
+        graph = "; " + graph_line(srv._serve_step)
+    print(f"serve, {path}, {mode} ({card}): ttft {m['ttft_s']:.4f} s, itl mean "
+          f"{m['itl_mean_s']:.5f} s, itl p99 {m['itl_p99_s']:.5f} s, "
+          f"{m['output_tok_s']:.1f} output tok/s, {m['total_tokens']} tokens{graph}; "
           f"launches {launches}")
     return launches, m
 
 
-def serve_phase(srv: DecodeServer, card: str) -> tuple[dict, float]:
-    """The first main path: the preset's LL nccl_ep serve, then a dense
-    server on the same weights for the token agreement."""
-    launches, m = serve_run(srv, card, "nccl_ep")
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    dense = DecodeServer(srv.cfg, BATCH, PROMPT + GEN + 1, ep_size=1, params=srv.params)
-    dm = dense.serve(serve_prompts(srv.cfg.vocab), GEN).as_dict()
-    agree = dense.last_tokens == srv.last_tokens
-    print(f"dense server (no EP, same weights): itl mean {dm['itl_mean_s']:.4f} s, "
-          f"{dm['output_tok_s']:.1f} output tok/s; greedy tokens equal to the EP "
-          f"run: {agree.mean():.4f} of all, {agree[:, 0].mean():.4f} of the first")
-    return launches, m["itl_mean_s"]
-
-
-def layout_serve_phase(srv: DecodeServer, card: str) -> dict:
-    """The serve again in the LL deepep layout with fp8 dispatch and through
-    the baseline dispatcher, on the same weights and prompts. The baseline
-    computes every row with the same kernels in the same k order as
-    nccl_ep, so its tokens must equal the nccl_ep serve's; fp8 changes
-    tokens, so the deepep agreement is reported. Returns, per layout, the
-    server, its launches and its ITL mean."""
+def fixed_serve_phase(cfg, params, card: str) -> dict:
+    """The fixed-batch main paths: DecodeServer.serve in the preset's LL
+    nccl_ep layout (the first captured serve is the main path), in the LL
+    deepep layout with fp8 dispatch, through the baseline dispatcher and
+    without EP (dense), on the same weights and prompts. Each is served
+    SERVES times through its captured step and SERVES times through the
+    uncompiled step, alternating: every token stream must be bitwise equal
+    to the first. The baseline computes every row with the same kernels in
+    the same k order as nccl_ep, so its tokens must equal nccl_ep's; fp8
+    changes tokens, so the deepep agreement is reported, and the dense
+    server's. Returns, per layout, its first captured server (kept for the
+    traced replay), that serve's launches and the ITLs of both modes."""
     out = {}
-    for path, moe in LAYOUTS.items():
-        cfg = dataclasses.replace(srv.cfg, moe=dataclasses.replace(srv.cfg.moe, **moe))
-        lsrv = DecodeServer(cfg, BATCH, PROMPT + GEN + 1, ep_size=RANKS, params=srv.params)
-        launches, m = serve_run(lsrv, card, path)
-        agree = lsrv.last_tokens == srv.last_tokens
-        print(f"  greedy tokens equal to the nccl_ep serve: {agree.mean():.4f} of all, "
-              f"{agree[:, 0].mean():.4f} of the first; bitwise equal stream "
-              f"{bool(agree.all())}")
-        if path == "baseline":
-            check(bool(agree.all()), "the baseline serve's tokens differ from nccl_ep's")
-        out[path] = (lsrv, launches, m["itl_mean_s"])
+    for path in ("nccl_ep", "deepep_fp8", "baseline", "dense"):
+        c = layout_cfg(cfg, path)
+        ep = 1 if path == "dense" else RANKS
+        runs = {"captured": [], "eager": []}
+        kept, first, toks = None, None, None
+        for _ in range(SERVES):
+            for mode in ("captured", "eager"):
+                srv = DecodeServer(c, BATCH, MAX_LEN, ep_size=ep, params=params)
+                if mode == "eager":
+                    eager(srv)
+                launches, m = serve_run(srv, card, path, mode)
+                if path == "nccl_ep" and kept is None:
+                    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+                if toks is None:
+                    toks = srv.last_tokens
+                check(np.array_equal(srv.last_tokens, toks),
+                      f"{path}: the {mode} serve's tokens differ from the first serve's")
+                runs[mode].append(m)
+                if mode == "captured" and kept is None:
+                    kept, first = srv, launches
+                elif mode == "captured":
+                    srv.close()
+                del srv
+        means = {k: [m["itl_mean_s"] for m in v] for k, v in runs.items()}
+        p99s = {k: [m["itl_p99_s"] for m in v] for k, v in runs.items()}
+        print(f"{path}: tokens bitwise equal over {SERVES} captured and {SERVES} eager serves; "
+              f"ITL mean captured {means['captured']} s, eager {means['eager']} s; ITL p99 "
+              f"captured {p99s['captured']} s, eager {p99s['eager']} s; captured/eager mean "
+              f"{np.mean(means['captured']) / np.mean(means['eager']):.4f}")
+        if path != "nccl_ep":
+            agree = toks == out["nccl_ep"]["tokens"]
+            print(f"  greedy tokens equal to the nccl_ep serve: {agree.mean():.4f} of all, "
+                  f"{agree[:, 0].mean():.4f} of the first; bitwise equal stream "
+                  f"{bool(agree.all())}")
+            if path == "baseline":
+                check(bool(agree.all()), "the baseline serve's tokens differ from nccl_ep's")
+        out[path] = dict(srv=kept, launches=first, tokens=toks,
+                         itl=float(np.mean(means["captured"])),
+                         itl_eager=float(np.mean(means["eager"])))
     return out
+
+
+def pipelined_phase(cfg, params, card: str, want: np.ndarray) -> None:
+    """DecodeServer(pipeline_depth=2) in the nccl_ep layout, captured: up to
+    two steps in flight, the next token fed device to device. Its tokens
+    must equal the depth-1 serves'."""
+    srv = DecodeServer(cfg, BATCH, MAX_LEN, ep_size=RANKS, params=params, pipeline_depth=2)
+    m = srv.serve(serve_prompts(cfg.vocab), GEN)
+    check(np.array_equal(srv.last_tokens, want),
+          "the pipelined serve's tokens differ from depth 1's")
+    print(f"serve, nccl_ep, captured, pipeline_depth 2 ({card}): ttft {m.ttft_s:.4f} s, "
+          f"itl mean {m.itl_mean_s:.5f} s, itl p99 {m.itl_p99_s:.5f} s over {GEN - 1} "
+          f"steady-state intervals, {m.output_tok_s:.1f} output tok/s; tokens bitwise "
+          f"equal to depth 1")
+    srv.close()
 
 
 def oracle_phase(cfg, params) -> None:
@@ -782,47 +891,78 @@ def make_requests(vocab: int) -> list[Request]:
 
 
 def continuous_phase(cfg, params, card: str):
-    """This slice's main path: ContinuousDecodeServer.serve_requests, with
-    every launch counter read."""
+    """The continuous-batching main path: ContinuousDecodeServer.
+    serve_requests, SERVES times through the captured step (the first is
+    the main path) and SERVES times through the uncompiled step,
+    alternating, every launch counter read: the eager counts per step, the
+    captured ones those of the warm-up and the capture. Every request's
+    tokens must be bitwise equal across the runs. Returns the first
+    captured server and its launches, the requests and the captured and
+    eager ITL means."""
     reqs = make_requests(cfg.vocab)
-    srv = ContinuousDecodeServer(cfg, BATCH, CMAX_LEN, ep_size=RANKS,
-                                 params=params, page_size=PAGE)
-    reset_counts()
-    metrics = srv.serve_requests(reqs)
-    launches = counts()
-    sched, steps = srv.reqsched, metrics.serve_steps
-    check(sched.done and metrics.requests_completed == REQUESTS,
-          f"{metrics.requests_completed} of {REQUESTS} requests completed")
-    for r in reqs:
-        toks = sched.tokens_for(r.rid)
-        check(len(toks) == r.max_new_tokens and toks.min() >= 0 and toks.max() < cfg.vocab,
-              f"request {r.rid}: bad token stream {toks}")
-    check(sched.alloc.live_count == 0 and sched._reserved == 0
-          and sched.alloc.free_count == srv.num_pages,
-          f"pages not returned: {sched.alloc.live_count} live, {sched._reserved} reserved")
-    check(metrics.pages_peak <= metrics.pages_dense_equiv,
-          f"pages_peak {metrics.pages_peak} > dense {metrics.pages_dense_equiv}")
-    m = metrics.as_dict()
-    scalars = {k: v for k, v in m.items() if isinstance(v, (int, float))}
-    check(all(np.isfinite(v) and v >= 0 for v in scalars.values()), f"bad metrics {scalars}")
-    check_ep_counts(launches, steps, "the continuous path")
-    # stage 2 runs only where a request of the table's width could be split
-    # (not at the serve's 64 tokens)
-    split = da_mod.splits_possible(_decode_splits(cfg, srv.max_pages), srv.max_pages, PAGE)
-    for key, want in ((PAGED, LAYERS * steps),
-                      ("paged_decode_attention (stage 2)", LAYERS * steps if split else 0)):
-        check(launches[key] == want, f"{key} launched {launches[key]} "
-              f"times on the continuous path, expected {want}")
-    itls = np.concatenate([np.asarray(r["itl_s"]) for r in m["per_request"] if r["itl_s"]])
-    print(f"continuous serve ({card}): {REQUESTS} requests, {steps} steps, "
-          f"{metrics.total_tokens} tokens, {metrics.output_tok_s:.1f} output tok/s; "
-          f"ttft p50 {m['ttft_p50_s']:.4f} s, p95 {m['ttft_p95_s']:.4f} s, "
-          f"p99 {m['ttft_p99_s']:.4f} s; itl mean {m['itl_mean_s']:.4f} s, "
-          f"p50 {m['itl_p50_s']:.4f} s, p95 {m['itl_p95_s']:.4f} s, "
-          f"p99 {m['itl_p99_s']:.4f} s ({itls.size} intervals); pages peak "
-          f"{metrics.pages_peak} of {metrics.pages_dense_equiv} dense "
-          f"({metrics.pages_peak / metrics.pages_dense_equiv:.3f}); launches {launches}")
-    return srv, metrics, reqs, launches
+    kept, itls, want = None, {"captured": [], "eager": []}, None
+    for _ in range(SERVES):
+        for mode in ("captured", "eager"):
+            srv = ContinuousDecodeServer(cfg, BATCH, CMAX_LEN, ep_size=RANKS,
+                                         params=params, page_size=PAGE)
+            if mode == "eager":
+                eager(srv)
+            reset_counts()
+            metrics = srv.serve_requests(reqs)
+            launches = counts()
+            sched, steps = srv.reqsched, metrics.serve_steps
+            check(sched.done and metrics.requests_completed == REQUESTS,
+                  f"{metrics.requests_completed} of {REQUESTS} requests completed")
+            toks = [sched.tokens_for(r.rid) for r in reqs]
+            for r, t in zip(reqs, toks):
+                check(len(t) == r.max_new_tokens and t.min() >= 0 and t.max() < cfg.vocab,
+                      f"request {r.rid}: bad token stream {t}")
+            if want is None:
+                want = toks
+            check(all(np.array_equal(a, b) for a, b in zip(toks, want)),
+                  f"the {mode} continuous serve's tokens differ from the first serve's")
+            check(sched.alloc.live_count == 0 and sched._reserved == 0
+                  and sched.alloc.free_count == srv.num_pages,
+                  f"pages not returned: {sched.alloc.live_count} live, {sched._reserved} reserved")
+            check(metrics.pages_peak <= metrics.pages_dense_equiv,
+                  f"pages_peak {metrics.pages_peak} > dense {metrics.pages_dense_equiv}")
+            m = metrics.as_dict()
+            scalars = {k: v for k, v in m.items() if isinstance(v, (int, float))}
+            check(all(np.isfinite(v) and v >= 0 for v in scalars.values()),
+                  f"bad metrics {scalars}")
+            counted = steps if mode == "eager" else 2
+            check_ep_counts(launches, counted, f"the continuous path ({mode})")
+            # stage 2 runs only where a request of the table's width could be
+            # split (not at the serve's 64 tokens)
+            split = da_mod.splits_possible(_decode_splits(cfg, srv.max_pages), srv.max_pages,
+                                           PAGE)
+            for key, want_n in ((PAGED, LAYERS * counted),
+                                ("paged_decode_attention (stage 2)",
+                                 LAYERS * counted if split else 0)):
+                check(launches[key] == want_n, f"{key} launched {launches[key]} "
+                      f"times on the continuous path ({mode}), expected {want_n}")
+            ivs = np.concatenate([np.asarray(r["itl_s"]) for r in m["per_request"]
+                                  if r["itl_s"]])
+            graph = "; " + graph_line(srv._serve_step) if mode == "captured" else ""
+            print(f"continuous serve, {mode} ({card}): {REQUESTS} requests, {steps} steps, "
+                  f"{metrics.total_tokens} tokens, {metrics.output_tok_s:.1f} output tok/s; "
+                  f"ttft p50 {m['ttft_p50_s']:.4f} s, p95 {m['ttft_p95_s']:.4f} s, "
+                  f"p99 {m['ttft_p99_s']:.4f} s; itl mean {m['itl_mean_s']:.5f} s, "
+                  f"p50 {m['itl_p50_s']:.5f} s, p95 {m['itl_p95_s']:.5f} s, "
+                  f"p99 {m['itl_p99_s']:.5f} s ({ivs.size} intervals); pages peak "
+                  f"{metrics.pages_peak} of {metrics.pages_dense_equiv} dense "
+                  f"({metrics.pages_peak / metrics.pages_dense_equiv:.3f}){graph}; "
+                  f"launches {launches}")
+            itls[mode].append(m["itl_mean_s"])
+            if mode == "captured" and kept is None:
+                kept = (srv, launches)
+            elif mode == "captured":
+                srv.close()
+            del srv
+    print(f"continuous serve: per-request tokens bitwise equal over {SERVES} captured and "
+          f"{SERVES} eager serves; ITL mean captured {itls['captured']} s, eager "
+          f"{itls['eager']} s; captured/eager {np.mean(itls['captured']) / np.mean(itls['eager']):.4f}")
+    return (*kept, reqs, (float(np.mean(itls["captured"])), float(np.mean(itls["eager"]))))
 
 
 def solo_phase(cfg, params, srv: ContinuousDecodeServer, reqs) -> None:
@@ -1437,6 +1577,185 @@ def ht_oracle_phase(cfg, params) -> None:
           f"capacity 1.25) bitwise equal to sequential_prefill")
 
 
+def stream_busy_us(fn, calls: int = 3) -> tuple[float, float, int]:
+    """``calls`` calls of ``fn`` under the profiler, after one outside it:
+    per call, the card's busy time (the union of its kernels' intervals)
+    and the sum of each stream's own busy time, and the number of streams.
+    The sum exceeds the union by the time two streams ran at once."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_stream: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_stream.setdefault(e.device_resource_id, []).append(
+                (e.time_range.start, e.time_range.end, e.name))
+    union = busy_us(sorted(iv for v in by_stream.values() for iv in v))
+    per = sum(busy_us(sorted(v)) for v in by_stream.values())
+    return union / calls, per / calls, len(by_stream)
+
+
+def decode_loop_phase(cfg, params, card: str) -> None:
+    """Steady-state EP decode (runtime/decode.py): MoE layer 0 of the
+    decode_32k group over the 8 hosted ranks, a micro-batch pair of the
+    group's 16 tokens per rank, the layer's SwiGLU experts on B3, in the
+    nccl_ep, deepep + fp8 and baseline layouts. decode_loop over 4 steps
+    (step 1 changes the routing, step 2 replays step 1's inputs, which
+    takes the refresh's fast branch, step 3 changes it again) must be
+    bitwise equal to naive_decode_step per micro-batch; so must a captured
+    steady-state pipelined_decode_step, replayed over a replayed routing
+    (the fast branch) and two changed ones. Reports the device and host
+    times of the naive pair, the pipelined pair and its replay, of a
+    refresh on a replayed routing against ep_create_handle, and how long
+    the two chains' streams ran at once."""
+    p = {k: v[0] for k, v in params["moe_stack"]["moe"].items()}
+    T, d, dt = BATCH // RANKS, cfg.d_model, cfg.dtype
+    for path in ("nccl_ep", "deepep_fp8", "baseline"):
+        c = layout_cfg(cfg, path)
+        group = ep_group(c, LocalComm(RANKS), T)
+        L, rcfg = group.local_experts, router_config(c.moe)
+
+        def router_fn(x):
+            r = route(x.float() @ p["router"], rcfg)
+            return r.topk_idx, r.topk_weights
+
+        def expert_fn(rank, y3d, counts_):
+            sl = slice(rank * L, (rank + 1) * L)
+            return _expert_ffn(group, y3d, counts_, p["w_gate"][sl], p["w_up"][sl],
+                               p["w_down"][sl])
+        gen = torch.Generator(device=DEV).manual_seed(21)
+
+        def pair():
+            return [[torch.randn((T, d), generator=gen, device=DEV).to(dt)
+                     for _ in range(RANKS)] for _ in range(2)]
+        x0, x1, x3 = pair(), pair(), pair()
+        steps = [x0, x1, x1, x3]
+        outs = decode_loop(group, router_fn, expert_fn, [tuple(s) for s in steps])
+        want = {id(s): [naive_decode_step(group, router_fn, expert_fn, s[m]) for m in range(2)]
+                for s in (x0, x1, x3)}
+        for i, s in enumerate(steps):
+            for m in range(2):
+                check(all(torch.equal(a, b) for a, b in zip(outs[i][m], want[id(s)][m])),
+                      f"{path}: decode_loop step {i} micro-batch {m} differs from the naive step")
+        handles = (_handle(group, router_fn, x1[0]), _handle(group, router_fn, x1[1]))
+        xa, xb = ([x.clone() for x in mb] for mb in x1)
+        side = capture_stream(DEV)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):                    # the warm-up
+            pipelined_decode_step(group, router_fn, expert_fn, handles, xa, xb)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=side):
+            (oa, ob), _ = pipelined_decode_step(group, router_fn, expert_fn, handles, xa, xb)
+        capture_s = time.perf_counter() - t0
+        torch.cuda.current_stream().wait_stream(side)
+
+        def feed(s):
+            for dst, src in zip(xa + xb, s[0] + s[1]):
+                dst.copy_(src)
+        for s in (x3, x0, x1):          # two changed routings, then the fast branch
+            feed(s)
+            graph.replay()
+            torch.cuda.synchronize()
+            for o, m in ((oa, 0), (ob, 1)):
+                check(all(torch.equal(a, b) for a, b in zip(o, want[id(s)][m])),
+                      f"{path}: the captured pipelined step differs from the naive step")
+
+        def naive_pair():
+            return [naive_decode_step(group, router_fn, expert_fn, x) for x in x1]
+
+        def pipelined():
+            return pipelined_decode_step(group, router_fn, expert_fn, handles, x1[0], x1[1])
+        routed = [router_fn(x) for x in x1[0]]
+        idx, w = [r[0] for r in routed], [r[1] for r in routed]
+
+        def refresh():
+            return ep_handle_refresh(group, handles[0], w, idx)
+
+        def create():
+            return ep_create_handle(group, idx, w)
+        print(f"decode_loop, {path} ({card}): 4 steps bitwise equal to the naive step per "
+              f"micro-batch; captured pipelined step (capture {capture_s:.4f} s) bitwise equal "
+              f"on replay over a replayed routing and two changed ones")
+        for name, fn in (("naive pair", naive_pair), ("pipelined pair", pipelined),
+                         ("pipelined pair, replayed graph", graph.replay),
+                         ("refresh (replayed routing)", refresh),
+                         ("ep_create_handle", create)):
+            union, per, n = stream_busy_us(fn)
+            print(f"  {name}: card busy {union / 1e3:.4f} ms per call on {n} streams, "
+                  f"{call_ms(fn, 3, 3):.4f} ms per call from the host; the streams' own busy "
+                  f"times sum to {per / 1e3:.4f} ms: two ran at once for "
+                  f"{(per - union) / 1e3:.4f} ms")
+        del graph
+
+
+def expected_device_kernels(path: str) -> Counter:
+    """EP kernel launches of one decode step as the profiler names them:
+    EP_LAUNCHES x layers x ranks, each wrapper's count under the kernel it
+    runs at the decode shapes (B1's and B2's copy modes share
+    csrc/gather.cuh's gather_copy_kernel, B1's fp8 mode runs
+    csrc/quant.cuh's quant_lanes_kernel, B4 csrc/reduce.cuh's
+    reduce_rows_kernel)."""
+    names = dict(dispatch_pack="quant_lanes_kernel" if path == "deepep_fp8"
+                 else "gather_copy_kernel",
+                 recv_unpack="gather_copy_kernel", grouped_gemm="grouped_gemm_bf16_kernel",
+                 combine_gather_reduce="reduce_rows_kernel",
+                 dequantize_fp8="dequantize_fp8_kernel", quantize_fp8="quant_lanes_kernel",
+                 combine_reduce="reduce_rows_kernel")
+    want: Counter = Counter()
+    for w, n in EP_LAUNCHES[path].items():
+        if n:
+            want[names[w]] += n * LAYERS * RANKS
+    return want
+
+
+def check_replayed_launches(iv, path: str, where: str) -> None:
+    """The EP kernels the profiler saw in one replayed step, by name,
+    against EP_LAUNCHES x layers x ranks."""
+    want = expected_device_kernels(path)
+    got = Counter(frag for _, _, name in iv for frag in want if frag in name)
+    print(f"  EP kernels in the replayed step: {dict(got)} (want {dict(want)})")
+    check(got == want, f"{where}: the replayed step ran EP kernels {dict(got)}, "
+          f"expected {dict(want)}")
+
+
+def replay_trace_phase(fixed: dict, csrv: ContinuousDecodeServer, citl: tuple) -> None:
+    """One replayed step of each captured server under the profiler, then
+    one step of its uncompiled step on the same server: busy time, device
+    events and idle share against the captured and the eager ITL mean, and
+    the EP launches per replayed step from the kernels' names."""
+    tok = torch.zeros((BATCH, 1), dtype=torch.int32, device=DEV)
+    for path, info in fixed.items():
+        srv = info["srv"]
+        iv, _ = trace_phase(f"replayed {path} decode step", lambda: srv.step(tok),
+                            info["itl"], "captured ITL mean")
+        if path != "dense":
+            check_replayed_launches(iv, path, f"the replayed {path} step")
+        step = srv._step_factory()
+        trace_phase(f"eager {path} decode step",
+                    lambda: step(srv.params, srv.state, {"tokens": tok}),
+                    info["itl_eager"], "eager ITL mean")
+    mp = csrv.max_pages
+    feed = dict(tokens=np.zeros((BATCH, 1), np.int32),
+                page_tbl=np.arange(BATCH * mp, dtype=np.int32).reshape(BATCH, mp),
+                kv_lens=np.full(BATCH, CMAX_LEN // 2, np.int32),
+                active=np.ones(BATCH, np.int32))
+    iv, _ = trace_phase(f"replayed continuous step (all {BATCH} slots at {CMAX_LEN // 2} "
+                        "tokens)", lambda: csrv.step_feed(feed), citl[0], "captured ITL mean")
+    check_replayed_launches(iv, "nccl_ep", "the replayed continuous step")
+    step = csrv._step_factory()
+    trace_phase(f"eager continuous step (all {BATCH} slots at {CMAX_LEN // 2} tokens)",
+                lambda: step(csrv.params, csrv.state, csrv._feed), citl[1], "eager ITL mean")
+    paged = [e - s for s, e, n in iv if "paged_" in n]
+    check(len(paged) == LAYERS, f"{len(paged)} paged attention kernels in the replayed "
+          f"continuous step, expected {LAYERS}")
+    print(f"  paged attention: {sum(paged) / 1e3:.3f} ms, {sum(paged) / busy_us(iv):.4f} "
+          f"of the busy time")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
@@ -1455,49 +1774,46 @@ def main() -> int:
           f"num_layers cut from {full.num_layers} to {LAYERS} for memory; "
           f"{RANKS} EP ranks on one card, batch {BATCH}, prompt {PROMPT}, {GEN} generated")
     t0 = time.perf_counter()
-    # one cache slot beyond the served tokens, for the traced step
-    srv = DecodeServer(cfg, BATCH, PROMPT + GEN + 1, ep_size=RANKS, seed=0)
+    params = init_params(cfg, 0, DEV)
     torch.cuda.synchronize()
     print(f"init: random weights on the card in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     # the main paths run first, before any profiling touches the card
-    launches, itl_s = serve_phase(srv, card)
-    layouts = layout_serve_phase(srv, card)
-    csrv, cm, reqs, claunches = continuous_phase(cfg, srv.params, card)
-    plaunches, pf_wall, pcfg, pbatch = prefill_phase(srv.params, card)
-    tok = torch.zeros((BATCH, 1), dtype=torch.int32, device=DEV)
-    trace_phase("EP decode step", lambda: srv.step(tok), itl_s)
-    for path, (lsrv, _, litl) in layouts.items():
-        trace_phase(f"{path} decode step", lambda: lsrv.step(tok), litl)
-    mp = csrv.max_pages
-    feed = dict(tokens=np.zeros((BATCH, 1), np.int32),
-                page_tbl=np.arange(BATCH * mp, dtype=np.int32).reshape(BATCH, mp),
-                kv_lens=np.full(BATCH, CMAX_LEN // 2, np.int32),
-                active=np.ones(BATCH, np.int32))
-    iv, _ = trace_phase(f"continuous step (all {BATCH} slots at {CMAX_LEN // 2} tokens)",
-                     lambda: csrv.step_feed(feed), cm.itl_mean_s)
-    paged_us = sum(e - s for s, e, n in iv if "paged_" in n)
-    print(f"  paged attention: {paged_us / 1e3:.3f} ms, {paged_us / busy_us(iv):.4f} "
-          f"of the busy time")
-    prefill_trace_phase(srv.params, pcfg, pbatch, pf_wall)
-    records = kernel_phase(cfg, srv.params)
-    ht_kernel_phase(pcfg, srv.params)
+    fixed = fixed_serve_phase(cfg, params, card)
+    pipelined_phase(cfg, params, card, fixed["nccl_ep"]["tokens"])
+    csrv, claunches, reqs, citl = continuous_phase(cfg, params, card)
+    decode_loop_phase(cfg, params, card)
+    replay_trace_phase(fixed, csrv, citl)
+    # release every captured graph and its pool, and the fixed-batch servers,
+    # before the prefill forward
+    for info in fixed.values():
+        info.pop("srv").close()
+    csrv.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"graphs released: {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (the weights "
+          f"{sum(t.nbytes for t in leaves(params)) / 2**30:.2f} GiB)")
+    plaunches, pf_wall, pcfg, pbatch = prefill_phase(params, card)
+    prefill_trace_phase(params, pcfg, pbatch, pf_wall)
+    records = kernel_phase(cfg, params)
+    ht_kernel_phase(pcfg, params)
     records[PAGED] = paged_kernel_phase(cfg, paged_main_shape_phase(cfg, csrv))
     records[FLASH] = flash_kernel_phase(pcfg)
-    records.update(fp8_kernel_phase(cfg, srv.params))
+    records.update(fp8_kernel_phase(cfg, params))
     records["combine_reduce"] = combine_reduce_phase(cfg.d_model)
-    oracle_phase(cfg, srv.params)
-    layout_oracle_phase(cfg, srv.params)
-    ht_oracle_phase(pcfg, srv.params)
-    solo_phase(cfg, srv.params, csrv, reqs)
-    paged_vs_dense_phase(cfg, srv.params)
-    for name, n in launches.items():
+    oracle_phase(cfg, params)
+    layout_oracle_phase(cfg, params)
+    ht_oracle_phase(pcfg, params)
+    solo_phase(cfg, params, csrv, reqs)
+    paged_vs_dense_phase(cfg, params)
+    for name, n in fixed["nccl_ep"]["launches"].items():
         if name in records:
             records[name]["launches"] = n
     records[PAGED]["launches"] = claunches[PAGED]
     records[FLASH]["launches"] = plaunches[FLASH]
     for name in ("quantize_fp8", "dequantize_fp8", "combine_reduce"):
-        records[name]["launches"] = layouts["deepep_fp8"][1][name]
+        records[name]["launches"] = fixed["deepep_fp8"]["launches"][name]
     check(sorted(records) == sorted(KERNELS)
           and all(r["launches"] is not None for r in records.values()),
           f"kernel records {sorted(records)}")

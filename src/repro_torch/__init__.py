@@ -8,6 +8,7 @@ Hopper, and continuous batching over paged KV served by
 ``runtime.server.ContinuousDecodeServer``, with its split-KV paged decode
 attention hand-written for Hopper, and the HT-mode prefill forward
 ``models.get_model(cfg).forward``, with its flash attention hand-written for
-Hopper (``kernels/``, sources in ``csrc/``).
+Hopper (``kernels/``, sources in ``csrc/``). On the card both servers step
+through a CUDA graph captured once (``runtime.steps.CompiledStep``).
 """
 from repro_torch.device import disable_tf32, resolve_device  # noqa: F401

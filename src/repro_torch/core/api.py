@@ -2,6 +2,7 @@
 
     group   = ep_create_group(cfg, comm)
     handles = ep_create_handle(group, topk_idx, topk_weights)
+    handles = ep_handle_refresh(group, handles, topk_weights, topk_idx)  # next step
     outs    = ep_dispatch(group, handles, tokens)        # [(y3d, counts)]
     ...expert FFN...
     ys      = ep_combine(group, handles, expert_out)
@@ -17,12 +18,14 @@ from __future__ import annotations
 from repro_torch.core import baseline as _baseline  # noqa: F401  (registers baseline)
 from repro_torch.core import ht as _ht  # noqa: F401  (registers the HT backend)
 from repro_torch.core import ll as _ll  # noqa: F401  (registers the LL backend)
+from repro_torch.core import plan as _plan
 from repro_torch.core.backend import EpPending, get_backend
 from repro_torch.core.group import EpGroup, EpGroupConfig, EpHandle, ep_create_group
 
 __all__ = [
     "EpGroup", "EpGroupConfig", "EpHandle", "EpPending", "ep_create_group",
-    "ep_create_handle", "ep_dispatch", "ep_combine", "ep_complete",
+    "ep_create_handle", "ep_handle_refresh", "ep_dispatch", "ep_combine",
+    "ep_complete",
 ]
 
 
@@ -41,6 +44,21 @@ def ep_create_handle(group: EpGroup, topk_idx: list, topk_weights: list,
     _check(group, "ep_create_handle", topk_weights)
     return get_backend(group.mode).create_handle(group, topk_idx,
                                                  topk_weights, num_tokens)
+
+
+def ep_handle_refresh(group: EpGroup, handles: list, topk_weights: list,
+                      topk_idx: list | None = None, num_tokens=None) -> list[EpHandle]:
+    """``ncclEpHandleRefresh``-style steady-state path: rebind per-step
+    routing into existing handles without rebuilding their slot maps.
+    ``topk_idx=None`` (or each handle's own tensor) rebinds the weights
+    only; a new ``topk_idx`` reuses the cached maps where the gathered
+    routing's hash is unchanged and rebuilds them where it changed, decided
+    on the device (``plan.refresh_handle``). Mode-agnostic."""
+    _check(group, "ep_handle_refresh", handles)
+    _check(group, "ep_handle_refresh", topk_weights)
+    if topk_idx is not None:
+        _check(group, "ep_handle_refresh", topk_idx)
+    return _plan.refresh_handle(group, handles, topk_weights, topk_idx, num_tokens)
 
 
 def ep_dispatch(group: EpGroup, handles: list, tokens: list, *,

@@ -165,7 +165,7 @@ class EpHandle:
 
     ``plan`` holds every slot map of every phase, derived once at creation;
     ``routing_hash`` is the [2]-lane checksum of ``topk_global``, kept for
-    the steady-state refresh path (ROADMAP A6)."""
+    the steady-state refresh path (``ep_handle_refresh``)."""
 
     rank: int                         # the EP rank this handle belongs to
     topk_idx: torch.Tensor            # [T, K] this rank's routing (padding -> E)

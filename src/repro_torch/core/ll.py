@@ -28,27 +28,16 @@ from repro_torch.core.recv import dequant_rows, unpack_recv
 from repro_torch.kernels import ops as K
 
 
-def _per_rank(value, n: int) -> list:
-    return list(value) if isinstance(value, (list, tuple)) else [value] * n
-
-
 def ll_create_handle(group: EpGroup, topk_idx: list, topk_weights: list,
                      num_tokens=None) -> list[EpHandle]:
     """All-gather the routing and derive each hosted rank's plan for the
     group's mode. The plan is the only place slot arithmetic happens."""
     ranks = group.comm.ranks
     masked = [P.mask_padding(group, t, n)
-              for t, n in zip(topk_idx, _per_rank(num_tokens, len(ranks)))]
+              for t, n in zip(topk_idx, P.per_rank(num_tokens, len(ranks)))]
     topk_gs = P.gather_routing(group, [m[0] for m in masked])
-    handles = []
-    for rank, (tk, nt), tg, w in zip(ranks, masked, topk_gs, topk_weights):
-        counts = P.recv_counts(group, rank, tg)
-        handles.append(EpHandle(
-            rank=rank, topk_idx=tk, topk_weights=w, topk_global=tg,
-            tokens_per_expert=counts, num_recv_tokens=counts.sum(),
-            num_tokens=nt, plan=P.build_plan(group, rank, tk, tg, nt),
-            routing_hash=P.routing_hash(tg, group.placement_salt)))
-    return handles
+    return [P.make_handle(group, rank, tk, tg, w, nt)
+            for rank, (tk, nt), tg, w in zip(ranks, masked, topk_gs, topk_weights)]
 
 
 def _pack_send(group: EpGroup, x, gmap):

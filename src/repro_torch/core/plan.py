@@ -19,7 +19,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import slots as S
-from repro_torch.core.group import EpGroup
+from repro_torch.core.group import EpGroup, EpHandle
 
 _MASK32 = 0xFFFFFFFF
 
@@ -66,6 +66,12 @@ def positional_layout(group: EpGroup) -> bool:
     send are transposes, and an expert's rows are not packed from row 0."""
     return group.mode == "baseline" or (group.mode == "ll"
                                         and group.cfg.ll_layout == "deepep")
+
+
+def per_rank(value, n: int) -> list:
+    """One value per hosted rank: a list or tuple as given, else ``value``
+    repeated ``n`` times."""
+    return list(value) if isinstance(value, (list, tuple)) else [value] * n
 
 
 def ensure_plan(group: EpGroup, handle) -> EpPlan:
@@ -120,6 +126,20 @@ def mask_padding(group: EpGroup, topk_idx: torch.Tensor, num_tokens):
         return topk_idx, T
     pad = torch.arange(T, device=topk_idx.device)[:, None] >= num_tokens
     return torch.where(pad, group.cfg.num_experts, topk_idx), int(num_tokens)
+
+
+def make_handle(group: EpGroup, rank: int, topk_idx: torch.Tensor,
+                topk_global: torch.Tensor, topk_weights: torch.Tensor,
+                num_tokens: int) -> EpHandle:
+    """Rank ``rank``'s handle on the gathered routing: its receive counts,
+    routing hash and a freshly built plan."""
+    counts = recv_counts(group, rank, topk_global)
+    return EpHandle(
+        rank=rank, topk_idx=topk_idx, topk_weights=topk_weights,
+        topk_global=topk_global, tokens_per_expert=counts,
+        num_recv_tokens=counts.sum(), num_tokens=num_tokens,
+        plan=build_plan(group, rank, topk_idx, topk_global, num_tokens),
+        routing_hash=routing_hash(topk_global, group.placement_salt))
 
 
 def gather_routing(group: EpGroup, topk_idx: list) -> list:
@@ -302,3 +322,76 @@ def _baseline_plan(group: EpGroup, me: int, topk_idx: torch.Tensor,
     return EpPlan(disp_send_gmap=gmap.reshape(N, L * Ce),
                   disp_counts=recv_counts(group, me, topk_g),
                   comb_recv_rows=row.reshape(T, Kk).to(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# handle refresh (the steady-state decode path)
+# --------------------------------------------------------------------------
+
+def _plan_shape_compatible(group: EpGroup, plan: EpPlan) -> bool:
+    """True when the cached plan's maps have the shapes this group would
+    rebuild, which the select of ``refresh_handle`` needs. A placement swap
+    that changes the per-rank slot count changes every expert-region map."""
+    c = plan.disp_counts
+    return c is None or c.shape[0] == group.local_experts
+
+
+def rebind_weights(group: EpGroup, plan: EpPlan | None,
+                   topk_weights: torch.Tensor) -> EpPlan | None:
+    """Rebind combine weights into a plan without touching a slot map. Only
+    the hierarchical HT plan embeds weights (ROADMAP A5); every plan the
+    port builds is weight-free and comes back unchanged (the same object, so
+    callers can assert map reuse by identity)."""
+    return plan
+
+
+def refresh_handle(group: EpGroup, handles: list, topk_weights: list,
+                   topk_idx: list | None = None, num_tokens=None) -> list[EpHandle]:
+    """Rebind per-step routing into existing handles, one per hosted rank
+    (public name ``ep_handle_refresh``).
+
+    With ``topk_idx`` None (or each rank's very own tensor) the routing is
+    unchanged by construction: every slot map is reused and only the combine
+    weights are rebound. With a new ``topk_idx`` the routing is gathered
+    and hashed; a handle whose maps have the rebuild's shapes gets each map
+    as ``torch.where(same, cached, rebuilt)``, with ``same`` the comparison
+    of the hashes on the device: no value is read back to the host, so the
+    refresh can be captured in a CUDA graph, and the maps are the cached
+    ones on a replayed routing and a fresh build's on a changed one (JAX
+    takes the same decision with ``lax.cond``; the select computes the
+    rebuild either way). A hand-built handle, a new token count or a
+    changed slot layout rebuilds unconditionally, like handle creation."""
+    n = len(handles)
+    if topk_idx is None or all(t is h.topk_idx for t, h in zip(topk_idx, handles)):
+        if num_tokens is not None:
+            # the padding sentinel is baked into topk_idx: a new valid-token
+            # count without new routing is ill-defined
+            raise ValueError("num_tokens requires topk_idx on refresh")
+        out = []
+        for h, w in zip(handles, topk_weights):
+            if h.plan is not None and not _plan_shape_compatible(group, h.plan):
+                raise ValueError(
+                    "weights-only refresh got a handle built under a different "
+                    "physical slot layout; refresh with topk_idx so the "
+                    "routing hash can force the rebuild")
+            out.append(dataclasses.replace(h, topk_weights=w,
+                                           plan=rebind_weights(group, h.plan, w)))
+        return out
+
+    masked = [mask_padding(group, t, nt)
+              for t, nt in zip(topk_idx, per_rank(num_tokens, n))]
+    topk_gs = gather_routing(group, [m[0] for m in masked])
+    out = []
+    for h, (tk, nt), tg, w in zip(handles, masked, topk_gs, topk_weights):
+        new = make_handle(group, h.rank, tk, tg, w, nt)
+        if (h.plan is not None and h.routing_hash is not None
+                and tk.shape == h.topk_idx.shape
+                and _plan_shape_compatible(group, h.plan)):
+            same = (new.routing_hash == h.routing_hash).all()
+            new.plan = EpPlan(**{
+                f.name: (None if getattr(new.plan, f.name) is None else
+                         torch.where(same, getattr(h.plan, f.name), getattr(new.plan, f.name)))
+                for f in dataclasses.fields(EpPlan)})
+        new.plan = rebind_weights(group, new.plan, w)
+        out.append(new)
+    return out

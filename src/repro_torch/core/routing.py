@@ -12,7 +12,6 @@ import dataclasses
 from typing import Literal
 
 import torch
-import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +73,9 @@ def route(logits: torch.Tensor, cfg: RouterConfig,
         topk_w = topk_w / topk_w.sum(-1, keepdim=True).clamp_min(1e-20)
     topk_w = topk_w * cfg.routed_scaling_factor
     # Switch/GShard load-balancing aux loss: E * sum_e f_e * p_e
-    f = F.one_hot(idx, E).float().sum(1).mean(0)
+    # one-hot by comparison: torch's one_hot reads the indices' range back to the
+    # host on the CPU, which a step must not do
+    f = (idx[..., None] == torch.arange(E, device=idx.device)).float().sum(1).mean(0)
     p = logits.softmax(-1).mean(0)
     aux = E * (f * p).sum() * cfg.aux_loss_weight
     z = (torch.logsumexp(logits, -1) ** 2).mean() * cfg.z_loss_weight

@@ -45,13 +45,15 @@ def build_gather_map(dest: torch.Tensor, pos: torch.Tensor, src: torch.Tensor,
                      sentinel: int) -> torch.Tensor:
     """Map [num_dest, capacity]: map[d, c] = src of the entry in slot (d, c),
     or ``sentinel`` for an empty slot. Invalid entries and entries at
-    pos >= capacity are dropped (a masked scatter: JAX's mode="drop")."""
-    m = torch.full((num_dest * capacity,), sentinel, dtype=torch.int32,
-                   device=dest.device)
+    pos >= capacity are dropped (JAX's mode="drop"): they are scattered into
+    one trash slot past the map, so no mask selects entries, which would
+    read a count back to the host."""
+    n = num_dest * capacity
+    m = torch.full((n + 1,), sentinel, dtype=torch.int32, device=dest.device)
     keep = valid & (pos >= 0) & (pos < capacity)
     flat = dest.clamp(0, num_dest - 1).to(torch.int64) * capacity + pos.to(torch.int64)
-    m[flat[keep]] = src[keep].to(torch.int32)
-    return m.view(num_dest, capacity)
+    m.scatter_(0, torch.where(keep, flat, n), src.to(torch.int32))
+    return m[:n].view(num_dest, capacity)
 
 
 def flat_rows(x: torch.Tensor) -> torch.Tensor:

@@ -147,17 +147,27 @@ def lane_work(p: Plan, lane: int) -> list[tuple[int, int, int, int, int]]:
     return out
 
 
-_sems: dict[int, torch.Tensor] = {}
+_sems: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _semaphores(dev: torch.device, n: int) -> torch.Tensor:
-    """A zeroed int32 counter per split tile, kept per card so that a call
-    launches nothing but the kernel: the tile's first piece sets its counter
-    back to 0, so the buffer stays zero between calls on one stream."""
-    buf = _sems.get(dev.index)
+    """A zeroed int32 counter per split tile, kept per (card, stream) so that
+    a call launches nothing but the kernel: the tile's first piece sets its
+    counter back to 0, so the buffer stays zero between calls on one stream,
+    and calls on two streams at once never share a counter. The buffer is
+    made outside any CUDA graph capture (one first made during a capture
+    would live in that graph's private pool): a capture must follow an
+    uncaptured call on its stream."""
+    cuda = dev.type == "cuda"
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream if cuda else None)
+    buf = _sems.get(key)
     if buf is None or buf.numel() < n:
+        if cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "grouped_gemm: no split-tile counters for this stream yet; run "
+                "the captured work once on its stream before capturing it")
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-        _sems[dev.index] = buf
+        _sems[key] = buf
     return buf
 
 

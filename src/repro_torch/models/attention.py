@@ -9,8 +9,10 @@ that route only on the TPU); softcap or a ragged S takes ``_sdpa_chunked``,
 shorter or non-causal sequences ``_sdpa``. There was no kernel for the dense
 cache on the TPU either: decode attention over it is plain ``_sdpa``. The
 cache is updated in place (the JAX step returns a new cache instead); the
-filled length is a host int. The paged path writes its pool in place too
-and attends through ``kernels.ops.paged_decode_attention``.
+filled length is a 0-dim int32 tensor on the cache's device, as in JAX, so
+no host value decides where a step writes and the step can be captured as a
+CUDA graph. The paged path writes its pool in place too and attends through
+``kernels.ops.paged_decode_attention``.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ def attn_spec(cfg: ArchConfig, dtype=None):
 class KVCache:
     k: torch.Tensor     # [B, S_max, n_kv, hd] (or stacked [n, B, S_max, ...])
     v: torch.Tensor
-    length: int         # filled prefix
+    length: torch.Tensor  # [] int32 filled prefix, on the cache's device
 
 
 def kv_cache_shape(cfg: ArchConfig, batch: int, max_len: int):
@@ -148,12 +150,16 @@ def attention(p, x: torch.Tensor, cfg: ArchConfig, *, positions=None,
                     else torch.ones((S, S), dtype=torch.bool, device=x.device))
             out = _sdpa(q, k, v, mask, a.logit_softcap, scale)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"]), None
-    if positions is None:
-        positions = (torch.arange(S, device=x.device)[None] + cache.length).expand(B, S)
-    q, k, v = _project_qkv(p, x, a, cfg, positions)
     start = cache.length
-    cache.k[:, start:start + S] = k.to(cache.k.dtype)
-    cache.v[:, start:start + S] = v.to(cache.v.dtype)
+    steps = torch.arange(S, device=x.device)
+    if positions is None:
+        positions = (steps + start)[None].expand(B, S)
+    q, k, v = _project_qkv(p, x, a, cfg, positions)
+    # rows start.. of the cache, the start clamped so that S rows fit (JAX's
+    # dynamic_update_slice); the length itself advances unclamped
+    rows = start.clamp(0, cache.k.shape[1] - S).long() + steps
+    cache.k.index_copy_(1, rows, k.to(cache.k.dtype))
+    cache.v.index_copy_(1, rows, v.to(cache.v.dtype))
     new_len = start + S
     k_pos = torch.arange(cache.k.shape[1], device=x.device)
     mask = _scores_mask(positions[0], k_pos, window) & (k_pos < new_len)[None, :]

@@ -2,6 +2,8 @@
 RoPE, gated FFNs, embeddings, the cross-entropy loss."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -23,6 +25,15 @@ def rope_frequencies(rot_dim: int, base: float) -> np.ndarray:
     return 1.0 / (base ** (np.arange(0, rot_dim, 2, dtype=np.float64) / rot_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_table(rot_dim: int, base: float, device: torch.device) -> torch.Tensor:
+    """``rope_frequencies`` as f32 on ``device``, made once per (width,
+    base, device): a step then copies no host data to the device, which a
+    captured step could not do."""
+    return torch.tensor(rope_frequencies(rot_dim, base), dtype=torch.float32,
+                        device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, base: float,
                fraction: float = 1.0) -> torch.Tensor:
     """x: [B, S, H, D]; positions: [B, S]. Rotates the first
@@ -32,8 +43,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, base: float,
     rot -= rot % 2
     if rot == 0:
         return x
-    inv = torch.tensor(rope_frequencies(rot, base), dtype=torch.float32,
-                       device=x.device)
+    inv = _rope_table(rot, base, x.device)
     ang = positions.float()[:, :, None] * inv[None, None, :]      # [B, S, rot/2]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]

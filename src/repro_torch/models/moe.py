@@ -131,7 +131,8 @@ def _moe_dense_fallback(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h_u = torch.einsum("td,edf->tef", xt, p["w_up"])
     h = (F.silu(h_g.float()) * h_u.float()).to(x.dtype)
     y_all = torch.einsum("tef,efd->ted", h, p["w_down"])            # [T, E, D]
-    oh = F.one_hot(r.topk_idx.long(), m.num_experts).float()
+    experts = torch.arange(m.num_experts, device=x.device)
+    oh = (r.topk_idx.long()[..., None] == experts).float()         # [T, K, E]
     gate = torch.einsum("tk,tke->te", r.topk_weights, oh)           # [T, E]
     y = torch.einsum("ted,te->td", y_all.float(), gate).to(x.dtype)
     y = y.reshape(B, S, D)

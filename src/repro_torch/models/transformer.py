@@ -77,10 +77,12 @@ def lm_decode_state_spec(cfg: ArchConfig, batch: int, max_len: int):
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device: torch.device):
-    """Zeroed stacked KV caches, one KVCache per layer stack."""
+    """Zeroed stacked KV caches, one KVCache per layer stack, each with its
+    filled length as a 0-dim int32 tensor on ``device``."""
     return {name: ATT.KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                               v=torch.zeros(shape, dtype=dt, device=device),
-                              length=0)
+                              length=torch.zeros((), dtype=torch.int32,
+                                                 device=device))
             for name, (shape, dt) in lm_decode_state_spec(cfg, batch, max_len).items()}
 
 
@@ -153,10 +155,12 @@ def lm_forward(params, batch, cfg: ArchConfig, comm):
 
 def lm_decode_step(params, state, batch, cfg: ArchConfig, comm):
     """One decode step. batch: {tokens [B, 1]} -> (logits [B, 1, V], state).
-    The caches in ``state`` are written in place; the returned state carries
-    the advanced lengths."""
+    The caches in ``state`` are written in place and their lengths advanced
+    in place after the last layer (every layer of a stack reads the same
+    start), so the returned state is ``state``, its tensors the same
+    objects: what a captured step needs (JAX donates the state instead)."""
     x = embed_lookup(params["embed"], batch["tokens"])
-    new_state = dict(state)
+    new_lens = {}
     for name in ("dense", "moe"):
         if name not in state:
             continue
@@ -164,8 +168,10 @@ def lm_decode_step(params, state, batch, cfg: ArchConfig, comm):
         for i in range(st.k.shape[0]):
             c = ATT.KVCache(k=st.k[i], v=st.v[i], length=st.length)
             x, c, _ = layer_apply(_index(stack, i), x, cfg, comm, cache=c)
-        new_state[name] = ATT.KVCache(k=st.k, v=st.v, length=c.length)
-    return _head(params, x, cfg), new_state
+        new_lens[name] = c.length
+    for name, n in new_lens.items():
+        state[name].length.copy_(n)
+    return _head(params, x, cfg), state
 
 
 def _head(params, x, cfg: ArchConfig):

@@ -13,11 +13,19 @@ The EP ranks of the MoE layers are hosted in this process by a
 ``LocalComm(ep_size)``; with ``ep_size=1`` the MoE layers take the dense
 reference path, as the JAX server does off-mesh. The clock stops after
 ``torch.cuda.synchronize()`` where the JAX server calls
-``block_until_ready``. EPLB, fault tolerance, preemption, telemetry and
-``pipeline_depth > 1`` are not ported yet (ROADMAP A6, A9, A10).
+``block_until_ready``.
+
+Both servers step through a compiled step (``_compiled_step``): on the card
+the step is captured once as a CUDA graph and replayed over the server's
+own input buffers and state (``steps.CompiledStep``), where JAX jits it; on
+the CPU it runs eagerly. ``pipeline_depth > 1`` keeps up to that many
+fixed-batch steps in flight before the host blocks on the oldest; the next
+token feeds device to device. EPLB, fault tolerance, preemption and
+telemetry are not ported yet (ROADMAP A9, A10).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 
@@ -31,7 +39,8 @@ from repro_torch.models.kv_pages import PageAllocator, pages_for_tokens
 from repro_torch.models.transformer import (check_supported, init_decode_state,
                                             init_paged_decode_state)
 from repro_torch.runtime.scheduler import ContinuousScheduler
-from repro_torch.runtime.steps import make_paged_serve_step, make_serve_step
+from repro_torch.runtime.steps import (CompiledStep, make_paged_serve_step,
+                                      make_serve_step)
 from repro_torch.weights import init_params
 
 
@@ -64,9 +73,6 @@ class DecodeServer:
     def __init__(self, cfg: ArchConfig, batch: int, max_len: int, *,
                  ep_size: int = 1, params=None, seed: int = 0, device=None,
                  pipeline_depth: int = 1):
-        if pipeline_depth != 1:
-            raise NotImplementedError("pipelined decode (pipeline_depth > 1) "
-                                      "is not ported yet (ROADMAP A6)")
         check_supported(cfg)
         self.device = resolve_device(device)
         disable_tf32()                    # the router matmul stays full f32
@@ -76,8 +82,14 @@ class DecodeServer:
             raise ValueError(f"batch {batch} must divide by ep_size {ep_size}")
         self.params = (init_params(cfg, seed, self.device) if params is None
                        else params)
+        self.pipeline_depth = max(int(pipeline_depth), 1)
         self.state = self._init_state(batch, max_len)
-        self._serve_step = self._step_factory()
+        # the step's token input, which a captured step reads in place
+        self._tokens = torch.zeros((batch, 1), dtype=torch.int32, device=self.device)
+        # compiled serve steps, keyed by placement, bounded to {current,
+        # previous}: see _compiled_step
+        self._step_cache: collections.OrderedDict = collections.OrderedDict()
+        self._serve_step = self._compiled_step()
         self.last_tokens: np.ndarray | None = None
 
     # ---- engine hooks (ContinuousDecodeServer overrides both) ----
@@ -87,13 +99,36 @@ class DecodeServer:
         return init_decode_state(self.cfg, batch, max_len, self.device)
 
     def _step_factory(self):
-        """The serve step for this engine's layout."""
+        """The uncompiled serve step for this engine's layout;
+        ``_compiled_step`` compiles this one."""
         return make_serve_step(self.cfg, self.comm)
+
+    def _compiled_step(self) -> CompiledStep:
+        """The compiled serve step for the current placement, cached per
+        placement and bounded to two entries (current and previous): each
+        captured graph pins its private memory pool. The placement is always
+        None until EPLB is ported (ROADMAP A10)."""
+        key = self.cfg.moe.placement if self.cfg.moe else None
+        if key in self._step_cache:
+            self._step_cache.move_to_end(key)
+        else:
+            self._step_cache[key] = CompiledStep(self._step_factory())
+            while len(self._step_cache) > 2:
+                self._step_cache.popitem(last=False)
+        return self._step_cache[key]
+
+    def close(self) -> None:
+        """Release the captured graphs and their memory pools; the next step
+        captures again. Call when retiring a server in a longer-lived
+        process."""
+        self._step_cache.clear()
+        self._serve_step = self._compiled_step()
 
     def step(self, tokens: torch.Tensor) -> torch.Tensor:
         """One greedy decode step: [B, 1] tokens in, [B, 1] next tokens out."""
+        self._tokens.copy_(tokens)
         tok, self.state = self._serve_step(self.params, self.state,
-                                           {"tokens": tokens})
+                                           {"tokens": self._tokens})
         return tok
 
     def prefill(self, prompts):
@@ -110,6 +145,8 @@ class DecodeServer:
     def decode(self, first_tok: torch.Tensor, steps: int):
         """``steps`` greedy steps. Returns (tokens [B, steps+1] numpy, the
         first token included, and the per-step latencies in seconds)."""
+        if self.pipeline_depth > 1:
+            return self._decode_pipelined(first_tok, steps)
         tok = first_tok
         outs, itls = [tok], []
         for _ in range(steps):
@@ -120,10 +157,48 @@ class DecodeServer:
             outs.append(tok)
         return torch.cat(outs, dim=1).cpu().numpy(), np.asarray(itls)
 
+    def _decode_pipelined(self, first_tok: torch.Tensor, steps: int):
+        """Keep up to ``pipeline_depth`` steps in flight, blocking only on
+        the oldest step's event. ITL is completion to completion, steady
+        state only: the fill interval (start to first completion, which
+        amortizes ``depth`` launches) is left out, so ``len(itls) == steps -
+        1`` (a single step's window gives the fill interval). ``serve``
+        charges tok/s against its own wall clock, never ``itls.sum()``."""
+        cuda = self.device.type == "cuda"
+        pending: collections.deque = collections.deque()
+        done, marks = [], []
+
+        def retire_oldest():
+            d, ev = pending.popleft()
+            if ev is not None:
+                ev.synchronize()
+            marks.append(time.perf_counter())
+            done.append(d)
+
+        tok = first_tok
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = self.step(tok)
+            ev = torch.cuda.Event() if cuda else None
+            if ev is not None:
+                ev.record()
+            pending.append((tok, ev))
+            if len(pending) >= self.pipeline_depth:
+                retire_oldest()
+        while pending:
+            retire_oldest()
+        if len(marks) > 1:
+            itls = np.diff(np.asarray(marks))
+        else:
+            itls = np.asarray([m - t0 for m in marks])
+        return torch.cat([first_tok] + done, dim=1).cpu().numpy(), itls
+
     def serve(self, prompts, gen_steps: int) -> ServeMetrics:
         first, ttft = self.prefill(prompts)
         t0 = time.perf_counter()
         toks, itls = self.decode(first, gen_steps)
+        # over the decode wall clock, not itls.sum(): the pipelined path's
+        # itls leave the fill interval out
         decode_wall = time.perf_counter() - t0
         self.last_tokens = toks           # [B, gen_steps+1] generated stream
         total = toks.shape[0] * toks.shape[1]
@@ -165,6 +240,9 @@ class ContinuousDecodeServer(DecodeServer):
                 "continuous batching requires zero-drop MoE routing "
                 "(capacity_factor=None): capacity competition couples "
                 "co-resident requests and breaks solo parity")
+        if int(kwargs.get("pipeline_depth", 1)) > 1:
+            raise ValueError("continuous batching is depth-1: the next step "
+                             "consumes this step's tokens host-side")
         self.page_size = int(page_size)
         # page-table width: enough pages for max_len, rounded up so the
         # configured split count divides it (the extra entries are pad)
@@ -178,6 +256,22 @@ class ContinuousDecodeServer(DecodeServer):
         self.max_len = max_len
         self.reqsched: ContinuousScheduler | None = None
         super().__init__(cfg, batch, max_len, **kwargs)
+        # the step's inputs: one int32 device buffer, each input's view at a
+        # 16-byte aligned offset, filled from one pinned host buffer
+        shapes = dict(tokens=(batch, 1), page_tbl=(batch, self.max_pages),
+                      kv_lens=(batch,), active=(batch,))
+        offs, n = {}, 0
+        for name, shape in shapes.items():
+            offs[name] = n
+            n += -(-int(np.prod(shape)) // 4) * 4
+        self._feed_host = torch.zeros(n, dtype=torch.int32,
+                                      pin_memory=self.device.type == "cuda")
+        self._feed_dev = torch.zeros(n, dtype=torch.int32, device=self.device)
+        self._feed_slices = {name: slice(offs[name], offs[name] + int(np.prod(shape)))
+                             for name, shape in shapes.items()}
+        self._feed = {name: self._feed_dev[sl].view(shapes[name])
+                      for name, sl in self._feed_slices.items()}
+        self._feed_copied: torch.cuda.Event | None = None
 
     def _init_state(self, batch: int, max_len: int):
         return init_paged_decode_state(self.cfg, self.num_pages, self.page_size,
@@ -194,17 +288,19 @@ class ContinuousDecodeServer(DecodeServer):
                                   "step_feed / serve_requests, not step")
 
     def step_feed(self, feed: dict) -> torch.Tensor:
-        """One paged step on the scheduler's numpy inputs, copied to the
-        device in one transfer. Returns the next tokens [B, 1] on it."""
-        B, mp = feed["page_tbl"].shape
-        flat = torch.from_numpy(np.concatenate(
-            [feed["tokens"].reshape(-1), feed["page_tbl"].reshape(-1),
-             feed["kv_lens"], feed["active"]]).astype(np.int32)).to(self.device)
-        batch = dict(tokens=flat[:B].view(B, 1),
-                     page_tbl=flat[B:B + B * mp].view(B, mp),
-                     kv_lens=flat[B + B * mp:2 * B + B * mp],
-                     active=flat[2 * B + B * mp:])
-        tok, self.state = self._serve_step(self.params, self.state, batch)
+        """One paged step on the scheduler's numpy inputs, written into the
+        pinned host buffer and copied to the step's input buffer in one
+        transfer. Returns the next tokens [B, 1] on the device."""
+        if self._feed_copied is not None:
+            self._feed_copied.synchronize()    # the last copy has read the host buffer
+        host = self._feed_host.numpy()
+        for name, sl in self._feed_slices.items():
+            host[sl] = np.asarray(feed[name]).reshape(-1)
+        self._feed_dev.copy_(self._feed_host, non_blocking=True)
+        if self.device.type == "cuda":
+            self._feed_copied = torch.cuda.Event()
+            self._feed_copied.record()
+        tok, self.state = self._serve_step(self.params, self.state, self._feed)
         return tok
 
     def serve_requests(self, requests, max_steps: int | None = None

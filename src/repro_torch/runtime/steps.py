@@ -1,12 +1,17 @@
 """Serve-step factories (port of ``make_serve_step`` and
-``make_paged_serve_step`` in ``src/repro/runtime/steps.py``).
+``make_paged_serve_step`` in ``src/repro/runtime/steps.py``) and the
+compiled step that the servers run them through.
 
 Both steps share one signature, (params, state, batch) -> (next tokens
 [B, 1] int32, state), so the servers treat the dense and the paged engine
-alike. PyTorch runs eagerly: the factories return plain functions, where
-JAX jits them.
+alike. The factories return the uncompiled step; ``CompiledStep`` is the
+port's rendering of ``jax.jit(step, donate_argnums=(1,))``: on the card it
+captures the step once as a CUDA graph and replays it, on the CPU it runs
+the step eagerly.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -32,3 +37,81 @@ def make_paged_serve_step(cfg: ArchConfig, comm):
     """Greedy step over the paged pools. batch: {tokens [B, 1], page_tbl
     [B, max_pages], kv_lens [B], active [B]}."""
     return _greedy(lm_paged_decode_step, cfg, comm)
+
+
+# one capture stream per card, shared by every capture: a stream's first
+# cuBLAS call allocates a workspace for it that lives as long as the
+# process, and B3 keeps split-tile counters per stream
+_CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream on which work is warmed up and captured on ``device``."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    stream = _CAPTURE_STREAMS.get(index)
+    if stream is None:
+        stream = torch.cuda.Stream(index)
+        _CAPTURE_STREAMS[index] = stream
+    return stream
+
+
+class CompiledStep:
+    """A serve step captured as a CUDA graph on the card.
+
+    The first call on a CUDA batch runs the uncompiled step once on the
+    card's capture stream (the warm-up: the kernels' one-time set-up,
+    cuBLAS's workspace for that stream, B3's split-tile counters) and
+    returns its result: it is a real step. It then captures the step on the
+    same stream into a graph over the tensors of that call: the batch's
+    tensors become the graph's static inputs and the state, which the step
+    writes in place, its state (JAX donates the state instead). Every later
+    call copies its batch into the static inputs (nothing when it passes
+    those very tensors), replays the graph and returns a copy of the next
+    tokens, made in stream order, so the next replay cannot overwrite what
+    was returned.
+    A call must pass the params and the state the graph was captured with;
+    a capture or replay that fails raises, and nothing falls back to eager.
+
+    On the CPU every call runs the uncompiled step.
+    """
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.capture_s: float | None = None   # wall time of the capture
+        self._static = None                   # (params, state, batch, tokens out)
+
+    def __call__(self, params, state, batch):
+        if batch["tokens"].device.type != "cuda":
+            return self.fn(params, state, batch)
+        if self.graph is None:
+            return self._warm_up_and_capture(params, state, batch)
+        s_params, s_state, s_batch, out = self._static
+        if params is not s_params or state is not s_state or batch.keys() != s_batch.keys():
+            raise ValueError("a captured step replays over the params, state and "
+                             "batch keys it was captured with")
+        for k, v in batch.items():
+            if v is not s_batch[k]:
+                s_batch[k].copy_(v)
+        self.graph.replay()
+        return out.clone(), state
+
+    def _warm_up_and_capture(self, params, state, batch):
+        cur = torch.cuda.current_stream()
+        side = capture_stream(cur.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            tok, st = self.fn(params, state, batch)
+        if st is not state:
+            raise ValueError("the step returned a new state: a captured step must "
+                             "write its state in place")
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out, _ = self.fn(params, state, batch)
+        self.capture_s = time.perf_counter() - t0
+        self.graph, self._static = graph, (params, state, dict(batch), out)
+        cur.wait_stream(side)
+        tok.record_stream(cur)       # made on the side stream, used on this one
+        return tok, state

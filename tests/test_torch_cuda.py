@@ -16,9 +16,16 @@ to 1e-4 in both, and must not change a bit when unreferenced pages change.
 Flash attention is held to 1e-4 in f32 and 2e-2 in bf16 (5e-3 relative over
 the output), where the kernel rounds the probabilities to bf16 for the PV
 product, and two calls must give the same bits.
+
+The compiled serve step (a CUDA graph captured once and replayed) must give
+the same tokens bit for bit as the uncompiled step, in both engines and all
+three EP layouts; the two-stream ``decode_loop`` must equal the naive step
+bit for bit, eager and captured; B3 on two streams at once must give each
+stream's single-stream result (its split-tile counters are per stream).
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,7 +41,14 @@ from repro_torch.kernels import fp8
 from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import recv_unpack as ru
 from repro_torch.kernels import ref
-from repro_torch.models.moe import _moe_dense_fallback, moe_block
+from repro_torch.core import route
+from repro_torch.models.moe import (_expert_ffn, _moe_dense_fallback, ep_group,
+                                    moe_block, router_config)
+from repro_torch.runtime.decode import decode_loop, naive_decode_step, pipelined_decode_step
+from repro_torch.runtime.prefill import _handle
+from repro_torch.runtime.scheduler import Request
+from repro_torch.runtime.server import ContinuousDecodeServer, DecodeServer
+from repro_torch.runtime.steps import capture_stream
 from repro_torch.weights import init_params
 
 
@@ -636,3 +650,144 @@ def test_cuda_combine_reduce_any_k(hopper, K, dt, wdt):
         rows = torch.arange(T * K, device=hopper, dtype=torch.int32).view(T, K)
         assert torch.equal(cg.combine_gather_reduce(y.view(T * K, H), rows, w), got)
     torch.cuda.synchronize()
+
+
+SERVE_LAYOUTS = {"nccl_ep": {}, "deepep_fp8": dict(ll_layout="deepep", quantize_dispatch=True),
+                 "baseline": dict(ep_mode="baseline")}
+
+
+def _serve_cfg(layout):
+    """The smoke config at d_model 128 (fp8 blocks of 128) in ``layout``."""
+    cfg = dataclasses.replace(smoke_config(), d_model=128)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **SERVE_LAYOUTS[layout]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(SERVE_LAYOUTS))
+def test_cuda_captured_decode_step_matches_eager(hopper, layout):
+    """The fixed-batch server's captured step against its uncompiled step:
+    the same tokens over prefill and decode, and after the capture no
+    wrapper runs (the graph replays)."""
+    cfg = _serve_cfg(layout)
+    params = init_params(cfg, seed=0, device=hopper)
+    prompts = torch.randint(0, cfg.vocab, (16, 4), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1))
+    toks = {}
+    for mode in ("captured", "eager"):
+        srv = DecodeServer(cfg, 16, 16, ep_size=8, params=params, device=hopper)
+        if mode == "eager":
+            srv._serve_step = srv._step_factory()
+        first, _ = srv.prefill(prompts)
+        before = gg.launches
+        toks[mode], itls = srv.decode(first, 6)
+        assert len(itls) == 6
+        if mode == "captured":
+            assert srv._serve_step.graph is not None and gg.launches == before
+            assert srv.state["moe"].length.device.type == "cuda"
+            assert int(srv.state["moe"].length) == 4 + 6
+    assert np.array_equal(toks["captured"], toks["eager"])
+    pipe = DecodeServer(cfg, 16, 16, ep_size=8, params=params, device=hopper,
+                        pipeline_depth=2)
+    got, itls = pipe.decode(pipe.prefill(prompts)[0], 6)
+    assert np.array_equal(got, toks["eager"]) and len(itls) == 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(SERVE_LAYOUTS))
+def test_cuda_captured_paged_step_matches_eager(hopper, layout):
+    """The continuous server's captured step against its uncompiled step:
+    every request's tokens equal, with requests joining and leaving."""
+    cfg = _serve_cfg(layout)
+    params = init_params(cfg, seed=0, device=hopper)
+    rng = np.random.default_rng(2)
+    spec = [(rng.integers(0, cfg.vocab, int(rng.integers(1, 6))), int(rng.integers(2, 6)),
+             int(rng.integers(0, 4))) for _ in range(12)]
+    toks = {}
+    for mode in ("captured", "eager"):
+        srv = ContinuousDecodeServer(cfg, 8, 16, ep_size=8, params=params, device=hopper,
+                                     page_size=4)
+        if mode == "eager":
+            srv._serve_step = srv._step_factory()
+        m = srv.serve_requests([Request(i, p, n, arrival_step=a)
+                                for i, (p, n, a) in enumerate(spec)])
+        assert m.requests_completed == len(spec)
+        toks[mode] = [srv.reqsched.tokens_for(i) for i in range(len(spec))]
+        if mode == "captured":
+            assert srv._serve_step.graph is not None
+    for a, b in zip(toks["captured"], toks["eager"]):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(SERVE_LAYOUTS))
+def test_cuda_decode_loop_two_streams_matches_naive(hopper, layout):
+    """decode_loop on two streams against naive_decode_step, per
+    micro-batch, bit for bit; then one steady-state pipelined step captured
+    and replayed over a changed routing and a replayed one."""
+    cfg = _serve_cfg(layout)
+    params = init_params(cfg, seed=0, device=hopper)
+    p = {k: v[0] for k, v in params["moe_stack"]["moe"].items()}
+    T = 16
+    group = ep_group(cfg, LocalComm(8), T)
+    L, rcfg = group.local_experts, router_config(cfg.moe)
+
+    def router_fn(x):
+        r = route(x.float() @ p["router"], rcfg)
+        return r.topk_idx, r.topk_weights
+
+    def expert_fn(rank, y3d, counts):
+        sl = slice(rank * L, (rank + 1) * L)
+        return _expert_ffn(group, y3d, counts, p["w_gate"][sl], p["w_up"][sl], p["w_down"][sl])
+
+    xs = [[[_rand((T, cfg.d_model), cfg.dtype, hopper, 1.0, 100 + 16 * s + 8 * m + r)
+            for r in range(8)] for m in range(2)] for s in range(3)]
+    xs.append(xs[1])                                     # a replayed step
+    outs = decode_loop(group, router_fn, expert_fn, [tuple(x) for x in xs])
+    want = [[naive_decode_step(group, router_fn, expert_fn, xs[s][m]) for m in range(2)]
+            for s in range(4)]
+    for s in range(4):
+        for m in range(2):
+            assert all(torch.equal(a, b) for a, b in zip(outs[s][m], want[s][m])), (s, m)
+    handles = (_handle(group, router_fn, xs[0][0]), _handle(group, router_fn, xs[0][1]))
+    xa = [x.clone() for x in xs[1][0]]
+    xb = [x.clone() for x in xs[1][1]]
+    side = capture_stream(hopper)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                        # the warm-up
+        pipelined_decode_step(group, router_fn, expert_fn, handles, xa, xb)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        (oa, ob), _ = pipelined_decode_step(group, router_fn, expert_fn, handles, xa, xb)
+    torch.cuda.current_stream().wait_stream(side)
+    for s in (2, 0, 1):              # changed routings, and step 0's: the fast branch
+        for dst, src in zip(xa + xb, xs[s][0] + xs[s][1]):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, m in ((oa, 0), (ob, 1)):
+            assert all(torch.equal(a, b) for a, b in zip(o, want[s][m])), (s, m)
+
+
+@pytest.mark.gpu
+def test_cuda_grouped_gemm_two_streams(hopper):
+    """B3 at a stream-K decode shape on two streams at once: each stream's
+    results equal its single-stream call, call after call."""
+    L, A, H, F = 2, 128, 1024, 2048
+    assert gg.plan(L, A, H, F).sk_tiles > 0
+    xs = [_rand((L, A, H), torch.bfloat16, hopper, 1.0, 40 + i) for i in range(2)]
+    ws = [_rand((L, H, F), torch.bfloat16, hopper, 0.05, 50 + i) for i in range(2)]
+    cs = [torch.tensor([100, 37], dtype=torch.int32, device=hopper),
+          torch.tensor([128, 5], dtype=torch.int32, device=hopper)]
+    want = [gg.grouped_gemm(x, w, c) for x, w, c in zip(xs, ws, cs)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(gg.grouped_gemm(xs[i], ws[i], cs[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(g, want[i]) for g in got[i])
+    assert len([k for k in gg._sems if k[0] == torch.cuda.current_device()]) >= 3

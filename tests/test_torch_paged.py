@@ -337,7 +337,7 @@ def test_continuous_server_refusals():
     windowed = dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn, window=8))
     with pytest.raises(NotImplementedError, match="non-windowed"):
         ContinuousDecodeServer(windowed, 8, 16, device="cpu", page_size=4)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="depth-1"):
         ContinuousDecodeServer(cfg, 8, 16, device="cpu", page_size=4, pipeline_depth=2)
     srv = ContinuousDecodeServer(cfg, 8, 20, device="cpu", page_size=4)
     assert srv.max_pages == 8 and srv.num_pages == 64   # 5 pages rounded to 4 splits

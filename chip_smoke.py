@@ -44,6 +44,11 @@
    layer). Reports its wall time after a warm-up, prefill tokens per second,
    peak memory and each MoE layer's dropped-entry share, then traces one
    forward with the profiler: the card's busy share and its time by kernel.
+   The forward must be bitwise equal on a repeat. Then the same forward
+   with the MoE layers on the hierarchical HT path: EP over two pods of
+   four (``LocalComm(8, axes=(("pod", 2), ("data", 4)))``), two stages,
+   2 chunks; the same checks, exact launch counts per layer and rank, its
+   numbers beside the flat forward's and its trace.
 6. Holds each EP kernel against its plain PyTorch version on the inputs one
    EP rank gets in one MoE layer of the first serve (8 ranks, 16 tokens
    each): bitwise for the two gathers, in copy and in fp8 mode, the pack in
@@ -51,7 +56,12 @@
    within 2e-2 for the reduce, and bitwise between two of its calls; and at
    the prefill's HT shapes (4096 tokens per rank, [8, 2560] send blocks,
    [2, 10240] expert regions): fp8 pack, dequant unpack and the combine
-   send's copy-mode pack bitwise, the reduce as at decode. The
+   send's copy-mode pack bitwise, the reduce as at decode; at the
+   hierarchical prefill's shapes, B2's copy mode at the stage-2 fan on fp8
+   payload rows and on their f32 scale rows bitwise, and B4 at the
+   combine's three sums (slot domain, rail over pods, source over rails)
+   as at decode, each timed beside its plain version, its bound and a
+   library call. The
    copy-mode gathers are timed beside ``index_select`` over rows padded with
    one zero row. Holds the bf16 grouped GEMM at the four shapes the paths
    give it: the decode gate [2, 128, 6144] @ [2, 6144, 10752] and down
@@ -67,7 +77,8 @@
    against ``dispatch_pack``'s quant mode and between two calls;
    ``combine_reduce`` within 2e-2 (bf16) and 1e-5 (f32) at 16 and 4096
    tokens of K = 4, bitwise between two calls and against
-   ``combine_gather_reduce`` over identity rows. Holds the
+   ``combine_gather_reduce`` over identity rows; dequantize's time is the
+   median of five readings. Holds the
    paged decode attention kernel
    against its plain version within 1e-4: at the shapes the continuous serve
    gives it (bf16 pools of the serve's 512 + 1 pages, table width 4, 4
@@ -89,7 +100,10 @@
    same for the HT layer at 512 tokens per rank and zero drop, without fp8
    and with it (both fed the plain quantize-dequantize round trip of x);
    ``prefill_moe`` with 2 micro-batches must be bitwise equal to
-   ``sequential_prefill``. Reports the greedy-token agreement of the EP
+   ``sequential_prefill``. The hierarchical HT layer likewise against the
+   dense fallback (2 chunks, with and without fp8), with 2 and 4 chunks
+   bitwise equal to 1 (dispatch tensor, counts, combined tokens), and
+   ``prefill_moe`` bitwise equal to ``sequential_prefill`` over it. Reports the greedy-token agreement of the EP
    server with a dense one. Reruns two requests that joined and left
    mid-stream alone through a fresh engine: their token streams must be
    bitwise equal. Holds the paged decode step against the dense step on the
@@ -124,7 +138,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch.comm import LocalComm  # noqa: E402
 from repro_torch.configs.dbrx_132b import full_config  # noqa: E402
-from repro_torch.core import ep_create_handle, ep_handle_refresh, route, slots  # noqa: E402
+from repro_torch.core import (ep_combine, ep_create_handle, ep_dispatch,  # noqa: E402
+                              ep_handle_refresh, route, slots)
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import combine_gather_reduce as cg_mod  # noqa: E402
 from repro_torch.kernels import combine_reduce as cr_mod  # noqa: E402
@@ -186,6 +201,11 @@ DEV = torch.device("cuda")
 # the prefill forward: batch rows x tokens (one row of 4096 per hosted rank,
 # the paper's HT regime); tokens per rank of the HT oracle
 PF_BATCH, PF_SEQ, ORACLE_T = 8, 4096, 512
+# the hierarchical prefill: the EP mesh of two pods of four (the smallest
+# with an inter-pod hop on 8 ranks) and the chunks of the pipeline
+HIER_AXES, HIER_CHUNKS = (("pod", 2), ("data", 4)), 2
+# readings of dequantize_fp8's time, whose median its record keeps
+DEQUANT_REPEATS = 5
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -229,6 +249,20 @@ EP_LAUNCHES = {
     "baseline": dict(dispatch_pack=1, recv_unpack=0, dequantize_fp8=0, grouped_gemm=3,
                      combine_gather_reduce=1, quantize_fp8=0, combine_reduce=0),
 }
+
+
+def hier_launches(nc: int, fp8: bool) -> dict:
+    """EP launches per MoE layer and hosted rank of the hierarchical HT
+    path with nc chunks (``core/ht.py``): B1 packs each chunk's stage 1;
+    B2 fans each chunk's held rows over the pods (and their scales under
+    fp8) and finishes the dispatch once; B4 sums the slot domain once, each
+    chunk at the rail, and once at the source."""
+    return dict(dispatch_pack=nc, recv_unpack=nc * (2 if fp8 else 1) + 1,
+                dequantize_fp8=0, grouped_gemm=3, combine_gather_reduce=nc + 2,
+                quantize_fp8=0, combine_reduce=0)
+
+
+EP_LAUNCHES["hier"] = hier_launches(HIER_CHUNKS, True)
 # the MoE options of each served layout over the decode_32k preset
 LAYOUTS = {"deepep_fp8": dict(ll_layout="deepep", quantize_dispatch=True),
            "baseline": dict(ep_mode="baseline")}
@@ -731,8 +765,8 @@ class RecordingComm(LocalComm):
         super().__init__(n)
         self.log: list[tuple[int, int]] = []
 
-    def all_to_all(self, sends):
-        recvs = super().all_to_all(sends)
+    def all_to_all(self, sends, axis=None):
+        recvs = super().all_to_all(sends, axis)
         self.log.append((sends[0].nbytes, recvs[0].nbytes))
         return recvs
 
@@ -800,10 +834,16 @@ def fp8_kernel_phase(cfg, params) -> dict:
     want = ref.dequantize_fp8(q, sc, dt)
     check(torch.equal(got, want), "dequantize_fp8 differs from its plain version")
     bnd = bound(nbytes(q) + nbytes(sc) + nbytes(got), q.numel(), F32_OPS_S)
-    ms = device_ms(lambda: fp8_mod.dequantize_fp8(q, sc, dt), 50)
+    # its time sits near twice its bound within the spread of one reading:
+    # the median of DEQUANT_REPEATS readings says on which side it is
+    reps = [device_ms(lambda: fp8_mod.dequantize_fp8(q, sc, dt), 50)
+            for _ in range(DEQUANT_REPEATS)]
+    ms = float(np.median(reps))
     plain_ms = device_ms(lambda: ref.dequantize_fp8(q, sc, dt), 50)
     print(f"dequantize_fp8 {list(q.shape)} fp8 + {list(sc.shape)} f32 -> {dt}: bitwise "
-          f"equal; kernel {ms:.5f} ms on the card ({call_ms(lambda: fp8_mod.dequantize_fp8(q, sc, dt), 50):.4f} "
+          f"equal; kernel {ms:.5f} ms on the card, the median of {DEQUANT_REPEATS} readings "
+          f"{[round(r, 5) for r in reps]} ({bnd[0] / ms:.3f} of the bound's rate; "
+          f"{call_ms(lambda: fp8_mod.dequantize_fp8(q, sc, dt), 50):.4f} "
           f"ms per call from the host), plain {plain_ms:.5f} ms, library none, bound "
           f"{bnd[0]:.5f} ms ({bnd[1]}, {(nbytes(q) + nbytes(sc) + nbytes(got)) / 1e6:.3f} MB)")
     records = {"dequantize_fp8": record("dequantize_fp8", 0.0, ms, plain_ms, bnd, None)}
@@ -1236,20 +1276,36 @@ def prefill_config():
     return full, dataclasses.replace(full, num_layers=LAYERS)
 
 
-def prefill_phase(params, card: str):
-    """This slice's main path: the prefill forward ``get_model(cfg).forward``
-    under the train_4k preset, every launch counter read. Returns the
-    launches, the untimed forward and the untraced forward's seconds."""
-    full, cfg = prefill_config()
+def hier_config(cfg, **moe):
+    """The train_4k preset with the hierarchical HT options: EP over
+    ("pod", "data"), two stages, HIER_CHUNKS chunks."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, ep_axis=tuple(a for a, _ in HIER_AXES), ht_hierarchical=True,
+        ht_num_chunks=HIER_CHUNKS, **moe))
+
+
+def hier_comm() -> LocalComm:
+    return LocalComm(RANKS, axes=HIER_AXES)
+
+
+def prefill_run(label: str, params, cfg, comm, card: str, path: str) -> dict:
+    """One prefill forward, ``get_model(cfg).forward``, on the seeded batch
+    with every launch counter read (the EP counts must be ``path``'s, flash
+    attention once per layer), then a second after it, timed: its loss
+    must be bitwise equal to the first's. Returns the launches, the wall
+    time, tokens per second, peak memory, the dropped shares and the
+    batch."""
     m = cfg.moe
-    comm = LocalComm(RANKS)
     group = ep_group(cfg, comm, PF_SEQ)
-    print(f"prefill forward: DBRX-132B train_4k preset, {LAYERS} of {full.num_layers} "
+    geo = (f"two stages over {comm.axes}, {group.cfg.ht_num_chunks} chunks: C1 "
+           f"{group.ht_stage1_cap}, C2 {group.ht_stage2_cap}" if group.hierarchical
+           else f"flat: ht_pair_cap {group.ht_pair_cap}")
+    print(f"{label}: DBRX-132B train_4k preset, {LAYERS} of {prefill_config()[0].num_layers} "
           f"layers, batch {PF_BATCH} x {PF_SEQ} tokens over {RANKS} hosted ranks "
-          f"({PF_BATCH * PF_SEQ // RANKS} per rank); EP {group.mode} (flat), fp8 "
+          f"({PF_BATCH * PF_SEQ // RANKS} per rank); EP {group.mode} ({geo}), fp8 "
           f"dispatch {m.quantize_dispatch} (block {group.cfg.quant_block}), capacity "
-          f"factors {m.capacity_factor}/{m.expert_capacity_factor}: ht_pair_cap "
-          f"{group.ht_pair_cap}, ht_expert_cap {group.ht_expert_cap}")
+          f"factors {m.capacity_factor}/{m.expert_capacity_factor}: ht_expert_cap "
+          f"{group.ht_expert_cap}")
     rng = np.random.default_rng(10)
     batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (PF_BATCH, PF_SEQ))
                                         .astype(np.int32)).to(DEV)}
@@ -1260,40 +1316,76 @@ def prefill_phase(params, card: str):
         loss, aux = forward(params, batch, cfg, comm)
         torch.cuda.synchronize()
     launches = counts()
-    check(bool(torch.isfinite(loss)), f"prefill loss {loss.item()} is not finite")
-    check_ep_counts(launches, 1, "the prefill forward")
+    check(bool(torch.isfinite(loss)), f"{label}: loss {loss.item()} is not finite")
+    check_ep_counts(launches, 1, f"the {label}", path)
     check(launches[FLASH] == LAYERS, f"flash_attention launched "
-          f"{launches[FLASH]} times in the forward, expected {LAYERS}")
-    check(launches[PAGED] == 0, "the prefill forward launched paged attention")
+          f"{launches[FLASH]} times in the {label}, expected {LAYERS}")
+    check(launches[PAGED] == 0, f"the {label} launched paged attention")
     check(len(probes) == LAYERS, f"{len(probes)} MoE handles for {LAYERS} layers")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     loss2, _ = forward(params, batch, cfg, comm)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    check(torch.equal(loss, loss2), f"{label}: a repeat gave loss {loss2.item()}, "
+          f"the first {loss.item()}")
     ntok = PF_BATCH * PF_SEQ
-    print(f"prefill forward ({card}): loss {loss.item():.6f} (aux {aux['aux'].item():.6f}; "
-          f"ln of the vocabulary {np.log(cfg.vocab):.4f}), repeat bitwise equal "
-          f"{torch.equal(loss, loss2)}; wall {wall:.3f} s after a warm-up, "
-          f"{ntok / wall:.1f} prefill tok/s; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; dropped-entry share by "
-          f"layer {[round(d, 6) for d, _ in probes]}; launches {launches}")
-    return launches, wall, cfg, batch
+    out = dict(launches=launches, wall=wall, tok_s=ntok / wall,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               dropped=[round(d, 6) for d, _ in probes], batch=batch)
+    per = {k: v / (LAYERS * RANKS) for k, v in launches.items()
+           if k in EP_LAUNCHES[path]}
+    print(f"{label} ({card}): loss {loss.item():.6f} (aux {aux['aux'].item():.6f}; "
+          f"ln of the vocabulary {np.log(cfg.vocab):.4f}), repeat bitwise equal; wall "
+          f"{wall:.3f} s after a warm-up, {out['tok_s']:.1f} prefill tok/s; peak device "
+          f"memory {out['peak_gib']:.2f} GiB; dropped-entry share by layer "
+          f"{out['dropped']}; launches {launches}; EP launches per layer and rank {per}")
+    del loss, loss2, aux
+    return out
 
 
-def prefill_trace_phase(params, cfg, batch, wall: float) -> None:
+def prefill_phase(params, card: str):
+    """The prefill forward under the train_4k preset, HT flat. Returns the
+    config and the run's numbers."""
+    _, cfg = prefill_config()
+    return cfg, prefill_run("prefill forward", params, cfg, LocalComm(RANKS), card,
+                            "nccl_ep")
+
+
+def hier_prefill_phase(params, card: str, flat: dict) -> None:
+    """The hierarchical prefill: the same forward with the MoE layers over
+    two pods of four, two stages and HIER_CHUNKS chunks; its numbers beside
+    the flat preset's from this run."""
+    _, cfg = prefill_config()
+    hcfg = hier_config(cfg)
+    run = prefill_run("hierarchical prefill forward", params, hcfg, hier_comm(), card,
+                      "hier")
+    prefill_trace_phase(params, hcfg, run["batch"], run["wall"], hier_comm(),
+                        "hierarchical prefill forward")
+    print(f"hierarchical / flat prefill ({card}): wall {run['wall']:.3f} / "
+          f"{flat['wall']:.3f} s, {run['tok_s']:.1f} / {flat['tok_s']:.1f} tok/s, "
+          f"peak {run['peak_gib']:.2f} / {flat['peak_gib']:.2f} GiB, dropped shares "
+          f"{run['dropped']} / {flat['dropped']}")
+
+
+def prefill_trace_phase(params, cfg, batch, wall: float, comm=None,
+                        label: str = "prefill forward") -> None:
     """One traced forward: busy share, time by kernel, flash attention's
-    share, and the plan's share of the traced forward (handle creation with
-    the card synchronised on both sides)."""
+    and B4's shares, and the plan's share of the traced forward (handle
+    creation with the card synchronised on both sides)."""
     probes: list = []
+    comm = comm or LocalComm(RANKS)
     with handle_probe(probes):
-        iv, traced = trace_phase("prefill forward", lambda: get_model(cfg).forward(
-            params, batch, cfg, LocalComm(RANKS)), wall, "forward")
+        iv, traced = trace_phase(label, lambda: get_model(cfg).forward(
+            params, batch, cfg, comm), wall, "forward")
+    busy = busy_us(iv)
     flash_us = sum(e - s for s, e, n in iv if "flash_" in n)
+    reduce_us = sum(e - s for s, e, n in iv if "reduce_rows_kernel" in n)
     plan_s = sum(dt for _, dt in probes)
-    print(f"  flash attention: {flash_us / 1e3:.3f} ms, {flash_us / busy_us(iv):.4f} of "
-          f"the busy time; EP plans (handle creation of {LAYERS} layers x {RANKS} "
-          f"ranks): {plan_s:.3f} s, {plan_s / traced:.4f} of the traced forward")
+    print(f"  flash attention: {flash_us / 1e3:.3f} ms, {flash_us / busy:.4f} of "
+          f"the busy time; combine_gather_reduce: {reduce_us / 1e3:.3f} ms, "
+          f"{reduce_us / busy:.4f}; EP plans (handle creation of {LAYERS} layers x "
+          f"{RANKS} ranks): {plan_s:.3f} s, {plan_s / traced:.4f} of the traced forward")
 
 
 def ht_kernel_phase(cfg, params) -> None:
@@ -1577,6 +1669,187 @@ def ht_oracle_phase(cfg, params) -> None:
           f"capacity 1.25) bitwise equal to sequential_prefill")
 
 
+def hier_roundtrip(cfg, p, xs: list, comm: LocalComm):
+    """One hierarchical EP round trip of MoE layer 0 over ``comm``: router,
+    handle, dispatch, the layer's SwiGLU experts on B3, combine. Returns
+    the group, [(y3d, counts)] and the combined tokens per rank."""
+    group = ep_group(cfg, comm, xs[0].shape[0])
+    L = group.local_experts
+    rs = [route(x.float() @ p["router"], router_config(cfg.moe)) for x in xs]
+    hs = ep_create_handle(group, [r.topk_idx for r in rs], [r.topk_weights for r in rs])
+    recv = ep_dispatch(group, hs, xs)
+    y3ds = [_expert_ffn(group, y, c, p["w_gate"][r * L:(r + 1) * L],
+                        p["w_up"][r * L:(r + 1) * L], p["w_down"][r * L:(r + 1) * L])
+            for r, (y, c) in zip(comm.ranks, recv)]
+    return group, recv, ep_combine(group, hs, y3ds)
+
+
+def hier_oracle_phase(cfg, params) -> None:
+    """The hierarchical HT layer (MoE layer 0, ORACLE_T tokens per rank, two
+    pods of four) at zero drop, in bf16 and with fp8 dispatch (fed the
+    plain quantize->dequantize round trip of x): against the dense fallback
+    within TOL relative, through moe_block; and 2 and 4 chunks against 1,
+    the dispatch tensor, its counts and the combined tokens bitwise. Then
+    prefill_moe against sequential_prefill over the hierarchical group of
+    the preset (fp8, capacity 1.25), 2 micro-batches: bitwise."""
+    p = {k: v[0] for k, v in params["moe_stack"]["moe"].items()}
+    gen = torch.Generator(device=DEV).manual_seed(15)
+    x = torch.randn((RANKS, ORACLE_T, cfg.d_model), generator=gen, device=DEV).to(cfg.dtype)
+    comm = hier_comm()
+    zero = dict(capacity_factor=None, expert_capacity_factor=None)
+    for fp8 in (False, True):
+        xin = ref.dequantize_fp8(*ref.quantize_fp8(x, 128), cfg.dtype) if fp8 else x
+        c = hier_config(cfg, quantize_dispatch=fp8, **zero)
+        ep, _ = moe_block(p, xin, c, comm)
+        dn = _moe_dense_fallback(p, xin, c)
+        check(ep.shape == dn.shape == x.shape and bool(torch.isfinite(ep).all()),
+              "hierarchical oracle: bad EP output")
+        rel = float((ep.float() - dn.float()).norm() / dn.float().norm())
+        print(f"hierarchical HT oracle (zero drop, fp8 {fp8}, {HIER_CHUNKS} chunks, "
+              f"{ORACLE_T} tokens per rank): EP vs dense relative error {rel:.3g} "
+              f"(limit {TOL})")
+        check(rel <= TOL, f"hierarchical HT layer (fp8 {fp8}) off the dense fallback by {rel}")
+        del ep, dn
+        xs = list(xin.unbind(0))
+        runs = {}
+        for nc in (1, 2, 4):
+            cn = dataclasses.replace(c, moe=dataclasses.replace(c.moe, ht_num_chunks=nc))
+            runs[nc] = hier_roundtrip(cn, p, xs, comm)
+            check(runs[nc][0].cfg.ht_num_chunks == nc, f"{nc} chunks did not resolve")
+        _, r1, o1 = runs[1]
+        for nc in (2, 4):
+            _, rn, on = runs[nc]
+            check(all(torch.equal(a, b) and torch.equal(ca, cb)
+                      for (a, ca), (b, cb) in zip(r1, rn)),
+                  f"fp8 {fp8}: {nc} chunks' dispatch differs from the monolithic one")
+            check(all(torch.equal(a, b) for a, b in zip(o1, on)),
+                  f"fp8 {fp8}: {nc} chunks' combine differs from the monolithic one")
+        print(f"  2 and 4 chunks bitwise equal to 1 (fp8 {fp8}): dispatch tensors "
+              f"{list(r1[0][0].shape)}, counts, combined tokens")
+        del runs, r1, o1
+    L = cfg.moe.num_experts // RANKS
+    rcfg = router_config(cfg.moe)
+    hcfg = hier_config(cfg)
+
+    def router_fn(xt):
+        r = route(xt.float() @ p["router"], rcfg)
+        return r.topk_idx, r.topk_weights
+
+    group = ep_group(hcfg, comm, ORACLE_T // 2)
+    check(group.hierarchical, "the prefill_moe group is not hierarchical")
+
+    def expert_fn(rank, y3d, counts_):
+        sl = slice(rank * L, (rank + 1) * L)
+        return _expert_ffn(group, y3d, counts_, p["w_gate"][sl], p["w_up"][sl],
+                           p["w_down"][sl])
+    xs = list(x.unbind(0))
+    pipe = prefill_moe(group, router_fn, expert_fn, xs, 2)
+    seq = sequential_prefill(group, router_fn, expert_fn, xs, 2)
+    check(all(torch.equal(a, b) for a, b in zip(pipe, seq)),
+          "prefill_moe differs from sequential_prefill over the hierarchical group")
+    print(f"prefill_moe over the hierarchical group (2 micro-batches of {ORACLE_T // 2} "
+          f"tokens per rank, {HIER_CHUNKS} chunks, fp8, capacity 1.25) bitwise equal "
+          f"to sequential_prefill")
+
+
+def unpack_case(label: str, rows: torch.Tensor, gmap: torch.Tensor, iters: int) -> None:
+    """recv_unpack in copy mode at a hierarchical stage-2 fan: bitwise
+    against its plain version; the kernel, its plain version and the
+    library yardstick timed beside the bound."""
+    got = ru_mod.recv_unpack(rows, gmap)
+    check(torch.equal(got.view(torch.uint8), ref.recv_unpack(rows, gmap).view(torch.uint8)),
+          f"recv_unpack (copy, {label}) differs from its plain version")
+    live = int((gmap < rows.shape[0]).sum())
+    bnd = bound(nbytes(rows, live) + nbytes(got) + nbytes(gmap), 0, F32_OPS_S)
+    kernel = lambda: ru_mod.recv_unpack(rows, gmap)  # noqa: E731
+    ms = device_ms(kernel, iters)
+    plain_ms = device_ms(lambda: ref.recv_unpack(rows, gmap), iters)
+    src = rows.view(torch.uint8) if rows.element_size() == 1 else rows
+    lib_ms = device_ms(padded_gather(src, gmap), iters)
+    print(f"recv_unpack copy, {label}: {list(rows.shape)} {rows.dtype} -> "
+          f"{list(got.shape)}, {live} live slots: bitwise equal; kernel {ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, library {lib_ms:.5f} ms (index_select over rows padded "
+          f"with a zero row), bound {bnd[0]:.5f} ms ({bnd[1]}); {ms / bnd[0]:.2f}x the bound")
+
+
+def reduce_case(label: str, recv: torch.Tensor, rows: torch.Tensor, w: torch.Tensor,
+                iters: int) -> None:
+    """combine_gather_reduce at one of the hierarchical combine's three
+    sums: within TOL of its plain version, two calls bitwise equal; timed
+    beside its plain version, the bound and ``embedding_bag`` over recv
+    padded with a zero row (the sentinel's; padding outside the timed call,
+    the weights in the table's type)."""
+    got = cg_mod.combine_gather_reduce(recv, rows, w)
+    want = ref.combine_gather_reduce(recv, rows, w)
+    err = max_err(got, want)
+    check(torch.allclose(got.float(), want.float(), rtol=TOL, atol=TOL),
+          f"combine_gather_reduce ({label}) differs from its plain version beyond 2e-2")
+    check(torch.equal(cg_mod.combine_gather_reduce(recv, rows, w), got),
+          f"combine_gather_reduce ({label}): two calls differ")
+    del want
+    valid = int((rows < recv.shape[0]).sum())
+    bnd = bound(nbytes(recv, valid) + nbytes(rows) + nbytes(w) + nbytes(got),
+                2 * valid * recv.shape[1], F32_OPS_S)
+    padded = torch.cat([recv, torch.zeros_like(recv[:1])])
+    idx, wb = rows.long(), w.to(recv.dtype)
+    kernel = lambda: cg_mod.combine_gather_reduce(recv, rows, w)  # noqa: E731
+    ms = device_ms(kernel, iters)
+    plain_ms = device_ms(lambda: ref.combine_gather_reduce(recv, rows, w), max(2, iters // 4))
+    lib_ms = device_ms(lambda: F.embedding_bag(idx, padded, per_sample_weights=wb,
+                                               mode="sum"), iters)
+    print(f"combine_gather_reduce, {label}: recv {list(recv.shape)} rows "
+          f"{list(rows.shape)} ({valid} valid) -> {list(got.shape)}: max_abs_err {err:.3g}, "
+          f"two calls bitwise equal; kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, library "
+          f"{lib_ms:.5f} ms (embedding_bag), bound {bnd[0]:.5f} ms ({bnd[1]}); "
+          f"{ms / bnd[0]:.2f}x the bound")
+
+
+def hier_kernel_phase(cfg, params) -> None:
+    """B2 and B4 at the hierarchical prefill's shapes: rank 0 of MoE layer
+    0 at 4096 tokens per rank over two pods of four, chunk 0. B2's copy
+    mode at the stage-2 fan, on the fp8 payload rows and on their f32
+    scale rows; B4 at the combine's three sums (the slot domain of every
+    chunk, the rail's sum over pods, the source's over rails)."""
+    dev, dt, d = DEV, cfg.dtype, cfg.d_model
+    p = {k: v[0] for k, v in params["moe_stack"]["moe"].items()}
+    hcfg = hier_config(cfg)
+    comm = hier_comm()
+    group = ep_group(hcfg, comm, PF_SEQ)
+    qb, ax_i = group.cfg.quant_block, group.cfg.ep_axis[-1]
+    gen = torch.Generator(device=dev).manual_seed(16)
+    xs = [torch.randn((PF_SEQ, d), generator=gen, device=dev).to(dt) for _ in range(RANKS)]
+    rs = [route(x.float() @ p["router"], router_config(hcfg.moe)) for x in xs]
+    hs = ep_create_handle(group, [r.topk_idx for r in rs], [r.topk_weights for r in rs])
+    pl = hs[0].plan
+    packs = [ref.dispatch_pack(x, h.plan.h_gmap1[0], qb) for x, h in zip(xs, hs)]
+    del xs
+    recv1 = comm.all_to_all([a for a, _ in packs], axis=ax_i)[0].reshape(-1, d)
+    recv1_s = comm.all_to_all([b for _, b in packs], axis=ax_i)[0].reshape(recv1.shape[0], -1)
+    del packs
+    g2 = pl.h_gmap2[0]
+    print(f"hierarchical shapes (rank 0, MoE layer 0, chunk 0 of {group.cfg.ht_num_chunks}): "
+          f"C1 {group.ht_stage1_cap}, C2 {group.ht_stage2_cap}, expert region "
+          f"{group.ht_expert_cap}")
+    unpack_case("stage-2 fan, fp8 payload", recv1, g2, 20)
+    unpack_case("stage-2 fan, f32 scales", recv1_s, g2, 20)
+    del recv1, recv1_s
+    L, A = group.local_experts, group.ht_expert_cap
+    y = torch.randn((L * A, d), generator=gen, device=dev).to(dt)
+    w = torch.cat([pl.h_w_slot, pl.h_w_slot.new_zeros(1)])[pl.h_slot_rows.long()]
+    reduce_case("slot domain (every chunk)", y, pl.h_slot_rows, w, 10)
+    del y
+    back2 = torch.randn((group.outer_size * group.ht_stage2_cap, d), generator=gen,
+                        device=dev).to(dt)
+    rail = pl.h_rail_rows[0]
+    reduce_case("rail, over pods (chunk 0)", back2, rail,
+                torch.ones(rail.shape, dtype=torch.float32, device=dev), 10)
+    del back2
+    back1 = torch.randn((pl.h_gmap1.shape[0] * group.inner_size * group.ht_stage1_cap, d),
+                        generator=gen, device=dev).to(dt)
+    reduce_case("source, over rails", back1, pl.h_src_rows,
+                torch.ones(pl.h_src_rows.shape, dtype=torch.float32, device=dev), 10)
+
+
 def stream_busy_us(fn, calls: int = 3) -> tuple[float, float, int]:
     """``calls`` calls of ``fn`` under the profiler, after one outside it:
     per call, the card's busy time (the union of its kernels' intervals)
@@ -1794,10 +2067,18 @@ def main() -> int:
     print(f"graphs released: {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (the weights "
           f"{sum(t.nbytes for t in leaves(params)) / 2**30:.2f} GiB)")
-    plaunches, pf_wall, pcfg, pbatch = prefill_phase(params, card)
-    prefill_trace_phase(params, pcfg, pbatch, pf_wall)
+    pcfg, flat_run = prefill_phase(params, card)
+    plaunches = flat_run["launches"]
+    prefill_trace_phase(params, pcfg, flat_run["batch"], flat_run["wall"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    hier_prefill_phase(params, card, flat_run)
+    del flat_run
+    gc.collect()
+    torch.cuda.empty_cache()
     records = kernel_phase(cfg, params)
     ht_kernel_phase(pcfg, params)
+    hier_kernel_phase(pcfg, params)
     records[PAGED] = paged_kernel_phase(cfg, paged_main_shape_phase(cfg, csrv))
     records[FLASH] = flash_kernel_phase(pcfg)
     records.update(fp8_kernel_phase(cfg, params))
@@ -1805,6 +2086,7 @@ def main() -> int:
     oracle_phase(cfg, params)
     layout_oracle_phase(cfg, params)
     ht_oracle_phase(pcfg, params)
+    hier_oracle_phase(pcfg, params)
     solo_phase(cfg, params, csrv, reqs)
     paged_vs_dense_phase(cfg, params)
     for name, n in fixed["nccl_ep"]["launches"].items():

@@ -40,7 +40,15 @@ class EpGroupConfig:
     payload_dtype: torch.dtype = torch.bfloat16
     quantize_dispatch: bool = False           # fp8 payload + f32 scales
     quant_block: int = 128
-    ht_num_chunks: int = 1                    # sizes the HT stage capacities
+    # HT hierarchy: the EP mesh's axes, outermost ("pod") first; with more
+    # than one axis and ``ht_hierarchical`` HT runs two stages, the inner
+    # axis's exchange then the outer's. Otherwise HT is flat over all ranks.
+    ep_axis: tuple[str, ...] = ("data",)
+    ht_hierarchical: bool = False
+    # chunks of the hierarchical pipeline: the token dim splits into this
+    # many static slices that stream through the two stages (1 = monolithic;
+    # bitwise equal for any value at zero-drop capacities)
+    ht_num_chunks: int = 1
     # EPLB placement and fault domains come with ROADMAP A10; only None
     placement: object | None = None
     num_redundant_experts: int = 0
@@ -83,11 +91,32 @@ class EpGroup:
         contiguous layout, the only one this slice has."""
         return 0
 
+    @property
+    def hierarchical(self) -> bool:
+        """Whether HT takes the two-stage path: asked for, over more than
+        one EP axis, across more than one pod (``src/repro/core/ht.py
+        _hierarchical``)."""
+        return (self.mode == "ht" and self.cfg.ht_hierarchical
+                and len(self.cfg.ep_axis) > 1 and self.outer_size > 1)
+
+    def ht_chunks(self, num_tokens: int) -> int:
+        """Static chunk count for a ``num_tokens``-token hierarchical handle
+        (the handle may carry fewer tokens than ``max_tokens_per_rank``, but
+        the chunk grid must still tile it exactly)."""
+        nc = self.cfg.ht_num_chunks
+        if num_tokens % nc != 0:
+            raise ValueError(f"ht_num_chunks={nc} must divide the handle's "
+                             f"token count {num_tokens}")
+        return nc
+
 
 def ep_create_group(cfg: EpGroupConfig, comm=None, *, ep_size: int | None = None,
                     inner_size: int | None = None) -> EpGroup:
     """Create the long-lived group over ``comm`` (its rank count is the EP
-    size), or over an explicit ``ep_size`` for capacity arithmetic alone."""
+    size, its innermost axis the pod unless ``inner_size`` says otherwise),
+    or over an explicit ``ep_size`` for capacity arithmetic alone. The
+    hierarchical path exchanges over the communicator's axes, so they must
+    be ``cfg.ep_axis`` with the pod of ``inner_size`` ranks innermost."""
     if cfg.placement is not None or cfg.fault_domains is not None \
             or cfg.num_redundant_experts:
         raise NotImplementedError(
@@ -101,12 +130,10 @@ def ep_create_group(cfg: EpGroupConfig, comm=None, *, ep_size: int | None = None
     if ep_size is None:
         raise ValueError("ep_create_group needs a communicator or ep_size")
     if inner_size is None:
-        inner_size = ep_size
+        inner_size = ep_size if comm is None else comm.inner_size
+    if inner_size < 1 or ep_size % inner_size:
+        raise ValueError(f"inner_size={inner_size} must divide ep_size={ep_size}")
     outer_size = ep_size // inner_size
-    if cfg.resolved_mode() == "ht" and outer_size > 1:
-        raise NotImplementedError(
-            "HT over more than one pod is the hierarchical path: it needs "
-            "sub-group all-to-alls, which are not ported yet (ROADMAP A2, A5)")
 
     E, K, B = cfg.num_experts, cfg.top_k, cfg.max_tokens_per_rank
     N = ep_size
@@ -150,13 +177,19 @@ def ep_create_group(cfg: EpGroupConfig, comm=None, *, ep_size: int | None = None
     ht_stage2_cap = cap(inner_size * ht_stage1_cap * ko / max(outer_size, 1),
                         inner_size * ht_stage1_cap)
 
-    return EpGroup(
+    group = EpGroup(
         cfg=cfg, ep_size=N, local_experts=L,
         ll_disp_cap=ll_disp_cap, ll_comb_cap=ll_comb_cap, ll_expert_cap=ll_expert_cap,
         ht_pair_cap=ht_pair_cap, ht_expert_cap=ht_expert_cap,
         ht_stage1_cap=ht_stage1_cap, ht_stage2_cap=ht_stage2_cap,
         inner_size=inner_size, outer_size=outer_size, comm=comm,
     )
+    want = ((cfg.ep_axis[0], outer_size), (cfg.ep_axis[-1], inner_size))
+    if group.hierarchical and comm is not None and comm.axes != want:
+        raise ValueError(f"the hierarchical path over ep_axis={cfg.ep_axis} needs a "
+                         f"communicator of {outer_size} pods of {inner_size} on "
+                         f"those axes, got {comm.axes}")
+    return group
 
 
 @dataclasses.dataclass

@@ -30,14 +30,16 @@ from repro_torch.kernels import ops as K
 
 def ll_create_handle(group: EpGroup, topk_idx: list, topk_weights: list,
                      num_tokens=None) -> list[EpHandle]:
-    """All-gather the routing and derive each hosted rank's plan for the
-    group's mode. The plan is the only place slot arithmetic happens."""
+    """All-gather the routing (and, for the hierarchical HT plan, the
+    combine weights) and derive each hosted rank's plan for the group's
+    mode. The plan is the only place slot arithmetic happens."""
     ranks = group.comm.ranks
     masked = [P.mask_padding(group, t, n)
               for t, n in zip(topk_idx, P.per_rank(num_tokens, len(ranks)))]
     topk_gs = P.gather_routing(group, [m[0] for m in masked])
-    return [P.make_handle(group, rank, tk, tg, w, nt)
-            for rank, (tk, nt), tg, w in zip(ranks, masked, topk_gs, topk_weights)]
+    w_gs = P.gather_weights(group, topk_weights)
+    return [P.make_handle(group, rank, tk, tg, w, nt, wg)
+            for rank, (tk, nt), tg, w, wg in zip(ranks, masked, topk_gs, topk_weights, w_gs)]
 
 
 def _pack_send(group: EpGroup, x, gmap):

@@ -9,6 +9,8 @@ EP extent of 1, it takes the dense reference path exactly as JAX does.
 """
 from __future__ import annotations
 
+import warnings
+
 import torch
 import torch.nn.functional as F
 
@@ -69,20 +71,35 @@ def _expert_ffn(group, y3d, counts, w1, w3, w2):
     return K.grouped_gemm(h, w2, counts)
 
 
+def _resolve_chunks(nc: int, tokens_per_rank: int) -> int:
+    """Chunk count for this layer's per-rank token count. A configured count
+    that does not tile the tokens cannot run (group creation would raise):
+    fall back to the monolithic path, with a warning, so a preset that asks
+    for the chunked pipeline never loses it without a trace."""
+    if tokens_per_rank % nc == 0:
+        return nc
+    warnings.warn(
+        f"ht_num_chunks={nc} does not divide tokens_per_rank="
+        f"{tokens_per_rank} for this cell; running the monolithic (nc=1) "
+        "hierarchical path instead", stacklevel=2)
+    return 1
+
+
 def ep_group(cfg: ArchConfig, comm, tokens_per_rank: int):
-    """The EP group of ``cfg``'s MoE layers over ``comm``. A config that
-    asks for the hierarchical HT path (more than one EP axis) is refused."""
+    """The EP group of ``cfg``'s MoE layers over ``comm``. The
+    communicator's mesh axes are the EP axes and its innermost axis the pod
+    (JAX reads both from the mesh, ``inner_size=ep_sizes[-1]``): over more
+    than one axis an HT layer with ``ht_hierarchical`` takes the two-stage
+    path, chunked ``ht_num_chunks`` ways, and any other the flat one."""
     m = cfg.moe
     gcfg = EpGroupConfig(
         num_experts=m.num_experts, max_tokens_per_rank=tokens_per_rank,
         hidden=cfg.d_model, top_k=m.top_k, mode=m.ep_mode, ll_layout=m.ll_layout,
         capacity_factor=m.capacity_factor,
         expert_capacity_factor=m.expert_capacity_factor,
-        payload_dtype=cfg.dtype, quantize_dispatch=m.quantize_dispatch)
-    if gcfg.resolved_mode() == "ht" and m.ht_hierarchical and len(m.ep_axis) > 1:
-        raise NotImplementedError(
-            "the hierarchical HT path needs sub-group all-to-alls, which are "
-            "not ported yet (ROADMAP A2, A5)")
+        payload_dtype=cfg.dtype, quantize_dispatch=m.quantize_dispatch,
+        ep_axis=comm.axis_names, ht_hierarchical=m.ht_hierarchical,
+        ht_num_chunks=_resolve_chunks(m.ht_num_chunks, tokens_per_rank))
     return ep_create_group(gcfg, comm)
 
 

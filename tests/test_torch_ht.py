@@ -88,8 +88,8 @@ def jax_run(jcfg, topk, w, x, roundtrip=False):
             for k, v in res.items()}
 
 
-def torch_run(tcfg, topk, w, x):
-    group = ep_create_group(tcfg, LocalComm(N))
+def torch_run(tcfg, topk, w, x, comm=None):
+    group = ep_create_group(tcfg, comm or LocalComm(N))
     handles = ep_create_handle(group, [torch.from_numpy(t) for t in topk],
                                [torch.from_numpy(t) for t in w])
     xs = [torch.from_numpy(r) for r in x]
@@ -182,17 +182,27 @@ def test_ht_roundtrip_fp8_close_to_dequantized_oracle():
 
 
 def test_hierarchical_and_baseline_refused():
-    tcfg, _ = configs()
-    with pytest.raises(NotImplementedError, match="A2"):   # two pods of 4
+    """Neither is refused any more. The hierarchical group (two pods of
+    four) is created with the reference's stage capacities and takes the
+    two-stage path; the baseline's handle carries the a2a plan."""
+    for kw in (dict(), dict(capacity_factor=1.25, expert_capacity_factor=1.25),
+               dict(ht_num_chunks=2)):
+        tcfg, jcfg = configs(ep_axis=("pod", "data"), ht_hierarchical=True, **kw)
+        got = ep_create_group(tcfg, LocalComm(N, axes=(("pod", 2), ("data", 4))))
+        want = j_create_group(jcfg, ep_size=N, inner_size=4)
+        assert got.hierarchical and (got.outer_size, got.inner_size) == (2, 4)
+        for f in ("ht_pair_cap", "ht_expert_cap", "ht_stage1_cap", "ht_stage2_cap",
+                  "local_experts", "inner_size", "outer_size"):
+            assert getattr(got, f) == getattr(want, f), f
+    tcfg, _ = configs(ep_axis=("pod", "data"), ht_hierarchical=True)
+    with pytest.raises(ValueError, match="pods"):   # no sub-group axes to exchange over
         ep_create_group(tcfg, LocalComm(N), inner_size=4)
-    assert ep_create_group(tcfg, LocalComm(N)).outer_size == 1   # one pod: flat
+    assert ep_create_group(configs()[0], LocalComm(N)).outer_size == 1   # one pod: flat
     mcfg = smoke_config()
     hier = dataclasses.replace(mcfg, moe=dataclasses.replace(
         mcfg.moe, ep_mode="ht", ep_axis=("pod", "data"), ht_hierarchical=True))
-    with pytest.raises(NotImplementedError, match="A2"):
-        ep_group(hier, LocalComm(N), T)
-    assert ep_group(dataclasses.replace(hier, moe=dataclasses.replace(
-        hier.moe, ep_axis=("data",))), LocalComm(N), T).mode == "ht"
+    assert ep_group(hier, LocalComm(N, axes=(("pod", 2), ("data", 4))), T).hierarchical
+    assert not ep_group(hier, LocalComm(N), T).hierarchical    # one EP axis: flat
     # the baseline was refused until its backend landed; its handle now
     # carries the a2a plan: [N, L·Ce] send blocks, positional recv (no map)
     base, _ = configs()
@@ -202,6 +212,27 @@ def test_hierarchical_and_baseline_refused():
                           [torch.from_numpy(t) for t in topk], [torch.from_numpy(t) for t in w])
     assert hs[0].plan.disp_send_gmap.shape == (N, E // N * T)
     assert hs[0].plan.disp_recv_gmap is None
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+def test_flat_over_two_axes_equals_one_axis(fp8):
+    """HT over ("pod", "data") without ``ht_hierarchical`` is the flat path
+    over all 8 ranks (JAX's ``_hierarchical`` is false): every map, the
+    dispatch tensor and the round trip bitwise equal to the one-axis group."""
+    h = 256 if fp8 else H
+    kw = dict(hidden=h, quantize_dispatch=fp8, capacity_factor=1.25,
+              expert_capacity_factor=1.25)
+    one, _ = configs(**kw)
+    two, _ = configs(ep_axis=("pod", "data"), ht_hierarchical=False, **kw)
+    topk, w, x = routing(25, h=h)
+    g1, h1, r1, o1 = torch_run(one, topk, w, x)
+    g2, h2, r2, o2 = torch_run(two, topk, w, x, LocalComm(N, axes=(("pod", 2), ("data", 4))))
+    assert not g2.hierarchical and g2.outer_size == 2
+    for a, b in zip(h1, h2):
+        for name in MAPS:
+            assert torch.equal(getattr(a.plan, name), getattr(b.plan, name)), name
+    for (ya, ca), (yb, cb), oa, ob in zip(r1, r2, o1, o2):
+        assert torch.equal(ya, yb) and torch.equal(ca, cb) and torch.equal(oa, ob)
 
 
 def _ht_smoke_cfgs(fp8: bool):

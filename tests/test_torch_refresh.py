@@ -9,8 +9,11 @@ its rows by (1+e), token t comes back as x[t]·Σ_k w[t,k]·(1+topk[t,k]).
 
 The port decides the fast path on the device (``torch.where`` over every
 map): a replayed routing must give the cached maps, a changed one a fresh
-build's, in every mode. The hierarchical and placement refresh tests of
-``tests/test_refresh.py`` wait for their features (ROADMAP A5, A10).
+build's, in every mode. The hierarchical HT plan carries the one
+weight-dependent field, ``h_w_slot``: a refresh rebinds it through
+``h_entry_slot`` (JAX on a ("pod", "data") mesh of 2 x 4, the port on
+``LocalComm`` with the same axes). The placement refresh tests of
+``tests/test_refresh.py`` wait for their feature (ROADMAP A10).
 """
 import dataclasses
 
@@ -289,3 +292,88 @@ def test_refresh_select_is_bitwise_both_ways():
                 assert (x is None) == (y is None)
                 if x is not None:
                     assert torch.equal(x, y), f.name
+
+
+# --------------------------------------------------------------------------
+# hierarchical HT (tests/test_refresh.py:231 and :259)
+# --------------------------------------------------------------------------
+
+HIER = dict(num_experts=E, max_tokens_per_rank=T, hidden=H, top_k=K, mode="ht",
+            ep_axis=("pod", "data"), ht_hierarchical=True)
+HMAPS = ("disp_recv_gmap", "disp_counts", "h_gmap1", "h_gmap2", "h_slot_tgt",
+         "h_w_slot", "h_rail_dst_rows", "h_rail_src_rows", "h_src_rows", "h_entry_slot")
+
+
+def jax_hier_refresh(topk, w, x, topk2, w2, weights_only):
+    """JAX's hierarchical refresh on the 2 x 4 mesh: the refreshed plan's
+    maps and the round trip through it, stacked [N, ...] as numpy."""
+    group = j_create_group(JCfg(payload_dtype=jnp.float32, **HIER), ep_size=N, inner_size=4)
+    m = jax.make_mesh((2, 4), ("pod", "data"), axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    spec = P(("pod", "data"))
+
+    def step(tk, wt, tk2, wt2, xs):
+        h = j_create_handle(group, tk[0], wt[0])
+        h2 = j_refresh(group, h, wt2[0], None if weights_only else tk2[0])
+        out = {f: getattr(h2.plan, f)[None] for f in HMAPS}
+        y3d, _ = j_dispatch(group, h2, xs[0])
+        L = group.local_experts
+        me = jax.lax.axis_index("pod") * 4 + jax.lax.axis_index("data")
+        out["out"] = j_combine(group, h2, y3d * (1.0 + me * L + jnp.arange(L))[:, None, None])[None]
+        return out
+
+    fn = jax.jit(jax.shard_map(step, mesh=m, in_specs=(spec,) * 5, out_specs=spec))
+    res = fn(*(jnp.asarray(a) for a in (topk, w, topk2, w2, x)))
+    return {k: np.asarray(v) for k, v in res.items()}
+
+
+def hier_group():
+    return ep_create_group(EpGroupConfig(payload_dtype=torch.float32, **HIER),
+                           LocalComm(N, axes=(("pod", 2), ("data", 4))))
+
+
+def check_hier(handles, want):
+    for f in HMAPS:
+        np.testing.assert_array_equal(np.stack([getattr(h.plan, f).numpy() for h in handles]),
+                                      want[f], err_msg=f)
+
+
+def test_refresh_hierarchical_weight_rebind():
+    """h_w_slot is the one weight-carrying plan field: a weights-only
+    refresh rebinds it through h_entry_slot into a new plan and reuses
+    every map by identity; the rebound weights flow into combine."""
+    topk, w, x = routing(3)
+    _, w2, _ = routing(13)
+    want = jax_hier_refresh(topk, w, x, topk, w2, weights_only=True)
+    group = hier_group()
+    hs = ep_create_handle(group, t_list(topk), t_list(w))
+    hs2 = ep_handle_refresh(group, hs, t_list(w2))
+    for a, b in zip(hs, hs2):
+        assert b.plan is not a.plan
+        assert b.plan.disp_recv_gmap is a.plan.disp_recv_gmap
+        assert not torch.equal(b.plan.h_w_slot, a.plan.h_w_slot)
+    check_hier(hs2, want)
+    got = roundtrip(group, hs2, x)
+    np.testing.assert_allclose(got, want["out"], **F32)
+    np.testing.assert_allclose(got, oracle(x, topk, w2), rtol=2e-5, atol=2e-5)
+
+
+def test_refresh_changed_routing_rebuilds_hier():
+    """A changed routing through the select's rebuild side: the refreshed
+    handle equals a fresh one bit for bit, its maps equal JAX's refresh,
+    and the round trip the oracle of the new routing."""
+    topk, w, x = routing(8)
+    topk2, w2, _ = routing(18)
+    want = jax_hier_refresh(topk, w, x, topk2, w2, weights_only=False)
+    group = hier_group()
+    hs = ep_create_handle(group, t_list(topk), t_list(w))
+    hs2 = ep_handle_refresh(group, hs, t_list(w2), t_list(topk2))
+    fresh = ep_create_handle(group, t_list(topk2), t_list(w2))
+    for a, b in zip(hs2, fresh):
+        for f in dataclasses.fields(tplan.EpPlan):
+            va, vb = getattr(a.plan, f.name), getattr(b.plan, f.name)
+            assert (va is None) == (vb is None) and (va is None or torch.equal(va, vb)), f.name
+    check_hier(hs2, want)
+    got = roundtrip(group, hs2, x)
+    np.testing.assert_array_equal(got, roundtrip(group, fresh, x))
+    np.testing.assert_allclose(got, want["out"], **F32)
+    np.testing.assert_allclose(got, oracle(x, topk2, w2), rtol=2e-5, atol=2e-5)

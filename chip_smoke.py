@@ -105,12 +105,36 @@
    bitwise equal to 1 (dispatch tensor, counts, combined tokens), and
    ``prefill_moe`` bitwise equal to ``sequential_prefill`` over it. Reports the greedy-token agreement of the EP
    server with a dense one. Reruns two requests that joined and left
-   mid-stream alone through a fresh engine: their token streams must be
-   bitwise equal. Holds the paged decode step against the dense step on the
+   mid-stream alone, one after the other through a fresh engine: their
+   token streams must be bitwise equal. Holds the paged decode step against the dense step on the
    same tokens: in bf16 over the 4 layers, bitwise at the first step and
    the median row's logits within 2e-2 at the second; in f32 with one
    layer, the logits within 2e-4 at every step. Reads each layout's send
    and receive buffer bytes per rank and MoE layer from its tensors.
+
+8. Serves DeepSeek-V3-671B at full width (``configs/deepseek_v3_671b.py``,
+   ``decode_32k``: d_model 7168, MLA with 128 heads, 256 experts top-8 with
+   sigmoid group-limited routing, a selection bias and a shared expert, LL
+   ``nccl_ep`` with fp8 dispatch), its 61 layers cut to 5 (the 3 dense and
+   2 MoE layers, 49.6 GiB), once every DBRX tensor is freed, through the
+   same phases as DBRX with one server alive at a time. ``DecodeServer``,
+   batch 128, prompt 8, 16 generated, once captured and once eager: tokens
+   bitwise equal, exact launch counts (B1 in quant mode at the dispatch
+   send and in copy mode at the combine send, B2 dequantizing, B3, B4), one
+   replayed step traced (the EP kernels by name, B3's share, the idle
+   share). ``ContinuousDecodeServer``, 128 slots over the paged MLA pools
+   (page 16), 64 requests, once captured and once eager: exact launch
+   counts (B6 in its shared-pool mode once per layer), a replayed step
+   traced; then every request served alone through one engine must give
+   its tokens bitwise. The paged MLA step against the absorbed
+   dense-cache step (bf16 over 5 layers: step 0 bitwise, the median row
+   within 2e-2 at step 1; f32 over one dense layer within 2e-4); each MoE
+   layer against the dense fallback within 2e-2; B1, B2, B3, B4 and B6 at
+   DeepSeek's shapes against their plain versions (gathers and fp8
+   bitwise, B3 and B4 as above, B6 within 1e-4 at the serve's lengths and
+   up to 32768 tokens) and timed; ``ep_create_handle``'s card time for one
+   MoE layer at E 256, K 8; the phase's peak device memory. Its rows join
+   the kernels JSON.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. The last line is
@@ -138,6 +162,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
 from repro_torch.comm import LocalComm  # noqa: E402
 from repro_torch.configs.dbrx_132b import full_config  # noqa: E402
+from repro_torch.configs.deepseek_v3_671b import full_config as ds_full_config  # noqa: E402
 from repro_torch.core import (ep_combine, ep_create_handle, ep_dispatch,  # noqa: E402
                               ep_handle_refresh, route, slots)
 from repro_torch.kernels import _build, ref  # noqa: E402
@@ -153,7 +178,7 @@ from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import (_expert_ffn, _moe_dense_fallback,  # noqa: E402
                                     ep_group, moe_block, router_config)
-from repro_torch.models.transformer import (_decode_splits,  # noqa: E402
+from repro_torch.models.transformer import (_decode_splits, _index,  # noqa: E402
                                             init_decode_state,
                                             init_paged_decode_state,
                                             lm_decode_step, lm_paged_decode_step)
@@ -170,6 +195,13 @@ from repro_torch.weights import init_params  # noqa: E402
 HBM_BYTES_S = 3.35e12
 BF16_OPS_S = 989e12
 F32_OPS_S = 67e12            # f32 outside the tensor cores
+# torch.cuda._sleep's cycles per second: above the H100 SXM's 1.98 GHz
+# boost clock, so a spin lasts at least as long as asked
+SPIN_CYCLES_S = 2e9
+# short spin kernels launched ahead of the calls a profiler session times:
+# a session late in a run can lose its first events (1, 5, 10 and 20 of
+# them in the runs on record), and these take the loss
+LEAD_SPINS = 64
 
 RANKS, BATCH, PROMPT, GEN, LAYERS = 8, 128, 8, 16, 4
 # the fixed-batch servers' cache length: two slots beyond the served tokens,
@@ -197,6 +229,7 @@ CMAX_LEN = PROMPTS[1] + NEWS[1]
 # than its plain version
 PAGED_TOL = 1e-4
 KV_PAGES = 2048              # page-table width of the paged kernel phase
+DS_KV_PAGES = 2048           # likewise, DeepSeek-V3's shared pool (32k tokens)
 DEV = torch.device("cuda")
 # the prefill forward: batch rows x tokens (one row of 4096 per hosted rank,
 # the paper's HT regime); tokens per rank of the HT oracle
@@ -227,9 +260,12 @@ KERNELS = {
                        "src/repro/kernels/combine_reduce.py:32"),
 }
 PAGED, FLASH = "paged_decode_attention", "flash_attention"
+DP_QUANT = "dispatch_pack (quant mode)"
 # launch counter -> (wrapper module, its attribute)
 COUNTERS = {
-    "dispatch_pack": (dp_mod, "launches"), "recv_unpack": (ru_mod, "launches"),
+    "dispatch_pack": (dp_mod, "launches"),
+    DP_QUANT: (dp_mod, "quant_launches"),
+    "recv_unpack": (ru_mod, "launches"),
     "grouped_gemm": (gg_mod, "launches"),
     "combine_gather_reduce": (cg_mod, "launches"),
     PAGED: (da_mod, "launches"),
@@ -266,6 +302,8 @@ EP_LAUNCHES["hier"] = hier_launches(HIER_CHUNKS, True)
 # the MoE options of each served layout over the decode_32k preset
 LAYOUTS = {"deepep_fp8": dict(ll_layout="deepep", quantize_dispatch=True),
            "baseline": dict(ep_mode="baseline")}
+# the fixed-batch serves' layouts ("dense" serves the nccl_ep config without EP)
+FIXED_PATHS = ("nccl_ep", "deepep_fp8", "baseline", "dense")
 
 
 def leaves(tree) -> list:
@@ -289,9 +327,25 @@ def counts() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
 
 
-def check_ep_counts(launches: dict, steps: int, where: str, path: str = "nccl_ep") -> None:
-    for name, per in EP_LAUNCHES[path].items():
-        want = per * LAYERS * RANKS * steps
+def moe_layers(cfg) -> int:
+    """MoE layers of a config: those after its dense prefix."""
+    return cfg.num_layers - cfg.moe.first_k_dense
+
+
+def ep_launches(cfg, path: str) -> dict:
+    """EP launches per MoE layer and hosted rank of one step (or forward)
+    of ``cfg`` on ``path``: EP_LAUNCHES[path], and of B1's, those in quant
+    mode: under fp8 dispatch each dispatch send (one, or one per chunk on
+    the hierarchical path), else none."""
+    per = dict(EP_LAUNCHES[path])
+    per[DP_QUANT] = (HIER_CHUNKS if path == "hier" else 1) if cfg.moe.quantize_dispatch else 0
+    return per
+
+
+def check_ep_counts(launches: dict, cfg, steps: int, where: str,
+                    path: str = "nccl_ep") -> None:
+    for name, per in ep_launches(cfg, path).items():
+        want = per * moe_layers(cfg) * RANKS * steps
         check(launches[name] == want, f"{name} launched {launches[name]} times "
               f"on {where}, expected {want}")
 
@@ -340,25 +394,53 @@ def busy_us(iv) -> float:
     return total
 
 
+def queued_ms(fn, iters: int) -> tuple[float, bool]:
+    """Mean device time of one of ``iters`` back-to-back calls from CUDA
+    events, the card held on a spin kernel while the host queues them (for
+    twice the time the host took to queue them once), so that the host's
+    launch cost is left out; the gaps between kernels on the card are not.
+    Also whether the card was still spinning when the last call was queued
+    (else the host's pace may show)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * SPIN_CYCLES_S) + 1000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    held = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, held
+
+
 def device_ms(fn, iters: int) -> float:
     """Mean device time of one call: the card's busy time over ``iters``
     calls, from the profiler's CUDA trace, so host launch cost is left out.
-    A spin kernel on each side of the calls, left out of the sum, takes the
-    place of the event a profiler session can drop at its edge. Every call
-    launches the same kernels, so a session that saw each kernel a multiple
-    of ``iters`` times lost nothing. One in which each kernel was seen
-    within a tenth of a multiple of ``iters`` times (k a call) lost a few of
-    its events: the time of a call is then the sum over kernels of k times
-    the kernel's mean duration. Any other session (after many sessions in
-    one process the profiler now and then records none, or drops many of a
-    call's events) is run again, twice at most; after that the calls are
-    timed with CUDA events (``call_ms``), which for a small kernel is the
-    host's launch rate, and the fallback is printed."""
+    LEAD_SPINS short spin kernels before the calls and one after, left out
+    of the sum, take the place of the events a profiler session can drop at
+    its edges. Every call launches the same
+    kernels, so a session that saw each kernel a multiple of ``iters`` times
+    lost nothing. One in which each kernel was seen within a tenth of a
+    multiple of ``iters`` times (k a call) lost a few of its events: the
+    time of a call is then the sum over kernels of k times the kernel's
+    mean duration. Any other session (a session now and then records none
+    of the calls' events, or drops many of them) is run again, twice at
+    most; after that the calls are timed with CUDA events behind a spin
+    kernel (``queued_ms``), which counts the gaps between kernels too, and
+    the fallback is printed."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
+            for _ in range(LEAD_SPINS):
+                torch.cuda._sleep(1000)
             for _ in range(iters):
                 fn()
             torch.cuda._sleep(1000)
@@ -379,9 +461,10 @@ def device_ms(fn, iters: int) -> float:
             return sum(dur[n] / seen[n] * k for n, k in per_call.items()) / 1e3
         print(f"  (profiler session {attempt + 1} saw {len(iv)} device events for "
               f"{iters} calls; measuring again)")
-    ms = call_ms(fn, iters)
+    ms, held = queued_ms(fn, iters)
     print(f"  (three profiler sessions lost device events: {ms:.4f} ms from CUDA "
-          f"events over {iters} back-to-back calls instead)")
+          f"events over {iters} calls queued behind a spin kernel"
+          f"{'' if held else ', the card idle before the host had queued them all'})")
     return ms
 
 
@@ -397,6 +480,12 @@ def nbytes(t: torch.Tensor, rows: int | None = None) -> int:
     if rows is None:
         return t.numel() * t.element_size()
     return rows * (t.numel() // t.shape[0]) * t.element_size()
+
+
+def read_rows(idx: torch.Tensor, n: int) -> int:
+    """Rows of an n-row source that a map reads, each once: its distinct
+    entries below the sentinel n, however many slots name the same row."""
+    return int(torch.unique(idx[idx < n]).numel())
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -446,7 +535,8 @@ def copy_case(label: str, rows: torch.Tensor, gmap: torch.Tensor, iters: int) ->
     check(torch.equal(got, ref.dispatch_pack(rows, gmap, None, dt)[0]),
           f"dispatch_pack (copy, {label}) differs from its plain version")
     live = int((gmap < rows.shape[0]).sum())
-    bnd = bound(nbytes(rows, live) + nbytes(got) + nbytes(gmap), 0, F32_OPS_S)
+    bnd = bound(nbytes(rows, read_rows(gmap, rows.shape[0])) + nbytes(got) + nbytes(gmap), 0,
+                F32_OPS_S)
 
     def kernel():
         return dp_mod.dispatch_pack(rows, gmap, out_dtype=dt)
@@ -503,10 +593,10 @@ def kernel_phase(cfg, params) -> dict:
     timed("dispatch_pack", max_err(got, want),
           lambda: dp_mod.dispatch_pack(x0, g0, out_dtype=dt),
           lambda: ref.dispatch_pack(x0, g0, None, dt),
-          bound(nbytes(x0, live) + nbytes(got) + nbytes(g0), 0, F32_OPS_S),
+          bound(nbytes(x0, read_rows(g0, T)) + nbytes(got) + nbytes(g0), 0, F32_OPS_S),
           padded_gather(x0, g0), f"[{T},{d}] -> {list(got.shape)}")
     fp8_ms = device_ms(lambda: dp_mod.dispatch_pack(x0, g0, quant_block=128), 50)
-    fp8_bnd = bound(nbytes(x0, live) + nbytes(q) + nbytes(s) + nbytes(g0),
+    fp8_bnd = bound(nbytes(x0, read_rows(g0, T)) + nbytes(q) + nbytes(s) + nbytes(g0),
                     3 * live * d, F32_OPS_S)
     print(f"dispatch_pack fp8 mode: kernel {fp8_ms:.4f} ms, plain "
           f"{device_ms(lambda: ref.dispatch_pack(x0, g0, 128), 50):.4f} ms, "
@@ -529,7 +619,8 @@ def kernel_phase(cfg, params) -> dict:
     timed("recv_unpack", max_err(y3d, want),
           lambda: ru_mod.recv_unpack(recv0, gr),
           lambda: ref.recv_unpack(recv0, gr),
-          bound(nbytes(recv0, live) + nbytes(y3d) + nbytes(gr), 0, F32_OPS_S),
+          bound(nbytes(recv0, read_rows(gr, recv0.shape[0])) + nbytes(y3d) + nbytes(gr), 0,
+                F32_OPS_S),
           padded_gather(recv0, gr), f"{list(recv0.shape)} -> {list(y3d.shape)}")
 
     # ---- grouped_gemm: rank 0's gate projection (up is the same shape) and
@@ -575,8 +666,8 @@ def kernel_phase(cfg, params) -> dict:
     timed("combine_gather_reduce", max_err(got, want),
           lambda: cg_mod.combine_gather_reduce(crecv, crows, cw),
           lambda: ref.combine_gather_reduce(crecv, crows, cw),
-          bound(nbytes(crecv, valid) + nbytes(crows) + nbytes(cw) + nbytes(got),
-                2 * valid * d, F32_OPS_S), library,
+          bound(nbytes(crecv, read_rows(crows, crecv.shape[0])) + nbytes(crows) + nbytes(cw)
+                + nbytes(got), 2 * valid * d, F32_OPS_S), library,
           f"{list(crecv.shape)} rows {list(crows.shape)}")
     return out
 
@@ -652,8 +743,8 @@ def serve_run(srv: DecodeServer, card: str, path: str, mode: str) -> tuple[dict,
     metrics = srv.serve(serve_prompts(cfg.vocab), GEN)
     launches = counts()
     if path != "dense":
-        check_ep_counts(launches, PROMPT + GEN if mode == "eager" else 2,
-                        f"the {path} DecodeServer path ({mode})", path)
+        check_ep_counts(launches, cfg, PROMPT + GEN if mode == "eager" else 2,
+                        f"the {cfg.name} {path} DecodeServer path ({mode})", path)
     check(launches[PAGED] == 0 and launches[FLASH] == 0,
           "the dense decode path launched paged or flash attention")
     toks = srv.last_tokens
@@ -665,55 +756,79 @@ def serve_run(srv: DecodeServer, card: str, path: str, mode: str) -> tuple[dict,
     if mode == "captured":
         check(srv._serve_step.graph is not None, f"the {path} server captured no graph")
         graph = "; " + graph_line(srv._serve_step)
-    print(f"serve, {path}, {mode} ({card}): ttft {m['ttft_s']:.4f} s, itl mean "
+    print(f"{cfg.name} serve, {path}, {mode} ({card}): ttft {m['ttft_s']:.4f} s, itl mean "
           f"{m['itl_mean_s']:.5f} s, itl p99 {m['itl_p99_s']:.5f} s, "
           f"{m['output_tok_s']:.1f} output tok/s, {m['total_tokens']} tokens{graph}; "
           f"launches {launches}")
     return launches, m
 
 
-def fixed_serve_phase(cfg, params, card: str) -> dict:
-    """The fixed-batch main paths: DecodeServer.serve in the preset's LL
-    nccl_ep layout (the first captured serve is the main path), in the LL
-    deepep layout with fp8 dispatch, through the baseline dispatcher and
-    without EP (dense), on the same weights and prompts. Each is served
-    SERVES times through its captured step and SERVES times through the
-    uncompiled step, alternating: every token stream must be bitwise equal
-    to the first. The baseline computes every row with the same kernels in
-    the same k order as nccl_ep, so its tokens must equal nccl_ep's; fp8
-    changes tokens, so the deepep agreement is reported, and the dense
-    server's. Returns, per layout, its first captured server (kept for the
-    traced replay), that serve's launches and the ITLs of both modes."""
+def trace_fixed(path: str, srv: DecodeServer, itl: float) -> None:
+    """One replayed step of a captured fixed-batch server under the
+    profiler, against its captured ITL mean; its EP launches, read from the
+    kernels' names, must be the path's."""
+    tok = torch.zeros((BATCH, 1), dtype=torch.int32, device=DEV)
+    iv, _ = trace_phase(f"replayed {srv.cfg.name} {path} decode step", lambda: srv.step(tok),
+                        itl, "captured ITL mean")
+    if path != "dense":
+        check_replayed_launches(iv, expected_device_kernels(srv.cfg, path),
+                                f"the replayed {path} step")
+
+
+def fixed_serve_phase(cfg, params, card: str, paths=FIXED_PATHS, serves: int = SERVES,
+                      keep: bool = True) -> dict:
+    """The fixed-batch main paths: DecodeServer.serve in each of ``paths``
+    (for DBRX the preset's LL nccl_ep layout, whose first captured serve is
+    the main path, the LL deepep layout with fp8 dispatch, the baseline
+    dispatcher and no EP, dense), on the same weights and prompts. Each is
+    served ``serves`` times through its captured step and as often through
+    the uncompiled step, alternating: every token stream must be bitwise
+    equal to the first. The baseline computes every row with the same
+    kernels in the same k order as nccl_ep, so its tokens must equal
+    nccl_ep's; fp8 changes tokens, so the deepep agreement is reported, and
+    the dense server's. With ``keep``, each path's first captured server is
+    kept (for the traced replay); without it, its replayed step is traced at
+    once and the server closed, so that one server at a time is alive.
+    Returns, per path, that server (or None), that serve's launches and the
+    ITLs of both modes."""
     out = {}
-    for path in ("nccl_ep", "deepep_fp8", "baseline", "dense"):
+    for path in paths:
         c = layout_cfg(cfg, path)
         ep = 1 if path == "dense" else RANKS
         runs = {"captured": [], "eager": []}
         kept, first, toks = None, None, None
-        for _ in range(SERVES):
+        for _ in range(serves):
             for mode in ("captured", "eager"):
                 srv = DecodeServer(c, BATCH, MAX_LEN, ep_size=ep, params=params)
                 if mode == "eager":
                     eager(srv)
                 launches, m = serve_run(srv, card, path, mode)
-                if path == "nccl_ep" and kept is None:
-                    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+                if path == "nccl_ep" and first is None:
+                    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
                 if toks is None:
                     toks = srv.last_tokens
                 check(np.array_equal(srv.last_tokens, toks),
                       f"{path}: the {mode} serve's tokens differ from the first serve's")
                 runs[mode].append(m)
-                if mode == "captured" and kept is None:
-                    kept, first = srv, launches
+                if mode == "captured" and first is None:
+                    first = launches
+                    if keep:
+                        kept = srv
+                    else:
+                        trace_fixed(path, srv, m["itl_mean_s"])
+                        srv.close()
                 elif mode == "captured":
                     srv.close()
                 del srv
+                if not keep:
+                    gc.collect()
+                    torch.cuda.empty_cache()
         means = {k: [m["itl_mean_s"] for m in v] for k, v in runs.items()}
         p99s = {k: [m["itl_p99_s"] for m in v] for k, v in runs.items()}
-        print(f"{path}: tokens bitwise equal over {SERVES} captured and {SERVES} eager serves; "
-              f"ITL mean captured {means['captured']} s, eager {means['eager']} s; ITL p99 "
-              f"captured {p99s['captured']} s, eager {p99s['eager']} s; captured/eager mean "
-              f"{np.mean(means['captured']) / np.mean(means['eager']):.4f}")
+        print(f"{cfg.name} {path}: tokens bitwise equal over {serves} captured and {serves} "
+              f"eager serves; ITL mean captured {means['captured']} s, eager {means['eager']} "
+              f"s; ITL p99 captured {p99s['captured']} s, eager {p99s['eager']} s; "
+              f"captured/eager mean {np.mean(means['captured']) / np.mean(means['eager']):.4f}")
         if path != "nccl_ep":
             agree = toks == out["nccl_ep"]["tokens"]
             print(f"  greedy tokens equal to the nccl_ep serve: {agree.mean():.4f} of all, "
@@ -743,18 +858,24 @@ def pipelined_phase(cfg, params, card: str, want: np.ndarray) -> None:
 
 
 def oracle_phase(cfg, params) -> None:
-    """Each MoE layer's EP output against the dense fallback, same input."""
+    """Each MoE layer's EP output against the dense fallback, same input;
+    under fp8 dispatch both sides get the plain quantize->dequantize round
+    trip of x."""
     gen = torch.Generator(device=DEV).manual_seed(3)
-    for i in range(LAYERS):
-        p = {k: v[i] for k, v in params["moe_stack"]["moe"].items()}
+    for i in range(moe_layers(cfg)):
+        p = _index(params["moe_stack"]["moe"], i)
         x = torch.randn((BATCH, 1, cfg.d_model), generator=gen, device=DEV).to(cfg.dtype)
+        if cfg.moe.quantize_dispatch:
+            x = ref.dequantize_fp8(*ref.quantize_fp8(x, 128), cfg.dtype)
         ep, _ = moe_block(p, x, cfg, LocalComm(RANKS))
         dn = _moe_dense_fallback(p, x, cfg)
         check(ep.shape == dn.shape == x.shape and bool(torch.isfinite(ep).all()),
-              f"MoE layer {i}: bad EP output")
+              f"{cfg.name} MoE layer {i}: bad EP output")
         rel = float((ep.float() - dn.float()).norm() / dn.float().norm())
-        print(f"oracle: MoE layer {i} EP vs dense relative error {rel:.3g} (limit {TOL})")
-        check(rel <= TOL, f"MoE layer {i}: EP output off the dense fallback by {rel}")
+        print(f"oracle: {cfg.name} MoE layer {i} EP vs dense relative error {rel:.3g} "
+              f"(limit {TOL})")
+        check(rel <= TOL, f"{cfg.name} MoE layer {i}: EP output off the dense fallback by {rel}")
+        del ep, dn
 
 
 class RecordingComm(LocalComm):
@@ -918,30 +1039,34 @@ def combine_reduce_phase(d: int) -> dict:
     return out
 
 
-def make_requests(vocab: int) -> list[Request]:
-    """REQUESTS requests from a numpy seed: Poisson arrivals of RATE per
-    step from step 0, prompt and new-token counts uniform in their ranges."""
-    rng = np.random.default_rng(4)
-    per_step = rng.poisson(RATE, size=4 * REQUESTS)
-    arrivals = np.repeat(np.arange(per_step.size), per_step)[:REQUESTS]
-    plens = rng.integers(PROMPTS[0], PROMPTS[1] + 1, REQUESTS)
-    news = rng.integers(NEWS[0], NEWS[1] + 1, REQUESTS)
+def make_requests(vocab: int, n: int = REQUESTS, seed: int = 4) -> list[Request]:
+    """n requests from a numpy seed: Poisson arrivals of RATE per step from
+    step 0, prompt and new-token counts uniform in their ranges."""
+    rng = np.random.default_rng(seed)
+    per_step = rng.poisson(RATE, size=4 * n)
+    arrivals = np.repeat(np.arange(per_step.size), per_step)[:n]
+    plens = rng.integers(PROMPTS[0], PROMPTS[1] + 1, n)
+    news = rng.integers(NEWS[0], NEWS[1] + 1, n)
     return [Request(i, rng.integers(0, vocab, int(plens[i])), int(news[i]),
-                    arrival_step=int(arrivals[i])) for i in range(REQUESTS)]
+                    arrival_step=int(arrivals[i])) for i in range(n)]
 
 
-def continuous_phase(cfg, params, card: str):
+def continuous_phase(cfg, params, card: str, n: int = REQUESTS, seed: int = 4,
+                     serves: int = SERVES, keep: bool = True):
     """The continuous-batching main path: ContinuousDecodeServer.
-    serve_requests, SERVES times through the captured step (the first is
-    the main path) and SERVES times through the uncompiled step,
+    serve_requests of n requests, ``serves`` times through the captured step
+    (the first is the main path) and as often through the uncompiled step,
     alternating, every launch counter read: the eager counts per step, the
     captured ones those of the warm-up and the capture. Every request's
-    tokens must be bitwise equal across the runs. Returns the first
-    captured server and its launches, the requests and the captured and
-    eager ITL means."""
-    reqs = make_requests(cfg.vocab)
-    kept, itls, want = None, {"captured": [], "eager": []}, None
-    for _ in range(SERVES):
+    tokens must be bitwise equal across the runs. With ``keep`` the first
+    captured server is kept; without it, its replayed step is traced at once
+    and the server closed, so that one server at a time is alive. Returns
+    that server (or None) and its launches, the requests, the captured and
+    eager ITL means, each request's tokens and the servers' page-table
+    width and page count."""
+    reqs = make_requests(cfg.vocab, n, seed)
+    kept, first, itls, want = None, None, {"captured": [], "eager": []}, None
+    for _ in range(serves):
         for mode in ("captured", "eager"):
             srv = ContinuousDecodeServer(cfg, BATCH, CMAX_LEN, ep_size=RANKS,
                                          params=params, page_size=PAGE)
@@ -951,8 +1076,8 @@ def continuous_phase(cfg, params, card: str):
             metrics = srv.serve_requests(reqs)
             launches = counts()
             sched, steps = srv.reqsched, metrics.serve_steps
-            check(sched.done and metrics.requests_completed == REQUESTS,
-                  f"{metrics.requests_completed} of {REQUESTS} requests completed")
+            check(sched.done and metrics.requests_completed == n,
+                  f"{metrics.requests_completed} of {n} requests completed")
             toks = [sched.tokens_for(r.rid) for r in reqs]
             for r, t in zip(reqs, toks):
                 check(len(t) == r.max_new_tokens and t.min() >= 0 and t.max() < cfg.vocab,
@@ -971,20 +1096,23 @@ def continuous_phase(cfg, params, card: str):
             check(all(np.isfinite(v) and v >= 0 for v in scalars.values()),
                   f"bad metrics {scalars}")
             counted = steps if mode == "eager" else 2
-            check_ep_counts(launches, counted, f"the continuous path ({mode})")
+            check_ep_counts(launches, cfg, counted, f"the {cfg.name} continuous path ({mode})")
             # stage 2 runs only where a request of the table's width could be
             # split (not at the serve's 64 tokens)
             split = da_mod.splits_possible(_decode_splits(cfg, srv.max_pages), srv.max_pages,
                                            PAGE)
-            for key, want_n in ((PAGED, LAYERS * counted),
+            for key, want_n in ((PAGED, cfg.num_layers * counted),
                                 ("paged_decode_attention (stage 2)",
-                                 LAYERS * counted if split else 0)):
+                                 cfg.num_layers * counted if split else 0)):
                 check(launches[key] == want_n, f"{key} launched {launches[key]} "
                       f"times on the continuous path ({mode}), expected {want_n}")
             ivs = np.concatenate([np.asarray(r["itl_s"]) for r in m["per_request"]
                                   if r["itl_s"]])
-            graph = "; " + graph_line(srv._serve_step) if mode == "captured" else ""
-            print(f"continuous serve, {mode} ({card}): {REQUESTS} requests, {steps} steps, "
+            graph = ""
+            if mode == "captured":
+                check(srv._serve_step.graph is not None, "the continuous server captured no graph")
+                graph = "; " + graph_line(srv._serve_step)
+            print(f"{cfg.name} continuous serve, {mode} ({card}): {n} requests, {steps} steps, "
                   f"{metrics.total_tokens} tokens, {metrics.output_tok_s:.1f} output tok/s; "
                   f"ttft p50 {m['ttft_p50_s']:.4f} s, p95 {m['ttft_p95_s']:.4f} s, "
                   f"p99 {m['ttft_p99_s']:.4f} s; itl mean {m['itl_mean_s']:.5f} s, "
@@ -994,33 +1122,58 @@ def continuous_phase(cfg, params, card: str):
                   f"({metrics.pages_peak / metrics.pages_dense_equiv:.3f}){graph}; "
                   f"launches {launches}")
             itls[mode].append(m["itl_mean_s"])
-            if mode == "captured" and kept is None:
-                kept = (srv, launches)
+            table = (srv.max_pages, srv.num_pages)
+            if mode == "captured" and first is None:
+                first = launches
+                if keep:
+                    kept = srv
+                else:
+                    trace_continuous(srv, m["itl_mean_s"])
+                    srv.close()
             elif mode == "captured":
                 srv.close()
-            del srv
-    print(f"continuous serve: per-request tokens bitwise equal over {SERVES} captured and "
-          f"{SERVES} eager serves; ITL mean captured {itls['captured']} s, eager "
+            del srv, sched
+            if not keep:
+                gc.collect()
+                torch.cuda.empty_cache()
+    print(f"{cfg.name} continuous serve: per-request tokens bitwise equal over {serves} "
+          f"captured and {serves} eager serves; ITL mean captured {itls['captured']} s, eager "
           f"{itls['eager']} s; captured/eager {np.mean(itls['captured']) / np.mean(itls['eager']):.4f}")
-    return (*kept, reqs, (float(np.mean(itls["captured"])), float(np.mean(itls["eager"]))))
+    return (kept, first, reqs, (float(np.mean(itls["captured"])), float(np.mean(itls["eager"]))),
+            {r.rid: t for r, t in zip(reqs, want)}, table)
 
 
-def solo_phase(cfg, params, srv: ContinuousDecodeServer, reqs) -> None:
-    """Two requests that joined after step 0 and left before the last step,
-    each rerun alone through a fresh engine: bitwise-equal streams."""
+def mid_stream(srv: ContinuousDecodeServer, reqs, n: int) -> list:
+    """n requests of a finished serve that joined after step 0 and left
+    before its last step, spread over them."""
     fin = srv.reqsched.finished
     last = max(s.tok_times[-1] for s in fin.values())
     picks = [r for r in reqs if r.arrival_step > 0 and fin[r.rid].tok_times[-1] < last]
-    picks = [picks[len(picks) // 4], picks[len(picks) // 2]]
-    for r in picks:
-        solo = ContinuousDecodeServer(cfg, BATCH, CMAX_LEN, ep_size=RANKS,
-                                      params=params, page_size=PAGE)
+    return [picks[len(picks) * (i + 1) // (2 * n)] for i in range(n)]
+
+
+def solo_phase(cfg, params, reqs, want: dict) -> None:
+    """Each of ``reqs`` served alone, one after another through one fresh
+    engine (released after), whose pages each finds as the one before left
+    them: its tokens must be bitwise equal to its stream among co-residents
+    (``want``)."""
+    solo = ContinuousDecodeServer(cfg, BATCH, CMAX_LEN, ep_size=RANKS, params=params,
+                                  page_size=PAGE)
+    t0 = time.perf_counter()
+    for r in reqs:
         solo.serve_requests([Request(r.rid, r.prompt, r.max_new_tokens)])
-        got, want = solo.reqsched.tokens_for(r.rid), srv.reqsched.tokens_for(r.rid)
-        check(np.array_equal(got, want), f"request {r.rid} alone gives {got}, "
-              f"among co-residents {want}")
-        print(f"solo parity: request {r.rid} (arrived at step {r.arrival_step}, "
-              f"prompt {r.prompt.size}, {r.max_new_tokens} new) bitwise equal alone")
+        got = solo.reqsched.tokens_for(r.rid)
+        check(np.array_equal(got, want[r.rid]), f"{cfg.name} request {r.rid} alone gives "
+              f"{got}, among co-residents {want[r.rid]}")
+    solo.close()
+    del solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    shown = ", ".join(f"{r.rid} (arrived at step {r.arrival_step}, prompt {r.prompt.size}, "
+                      f"{r.max_new_tokens} new)" for r in reqs[:4])
+    print(f"solo parity: {len(reqs)} {cfg.name} requests, each served alone in turn through "
+          f"one engine, bitwise equal to their streams among co-residents "
+          f"({time.perf_counter() - t0:.1f} s): {shown}{', ...' if len(reqs) > 4 else ''}")
 
 
 def _compare_steps(cfg, params, label: str, steps: int = 4) -> list:
@@ -1063,28 +1216,32 @@ def paged_vs_dense_phase(cfg, params) -> None:
     rounds the attention probabilities to bf16 before the PV product and the
     paged kernel does not, so from step 1 on the two differ by that rounding,
     amplified through the layers (the MoE routing flips for some rows) and
-    carried into each cache. So over the 4 bf16 layers, step 0, where both
+    carried into each cache. So over every bf16 layer, step 0, where both
     attend over one token and neither rounds, must be bitwise equal, and at
     step 1, after one step of that rounding, the median row's relative error
     must be within 2e-2; later steps are reported. In f32 (the first layer
-    only: 4 layers of f32 weights do not fit beside the bf16 ones) the
-    logits must agree within 2e-4 relative at every step, the JAX package's
-    tolerance for this comparison
+    only, the first dense one where the config has a dense prefix: the
+    layers' f32 weights do not fit beside the bf16 ones) the logits must
+    agree within 2e-4 relative at every step, the JAX package's tolerance
+    for this comparison
     (tests/test_paged_kv.py::test_paged_step_matches_dense_step_logits)."""
-    bf16 = _compare_steps(cfg, params, "bf16, 4 layers")
-    check(bf16[0][1], "bf16 step 0: the paged and the dense logits differ")
+    bf16 = _compare_steps(cfg, params, f"{cfg.name} bf16, {cfg.num_layers} layers")
+    check(bf16[0][1], f"{cfg.name} bf16 step 0: the paged and the dense logits differ")
     med1 = bf16[1][2]
-    check(med1 <= TOL, f"bf16 step 1: median row off the dense step's by {med1}")
-    cfg32 = dataclasses.replace(cfg, num_layers=1, dtype=torch.float32)
-    p32 = {k: v.float() for k, v in params.items() if k != "moe_stack"}
-    p32["moe_stack"] = _first_layer_f32(params["moe_stack"])
-    worst = max(rel for rel, _, _ in _compare_steps(cfg32, p32, "f32, 1 layer"))
+    check(med1 <= TOL, f"{cfg.name} bf16 step 1: median row off the dense step's by {med1}")
+    stack = "dense_stack" if cfg.moe.first_k_dense else "moe_stack"
+    cfg32 = dataclasses.replace(cfg, num_layers=1, dtype=torch.float32, moe=dataclasses.replace(
+        cfg.moe, first_k_dense=min(cfg.moe.first_k_dense, 1)))
+    p32 = {k: v.float() for k, v in params.items() if not k.endswith("_stack")}
+    p32[stack] = _first_layer_f32(params[stack])
+    worst = max(rel for rel, _, _ in _compare_steps(cfg32, p32, f"{cfg.name} f32, 1 layer"))
     del p32
+    gc.collect()
     torch.cuda.empty_cache()
-    print(f"paged vs dense decode step: bf16 step 0 bitwise equal, step 1 median row "
-          f"relative error {med1:.3g} (limit {TOL}); f32 logits relative error "
+    print(f"{cfg.name} paged vs dense decode step: bf16 step 0 bitwise equal, step 1 median "
+          f"row relative error {med1:.3g} (limit {TOL}); f32 logits relative error "
           f"{worst:.3g} (limit 2e-4)")
-    check(worst <= 2e-4, f"f32 paged step logits off the dense step's by {worst}")
+    check(worst <= 2e-4, f"{cfg.name} f32 paged step logits off the dense step's by {worst}")
 
 
 def paged_case(rng, B, Hq, Hkv, dk, dv, max_pages, lens, share_kv, dt=torch.bfloat16,
@@ -1317,7 +1474,7 @@ def prefill_run(label: str, params, cfg, comm, card: str, path: str) -> dict:
         torch.cuda.synchronize()
     launches = counts()
     check(bool(torch.isfinite(loss)), f"{label}: loss {loss.item()} is not finite")
-    check_ep_counts(launches, 1, f"the {label}", path)
+    check_ep_counts(launches, cfg, 1, f"the {label}", path)
     check(launches[FLASH] == LAYERS, f"flash_attention launched "
           f"{launches[FLASH]} times in the {label}, expected {LAYERS}")
     check(launches[PAGED] == 0, f"the {label} launched paged attention")
@@ -1408,8 +1565,8 @@ def ht_kernel_phase(cfg, params) -> None:
     check(torch.equal(q.view(torch.uint8), wq.view(torch.uint8)) and torch.equal(sc, ws),
           "dispatch_pack (fp8) differs from its plain version at HT shapes")
     live = int((g0 < PF_SEQ).sum())
-    bnd = bound(nbytes(x0, live) + nbytes(q) + nbytes(sc) + nbytes(g0), 3 * live * d,
-                F32_OPS_S)
+    bnd = bound(nbytes(x0, read_rows(g0, PF_SEQ)) + nbytes(q) + nbytes(sc) + nbytes(g0),
+                3 * live * d, F32_OPS_S)
     print(f"HT shapes (rank 0, MoE layer 0): dispatch_pack fp8 [{PF_SEQ}, {d}] -> "
           f"{list(q.shape)} + scales {list(sc.shape)}, {live} live slots: bitwise equal; "
           f"kernel {device_ms(lambda: dp_mod.dispatch_pack(x0, g0, quant_block=qb), 20):.4f} ms, "
@@ -1424,7 +1581,8 @@ def ht_kernel_phase(cfg, params) -> None:
     check(torch.equal(y3d, ref.recv_unpack(qrecv, gr, srecv, dt)),
           "recv_unpack (fp8 dequant) differs from its plain version at HT shapes")
     live = int((gr < qrecv.shape[0]).sum())
-    bnd = bound(nbytes(qrecv, live) + nbytes(srecv, live) + nbytes(y3d) + nbytes(gr),
+    src = read_rows(gr, qrecv.shape[0])
+    bnd = bound(nbytes(qrecv, src) + nbytes(srecv, src) + nbytes(y3d) + nbytes(gr),
                 live * d, F32_OPS_S)
     print(f"  recv_unpack fp8 dequant {list(qrecv.shape)} -> {list(y3d.shape)}, {live} "
           f"live rows: bitwise equal; kernel "
@@ -1452,8 +1610,8 @@ def ht_kernel_phase(cfg, params) -> None:
           "combine_gather_reduce: two calls differ at HT shapes")
     del want
     valid = int((crows < crecv.shape[0]).sum())
-    bnd = bound(nbytes(crecv, valid) + nbytes(crows) + nbytes(cw) + nbytes(got),
-                2 * valid * d, F32_OPS_S)
+    bnd = bound(nbytes(crecv, read_rows(crows, crecv.shape[0])) + nbytes(crows) + nbytes(cw)
+                + nbytes(got), 2 * valid * d, F32_OPS_S)
     lib = "none (sentinel rows)"
     if valid == crows.numel():      # no sentinel: embedding_bag is the same sum
         idx, wb = crows.long(), cw.to(dt)
@@ -1760,7 +1918,8 @@ def unpack_case(label: str, rows: torch.Tensor, gmap: torch.Tensor, iters: int) 
     check(torch.equal(got.view(torch.uint8), ref.recv_unpack(rows, gmap).view(torch.uint8)),
           f"recv_unpack (copy, {label}) differs from its plain version")
     live = int((gmap < rows.shape[0]).sum())
-    bnd = bound(nbytes(rows, live) + nbytes(got) + nbytes(gmap), 0, F32_OPS_S)
+    bnd = bound(nbytes(rows, read_rows(gmap, rows.shape[0])) + nbytes(got) + nbytes(gmap), 0,
+                F32_OPS_S)
     kernel = lambda: ru_mod.recv_unpack(rows, gmap)  # noqa: E731
     ms = device_ms(kernel, iters)
     plain_ms = device_ms(lambda: ref.recv_unpack(rows, gmap), iters)
@@ -1788,8 +1947,8 @@ def reduce_case(label: str, recv: torch.Tensor, rows: torch.Tensor, w: torch.Ten
           f"combine_gather_reduce ({label}): two calls differ")
     del want
     valid = int((rows < recv.shape[0]).sum())
-    bnd = bound(nbytes(recv, valid) + nbytes(rows) + nbytes(w) + nbytes(got),
-                2 * valid * recv.shape[1], F32_OPS_S)
+    bnd = bound(nbytes(recv, read_rows(rows, recv.shape[0])) + nbytes(rows) + nbytes(w)
+                + nbytes(got), 2 * valid * recv.shape[1], F32_OPS_S)
     padded = torch.cat([recv, torch.zeros_like(recv[:1])])
     idx, wb = rows.long(), w.to(recv.dtype)
     kernel = lambda: cg_mod.combine_gather_reduce(recv, rows, w)  # noqa: E731
@@ -1965,34 +2124,61 @@ def decode_loop_phase(cfg, params, card: str) -> None:
         del graph
 
 
-def expected_device_kernels(path: str) -> Counter:
+def expected_device_kernels(cfg, path: str) -> Counter:
     """EP kernel launches of one decode step as the profiler names them:
-    EP_LAUNCHES x layers x ranks, each wrapper's count under the kernel it
-    runs at the decode shapes (B1's and B2's copy modes share
-    csrc/gather.cuh's gather_copy_kernel, B1's fp8 mode runs
-    csrc/quant.cuh's quant_lanes_kernel, B4 csrc/reduce.cuh's
+    ``ep_launches`` x MoE layers x ranks, each wrapper's count under the
+    kernel it runs at the decode shapes (B1's copy mode and B2's share
+    csrc/gather.cuh's gather_copy_kernel, B1's quant mode runs
+    csrc/quant.cuh's quant_lanes_kernel, B2's fused dequant at the 16-byte
+    route recv_unpack.cu's dequant16_kernel, B4 csrc/reduce.cuh's
     reduce_rows_kernel)."""
-    names = dict(dispatch_pack="quant_lanes_kernel" if path == "deepep_fp8"
-                 else "gather_copy_kernel",
-                 recv_unpack="gather_copy_kernel", grouped_gemm="grouped_gemm_bf16_kernel",
+    per = ep_launches(cfg, path)
+    quant = per.pop(DP_QUANT)
+    names = dict(recv_unpack="dequant16_kernel" if quant else "gather_copy_kernel",
+                 grouped_gemm="grouped_gemm_bf16_kernel",
                  combine_gather_reduce="reduce_rows_kernel",
                  dequantize_fp8="dequantize_fp8_kernel", quantize_fp8="quant_lanes_kernel",
                  combine_reduce="reduce_rows_kernel")
+    n = moe_layers(cfg) * RANKS
     want: Counter = Counter()
-    for w, n in EP_LAUNCHES[path].items():
-        if n:
-            want[names[w]] += n * LAYERS * RANKS
-    return want
+    for w, k in per.items():
+        if w == "dispatch_pack":
+            want["quant_lanes_kernel"] += quant * n
+            want["gather_copy_kernel"] += (k - quant) * n
+        elif k:
+            want[names[w]] += k * n
+    return +want
 
 
-def check_replayed_launches(iv, path: str, where: str) -> None:
-    """The EP kernels the profiler saw in one replayed step, by name,
-    against EP_LAUNCHES x layers x ranks."""
-    want = expected_device_kernels(path)
+def check_replayed_launches(iv, want: Counter, where: str) -> None:
+    """The EP kernels the profiler saw in one replayed step, by the
+    fragments of their names, against ``want`` (``expected_device_kernels``)."""
     got = Counter(frag for _, _, name in iv for frag in want if frag in name)
     print(f"  EP kernels in the replayed step: {dict(got)} (want {dict(want)})")
     check(got == want, f"{where}: the replayed step ran EP kernels {dict(got)}, "
           f"expected {dict(want)}")
+
+
+def trace_continuous(csrv: ContinuousDecodeServer, itl: float) -> None:
+    """One replayed step of a captured continuous server, every slot active
+    at CMAX_LEN // 2 tokens, under the profiler against its captured ITL
+    mean: its EP launches must be the path's and paged attention must run
+    once per layer."""
+    cfg, mp = csrv.cfg, csrv.max_pages
+    feed = dict(tokens=np.zeros((BATCH, 1), np.int32),
+                page_tbl=np.arange(BATCH * mp, dtype=np.int32).reshape(BATCH, mp),
+                kv_lens=np.full(BATCH, CMAX_LEN // 2, np.int32),
+                active=np.ones(BATCH, np.int32))
+    iv, _ = trace_phase(f"replayed {cfg.name} continuous step (all {BATCH} slots at "
+                        f"{CMAX_LEN // 2} tokens)", lambda: csrv.step_feed(feed), itl,
+                        "captured ITL mean")
+    check_replayed_launches(iv, expected_device_kernels(cfg, "nccl_ep"),
+                            "the replayed continuous step")
+    paged = [e - s for s, e, n in iv if "paged_" in n]
+    check(len(paged) == cfg.num_layers, f"{len(paged)} paged attention kernels in the "
+          f"replayed continuous step, expected {cfg.num_layers}")
+    print(f"  paged attention: {sum(paged) / 1e3:.3f} ms, {sum(paged) / busy_us(iv):.4f} "
+          f"of the busy time")
 
 
 def replay_trace_phase(fixed: dict, csrv: ContinuousDecodeServer, citl: tuple) -> None:
@@ -2003,30 +2189,245 @@ def replay_trace_phase(fixed: dict, csrv: ContinuousDecodeServer, citl: tuple) -
     tok = torch.zeros((BATCH, 1), dtype=torch.int32, device=DEV)
     for path, info in fixed.items():
         srv = info["srv"]
-        iv, _ = trace_phase(f"replayed {path} decode step", lambda: srv.step(tok),
-                            info["itl"], "captured ITL mean")
-        if path != "dense":
-            check_replayed_launches(iv, path, f"the replayed {path} step")
+        trace_fixed(path, srv, info["itl"])
         step = srv._step_factory()
         trace_phase(f"eager {path} decode step",
                     lambda: step(srv.params, srv.state, {"tokens": tok}),
                     info["itl_eager"], "eager ITL mean")
-    mp = csrv.max_pages
-    feed = dict(tokens=np.zeros((BATCH, 1), np.int32),
-                page_tbl=np.arange(BATCH * mp, dtype=np.int32).reshape(BATCH, mp),
-                kv_lens=np.full(BATCH, CMAX_LEN // 2, np.int32),
-                active=np.ones(BATCH, np.int32))
-    iv, _ = trace_phase(f"replayed continuous step (all {BATCH} slots at {CMAX_LEN // 2} "
-                        "tokens)", lambda: csrv.step_feed(feed), citl[0], "captured ITL mean")
-    check_replayed_launches(iv, "nccl_ep", "the replayed continuous step")
+    trace_continuous(csrv, citl[0])
     step = csrv._step_factory()
     trace_phase(f"eager continuous step (all {BATCH} slots at {CMAX_LEN // 2} tokens)",
                 lambda: step(csrv.params, csrv.state, csrv._feed), citl[1], "eager ITL mean")
-    paged = [e - s for s, e, n in iv if "paged_" in n]
-    check(len(paged) == LAYERS, f"{len(paged)} paged attention kernels in the replayed "
-          f"continuous step, expected {LAYERS}")
-    print(f"  paged attention: {sum(paged) / 1e3:.3f} ms, {sum(paged) / busy_us(iv):.4f} "
-          f"of the busy time")
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3 at full width: MLA (absorbed dense and paged decode), sigmoid
+# group-limited routing over 256 experts, fp8 nccl_ep dispatch
+# ---------------------------------------------------------------------------
+
+# the 3 dense layers and 2 of the 58 MoE layers (22.5 GB of experts each)
+DS_LAYERS = 5
+# the continuous serve's requests, from their own seed
+DS_REQUESTS, DS_SEED = 64, 14
+
+
+def ds_config():
+    full = ds_full_config("decode_32k")
+    return full, dataclasses.replace(full, num_layers=DS_LAYERS)
+
+
+def ds_record(base: str, label: str, err, ms, plain_ms, bnd, library_ms, launches) -> dict:
+    """A DeepSeek-shape row of the kernels JSON: the kernel's own record,
+    named for its shape, with the launches of its DeepSeek main path."""
+    r = record(base, err, ms, plain_ms, bnd, library_ms)
+    r["name"] = f"{base} [DeepSeek-V3 {label}]"
+    r["launches"] = launches
+    return r
+
+
+def ds_kernel_phase(cfg, params, launches: dict, paged_launches: dict, table: tuple) -> list:
+    """Each kernel of the DeepSeek-V3 path against its plain version at the
+    shapes one EP rank gets in MoE layer 0 (16 tokens, 32 local experts, fp8
+    blocks of 128), then timed beside its plain version, its bound and a
+    library call: B1's quant mode at the dispatch send and its copy mode at
+    the combine send, B2's fused dequant, B3's gate and down products, B4
+    at top-8; B6 in its shared-pool mode at the serve's shapes and over
+    long contexts. Also the card's busy time of ep_create_handle for one MoE
+    layer (8 ranks) at E 256, K 8. Returns the JSON rows."""
+    dev, dt, d = DEV, cfg.dtype, cfg.d_model
+    p = _index(params["moe_stack"]["moe"], 0)
+    comm = LocalComm(RANKS)
+    T = BATCH // RANKS
+    group = ep_group(cfg, comm, T)
+    L, A, qb = group.local_experts, group.ll_expert_cap, group.cfg.quant_block
+    gen = torch.Generator(device=dev).manual_seed(24)
+    xs = [torch.randn((T, d), generator=gen, device=dev).to(dt) for _ in range(RANKS)]
+    rcfg = router_config(cfg.moe)
+    rs = [route(x.float() @ p["router"], rcfg, p["sel_bias"]) for x in xs]
+    idx, w = [r.topk_idx for r in rs], [r.topk_weights for r in rs]
+    hs = ep_create_handle(group, idx, w)
+    plans = [h.plan for h in hs]
+    pl = plans[0]
+    print(f"DeepSeek-V3 capacities: ll_disp_cap {group.ll_disp_cap}, ll_comb_cap "
+          f"{group.ll_comb_cap}, ll_expert_cap {A}; rank 0's {L} experts hold "
+          f"{int(pl.disp_counts.sum())} rows, counts {pl.disp_counts.tolist()}")
+    union, per, n = stream_busy_us(lambda: ep_create_handle(group, idx, w))
+    print(f"ep_create_handle at E {cfg.moe.num_experts}, K {cfg.moe.top_k}, 8 hosted ranks "
+          f"(one MoE layer): card busy {union / 1e3:.4f} ms per call on {n} streams, "
+          f"{call_ms(lambda: ep_create_handle(group, idx, w), 3, 3):.4f} ms per call "
+          f"from the host")
+    rows = []
+
+    def timed(base, label, err, kernel, plain, bnd, library, shape, n_launch, iters=50,
+              plain_iters=None):
+        ms, plain_ms = device_ms(kernel, iters), device_ms(plain, plain_iters or iters)
+        library_ms = None if library is None else device_ms(library, iters)
+        rows.append(ds_record(base, label, err, ms, plain_ms, bnd, library_ms, n_launch))
+        lib = "" if library_ms is None else f", library {library_ms:.5f} ms"
+        print(f"{base} [DeepSeek-V3 {label}] {shape}: max_abs_err {err:.3g}, kernel {ms:.5f} ms "
+              f"on the card ({call_ms(kernel, iters):.4f} ms per call from the host), plain "
+              f"{plain_ms:.5f} ms{lib}, bound {bnd[0]:.5f} ms ({bnd[1]}); {ms / bnd[0]:.2f}x "
+              f"the bound")
+
+    # ---- B1 quant mode: rank 0's dispatch send
+    g0 = pl.disp_send_gmap
+    q, s = dp_mod.dispatch_pack(xs[0], g0, quant_block=qb)
+    wq, ws = ref.dispatch_pack(xs[0], g0, qb)
+    check(torch.equal(q.view(torch.uint8), wq.view(torch.uint8)) and torch.equal(s, ws),
+          "dispatch_pack (fp8, DeepSeek-V3) differs from its plain version")
+    live = int((g0 < T).sum())
+    timed("dispatch_pack", "fp8 dispatch send", 0.0,
+          lambda: dp_mod.dispatch_pack(xs[0], g0, quant_block=qb),
+          lambda: ref.dispatch_pack(xs[0], g0, qb),
+          bound(nbytes(xs[0], read_rows(g0, T)) + nbytes(q) + nbytes(s) + nbytes(g0),
+                3 * live * d, F32_OPS_S), None, f"[{T}, {d}] -> {list(q.shape)} fp8 + {list(s.shape)} f32",
+          launches[DP_QUANT])
+
+    # ---- B2 fused dequant: rank 0's dispatch recv into [L, A, H]
+    packs = [ref.dispatch_pack(x, pn.disp_send_gmap, qb) for x, pn in zip(xs, plans)]
+    qrecv = comm.all_to_all([a for a, _ in packs])[0].reshape(-1, d)
+    srecv = comm.all_to_all([b for _, b in packs])[0].reshape(qrecv.shape[0], -1)
+    gr = pl.disp_recv_gmap
+    y3d = ru_mod.recv_unpack(qrecv, gr, srecv, out_dtype=dt)
+    check(torch.equal(y3d, ref.recv_unpack(qrecv, gr, srecv, dt)),
+          "recv_unpack (fp8 dequant, DeepSeek-V3) differs from its plain version")
+    live, src = int((gr < qrecv.shape[0]).sum()), read_rows(gr, qrecv.shape[0])
+    timed("recv_unpack", "fp8 dispatch recv, fused dequant", 0.0,
+          lambda: ru_mod.recv_unpack(qrecv, gr, srecv, out_dtype=dt),
+          lambda: ref.recv_unpack(qrecv, gr, srecv, dt),
+          bound(nbytes(qrecv, src) + nbytes(srecv, src) + nbytes(y3d) + nbytes(gr),
+                live * d, F32_OPS_S), None,
+          f"{list(qrecv.shape)} fp8 + {list(srecv.shape)} f32 -> {list(y3d.shape)}",
+          launches["recv_unpack"])
+    del packs
+
+    # ---- B3: rank 0's gate and down products with this routing's counts
+    counts_ = pl.disp_counts
+    w1, w3, w2 = p["w_gate"][:L], p["w_up"][:L], p["w_down"][:L]
+    gate = gemm_case("DeepSeek-V3 gate, nccl_ep counts", y3d, w1, counts_, 10, 3)
+    rows.append(ds_record("grouped_gemm", "decode gate", *gate, launches["grouped_gemm"]))
+    hmid = (F.silu(ref.grouped_gemm(y3d, w1, counts_).float())
+            * ref.grouped_gemm(y3d, w3, counts_).float()).to(dt)
+    down = gemm_case("DeepSeek-V3 down, nccl_ep counts", hmid, w2, counts_, 10, 3)
+    rows.append(ds_record("grouped_gemm", "decode down", *down, launches["grouped_gemm"]))
+    del hmid
+
+    # ---- B1 copy mode at the combine send, then B4 at rank 0's combine recv
+    y3ds = [torch.randn((L, A, d), generator=gen, device=dev).to(dt) for _ in range(RANKS)]
+    yrows, gc0 = y3ds[0].reshape(-1, d), pl.comb_send_gmap
+    got, _ = dp_mod.dispatch_pack(yrows, gc0, out_dtype=dt)
+    check(torch.equal(got, ref.dispatch_pack(yrows, gc0, None, dt)[0]),
+          "dispatch_pack (copy, DeepSeek-V3 combine send) differs from its plain version")
+    live = int((gc0 < yrows.shape[0]).sum())
+    timed("dispatch_pack", "combine send", 0.0,
+          lambda: dp_mod.dispatch_pack(yrows, gc0, out_dtype=dt),
+          lambda: ref.dispatch_pack(yrows, gc0, None, dt),
+          bound(nbytes(yrows, read_rows(gc0, yrows.shape[0])) + nbytes(got) + nbytes(gc0), 0,
+                F32_OPS_S),
+          padded_gather(yrows, gc0), f"{list(yrows.shape)} -> {list(got.shape)}",
+          launches["dispatch_pack"] - launches[DP_QUANT])
+    crecv = comm.all_to_all([ref.dispatch_pack(y.reshape(-1, d), pn.comb_send_gmap, None, dt)[0]
+                             for y, pn in zip(y3ds, plans)])[0].reshape(-1, d)
+    del y3ds, yrows, got
+    crows, cw = pl.comb_recv_rows, hs[0].topk_weights
+    got = cg_mod.combine_gather_reduce(crecv, crows, cw)
+    want = ref.combine_gather_reduce(crecv, crows, cw)
+    check(torch.allclose(got.float(), want.float(), rtol=TOL, atol=TOL),
+          "combine_gather_reduce (DeepSeek-V3 top-8) differs from its plain version beyond 2e-2")
+    check(torch.equal(cg_mod.combine_gather_reduce(crecv, crows, cw), got),
+          "combine_gather_reduce (DeepSeek-V3): two calls differ")
+    valid = int((crows < crecv.shape[0]).sum())
+    library = None
+    if valid == crows.numel():
+        cidx, wb = crows.long(), cw.to(dt)
+
+        def library():
+            return F.embedding_bag(cidx, crecv, per_sample_weights=wb, mode="sum")
+    timed("combine_gather_reduce", "top-8 combine recv", max_err(got, want),
+          lambda: cg_mod.combine_gather_reduce(crecv, crows, cw),
+          lambda: ref.combine_gather_reduce(crecv, crows, cw),
+          bound(nbytes(crecv, read_rows(crows, crecv.shape[0])) + nbytes(crows) + nbytes(cw)
+                + nbytes(got), 2 * valid * d, F32_OPS_S), library,
+          f"{list(crecv.shape)} rows {list(crows.shape)}", launches["combine_gather_reduce"])
+    del crecv, got, want, y3d
+    torch.cuda.empty_cache()
+
+    # ---- B6, shared-pool mode: q [B, 128, 576] over pools of [ckv | k_rope]
+    m = cfg.mla
+    Hq, dk, dv = cfg.padded_heads(), m.kv_lora_rank + m.qk_rope_dim, m.kv_lora_rank
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    mp, num_pages = table
+    rng = np.random.default_rng(25)
+    lens = rng.integers(1, mp * PAGE + 1, BATCH)
+    lens[:8] = 0
+    lens[8:8 + mp] = np.arange(1, mp + 1) * PAGE
+    cases = [("serve shapes", mp, lens, num_pages, 50, 10)]
+    lens = rng.integers(1, DS_KV_PAGES * PAGE + 1, BATCH)
+    lens[:3] = 0
+    lens[3] = DS_KV_PAGES * PAGE
+    cases.append(("long contexts", DS_KV_PAGES, lens, None, 10, 2))
+    for label, width, lens, pages, iters, plain_iters in cases:
+        q, kp, _, tbl, lt, unused = paged_case(rng, BATCH, Hq, 1, dk, dv, width, lens, True,
+                                               num_pages=pages)
+        kw = dict(scale=scale, num_kv_splits=_decode_splits(cfg, width), dv=dv)
+        out, err, plain = check_paged(
+            f"DeepSeek-V3 share_kv, {label} (q [{BATCH}, {Hq}, {dk}], pool "
+            f"{list(kp.shape)} bf16, table [{BATCH}, {width}], dv {dv}, kv_lens "
+            f"{lens.min()} to {lens.max()})", q, kp, None, tbl, lt, unused, 16, **kw)
+        # one [ckv | k_rope] row read per live token (the values are its
+        # leading dv columns); q, lengths, table entries and the output once
+        nb = (int(lens.sum()) * dk * kp.element_size() + nbytes(q) + nbytes(lt)
+              + int((-(-lens // PAGE)).sum()) * 4 + nbytes(out))
+        bnd = bound(nb, 2 * int(lens.sum()) * Hq * (dk + dv), BF16_OPS_S)
+        timed(PAGED, f"share_kv, {label}", err,
+              lambda: da_mod.paged_decode_attention(q, kp, None, tbl, lt, **kw), plain, bnd,
+              None, f"{nb / 1e6:.3f} MB, {int(lens.sum())} live tokens", paged_launches[PAGED],
+              iters, plain_iters)
+        del q, kp, tbl, lt, unused, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def deepseek_phase(card: str) -> list:
+    """DeepSeek-V3 at full width, cut to DS_LAYERS layers, on the card alone
+    (DBRX's weights are freed first), one server alive at a time: the
+    fixed-batch main path captured and eager, the continuous main path
+    captured and eager, every request again alone, paged against dense, the
+    MoE layers against the dense fallback, and the kernels at DeepSeek's
+    shapes. Prints the peak device memory of the phase. Returns the kernels
+    JSON rows."""
+    full, cfg = ds_config()
+    m = cfg.moe
+    print(f"DeepSeek-V3 at full width: d_model {cfg.d_model}, MLA {cfg.attn.n_heads} heads "
+          f"(q_lora {cfg.mla.q_lora_rank}, kv_lora {cfg.mla.kv_lora_rank}, nope "
+          f"{cfg.mla.qk_nope_dim}, rope {cfg.mla.qk_rope_dim}, v {cfg.mla.v_head_dim}), d_ff "
+          f"{cfg.d_ff}, {m.num_experts} experts top-{m.top_k} (d_ff_expert {m.d_ff_expert}) + "
+          f"{m.shared_experts} shared, sigmoid, {m.n_groups} groups top-{m.topk_groups}, "
+          f"selection bias, routed scaling {m.routed_scaling}; LL {m.ll_layout}, fp8 dispatch, "
+          f"expert capacity factor {m.expert_capacity_factor}; vocab {cfg.vocab}, {cfg.dtype}; "
+          f"num_layers cut from {full.num_layers} to {DS_LAYERS} ({m.first_k_dense} dense, "
+          f"{moe_layers(cfg)} MoE) for memory; {RANKS} EP ranks on one card")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, DEV)
+    torch.cuda.synchronize()
+    print(f"DeepSeek-V3 init: random weights on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{sum(t.nbytes for t in leaves(params)) / 2**30:.2f} GiB")
+    fixed = fixed_serve_phase(cfg, params, card, ("nccl_ep",), 1, keep=False)
+    _, claunches, reqs, _, want, table = continuous_phase(cfg, params, card, DS_REQUESTS,
+                                                          DS_SEED, 1, keep=False)
+    solo_phase(cfg, params, reqs, want)
+    paged_vs_dense_phase(cfg, params)
+    oracle_phase(cfg, params)
+    rows = ds_kernel_phase(cfg, params, fixed["nccl_ep"]["launches"], claunches, table)
+    check(all(r["launches"] for r in rows), "a DeepSeek-V3 kernel was not launched on its "
+          f"main path: {[(r['name'], r['launches']) for r in rows]}")
+    print(f"DeepSeek-V3 phase: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB (of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -2054,7 +2455,7 @@ def main() -> int:
     # the main paths run first, before any profiling touches the card
     fixed = fixed_serve_phase(cfg, params, card)
     pipelined_phase(cfg, params, card, fixed["nccl_ep"]["tokens"])
-    csrv, claunches, reqs, citl = continuous_phase(cfg, params, card)
+    csrv, claunches, reqs, citl, want, _ = continuous_phase(cfg, params, card)
     decode_loop_phase(cfg, params, card)
     replay_trace_phase(fixed, csrv, citl)
     # release every captured graph and its pool, and the fixed-batch servers,
@@ -2087,7 +2488,7 @@ def main() -> int:
     layout_oracle_phase(cfg, params)
     ht_oracle_phase(pcfg, params)
     hier_oracle_phase(pcfg, params)
-    solo_phase(cfg, params, csrv, reqs)
+    solo_phase(cfg, params, mid_stream(csrv, reqs, 2), want)
     paged_vs_dense_phase(cfg, params)
     for name, n in fixed["nccl_ep"]["launches"].items():
         if name in records:
@@ -2099,8 +2500,15 @@ def main() -> int:
     check(sorted(records) == sorted(KERNELS)
           and all(r["launches"] is not None for r in records.values()),
           f"kernel records {sorted(records)}")
+    # DeepSeek-V3 runs alone on the card: every DBRX tensor goes first
+    del params, csrv, fixed, reqs, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"DBRX released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    ds_rows = deepseek_phase(card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": list(records.values())}))
+    print(json.dumps({"kernels": list(records.values()) + ds_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,1 +1,1 @@
-"""Model configurations ported so far (DBRX-132B)."""
+"""Model configurations ported so far (DBRX-132B, DeepSeek-V3-671B)."""

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0   # kernel launches by this wrapper (chip_smoke reads it)
+launches = 0        # kernel launches by this wrapper (chip_smoke reads it)
+quant_launches = 0  # of them, those in quant mode
 
 _IN = (torch.float32, torch.bfloat16, torch.float16)
 _OUT = _IN + (torch.float8_e4m3fn,)
@@ -31,7 +32,7 @@ def dispatch_pack(x: torch.Tensor, gmap: torch.Tensor, *,
     """x: [T, H] CUDA; gmap: [N, C] int32 with sentinel T. Same contract as
     ``ref.dispatch_pack``: (packed [N, C, H], None) or, quantizing,
     (fp8 [N, C, H], f32 scales [N, C, H/quant_block])."""
-    global launches
+    global launches, quant_launches
     name = "dispatch_pack"
     _build.check_cuda(name, x, gmap)
     if x.dim() != 2 or gmap.dim() != 2 or gmap.dtype != torch.int32:
@@ -52,6 +53,7 @@ def dispatch_pack(x: torch.Tensor, gmap: torch.Tensor, *,
         _build.launch("ep_dispatch_pack_quant", x.data_ptr(), gmap.data_ptr(),
                       q.data_ptr(), s.data_ptr(), N * C, T, H, quant_block, xdt)
         launches += 1
+        quant_launches += 1
         return q, s
     odt_t = x.dtype if out_dtype is None else out_dtype
     odt = _build.dtype_code(name, odt_t, _OUT)

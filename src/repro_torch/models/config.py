@@ -36,6 +36,15 @@ class AttnSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLASpec:
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_dim: int
+    qk_rope_dim: int
+    v_head_dim: int
+
+
+@dataclasses.dataclass(frozen=True)
 class MoESpec:
     num_experts: int
     top_k: int
@@ -73,7 +82,7 @@ class ArchConfig:
     d_ff: int
     vocab: int
     attn: AttnSpec | None = None
-    mla: object | None = None
+    mla: MLASpec | None = None
     moe: MoESpec | None = None
     ssm: object | None = None
     local_global: tuple[int, int] | None = None

@@ -1,5 +1,6 @@
 """Paged KV cache: page-table-indexed pools and the host-side free-list
-allocator (port of ``src/repro/models/kv_pages.py``, GQA pools only).
+allocator (port of ``src/repro/models/kv_pages.py``): GQA pools {"k", "v"}
+and the absorbed-MLA pool {"kv"}.
 
     pool      [num_pages + 1, page_size, Hkv, d]   (device, per layer)
     page_tbl  [B, max_pages] int32                  (host-built, per step)
@@ -84,6 +85,16 @@ def paged_kv_pool_spec(cfg: ArchConfig, num_pages: int, page_size: int):
     arr = ParamSpec((num_pages + 1, page_size, a.n_kv, a.head_dim), cfg.dtype,
                     init="zeros")
     return {"k": arr, "v": arr}
+
+
+def paged_mla_pool_spec(cfg: ArchConfig, num_pages: int, page_size: int):
+    """Absorbed-MLA per-layer pool: {"kv"} [num_pages+1, page, 1,
+    r_kv+rope] holding [ckv | k_rope], zeros: one shared pool whose leading
+    r_kv columns are the values."""
+    m = cfg.mla
+    width = m.kv_lora_rank + m.qk_rope_dim
+    return {"kv": ParamSpec((num_pages + 1, page_size, 1, width), cfg.dtype,
+                            init="zeros")}
 
 
 def write_token(pool: torch.Tensor, new: torch.Tensor, page_tbl: torch.Tensor,

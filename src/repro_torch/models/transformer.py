@@ -1,5 +1,8 @@
 """Decoder LM, family ``lm`` (port of the training/prefill forward and the
-dense and paged decode paths of ``src/repro/models/transformer.py``).
+dense and paged decode paths of ``src/repro/models/transformer.py``): GQA or
+MLA attention, dense or MoE FFNs, an optional dense prefix
+(``MoESpec.first_k_dense``) and DeepSeek-V3's depth-1 multi-token
+prediction (MTP) term in the forward.
 
 Parameters keep the JAX layout: per-layer trees stacked along a leading
 [n_layers] axis in ``dense_stack`` and ``moe_stack``. The layer stack is a
@@ -8,10 +11,13 @@ port's forward has no backward yet, so it keeps nothing to recompute).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.models import attention as ATT
 from repro_torch.models import kv_pages as KVP
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import ArchConfig, ParamSpec
 from repro_torch.models.layers import (cross_entropy, embed_lookup, embed_spec,
@@ -30,17 +36,22 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.family != "lm":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   "(ROADMAP A12)")
-    if cfg.attn is None or cfg.attn.kind != "gqa" or cfg.mtp:
-        raise NotImplementedError("only GQA attention without MTP is ported "
-                                  "(MLA and MTP: ROADMAP A8)")
+    if cfg.attn is None:
+        raise NotImplementedError("an lm without attention is not ported")
+    if _is_mla(cfg) and cfg.mla is None:
+        raise ValueError("attention kind 'mla' needs ArchConfig.mla")
     if cfg.moe is not None:
         MOE.check_supported(cfg.moe)
+
+
+def _is_mla(cfg: ArchConfig) -> bool:
+    return cfg.attn is not None and cfg.attn.kind == "mla"
 
 
 def layer_spec(cfg: ArchConfig, *, moe_layer: bool):
     sp = dict(ln1=rmsnorm_spec(cfg.d_model, cfg.dtype),
               ln2=rmsnorm_spec(cfg.d_model, cfg.dtype),
-              attn=ATT.attn_spec(cfg))
+              attn=MLA.mla_spec(cfg) if _is_mla(cfg) else ATT.attn_spec(cfg))
     if moe_layer:
         sp["moe"] = MOE.moe_spec(cfg)
     else:
@@ -65,31 +76,49 @@ def lm_spec(cfg: ArchConfig):
         sp["moe_stack"] = _stack(layer_spec(cfg, moe_layer=True), n_moe)
     if not cfg.tie_embeddings:
         sp["lm_head"] = embed_spec(cfg.padded_vocab(), cfg.d_model, cfg.dtype)
+    if cfg.mtp:         # DeepSeek-V3 multi-token prediction: one depth-1 layer
+        sp["mtp_layer"] = layer_spec(cfg, moe_layer=bool(cfg.moe))
+        sp["mtp_proj"] = ParamSpec((2 * cfg.d_model, cfg.d_model), cfg.dtype)
+        sp["mtp_ln"] = rmsnorm_spec(cfg.d_model, cfg.dtype)
     return sp
 
 
 def lm_decode_state_spec(cfg: ArchConfig, batch: int, max_len: int):
-    """{stack: (k/v shape [n, B, S_max, n_kv, hd], dtype)} per layer stack."""
-    shape = ATT.kv_cache_shape(cfg, batch, max_len)
-    return {name: ((n,) + shape, cfg.dtype)
+    """{stack: {array: ParamSpec}} per layer stack: {"k", "v"} [n, B,
+    S_max, n_kv, hd] for GQA, {"ckv", "krope"} [n, B, S_max, r_kv / rope]
+    for MLA."""
+    if _is_mla(cfg):
+        one = MLA.mla_cache_spec(cfg, batch, max_len)
+    else:
+        shape = ATT.kv_cache_shape(cfg, batch, max_len)
+        one = {kv: ParamSpec(shape, cfg.dtype, init="zeros") for kv in ("k", "v")}
+    return {name: _stack(one, n)
             for name, n in zip(("dense", "moe"), _stack_sizes(cfg)) if n}
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device: torch.device):
-    """Zeroed stacked KV caches, one KVCache per layer stack, each with its
-    filled length as a 0-dim int32 tensor on ``device``."""
-    return {name: ATT.KVCache(k=torch.zeros(shape, dtype=dt, device=device),
-                              v=torch.zeros(shape, dtype=dt, device=device),
-                              length=torch.zeros((), dtype=torch.int32,
-                                                 device=device))
-            for name, (shape, dt) in lm_decode_state_spec(cfg, batch, max_len).items()}
+    """Zeroed stacked caches, one per layer stack (a KVCache, or an
+    MLACache for MLA), each with its filled length as a 0-dim int32 tensor
+    on ``device``."""
+    cache = MLA.MLACache if _is_mla(cfg) else ATT.KVCache
+    return {name: cache(**{k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                           for k, s in arrays.items()},
+                        length=torch.zeros((), dtype=torch.int32, device=device))
+            for name, arrays in lm_decode_state_spec(cfg, batch, max_len).items()}
 
 
 def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _layer_cache(stacked, i: int):
+    """Layer i's view of a stacked KVCache or MLACache, sharing its length."""
+    return type(stacked)(**{f.name: getattr(stacked, f.name)[i]
+                            for f in dataclasses.fields(stacked) if f.name != "length"},
+                         length=stacked.length)
 
 
 def _ffn_half(p, x, cfg: ArchConfig, comm):
@@ -106,7 +135,10 @@ def layer_apply(p, x, cfg: ArchConfig, comm, *, cache=None):
     """One decoder layer -> (x, new_cache, aux); without a cache it attends
     over x itself and new_cache is None."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a, new_cache = ATT.attention(p["attn"], h, cfg, cache=cache)
+    if _is_mla(cfg):
+        a, new_cache = MLA.mla_attention(p["attn"], h, cfg, cache=cache)
+    else:
+        a, new_cache = ATT.attention(p["attn"], h, cfg, cache=cache)
     x, aux = _ffn_half(p, x + a, cfg, comm)
     return x, new_cache, aux
 
@@ -116,8 +148,9 @@ def paged_layer_apply(p, x, cfg: ArchConfig, comm, pool, page_tbl, kv_lens,
     """layer_apply's paged twin: attention against the paged KV pool, the
     FFN/MoE half the same -> (x, pool, aux)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a, pool = ATT.paged_attention(p["attn"], h, cfg, pool, page_tbl, kv_lens,
-                                  active, num_kv_splits=num_kv_splits)
+    attend = MLA.paged_mla_attention if _is_mla(cfg) else ATT.paged_attention
+    a, pool = attend(p["attn"], h, cfg, pool, page_tbl, kv_lens, active,
+                     num_kv_splits=num_kv_splits)
     x, aux = _ffn_half(p, x + a, cfg, comm)
     return x, pool, aux
 
@@ -136,7 +169,9 @@ def lm_forward(params, batch, cfg: ArchConfig, comm):
     """Training/prefill forward. batch: {tokens [B, S], optional targets
     [B, S] (default: tokens shifted left, wrapping), optional loss_mask
     [B, S]}. Returns (loss, {"aux": aux}): the mean next-token cross-entropy
-    plus the MoE layers' router aux and z losses."""
+    plus the MoE layers' router aux and z losses, and with ``cfg.mtp`` 0.3
+    times the MTP layer's cross-entropy against the token after next (that
+    layer's aux added to the aux)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens)
@@ -145,11 +180,22 @@ def lm_forward(params, batch, cfg: ArchConfig, comm):
         if f"{name}_stack" in params:
             x, a = _stack_apply(x, params[f"{name}_stack"], cfg, comm)
             aux = aux + a
-    logits = _head(params, x, cfg)
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    head = _head_table(params, cfg)
     targets = batch.get("targets")
     if targets is None:
         targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
-    loss = cross_entropy(logits, targets, batch.get("loss_mask"))
+    mask = batch.get("loss_mask")
+    loss = cross_entropy(logits_out(x, head), targets, mask)
+    if cfg.mtp:
+        # depth-1 MTP: predict t+2 from [h_t ; emb(t+1)]
+        nxt = embed_lookup(params["embed"], targets)
+        h2 = torch.cat([x, nxt], dim=-1) @ params["mtp_proj"]
+        h2 = rmsnorm(h2, params["mtp_ln"], cfg.norm_eps)
+        h2, _, a2 = layer_apply(params["mtp_layer"], h2, cfg, comm)
+        aux = aux + a2
+        t2 = torch.cat([targets[:, 1:], targets[:, :1]], dim=1)
+        loss = loss + 0.3 * cross_entropy(logits_out(h2, head), t2, mask)
     return loss + aux, dict(aux=aux)
 
 
@@ -165,35 +211,39 @@ def lm_decode_step(params, state, batch, cfg: ArchConfig, comm):
         if name not in state:
             continue
         st, stack = state[name], params[f"{name}_stack"]
-        for i in range(st.k.shape[0]):
-            c = ATT.KVCache(k=st.k[i], v=st.v[i], length=st.length)
-            x, c, _ = layer_apply(_index(stack, i), x, cfg, comm, cache=c)
+        for i in range(stack["ln1"].shape[0]):
+            x, c, _ = layer_apply(_index(stack, i), x, cfg, comm,
+                                  cache=_layer_cache(st, i))
         new_lens[name] = c.length
     for name, n in new_lens.items():
         state[name].length.copy_(n)
     return _head(params, x, cfg), state
 
 
+def _head_table(params, cfg: ArchConfig) -> torch.Tensor:
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+
 def _head(params, x, cfg: ArchConfig):
-    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return logits_out(x, head)
+    return logits_out(rmsnorm(x, params["ln_f"], cfg.norm_eps), _head_table(params, cfg))
 
 
 def lm_paged_decode_state_spec(cfg: ArchConfig, num_pages: int, page_size: int):
-    """Paged twin of lm_decode_state_spec: {stack: {"k", "v"}: (shape [n,
-    P+1, page, n_kv, hd], dtype)}. The page table, lengths and active mask
-    are not device state: the scheduler builds them on the host each step."""
-    pool = KVP.paged_kv_pool_spec(cfg, num_pages, page_size)
-    return {name: {kv: ((n,) + sp.shape, sp.dtype) for kv, sp in pool.items()}
+    """Paged twin of lm_decode_state_spec: {stack: {pool: ParamSpec}}, {"k",
+    "v"} [n, P+1, page, n_kv, hd] for GQA, {"kv"} [n, P+1, page, 1,
+    r_kv+rope] for MLA. The page table, lengths and active mask are not
+    device state: the scheduler builds them on the host each step."""
+    mk = KVP.paged_mla_pool_spec if _is_mla(cfg) else KVP.paged_kv_pool_spec
+    pool = mk(cfg, num_pages, page_size)
+    return {name: _stack(pool, n)
             for name, n in zip(("dense", "moe"), _stack_sizes(cfg)) if n}
 
 
 def init_paged_decode_state(cfg: ArchConfig, num_pages: int, page_size: int,
                             device: torch.device):
-    """Zeroed stacked page pools on ``device``, one {"k", "v"} per stack."""
-    return {name: {kv: torch.zeros(shape, dtype=dt, device=device)
-                   for kv, (shape, dt) in pools.items()}
+    """Zeroed stacked page pools on ``device``, one dict of pools per stack."""
+    return {name: {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                   for k, s in pools.items()}
             for name, pools in lm_paged_decode_state_spec(cfg, num_pages,
                                                           page_size).items()}
 
@@ -220,8 +270,8 @@ def lm_paged_decode_step(params, state, batch, cfg: ArchConfig, comm):
         if name not in state:
             continue
         pools, stack = state[name], params[f"{name}_stack"]
-        for i in range(pools["k"].shape[0]):
-            pool = {"k": pools["k"][i], "v": pools["v"][i]}
-            x, _, _ = paged_layer_apply(_index(stack, i), x, cfg, comm, pool,
-                                        tbl, lens, act, num_kv_splits=splits)
+        for i in range(stack["ln1"].shape[0]):
+            x, _, _ = paged_layer_apply(_index(stack, i), x, cfg, comm,
+                                        _index(pools, i), tbl, lens, act,
+                                        num_kv_splits=splits)
     return _head(params, x, cfg), state

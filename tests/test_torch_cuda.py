@@ -831,3 +831,113 @@ def test_cuda_hierarchical_ht_chunks_bitwise(hopper, fp8):
     _, oc = run(1, torch.device("cpu"))
     for a, b in zip(o1, oc):
         torch.testing.assert_close(a.cpu().float(), b.float(), **tol(torch.bfloat16))
+
+
+# --------------------------------------------------------------------------
+# DeepSeek-V3: the absorbed-MLA shared pool, fp8 at its width, its servers
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 4])
+def test_cuda_paged_decode_attention_deepseek_share_kv(hopper, splits):
+    """B6 in its shared-pool mode at DeepSeek-V3's absorbed-MLA widths (128
+    query heads on one pool of [ckv (512) | k_rope (64)] rows, dv 512), bf16
+    pool, rows up to 1040 tokens so that 4 splits cut them: within 1e-4 of
+    the plain version, idle rows exactly 0, bitwise unchanged under new
+    garbage in the unreferenced pages."""
+    B, Hq, dk, dv, page, max_pages = 6, 128, 576, 512, 16, 68
+    lens = torch.tensor([1, 1040, 0, 513, 16, 777], dtype=torch.int32)
+    P = B * max_pages
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(70))
+    tbl = torch.full((B, max_pages), P, dtype=torch.int32)
+    used = []
+    for b in range(B):
+        n = -(-int(lens[b]) // page)
+        tbl[b, :n] = perm[b * max_pages:b * max_pages + n].int()
+        used += tbl[b, :n].tolist()
+    kp = _rand((P + 1, page, 1, dk), torch.bfloat16, hopper, 1.0, 71)
+    q = _rand((B, Hq, dk), torch.bfloat16, hopper, 1.0, 72)
+    tbl, lens = tbl.to(hopper), lens.to(hopper)
+    kw = dict(scale=192 ** -0.5, num_kv_splits=splits, dv=dv)
+    got = da.paged_decode_attention(q, kp, None, tbl, lens, **kw)
+    want = ref.paged_decode_attention(q, kp, None, tbl, lens, **kw)
+    assert got.shape == (B, Hq, dv)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert not got[2].any()
+    free = torch.ones(P + 1, dtype=torch.bool)
+    free[used] = False
+    free = free.to(hopper)
+    kp[free] = _rand(kp[free].shape, torch.bfloat16, hopper, 50.0, 73)
+    assert torch.equal(da.paged_decode_attention(q, kp, None, tbl, lens, **kw), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_cuda_fp8_dispatch_and_recv_bitwise_deepseek_width(hopper, dt):
+    """B1's quant mode and B2's fused dequant at H 7168 (56 blocks of 128),
+    DeepSeek-V3's decode shapes: 16 tokens into [8, 16] slots with
+    sentinels, an all-zero block; then the received rows into [32, 128]
+    expert slots. Bitwise equal to the plain versions."""
+    T, H, N, C = 16, 7168, 8, 16
+    x = _rand((T, H), dt, hopper, 30.0, 74)
+    x[3, 128:256] = 0.0
+    gmap = torch.randint(0, T + 1, (N, C), device=hopper, dtype=torch.int32,
+                         generator=torch.Generator(device=hopper).manual_seed(75))
+    q, s = dp.dispatch_pack(x, gmap, quant_block=128)
+    wq, ws = ref.dispatch_pack(x, gmap, 128)
+    assert q.shape == (N, C, H) and s.shape == (N, C, 56)
+    assert torch.equal(q.view(torch.uint8), wq.view(torch.uint8)) and torch.equal(s, ws)
+    rows = N * C
+    rmap = _mostly_sentinel_map((32, 128), rows, 0.03, 76).to(hopper)
+    got = ru.recv_unpack(q.view(rows, H), rmap, s.view(rows, 56), out_dtype=torch.bfloat16)
+    want = ref.recv_unpack(q.view(rows, H), rmap, s.view(rows, 56), torch.bfloat16)
+    assert got.shape == (32, 128, H) and torch.equal(got, want)
+    assert not got[rmap == rows].any()
+    torch.cuda.synchronize()
+
+
+def _deepseek_serve_cfg():
+    """The DeepSeek-V3 smoke config at d_model 128 (fp8 blocks of 128) in
+    the decode preset's layout: LL nccl_ep, fp8 dispatch."""
+    from repro_torch.configs.deepseek_v3_671b import smoke_config as ds_smoke
+    cfg = dataclasses.replace(ds_smoke(), d_model=128)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, ep_mode="ll", ll_layout="nccl_ep", quantize_dispatch=True,
+        expert_capacity_factor=2.0))
+
+
+@pytest.mark.gpu
+def test_cuda_deepseek_captured_servers_match_eager(hopper):
+    """A DeepSeek-V3 smoke server (MLA, sigmoid group-limited routing, a
+    shared expert, fp8 nccl_ep) captured against eager: the fixed-batch
+    tokens bitwise equal, and every request of the continuous server over
+    the MLA page pool (B6 in its shared-pool mode)."""
+    cfg = _deepseek_serve_cfg()
+    params = init_params(cfg, seed=0, device=hopper)
+    prompts = torch.randint(0, cfg.vocab, (16, 4), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(77))
+    rng = np.random.default_rng(78)
+    spec = [(rng.integers(0, cfg.vocab, int(rng.integers(1, 6))), int(rng.integers(2, 6)),
+             int(rng.integers(0, 4))) for _ in range(12)]
+    toks, streams = {}, {}
+    for mode in ("captured", "eager"):
+        srv = DecodeServer(cfg, 16, 16, ep_size=8, params=params, device=hopper)
+        csrv = ContinuousDecodeServer(cfg, 8, 16, ep_size=8, params=params, device=hopper,
+                                      page_size=4)
+        if mode == "eager":
+            srv._serve_step = srv._step_factory()
+            csrv._serve_step = csrv._step_factory()
+        toks[mode], _ = srv.decode(srv.prefill(prompts)[0], 6)
+        m = csrv.serve_requests([Request(i, p, n, arrival_step=a)
+                                 for i, (p, n, a) in enumerate(spec)])
+        assert m.requests_completed == len(spec)
+        streams[mode] = [csrv.reqsched.tokens_for(i) for i in range(len(spec))]
+        if mode == "captured":
+            assert srv._serve_step.graph is not None and csrv._serve_step.graph is not None
+            assert int(srv.state["moe"].length) == 4 + 6
+        srv.close()
+        csrv.close()
+    assert np.array_equal(toks["captured"], toks["eager"])
+    for a, b in zip(streams["captured"], streams["eager"]):
+        assert np.array_equal(a, b)

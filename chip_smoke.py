@@ -132,7 +132,10 @@
    layer against the dense fallback within 2e-2; B1, B2, B3, B4 and B6 at
    DeepSeek's shapes against their plain versions (gathers and fp8
    bitwise, B3 and B4 as above, B6 within 1e-4 at the serve's lengths and
-   up to 32768 tokens) and timed; ``ep_create_handle``'s card time for one
+   up to 32768 tokens) and timed, B6 beside ``scaled_dot_product_attention``
+   over the pool rows gathered dense (the backend it took printed) and
+   with the kernel each timed call ran, which must be the shared-pool
+   tensor-core path; ``ep_create_handle``'s card time for one
    MoE layer at E 256, K 8; the phase's peak device memory. Its rows join
    the kernels JSON.
 
@@ -466,6 +469,39 @@ def device_ms(fn, iters: int) -> float:
           f"events over {iters} calls queued behind a spin kernel"
           f"{'' if held else ', the card idle before the host had queued them all'})")
     return ms
+
+
+def short_name(name: str) -> str:
+    """A profiler kernel name without namespaces, template or argument lists."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(")[0].split("<")[0].split("::")[-1]
+
+
+def kernel_names(fn) -> list[str]:
+    """The distinct names (without their argument lists) of the kernels one
+    call of ``fn`` ran on the card, from a profiler session behind
+    LEAD_SPINS spins; a session that saw none is run again, twice at most."""
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_SPINS):
+                torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({short_name(n) for _, _, n in device_intervals(prof)
+                        if "spin_kernel" not in n})
+        if names:
+            return names
+    return []
+
+
+def sdpa_backend(names: list[str]) -> str:
+    """The backend of scaled_dot_product_attention that ran these kernels."""
+    joined = " ".join(names).lower()
+    for key, backend in (("flash", "flash"), ("cudnn", "cuDNN"), ("fmha", "memory-efficient"),
+                         ("efficient", "memory-efficient")):
+        if key in joined:
+            return backend
+    return "math"
 
 
 def bound(nbytes: int, ops: int, ops_rate: float) -> tuple[float, str]:
@@ -2177,8 +2213,9 @@ def trace_continuous(csrv: ContinuousDecodeServer, itl: float) -> None:
     paged = [e - s for s, e, n in iv if "paged_" in n]
     check(len(paged) == cfg.num_layers, f"{len(paged)} paged attention kernels in the "
           f"replayed continuous step, expected {cfg.num_layers}")
+    ran = sorted({short_name(n) for _, _, n in iv if "paged_" in n})
     print(f"  paged attention: {sum(paged) / 1e3:.3f} ms, {sum(paged) / busy_us(iv):.4f} "
-          f"of the busy time")
+          f"of the busy time; kernels {ran}")
 
 
 def replay_trace_phase(fixed: dict, csrv: ContinuousDecodeServer, citl: tuple) -> None:
@@ -2379,10 +2416,37 @@ def ds_kernel_phase(cfg, params, launches: dict, paged_launches: dict, table: tu
         nb = (int(lens.sum()) * dk * kp.element_size() + nbytes(q) + nbytes(lt)
               + int((-(-lens // PAGE)).sum()) * 4 + nbytes(out))
         bnd = bound(nb, 2 * int(lens.sum()) * Hq * (dk + dv), BF16_OPS_S)
-        timed(PAGED, f"share_kv, {label}", err,
-              lambda: da_mod.paged_decode_attention(q, kp, None, tbl, lt, **kw), plain, bnd,
-              None, f"{nb / 1e6:.3f} MB, {int(lens.sum())} live tokens", paged_launches[PAGED],
+
+        def kernel():
+            return da_mod.paged_decode_attention(q, kp, None, tbl, lt, **kw)
+        timed(PAGED, f"share_kv, {label}", err, kernel, plain, bnd, None,
+              f"{nb / 1e6:.3f} MB, {int(lens.sum())} live tokens", paged_launches[PAGED],
               iters, plain_iters)
+        ran = kernel_names(kernel)
+        print(f"  {PAGED} [DeepSeek-V3 share_kv, {label}] ran {ran}")
+        check("paged_mla_kernel" in ran, f"B6 share_kv at DeepSeek-V3's widths ({label}) "
+              f"did not take the shared-pool tensor-core path: {ran}")
+        # yardstick only (the port never calls it): SDPA over the pool rows
+        # gathered dense (padded to the table's width, gather excluded), the
+        # 128 heads as the query rows of the one kv head, V the rows' first
+        # dv columns, in chunks of 16 requests
+        L, sdpa_ms, backends = width * PAGE, 0.0, set()
+        for i in range(0, BATCH, 16):
+            c = slice(i, i + 16)
+            kd = kp[tbl[c].long()].reshape(16, 1, L, dk)
+            vd = kd[..., :dv].contiguous()
+            mask = (torch.arange(L, device=DEV)[None, :] < lt[c][:, None])[:, None, None, :]
+            qd = q[c][:, None]
+
+            def library():
+                return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, scale=scale)
+            sdpa_ms += device_ms(library, plain_iters)
+            backends.add(sdpa_backend(kernel_names(library)))
+            del kd, vd
+        print(f"  {PAGED} [DeepSeek-V3 share_kv, {label}]: yardstick "
+              f"scaled_dot_product_attention ({', '.join(sorted(backends))} backend) over the "
+              f"pool rows gathered dense to {L} tokens, gather excluded, {sdpa_ms:.5f} ms; "
+              f"kernel {rows[-1]['ms'] / sdpa_ms:.3f}x it")
         del q, kp, tbl, lt, unused, out
         torch.cuda.empty_cache()
     return rows

@@ -49,7 +49,6 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 
 struct Geometry {
   int Sq, Sk, G, Hq;
@@ -119,12 +118,6 @@ __device__ __forceinline__ bool kv_masked(const Geometry& g, int q0, int j) {
   const int q_last = min(q0 + BQ, g.Sq) - 1, k0 = j * BKV, k_last = k0 + BKV - 1;
   return k_last >= g.Sk || (g.causal && k_last > q0) ||
          (g.window > 0 && q_last - k0 >= g.window);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ int stage_of(int it) { return it % STAGES; }

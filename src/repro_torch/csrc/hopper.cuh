@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (grouped_gemm.cu, flash_attention.cu): mbarriers, TMA loads and stores,
+// (grouped_gemm.cu, flash_attention.cu, paged_decode_attention.cu): mbarriers, TMA loads and stores,
 // wgmma shared-memory descriptors and products, the fences and waits around
 // them, named barriers, and the host-side tensor-map encoder.
 #pragma once
@@ -143,9 +143,40 @@ __device__ __forceinline__ void fence_regs(uint32_t* r) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the SFU (flushes subnormals; 2^0 is exactly 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One m64n64k16 product, bf16 in, f32 accumulate, A and B read through
+// shared-memory descriptors; A K-major, B K-major (TB = 0) or MN-major
+// (TB = 1, wgmma's transpose-B). scale_d = 0 ignores what d holds.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
 // One m64n128k16 product, bf16 in, f32 accumulate, A and B read through

@@ -34,11 +34,14 @@
 //   holds P to about 2^-17 of itself, where bf16 P alone would cost about
 //   4e-4 on the output). Each of its four warps runs its own online softmax
 //   over 16 tokens of every 64-token tile; the warps' (m, l, O) are merged in
-//   warp order at the end. Every other case (f32 or f16 pools, other widths,
-//   more heads, the shared pool) runs on CUDA cores in f32: tiles of 32
-//   tokens, scores with lane = token over every 4th group of 8 key columns
-//   per warp, P.V with a thread on 4 value columns of every head. f32 pools
-//   never go through TF32.
+//   warp order at the end. The shared pool of absorbed MLA at DeepSeek-V3's
+//   widths (bf16, Hkv 1, 128 heads, dk 576, dv 512) has a path of its own on
+//   wgmma (paged_mla_kernel below: 64 heads a block, TMA page loads, a
+//   producer warpgroup and two consumer warpgroups). Every other case (f32 or
+//   f16 pools, other widths, more heads, the shared pool at other widths)
+//   runs on CUDA cores in f32: tiles of 32 tokens, scores with lane = token
+//   over every 4th group of 8 key columns per warp, P.V with a thread on 4
+//   value columns of every head. f32 pools never go through TF32.
 // - A partition that fits the work. How a request's live tokens are cut into
 //   splits depends only on its own kv_len and the caller's split count (an
 //   upper bound): n = min(S, max(1, kv_len / 256)) splits of a span rounded
@@ -56,7 +59,9 @@
 // in a fixed order with no atomics, so two calls give the same bits and a
 // request's result does not depend on its neighbours. In share_kv mode
 // (absorbed MLA: Hkv == 1, values are the leading dv key columns) the value
-// reads come from the key tile, so each head tile reads the shared pool once.
+// reads come from the key tile: the CUDA-core path reads the shared pool once
+// per tile of 16 heads, the MLA path once per block of 64 heads, the second
+// block of a pair from L2.
 #include "hopper.cuh"
 
 namespace {
@@ -479,6 +484,271 @@ __global__ void __launch_bounds__(THREADS, 4) paged_gqa_kernel(
   }
 }
 
+// ---- the shared-pool path on tensor cores (absorbed MLA at DeepSeek-V3's
+// widths): bf16 q and pool, Hkv 1, rows of [ckv 512 | k_rope 64] (dk 576)
+// whose leading 512 columns are the values (dv 512), query heads in blocks of
+// 64, pages of 8, 16 or 32 tokens.
+//
+// - A block owns 64 query heads (wgmma's M) of one (request, split); the
+//   head blocks are the grid's fastest axis, so the two of DeepSeek-V3's 128
+//   heads run side by side and the second read of every K tile comes from L2:
+//   the pool is read from device memory about once. 64 heads is as wide as a
+//   block can hold: O for 64 heads x 512 columns in f32 is 128 KB of
+//   registers, half the SM's file; 128 heads would need all of it.
+// - Warp-specialised: one thread of a producer warpgroup issues every TMA
+//   load; two consumer warpgroups each own 256 of the 512 value columns (128
+//   f32 accumulators a thread). ptxas gives a block of 384 threads 168
+//   registers a thread; setmaxnreg moves the producer to 40 and the
+//   consumers to 232.
+// - Shared memory: q's 64 heads (72 KB, loaded once) and a ring of two K
+//   tiles of 64 tokens (72 KB each), each as nine 128-byte swizzled slabs of
+//   64 columns that a wgmma descriptor reads. A page is one TMA box per slab
+//   (3-D maps over the pool [pages, page, 576] and over q [B, Hq, 576],
+//   encoded on the host per call); a tile is 64 / page whole pages, since a
+//   split starts at a multiple of 32 tokens. Pages of a tile past the split's
+//   end are not loaded.
+// - S = Q K^T: wgmma m64n64k16, both operands K-major in shared memory, 36
+//   steps over 576. Each consumer warpgroup computes S itself (the same 64
+//   heads: 36% more tensor work than sharing P through shared memory, which
+//   would not fit beside q and two stages of 64 tokens).
+// - Ping-pong: named barriers hand the tensor cores from one warpgroup to
+//   the other at each batch of products (S, then P V), so one warpgroup's
+//   softmax runs under the other's products.
+// - Softmax in f32 registers, in the log2 domain with the scale folded into
+//   one multiply: a position at or past the split's end gets p = exactly 0
+//   (a select), p = 2^(s - m) (a one-token request gets p = 1 and its value
+//   row exactly); the accumulators are rescaled only where the running max
+//   moved (a factor of exactly 1 elsewhere).
+// - O += P V: P from registers as a bf16 high part and the bf16 rounding of
+//   the rest (two products, as the GQA path), V the leading 512 columns of
+//   the same K tile read MN-major (transpose-B), no second load. In the last
+//   tile of a split each warpgroup zeroes its value columns of the rows past
+//   the end first, so that 0 x recycled-page garbage stays 0.
+struct Mla {
+  static constexpr int DK = 576, DV = 512;
+  static constexpr int HEADS = 64;                     // query heads a block
+  static constexpr int TILE = 64;                      // tokens a K tile
+  static constexpr int CH = 64;                        // columns a swizzled slab
+  static constexpr int NCH = DK / CH;                  // 9 slabs a row
+  static constexpr int SLAB = TILE * CH * 2;           // 8 KB: 64 rows of 128 bytes
+  static constexpr int TILE_BYTES = NCH * SLAB;        // 72 KB (q's 64 heads alike)
+  static constexpr int STAGES = 2;
+  static constexpr int VSLABS = DV / CH / 2;           // value slabs a warpgroup: 4
+  static constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128;
+  static constexpr int SCHED = 1;                      // named barrier SCHED + w: w's turn
+  static constexpr int ZERO = 3;                       // named barrier ZERO + w: w's zeroed rows
+  static constexpr int SMEM = 1024 + (1 + STAGES) * TILE_BYTES + (1 + 2 * STAGES) * 8;
+  static_assert(SMEM <= SMEM_MAX, "q and two stages must fit");
+};
+
+// Online softmax over one S tile of `n` live tokens in the log2 domain:
+// register e holds head r + 8 * ((e / 2) % 2), token 8 * (e / 4) + 2 * t4 +
+// e % 2; a quad of lanes shares a head. Leaves p in sc and each head's
+// correction of its old max in c0, c1.
+template <bool MASK>
+__device__ __forceinline__ void mla_softmax(float* sc, int n, int t4, float sl2, float& m0,
+                                            float& m1, float& l0, float& l1, float& c0,
+                                            float& c1) {
+  float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    if constexpr (MASK)
+      sc[e] = 8 * (e >> 2) + 2 * t4 + (e & 1) < n ? sc[e] * sl2 : NEG_INF;
+    else
+      sc[e] *= sl2;
+    if ((e >> 1) & 1) mx1 = fmaxf(mx1, sc[e]);
+    else mx0 = fmaxf(mx0, sc[e]);
+  }
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+  }
+  const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+  c0 = ex2(m0 - n0);
+  c1 = ex2(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const bool hi = (e >> 1) & 1;
+    const float p = ex2(sc[e] - (hi ? n1 : n0));
+    sc[e] = MASK && 8 * (e >> 2) + 2 * t4 + (e & 1) >= n ? 0.f : p;
+    if (hi) ps1 += sc[e];
+    else ps0 += sc[e];
+  }
+  l0 = l0 * c0 + ps0;
+  l1 = l1 * c1 + ps1;
+}
+
+__global__ void __launch_bounds__(Mla::THREADS, 1) paged_mla_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const int* __restrict__ tbl, const int* __restrict__ lens, float* __restrict__ out,
+    float* __restrict__ o, float* __restrict__ lse, int Hq, int page, int max_pages, int S,
+    float scale) {
+  using M = Mla;
+  extern __shared__ uint8_t smem_raw[];
+  const int s = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int kv_len = min(lens[b], max_pages * page);
+  int nsplit;
+  const int span = split_span(kv_len, S, &nsplit);
+  if (s >= nsplit) return;
+  const int h0 = blockIdx.x * M::HEADS;
+  const int start = s * span;
+  const int end = min(start + span, kv_len);
+  const int nt = (max(end - start, 0) + M::TILE - 1) / M::TILE;
+  // the 128-byte swizzle repeats every 1024 bytes: align the buffers to it
+  uint8_t* sq = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* ring = sq + M::TILE_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + M::STAGES * M::TILE_BYTES);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + M::STAGES;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);                       // the producer's expect_tx
+    for (int i = 0; i < M::STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], M::CONSUMERS / 32);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // warp-uniform by construction, so that wgmma never sits on a path the
+  // compiler must treat as divergent
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (wg == 2) {  // ---- producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x != M::CONSUMERS || nt == 0) return;
+    const int* tbl_row = tbl + b * max_pages;
+    mbar_expect_tx(q_full, M::TILE_BYTES);
+    for (int c = 0; c < M::NCH; ++c)
+      tma_load_3d(sq + c * M::SLAB, &tq, q_full, c * M::CH, h0, static_cast<int>(b));
+    for (int i = 0; i < nt; ++i) {
+      const int st = i % M::STAGES;
+      const int t0 = start + i * M::TILE;
+      const int np = (min(M::TILE, end - t0) + page - 1) / page;   // pages with a live token
+      int pid[M::TILE / 8];
+#pragma unroll
+      for (int j = 0; j < M::TILE / 8; ++j)     // read before the wait
+        pid[j] = j < np ? __ldg(tbl_row + t0 / page + j) : 0;
+      mbar_wait(&empty[st], ((i / M::STAGES) & 1) ^ 1);
+      mbar_expect_tx(&full[st], np * page * M::DK * 2);
+      uint8_t* dst = ring + st * M::TILE_BYTES;
+#pragma unroll
+      for (int j = 0; j < M::TILE / 8; ++j)
+        if (j < np)
+#pragma unroll
+          for (int c = 0; c < M::NCH; ++c)
+            tma_load_3d(dst + c * M::SLAB + j * page * 128, &tk, &full[st], c * M::CH, 0,
+                        pid[j]);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns value columns [256 wg, 256 wg + 256)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32, t4 = lane % 4;
+  const uint32_t q_s = smem_u32(sq), ring_s = smem_u32(ring);
+  const float sl2 = scale * LOG2E;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // heads r, r + 8 of this thread
+  if (nt > 0) mbar_wait(q_full, 0);
+  if (wg == 1) bar_arrive(M::SCHED + 0, M::CONSUMERS);   // warpgroup 0 issues first
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % M::STAGES;
+    const uint32_t k_s = ring_s + st * M::TILE_BYTES;
+    const int n = min(M::TILE, end - (start + i * M::TILE));   // live tokens of the tile
+    mbar_wait(&full[st], (i / M::STAGES) & 1);
+
+    // S [64 heads, 64 tokens]: 16 columns a step are 32 bytes along the
+    // swizzled row, slabs SLAB apart, 8-row groups 1024 bytes apart
+    float sc[32];
+    bar_sync(M::SCHED + wg, M::CONSUMERS);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < M::DK / 16; ++kk) {
+      const uint32_t off = (kk / 4) * M::SLAB + (kk % 4) * 32;
+      wgmma_ss_n64<0>(sc, sw128_desc(q_s + off, 16, 1024), sw128_desc(k_s + off, 16, 1024),
+                      kk > 0);
+    }
+    wgmma_commit();
+    bar_arrive(M::SCHED + 1 - wg, M::CONSUMERS);
+    wgmma_wait<0>();
+    fence_regs<32>(sc);
+
+    float c0, c1;
+    if (n == M::TILE) mla_softmax<false>(sc, n, t4, sl2, m0, m1, l0, l1, c0, c1);
+    else mla_softmax<true>(sc, n, t4, sl2, m0, m1, l0, l1, c0, c1);
+    if (c0 != 1.f || c1 != 1.f)
+#pragma unroll
+      for (int e = 0; e < 128; ++e) acc[e] *= ((e >> 1) & 1) ? c1 : c0;
+    uint32_t ph[16], pl[16];   // P's A fragments: registers 4kk..4kk+3 cover tokens 16kk..
+#pragma unroll
+    for (int j = 0; j < 16; ++j) split_pair(sc[2 * j], sc[2 * j + 1], ph[j], pl[j]);
+
+    if (n < M::TILE) {   // the split's last tile: zero this warpgroup's value rows past the end
+      uint8_t* stage = ring + st * M::TILE_BYTES;
+      for (int x = tw; x < (M::TILE - n) * M::VSLABS * 8; x += 128) {
+        const int r = n + x / (M::VSLABS * 8), c = (x / 8) % M::VSLABS, piece = x % 8;
+        *reinterpret_cast<uint4*>(stage + (M::VSLABS * wg + c) * M::SLAB + r * 128 + piece * 16) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      fence_proxy_async();
+      bar_sync(M::ZERO + wg, 128);
+    }
+
+    // O += P V: value slabs 4 wg .. 4 wg + 3 of the tile, MN-major; 16
+    // tokens a step are 16 rows of 128 bytes; two n128 products a step
+    bar_sync(M::SCHED + wg, M::CONSUMERS);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < M::TILE / 16; ++kk)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint64_t db = sw128_desc(k_s + (M::VSLABS * wg + 2 * half) * M::SLAB + kk * 16 * 128,
+                                       M::SLAB, 1024);
+        wgmma_rs_n128(acc + 64 * half, ph + 4 * kk, db, 1);
+        wgmma_rs_n128(acc + 64 * half, pl + 4 * kk, db, 1);
+      }
+    wgmma_commit();
+    bar_arrive(M::SCHED + 1 - wg, M::CONSUMERS);
+    wgmma_wait<0>();
+    fence_regs<128>(acc);
+    fence_regs<16>(ph);
+    fence_regs<16>(pl);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // ---- epilogue: the row sums live spread over a quad; O / l in f32
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const int r = 16 * warp + lane / 4;
+  float* dst = (nsplit == 1 ? out + (b * Hq + h0) * M::DV
+                            : o + ((b * S + s) * Hq + h0) * M::DV) + 256 * wg + 2 * t4;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const float2 va = l0 > 0.f ? make_float2(acc[4 * j] / l0, acc[4 * j + 1] / l0)
+                               : make_float2(0.f, 0.f);
+    const float2 vb = l1 > 0.f ? make_float2(acc[4 * j + 2] / l1, acc[4 * j + 3] / l1)
+                               : make_float2(0.f, 0.f);
+    *reinterpret_cast<float2*>(dst + r * M::DV + 8 * j) = va;
+    *reinterpret_cast<float2*>(dst + (r + 8) * M::DV + 8 * j) = vb;
+  }
+  if (nsplit > 1 && wg == 0 && t4 == 0) {   // natural log: m is in the log2 domain
+    float* lrow = lse + (b * S + s) * Hq + h0;
+    lrow[r] = l0 > 0.f ? m0 / LOG2E + logf(l0) : NEG_INF;
+    lrow[r + 8] = l1 > 0.f ? m1 / LOG2E + logf(l1) : NEG_INF;
+  }
+}
+
 // ---- every other case on CUDA cores.
 // MQ: the most query heads a block holds (registers scale with it): 8 serves
 // GQA up to 8 heads per kv head, 16 the rest.
@@ -789,6 +1059,42 @@ int launch_fast(const void* q, const void* kp, const void* vp, const void* tbl,
   return static_cast<int>(cudaGetLastError());
 }
 
+// q viewed as [B, Hq, 576] and the pool as [pages, page, 576], boxes of 64
+// columns by 64 heads or one page.
+int launch_mla(const void* q, const void* kp, const void* tbl, const void* lens, void* out,
+               void* o, void* lse, int B, int S, int Hq, int page, int max_pages,
+               int pool_pages, float scale, cudaStream_t stream) {
+  static bool raised[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!raised[dev]) {
+    e = cudaFuncSetAttribute(paged_mla_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Mla::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    raised[dev] = true;
+  }
+  constexpr cuuint64_t row = Mla::DK * 2;
+  const cuuint64_t qdims[3] = {Mla::DK, static_cast<cuuint64_t>(Hq), static_cast<cuuint64_t>(B)};
+  const cuuint64_t qstrides[2] = {row, row * Hq};
+  const cuuint32_t qbox[3] = {Mla::CH, Mla::HEADS, 1};
+  const cuuint64_t kdims[3] = {Mla::DK, static_cast<cuuint64_t>(page),
+                               static_cast<cuuint64_t>(pool_pages)};
+  const cuuint64_t kstrides[2] = {row, row * page};
+  const cuuint32_t kbox[3] = {Mla::CH, static_cast<cuuint32_t>(page), 1};
+  CUtensorMap tq{}, tk{};
+  if (!encode_bf16(&tq, 3, q, qdims, qstrides, qbox) ||
+      !encode_bf16(&tk, 3, kp, kdims, kstrides, kbox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(Hq / Mla::HEADS, most_splits(S, max_pages, page), B);
+  paged_mla_kernel<<<grid, Mla::THREADS, Mla::SMEM, stream>>>(
+      tq, tk, static_cast<const int*>(tbl), static_cast<const int*>(lens),
+      static_cast<float*>(out), static_cast<float*>(o), static_cast<float*>(lse), Hq, page,
+      max_pages, S, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Ring stages: 3, or as many tiles as the table holds if fewer (a table of
 // one tile needs one), or 2 where 3 do not fit.
 inline int ring_stages(int max_pages, int page, int tile) {
@@ -800,18 +1106,28 @@ inline int ring_stages(int max_pages, int page, int tile) {
 
 // Stage 1. out [B, Hq, dv] takes the requests of one split; o [B, S, Hq, dv]
 // and lse [B, S, Hq] the splits of the others (both may be null when no
-// request can be split). The tensor-core GQA path takes bf16 q and pools with
-// dk == dv in {64, 128}, at most 16 heads per kv head and no shared pool;
-// everything else runs on CUDA cores.
+// request can be split); the pools hold pool_pages pages. Two tensor-core
+// paths, chosen by shape and type: the shared pool of absorbed MLA (bf16 q
+// and pool, Hkv 1, dk 576, dv 512, query heads a multiple of 64, pages of 8,
+// 16 or 32: DeepSeek-V3) and GQA (bf16 q and pools, dk == dv in {64, 128},
+// at most 16 heads per kv head, no shared pool: DBRX). Everything else runs
+// on CUDA cores.
 extern "C" int ep_paged_decode_stage1(const void* q, const void* kp, const void* vp,
                                       const void* tbl, const void* lens, void* out, void* o,
                                       void* lse, int B, int S, int Hq, int Hkv, int dk,
-                                      int dv, int page, int max_pages, float scale, int qdt,
-                                      int kdt, int share_kv, void* stream) {
+                                      int dv, int page, int max_pages, int pool_pages,
+                                      float scale, int qdt, int kdt, int share_kv,
+                                      void* stream) {
   if (dv > 4 * THREADS || dk % 8 || dv % 8 || S < 1 || Hkv < 1 || Hq % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = Hq / Hkv;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (share_kv && kdt == BF16 && qdt == BF16 && Hkv == 1 && dk == Mla::DK && dv == Mla::DV &&
+      G % Mla::HEADS == 0 && (page == 8 || page == 16 || page == 32)) {
+    if (B == 0) return static_cast<int>(cudaGetLastError());
+    return launch_mla(q, kp, tbl, lens, out, o, lse, B, S, Hq, page, max_pages, pool_pages,
+                      scale, st);
+  }
   if (!share_kv && kdt == BF16 && qdt == BF16 && dk == dv && (dk == 64 || dk == 128) &&
       G <= 16) {
     if (B == 0) return static_cast<int>(cudaGetLastError());

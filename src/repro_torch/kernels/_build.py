@@ -43,7 +43,7 @@ _SIGNATURES = {
     "ep_grouped_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "ep_combine_gather_reduce": (_P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
     "ep_paged_decode_stage1": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _F, _I, _I, _I, _P),
+                               _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "ep_paged_decode_stage2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ep_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L,
                            _L, _L, _L, _F, _I, _I, _I, _P),

@@ -11,7 +11,13 @@ type, with q and the sums in registers and an online softmax in f32, and
 never reads a token at or past ``kv_len``. bf16 GQA with head widths of 64
 or 128 (DBRX) moves each row with one bulk copy on the TMA engine and runs
 both products on tensor cores (``mma.sync``, P as a bf16 high and low
-part); every other case uses 16-byte ``cp.async`` and CUDA cores. How a request is split depends only on its own ``kv_len`` and the
+part). The shared pool of absorbed MLA at DeepSeek-V3's widths (bf16, Hkv
+1, a multiple of 64 query heads, dk 576, dv 512, pages of 8, 16 or 32) runs
+on ``wgmma``: one block per 64 heads of a (request, split), pages loaded by
+TMA into swizzled tiles of 64 tokens, P as a bf16 high and low part, the
+values read from the key tile. Every other case uses 16-byte ``cp.async``
+and CUDA cores; the C entry chooses by shape and type. How a request is
+split depends only on its own ``kv_len`` and the
 caller's split count (``kv_splits``): a request of one split is written
 directly, and stage 2, launched only when a request of the table's width
 could be split (``splits_possible``), merges the splits of the others in a
@@ -114,7 +120,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                   vp.data_ptr(), kv_indices.data_ptr(), kv_lens.data_ptr(),
                   out.data_ptr(), None if o is None else o.data_ptr(),
                   None if lse is None else lse.data_ptr(), B, S, Hq, Hkv, dk, dv,
-                  page, max_pages, float(scale), qdt, kdt, int(share))
+                  page, max_pages, k_pages.shape[0], float(scale), qdt, kdt, int(share))
     launches += 1
     if split:
         _build.launch("ep_paged_decode_stage2", o.data_ptr(), lse.data_ptr(),

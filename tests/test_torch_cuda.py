@@ -837,38 +837,103 @@ def test_cuda_hierarchical_ht_chunks_bitwise(hopper, fp8):
 # DeepSeek-V3: the absorbed-MLA shared pool, fp8 at its width, its servers
 # --------------------------------------------------------------------------
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("splits", [1, 4])
-def test_cuda_paged_decode_attention_deepseek_share_kv(hopper, splits):
-    """B6 in its shared-pool mode at DeepSeek-V3's absorbed-MLA widths (128
-    query heads on one pool of [ckv (512) | k_rope (64)] rows, dv 512), bf16
-    pool, rows up to 1040 tokens so that 4 splits cut them: within 1e-4 of
-    the plain version, idle rows exactly 0, bitwise unchanged under new
-    garbage in the unreferenced pages."""
-    B, Hq, dk, dv, page, max_pages = 6, 128, 576, 512, 16, 68
-    lens = torch.tensor([1, 1040, 0, 513, 16, 777], dtype=torch.int32)
+def _kernel_names(fn) -> str:
+    """The names of the kernels one call of ``fn`` ran on the card, joined."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return " ".join(e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+_MLA_LENS = [1, 63, 64, 65, 255, 256, 257, 1040, 0]
+
+
+def _mla_case(dev, Hq, dk, dt, seed, lens=_MLA_LENS, page=16, max_pages=68):
+    """A shared pool of [ckv | k_rope] rows (dk wide) with every live page
+    at a shuffled place, its table, q, and the mask of unreferenced pages."""
+    B = len(lens)
     P = B * max_pages
-    perm = torch.randperm(P, generator=torch.Generator().manual_seed(70))
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(seed))
     tbl = torch.full((B, max_pages), P, dtype=torch.int32)
     used = []
     for b in range(B):
-        n = -(-int(lens[b]) // page)
+        n = -(-lens[b] // page)
         tbl[b, :n] = perm[b * max_pages:b * max_pages + n].int()
         used += tbl[b, :n].tolist()
-    kp = _rand((P + 1, page, 1, dk), torch.bfloat16, hopper, 1.0, 71)
-    q = _rand((B, Hq, dk), torch.bfloat16, hopper, 1.0, 72)
-    tbl, lens = tbl.to(hopper), lens.to(hopper)
-    kw = dict(scale=192 ** -0.5, num_kv_splits=splits, dv=dv)
-    got = da.paged_decode_attention(q, kp, None, tbl, lens, **kw)
-    want = ref.paged_decode_attention(q, kp, None, tbl, lens, **kw)
-    assert got.shape == (B, Hq, dv)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    assert not got[2].any()
+    kp = _rand((P + 1, page, 1, dk), dt, dev, 1.0, seed + 1)
+    q = _rand((B, Hq, dk), dt, dev, 1.0, seed + 2)
     free = torch.ones(P + 1, dtype=torch.bool)
     free[used] = False
-    free = free.to(hopper)
+    return (q, kp, tbl.to(dev), torch.tensor(lens, dtype=torch.int32, device=dev),
+            free.to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("Hq", [64, 128])
+def test_cuda_paged_decode_attention_deepseek_share_kv(hopper, Hq, splits):
+    """B6 in its shared-pool mode at DeepSeek-V3's absorbed-MLA widths (64 or
+    128 query heads on one bf16 pool of [ckv (512) | k_rope (64)] rows of
+    pages of 16, dv 512) takes the tensor-core path (``paged_mla_kernel``):
+    rows of 1 to 1040 tokens around the 64-token tile's edges, cut into up
+    to 4 splits, and an idle row. Within 1e-4 of the plain version; the idle
+    row exactly 0; the one-token row bitwise its pool row's first 512
+    columns (p = 1 exactly); two calls bitwise equal; bitwise unchanged when
+    every unreferenced page is drawn again, and when it holds NaN; a
+    CUDA-graph replay bitwise equal to the eager call."""
+    dv = 512
+    q, kp, tbl, lens, free = _mla_case(hopper, Hq, 576, torch.bfloat16, 70 + Hq + splits)
+    kw = dict(scale=192 ** -0.5, num_kv_splits=splits, dv=dv)
+
+    def call():
+        return da.paged_decode_attention(q, kp, None, tbl, lens, **kw)
+    got = call()
+    want = ref.paged_decode_attention(q, kp, None, tbl, lens, **kw)
+    assert got.shape == (len(_MLA_LENS), Hq, dv)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert not got[-1].any()
+    row = kp[tbl[0, 0].long(), 0, 0, :dv].float()
+    assert torch.equal(got[0], row.expand(Hq, dv))
+    assert torch.equal(call(), got)
+    assert "paged_mla_kernel" in _kernel_names(call)
     kp[free] = _rand(kp[free].shape, torch.bfloat16, hopper, 50.0, 73)
-    assert torch.equal(da.paged_decode_attention(q, kp, None, tbl, lens, **kw), got)
+    assert torch.equal(call(), got)
+    kp[free] = float("nan")
+    assert torch.equal(call(), got)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["f32 pool", "40 heads"])
+def test_cuda_paged_decode_attention_share_kv_generic_path(hopper, case):
+    """Shared pools outside the tensor-core path's shapes keep the CUDA-core
+    path (``paged_stage1_kernel``): an f32 pool at DeepSeek-V3's widths, and
+    40 query heads (not a multiple of 64) in bf16. Within 1e-4 of the plain
+    version, the idle row exactly 0."""
+    dt, Hq = (torch.float32, 128) if case == "f32 pool" else (torch.bfloat16, 40)
+    q, kp, tbl, lens, _ = _mla_case(hopper, Hq, 576, dt, 80)
+    kw = dict(scale=192 ** -0.5, num_kv_splits=4, dv=512)
+
+    def call():
+        return da.paged_decode_attention(q, kp, None, tbl, lens, **kw)
+    got = call()
+    torch.testing.assert_close(got, ref.paged_decode_attention(q, kp, None, tbl, lens, **kw),
+                               rtol=1e-4, atol=1e-4)
+    assert not got[-1].any()
+    ran = _kernel_names(call)
+    assert "paged_stage1_kernel" in ran and "paged_mla_kernel" not in ran, ran
     torch.cuda.synchronize()
 
 

@@ -28,7 +28,10 @@ call) for B8. Needs one CUDA card.
 The shapes: B6 at the continuous serve's (q [128, 48, 128] bf16, pools of
 513 pages of 16, table [128, 4], 4 splits, lengths 0 to 64) and at 32k
 tokens (table [128, 2048], mean length 16,650), the inputs of
-``chip_smoke.paged_main_shape_phase`` and ``paged_kernel_phase``; B1 in copy
+``chip_smoke.paged_main_shape_phase`` and ``paged_kernel_phase``, and in
+its shared-pool mode at DeepSeek-V3's widths (q [128, 128, 576], values
+the rows' first 512 columns) at the continuous serve's shapes and at 32k,
+as ``chip_smoke.ds_kernel_phase`` draws them; B1 in copy
 mode at the decode dispatch send ([16, 6144] -> [8, 16, 6144]), the decode
 combine send ([256, 6144] -> [8, 32, 6144]) and the HT combine send
 ([20480, 6144] -> [8, 2560, 6144]), and in fp8 mode at the HT dispatch
@@ -161,6 +164,40 @@ def measure(src: str) -> dict:
     lens[4:8] = rng.integers(1, mp, 4) * cs.PAGE
     lens[8:12] = rng.integers(1, mp - 1, 4) * cs.PAGE + rng.integers(1, cs.PAGE, 4)
     paged("32k", rng, mp, lens, None, 10, 16)
+
+    def mla(label, rng, max_pages, lens, num_pages, iters):
+        # the shared pool at DeepSeek-V3's absorbed-MLA widths
+        Hq, dk, dv = 128, 576, 512
+        q, kp, _, tbl, lt, _ = cs.paged_case(rng, cs.BATCH, Hq, 1, dk, dv, max_pages, lens,
+                                             True, num_pages=num_pages)
+        kw = dict(scale=192 ** -0.5, num_kv_splits=4, dv=dv)
+
+        def fn():
+            return da.paged_decode_attention(q, kp, None, tbl, lt, **kw)
+        got = fn()
+        want = ref.paged_decode_attention(q[:16], kp, None, tbl[:16], lt[:16], **kw)
+        cs.check(torch.allclose(got[:16], want, rtol=cs.PAGED_TOL, atol=cs.PAGED_TOL),
+                 f"B6 share_kv {label} off its plain version")
+        cs.check(torch.equal(fn(), got), f"B6 share_kv {label}: two calls differ")
+        nb = (int(lens.sum()) * dk * 2 + cs.nbytes(q) + cs.nbytes(lt)
+              + int((-(-lens // cs.PAGE)).sum()) * 4 + cs.nbytes(got))
+        out[f"B6 share_kv {label}"] = dict(
+            ms=cs.device_ms(fn, iters),
+            bound_ms=cs.bound(nb, 2 * int(lens.sum()) * Hq * (dk + dv), cs.BF16_OPS_S)[0])
+        del q, kp, got
+        torch.cuda.empty_cache()
+
+    # DeepSeek-V3's shared pool at the continuous serve's shapes and at 32k
+    # (chip_smoke.ds_kernel_phase)
+    rng = np.random.default_rng(25)
+    lens = rng.integers(1, 4 * cs.PAGE + 1, cs.BATCH)
+    lens[:8] = 0
+    lens[8:12] = np.arange(1, 5) * cs.PAGE
+    mla("serve shapes", rng, 4, lens, 512, 50)
+    lens = rng.integers(1, cs.DS_KV_PAGES * cs.PAGE + 1, cs.BATCH)
+    lens[:3] = 0
+    lens[3] = cs.DS_KV_PAGES * cs.PAGE
+    mla("32k", rng, cs.DS_KV_PAGES, lens, None, 5)
 
     def pack(label, x, gmap, iters, quant=None):
         def fn():

@@ -139,6 +139,27 @@
    MoE layer at E 256, K 8; the phase's peak device memory. Its rows join
    the kernels JSON.
 
+9. One EP rank per process (``comm.DistComm``), in spawned child processes
+   once every weight of the main process is freed (``dist_phase``). (a)
+   NCCL at world = the card count, one process per card: the primitives
+   against ``LocalComm(world)`` on the same stacked inputs (all-to-all and
+   all-gather bitwise in bf16, int32 and fp8, all-reduce within f32
+   rounding) and each one's time beside ``LocalComm``'s; DBRX's MoE layer 0
+   at full width through the EP API at N = world over batch 128, in
+   ``nccl_ep`` and ``deepep`` + fp8, bitwise against ``LocalComm(world)``,
+   with B1 to B4 launched, and captured by ``CompiledStep`` with its replay
+   bitwise equal to eager; ``DecodeServer(comm=DistComm)`` over DBRX (its
+   4 layers), 128 x (8 + 16), captured, its tokens equal to the dense
+   server's at world 1. (b) With several cards, the same child's serve runs
+   at EP extent = world and its tokens must equal ``LocalComm(world)``'s on
+   one card; on one card a line says (b) did not run and why. (c) Two
+   processes sharing the card over gloo (CUDA tensors through the host): the
+   fixed-batch serve at EP extent 2 in ``nccl_ep``, eager (a gloo step is
+   not captured), tokens bitwise equal to an eager ``LocalComm(2)`` serve,
+   its ITL printed as "gloo via host". A child that fails fails the script.
+   ``python3 chip_smoke.py --dist-only`` builds the kernels and runs this
+   phase alone (for a machine with several cards).
+
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -147,6 +168,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import gc
 from collections import Counter
 import json
@@ -163,10 +185,10 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
-from repro_torch.comm import LocalComm  # noqa: E402
+from repro_torch.comm import DistComm, LocalComm  # noqa: E402
 from repro_torch.configs.dbrx_132b import full_config  # noqa: E402
 from repro_torch.configs.deepseek_v3_671b import full_config as ds_full_config  # noqa: E402
-from repro_torch.core import (ep_combine, ep_create_handle, ep_dispatch,  # noqa: E402
+from repro_torch.core import (ep_combine, ep_complete, ep_create_handle, ep_dispatch,  # noqa: E402
                               ep_handle_refresh, route, slots)
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import combine_gather_reduce as cg_mod  # noqa: E402
@@ -181,6 +203,7 @@ from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.moe import (_expert_ffn, _moe_dense_fallback,  # noqa: E402
                                     ep_group, moe_block, router_config)
+from repro_torch.models.layers import logits_out  # noqa: E402
 from repro_torch.models.transformer import (_decode_splits, _index,  # noqa: E402
                                             init_decode_state,
                                             init_paged_decode_state,
@@ -191,8 +214,10 @@ from repro_torch.runtime.prefill import _handle, prefill_moe, sequential_prefill
 from repro_torch.runtime.scheduler import Request  # noqa: E402
 from repro_torch.runtime.server import (ContinuousDecodeServer,  # noqa: E402
                                         DecodeServer)
-from repro_torch.runtime.steps import capture_stream  # noqa: E402
+from repro_torch.runtime.steps import CompiledStep, capture_stream  # noqa: E402
 from repro_torch.weights import init_params  # noqa: E402
+from repro_torch.device import disable_tf32  # noqa: E402
+from repro_torch.launch.mesh import init_process, spawn  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_S = 3.35e12
@@ -2494,7 +2519,356 @@ def deepseek_phase(card: str) -> list:
     return rows
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# one EP rank per process (comm.DistComm): NCCL at world = the card count,
+# two ranks sharing a card over gloo
+# ---------------------------------------------------------------------------
+
+# per-call timings: calls a reading, readings
+DIST_ITERS = 50
+# a child's whole run, and the process group's timeout inside it
+DIST_TIMEOUT_S = 420
+
+
+def check_dist_counts(launches: dict, cfg, path: str, calls: int, where: str) -> None:
+    """One hosted rank's EP launches over ``calls`` layer calls of ``path``
+    must be ``ep_launches``' count for each."""
+    for name, per in ep_launches(cfg, path).items():
+        check(launches.get(name, 0) == per * calls, f"{name} launched "
+              f"{launches.get(name, 0)} times on {where}, expected {per * calls}")
+
+
+def dist_cfg():
+    return dataclasses.replace(full_config("decode_32k"), num_layers=LAYERS)
+
+
+def dist_layer_params(cfg, dev) -> dict:
+    """MoE layer 0 of DBRX at full width, all 16 experts: router and expert
+    weights drawn on ``dev`` from a seed, the same in every process."""
+    m, d = cfg.moe, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def rnd(shape, fan_in, dt=cfg.dtype):
+        return (torch.randn(shape, generator=gen, device=dev) / fan_in ** 0.5).to(dt)
+    return dict(router=rnd((d, m.num_experts), d, torch.float32),
+                w_gate=rnd((m.num_experts, d, m.d_ff_expert), d),
+                w_up=rnd((m.num_experts, d, m.d_ff_expert), d),
+                w_down=rnd((m.num_experts, m.d_ff_expert, d), m.d_ff_expert))
+
+
+def dist_layer_step(cfg, comm, p):
+    """The EP API over ``comm`` on one MoE layer as a step for
+    ``CompiledStep``: route, handle, staged dispatch, the expert FFN over
+    the hosted ranks' experts (``p`` holds them in rank order), staged
+    combine. batch: {"tokens": [hosted ranks, T, D]}."""
+    def step(params, state, batch):
+        xs = list(batch["tokens"].unbind(0))
+        group = ep_group(cfg, comm, xs[0].shape[0])
+        L = group.local_experts
+        rs = [route(x.float() @ params["router"], router_config(cfg.moe)) for x in xs]
+        hs = ep_create_handle(group, [r.topk_idx for r in rs], [r.topk_weights for r in rs])
+        recv = ep_complete(group, hs, ep_dispatch(group, hs, xs, send_only=True))
+        ys = [_expert_ffn(group, y, c, params["w_gate"][i * L:(i + 1) * L],
+                          params["w_up"][i * L:(i + 1) * L], params["w_down"][i * L:(i + 1) * L])
+              for i, (y, c) in enumerate(recv)]
+        outs = ep_complete(group, hs, ep_combine(group, hs, ys, send_only=True))
+        return torch.stack([o.to(xs[0].dtype) for o in outs]), state
+    return step
+
+
+def dist_peak() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def dist_primitives(comm, lc, dev, rank: int) -> dict:
+    """DistComm's collectives against LocalComm(world)'s on the same stacked
+    inputs at the decode layer's shapes: bitwise for bf16, int32 and fp8
+    (as bytes), all_reduce within f32 rounding. Returns each call's time
+    (CUDA events over DIST_ITERS calls, and queued behind a spin)."""
+    W = comm.size
+    gen = torch.Generator(device=dev).manual_seed(12)
+    C, H = BATCH // W, dist_cfg().d_model
+    cases = {
+        "bf16": torch.randn((W, W, C, H), generator=gen, device=dev).to(torch.bfloat16),
+        "int32": torch.randint(-2**30, 2**30, (W, W, C, 4), generator=gen, device=dev,
+                               dtype=torch.int32),
+        "fp8": torch.randint(0, 256, (W, W, C, H), generator=gen, device=dev,
+                             dtype=torch.uint8).view(torch.float8_e4m3fn),
+    }
+    for name, x in cases.items():
+        want = lc.all_to_all(list(x.unbind(0)))[rank]
+        got = comm.all_to_all([x[rank]])[0]
+        check(got.dtype == want.dtype and torch.equal(got.view(torch.uint8),
+                                                      want.view(torch.uint8)),
+              f"DistComm all_to_all differs from LocalComm's in {name}")
+        want = lc.all_gather(list(x[:, 0].unbind(0)))[rank]
+        got = comm.all_gather([x[rank, 0]])[0]
+        check(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+              f"DistComm all_gather differs from LocalComm's in {name}")
+    xf = torch.randn((W, C, H), generator=gen, device=dev)
+    want = lc.all_reduce(list(xf.unbind(0)))[rank]
+    got = comm.all_reduce([xf[rank]])[0]
+    err = float((got - want).abs().max())
+    check(err <= 1e-6 * float(want.abs().max()) * W, f"DistComm all_reduce off by {err}")
+    send = cases["bf16"][rank]
+    topk = torch.randint(0, 16, (C, 4), generator=gen, device=dev, dtype=torch.int32)
+    times = {}
+    for label, fn in (("all_to_all", lambda: comm.all_to_all([send])),
+                      ("LocalComm all_to_all", lambda: lc.all_to_all(list(cases["bf16"]))),
+                      ("all_gather", lambda: comm.all_gather([topk])),
+                      ("LocalComm all_gather", lambda: lc.all_gather([topk] * W))):
+        times[label] = (call_ms(fn, DIST_ITERS), queued_ms(fn, DIST_ITERS)[0])
+    return dict(times=times, reduce_err=err, shapes=dict(a2a=tuple(send.shape),
+                                                         gather=tuple(topk.shape)))
+
+
+def dist_layer_phase(cfg, comm, lc, dev, rank: int) -> dict:
+    """DBRX's MoE layer 0 at full width through the EP API over DistComm at
+    N = world (batch 128 over the ranks), in nccl_ep and deepep + fp8:
+    bitwise against LocalComm(world) running the same calls here, the EP
+    kernels launched on the DistComm run, and, over NCCL, the step captured
+    by CompiledStep replaying bitwise what it ran eagerly (a gloo step is
+    not captured: ``CompiledStep(capture=comm.capturable)`` runs it
+    eagerly). Then decode_loop on two streams against the naive step."""
+    p = dist_layer_params(cfg, dev)
+    W, L = comm.size, cfg.moe.num_experts // comm.size
+    mine = {k: (v if k == "router" else v[rank * L:(rank + 1) * L].contiguous())
+            for k, v in p.items()}
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = (torch.randn((W, BATCH // W, cfg.d_model), generator=gen, device=dev)
+         .to(cfg.dtype))
+    out = {}
+    for path in ("nccl_ep", "deepep_fp8"):
+        c = layout_cfg(cfg, path)
+        want = dist_layer_step(c, lc, p)(p, {}, {"tokens": x})[0][rank]
+        reset_counts()
+        got = dist_layer_step(c, comm, mine)(mine, {}, {"tokens": x[rank:rank + 1]})[0][0]
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in counts().items() if n}
+        check_dist_counts(launches, c, path, 1, f"the DistComm {path} layer")
+        check(torch.equal(got, want), f"the DistComm {path} layer differs from "
+              f"LocalComm({W})'s (max {float((got.float() - want.float()).abs().max())})")
+        step = CompiledStep(dist_layer_step(c, comm, mine), capture=comm.capturable)
+        state, batch = {}, {"tokens": x[rank:rank + 1].clone()}
+        eager_out, _ = step(mine, state, batch)          # warm-up, then the capture
+        replay, _ = step(mine, state, batch)
+        torch.cuda.synchronize()
+        check((step.graph is not None) == comm.capturable,
+              f"the {path} layer over {comm.backend}: captured {step.graph is not None}")
+        check(torch.equal(eager_out[0], got) and torch.equal(replay[0], got),
+              f"the compiled {path} layer's second call differs from its eager run")
+        out[path] = dict(launches=launches, capture_s=step.capture_s,
+                         call_ms=call_ms(lambda: step(mine, state, batch), 20))
+        del step
+    # decode_loop on two streams (their collectives serialise on NCCL's
+    # stream) against the naive step, micro-batch pairs of the layer's rows
+    group = ep_group(cfg, comm, BATCH // W // 2)
+    rcfg = router_config(cfg.moe)
+
+    def router_fn(t):
+        r = route(t.float() @ mine["router"], rcfg)
+        return r.topk_idx, r.topk_weights
+
+    def expert_fn(r, y, c):
+        return _expert_ffn(group, y, c, mine["w_gate"], mine["w_up"], mine["w_down"])
+
+    xr = x[rank]
+    pairs = [([xr[:BATCH // W // 2] * (1 + s)], [xr[BATCH // W // 2:] * (1 + s)])
+             for s in (0, 1, 1)]
+    loop = decode_loop(group, router_fn, expert_fn, pairs)
+    torch.cuda.synchronize()
+    for s, pair in enumerate(pairs):
+        for got, xs in zip(loop[s], pair):
+            check(torch.equal(got[0], naive_decode_step(group, router_fn, expert_fn, xs)[0]),
+                  f"decode_loop over DistComm differs from the naive step at step {s}")
+    return out
+
+
+def dist_serve(cfg, params, comm, dev, mode: str) -> tuple:
+    """DecodeServer.serve on the seeded prompts (the global batch) through
+    ``comm`` (a DistComm, a LocalComm or None: dense), every launch counter
+    read; "compiled" steps through the server's compiled step, which
+    captures unless the comm cannot be captured. Returns the global tokens,
+    the metrics, the launches and whether a graph was captured."""
+    srv = DecodeServer(cfg, BATCH, MAX_LEN, comm=comm, params=params, device=dev)
+    if mode == "eager":
+        eager(srv)
+    reset_counts()
+    m = srv.serve(serve_prompts(cfg.vocab), GEN)
+    launches = {k: n for k, n in counts().items() if n}
+    toks = srv.last_tokens
+    check(toks.shape == (BATCH, GEN + 1) and toks.min() >= 0 and toks.max() < cfg.vocab,
+          f"bad token stream {toks.shape}")
+    graphed = mode == "compiled" and srv._serve_step.graph is not None
+    srv.close()
+    return toks, m, launches, graphed
+
+
+def step0_logits(cfg, params, comm, dev) -> torch.Tensor:
+    """The f32 logits [B, V] of the first prompt token through one decode
+    step of this process's rows on a fresh cache, gathered over the batch
+    (every process of a DistComm takes part)."""
+    rows = comm.batch_rows(BATCH) if comm is not None else slice(0, BATCH)
+    tok = serve_prompts(cfg.vocab)[rows, :1].to(dev)
+    state = init_decode_state(cfg, tok.shape[0], MAX_LEN, dev)
+    logits, _ = lm_decode_step(params, state, {"tokens": tok}, cfg, comm)
+    out = logits[:, -1, :cfg.vocab].float()
+    return comm.gather_batch(out) if comm is not None else out
+
+
+def row_invariance(cfg, params, dev, rows: int) -> str:
+    """Whether layer 0's bf16 K projection and the f32 logits product give
+    the first ``rows`` rows of a batch the same bits computed alone as in
+    the whole batch (cuBLAS picks its kernel by the row count)."""
+    h = (torch.randn((BATCH, 1, cfg.d_model), generator=torch.Generator(device=dev)
+                     .manual_seed(14), device=dev)).to(cfg.dtype)
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    wk = params["moe_stack"]["attn"]["wk"][0].reshape(cfg.d_model, -1)
+    parts = []
+    for label, fn in (("bf16 K projection", lambda t: t @ wk),
+                      ("f32 logits product", lambda t: logits_out(t, table))):
+        whole, part = fn(h)[:rows].float(), fn(h[:rows]).float()
+        parts.append(f"{label} of {rows} rows alone " + (
+            "equals the same rows in a batch" if torch.equal(whole, part) else
+            f"is up to {float((whole - part).abs().max()):.3g} off the same rows in a "
+            f"batch of {BATCH}"))
+    return "; ".join(parts)
+
+
+def dist_serve_phase(cfg, comm, dev, rank: int, world: int) -> dict:
+    """DecodeServer(comm=DistComm) over DBRX (full width, LAYERS layers) on
+    its compiled step (captured over NCCL, eager over gloo), exact EP launch
+    counts; then, on rank 0 alone, the reference on this
+    card: the dense server at EP extent 1 (the path DistComm's extent 1
+    runs, on the same rows: tokens bitwise), else LocalComm(EP extent), whose
+    dense products see the whole batch where each process sees its rows:
+    the first step's logits within TOL, the token agreement printed."""
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, dev, comm=comm)
+    toks, m, launches, graphed = dist_serve(cfg, params, comm, dev, "compiled")
+    check(graphed == comm.capturable, f"the DistComm server over {comm.backend} "
+          f"{'did not capture' if comm.capturable else 'captured'} its step")
+    if comm.size > 1:      # captured: the warm-up and the capture; else every step
+        steps = 2 if graphed else PROMPT + GEN
+        check_dist_counts(launches, cfg, "nccl_ep", steps * moe_layers(cfg),
+                          f"the DistComm server over {comm.backend}")
+    logits = step0_logits(cfg, params, comm, dev)
+    out = dict(itl=m.itl_mean_s, p99=m.itl_p99_s, ttft=m.ttft_s, tok_s=m.output_tok_s,
+               launches=launches, peak_gib=dist_peak(), ep=comm.size, graphed=graphed,
+               rows=comm.batch_rows(BATCH).stop - comm.batch_rows(BATCH).start)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        full = init_params(cfg, 0, dev)
+        ref_comm = None if comm.size == 1 else LocalComm(comm.size)
+        want, rm, _, _ = dist_serve(cfg, full, ref_comm, dev,
+                                    "compiled" if comm.capturable else "eager")
+        want_logits = step0_logits(cfg, full, ref_comm, dev)
+        err = float((logits - want_logits).abs().max() / want_logits.abs().max())
+        agree = toks == want
+        out.update(ref_itl=rm.itl_mean_s, logits_err=err, agree=float(agree.mean()),
+                   agree_first=float(agree[:, 0].mean()), bitwise=bool(agree.all()),
+                   rows_line=row_invariance(cfg, full, dev, out["rows"]))
+        if comm.size == 1:
+            check(bool(agree.all()), "the DistComm server's tokens differ from the dense "
+                  f"server's: {agree.mean():.4f} equal")
+        check(err <= TOL, f"the DistComm server's first-step logits are {err:.3g} off "
+              f"LocalComm({comm.size})'s")
+        del full
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def dist_child(rank: int, world: int, init_method: str, backend: str) -> dict:
+    """One rank of a DistComm mesh of ``world`` processes over ``backend``:
+    NCCL takes card ``rank``; gloo puts every process on card 0 (CUDA
+    tensors staged through the host). The primitives, the EP layer, the
+    serve."""
+    t0 = time.perf_counter()
+    axes = (("data", world),)
+    tmo = datetime.timedelta(seconds=DIST_TIMEOUT_S)
+    dev = init_process(axes, None if backend == "nccl" else "cuda:0", init_method, rank=rank,
+                       world=world, backend=backend, timeout=tmo)
+    disable_tf32()
+    comm = DistComm(axes, timeout=tmo)
+    lc = LocalComm(world)
+    out = dict(rank=rank, device=str(dev), backend=comm.backend)
+    t = time.perf_counter()
+    out["prims"] = dist_primitives(comm, lc, dev, rank)
+    out["prims"]["seconds"] = time.perf_counter() - t
+    out["prims"]["peak_gib"] = dist_peak()
+    cfg = dist_cfg()
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out["layer"] = dist_layer_phase(cfg, comm, lc, dev, rank)
+    out["layer_seconds"], out["layer_peak_gib"] = time.perf_counter() - t, dist_peak()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = dist_serve_phase(cfg, comm, dev, rank, world)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def dist_lines(res: list, world: int, card: str, label: str) -> None:
+    """One line per rank and sub-phase of a dist child's results."""
+    for r in res:
+        who = f"rank {r['rank']} of {world}, {r['backend']} on {r['device']}"
+        pr = r["prims"]
+        times = "; ".join(f"{k} {v[0]:.5f} ms a call ({v[1]:.5f} ms queued)"
+                          for k, v in pr["times"].items())
+        print(f"dist ({label}) primitives, {who} ({card}): all_to_all, all_gather bitwise "
+              f"against LocalComm({world}) in bf16, int32, fp8; all_reduce off by "
+              f"{pr['reduce_err']:.3g}; a2a send {pr['shapes']['a2a']} bf16, gather "
+              f"{pr['shapes']['gather']} int32: {times}; peak {pr['peak_gib']:.2f} GiB; "
+              f"{pr['seconds']:.1f} s")
+        lay = "; ".join(f"{k}: " + (f"capture {v['capture_s']:.4f} s, replay"
+                                    if v["capture_s"] is not None else "eager")
+                        + f" {v['call_ms']:.4f} ms a call, launches {v['launches']}"
+                        for k, v in r["layer"].items())
+        print(f"dist ({label}) EP layer 0, {who}, batch {BATCH} over {world}: bitwise against "
+              f"LocalComm({world}); the compiled step's calls bitwise against eager; {lay}; "
+              f"decode_loop on two streams bitwise against the naive step over 3 steps; "
+              f"peak {r['layer_peak_gib']:.2f} GiB; {r['layer_seconds']:.1f} s")
+        sv = r["serve"]
+        ref = ""
+        if "ref_itl" in sv:
+            name = "the dense server" if sv["ep"] == 1 else f"LocalComm({sv['ep']})"
+            ref = (f"; against {name} on one card (its itl {sv['ref_itl']:.5f} s): tokens "
+                   f"{'bitwise equal' if sv['bitwise'] else 'not bitwise equal'} ({sv['agree']:.4f} "
+                   f"of all, {sv['agree_first']:.4f} of the first), first-step logits "
+                   f"{sv['logits_err']:.3g} off relative to their largest; {sv['rows_line']}")
+        itl_label = " (gloo via host)" if r["backend"] == "gloo" else ""
+        print(f"dist ({label}) DecodeServer(comm=DistComm), {who}, EP extent {sv['ep']}, "
+              f"{sv['rows']} rows a process, DBRX {LAYERS} layers, {BATCH} x ({PROMPT} + "
+              f"{GEN}), {'captured' if sv['graphed'] else 'eager'} ({card}): itl mean "
+              f"{sv['itl']:.5f} s{itl_label}, p99 {sv['p99']:.5f} s, ttft {sv['ttft']:.4f} s"
+              f"{ref}; launches {sv['launches']}; peak {sv['peak_gib']:.2f} GiB; "
+              f"{sv['seconds']:.1f} s")
+
+
+def dist_phase(card: str) -> None:
+    """One EP rank per process, in child processes (the parent's weights are
+    freed first): (a) NCCL at world = the card count, one card each, which
+    is (b) when there are several cards; (c) two ranks sharing card 0 over
+    gloo. A child that fails fails the phase; the others are killed."""
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    work = _build.BUILD_DIR.parent
+    dist_lines(spawn(dist_child, world, "nccl", timeout=DIST_TIMEOUT_S, workdir=work),
+               world, card, "a" if world == 1 else "a, b")
+    if world < 2:
+        print(f"dist (b) did not run: world {world}, this machine has one card, and NCCL "
+              "puts no two ranks of a communicator on one card")
+    print(f"dist (a{'' if world < 2 else ', b'}) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dist_lines(spawn(dist_child, 2, "gloo", timeout=DIST_TIMEOUT_S, workdir=work),
+               2, card, "c")
+    print(f"dist (c) {time.perf_counter() - t0:.1f} s")
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the card",
               file=sys.stderr)
@@ -2503,6 +2877,18 @@ def main() -> int:
     card = card_line()
     print(card)
     build()
+    if args == ["--dist-only"]:
+        # the one-process-per-rank phase alone, for a machine with several cards
+        dist_phase(card)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args:
+        print(f"chip_smoke: unknown arguments {args}; run it with none, or --dist-only",
+              file=sys.stderr)
+        return 2
     full = full_config("decode_32k")
     cfg = dataclasses.replace(full, num_layers=LAYERS)
     m = cfg.moe
@@ -2571,6 +2957,9 @@ def main() -> int:
     print(f"DBRX released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
     ds_rows = deepseek_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_phase(card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values()) + ds_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,8 @@ is used only when passed explicitly (``device="cpu"``, as the tests do).
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -21,6 +23,22 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def rank_device(device=None, local_rank: int | None = None) -> torch.device:
+    """The device of one rank of a multi-process mesh: ``cuda:{local_rank}``
+    by default (``LOCAL_RANK`` when it is set, as ``torchrun`` sets it, else
+    the ``local_rank`` given, else 0). Any other device, two ranks on one
+    card among them, is used only when passed explicitly; with no CUDA
+    device the default raises, as ``resolve_device`` does."""
+    if device is not None:
+        return resolve_device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "present; pass device='cpu' to run the plain PyTorch path")
+    env = os.environ.get("LOCAL_RANK")
+    return torch.device("cuda", int(env) if env is not None else int(local_rank or 0))
 
 
 def disable_tf32() -> None:

@@ -89,19 +89,32 @@ def logits_out(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 CE_ROWS = 1024
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean token NLL of ``logits`` [..., V] against ``targets`` [...] (masked
-    mean with ``mask``). Each row's log-sum-exp is taken over blocks of
-    ``CE_ROWS`` rows, so the temporaries stay at one block's size (the f32
-    logits of a 32k-token batch over a 100k vocabulary are 13 GB); every
-    row's value is the same as in one pass."""
+def cross_entropy_sum(logits: torch.Tensor, targets: torch.Tensor,
+                      mask: torch.Tensor | None = None) -> torch.Tensor:
+    """[the summed token NLL of ``logits`` [..., V] against ``targets``
+    [...], the count of tokens it sums] (masked with ``mask``), as one [2]
+    tensor that a process group can sum. Each row's log-sum-exp is taken
+    over blocks of ``CE_ROWS`` rows, so the temporaries stay at one block's
+    size (the f32 logits of a 32k-token batch over a 100k vocabulary are 13
+    GB); every row's value is the same as in one pass."""
     flat = logits.reshape(-1, logits.shape[-1])
     lse = torch.cat([torch.logsumexp(flat[i:i + CE_ROWS], dim=-1)
                      for i in range(0, flat.shape[0], CE_ROWS)])
     ll = torch.take_along_dim(flat, targets.reshape(-1, 1).long(), dim=-1)[:, 0]
     nll = (lse - ll).reshape(targets.shape)
-    if mask is not None:
-        mask = mask.to(nll.dtype)
-        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
-    return nll.mean()
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.to(nll.dtype)
+    return torch.stack([(nll * mask).sum(), mask.sum()])
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token NLL of ``logits`` [..., V] against ``targets`` [...] (masked
+    mean with ``mask``)."""
+    return mean_of_sum(cross_entropy_sum(logits, targets, mask))
+
+
+def mean_of_sum(sc: torch.Tensor) -> torch.Tensor:
+    """[sum, count] -> the mean (0 over no tokens)."""
+    return sc[0] / torch.clamp_min(sc[1], 1.0)

@@ -1,14 +1,22 @@
 """MoE block on the EP core (port of ``src/repro/models/moe.py``).
 
-``moe_block(p, x, cfg, comm)`` splits the tokens across the ranks the
-communicator hosts by contiguous batch rows, as the JAX block's shard_map
-lays them out over the EP axis (``_token_specs``). Per rank: router, handle,
-staged dispatch, the SwiGLU expert FFN as three grouped GEMMs over the
-rank's experts [r*L, (r+1)*L), staged combine. With no communicator, or an
-EP extent of 1, it takes the dense reference path exactly as JAX does.
+``moe_block(p, x, cfg, comm)`` lays the tokens over the ranks the
+communicator hosts as the JAX block's shard_map lays them over the mesh
+(``_token_specs``, ``comm.shard_tokens``): ``LocalComm`` cuts the global
+batch into contiguous row blocks, one per hosted rank; a ``DistComm``
+process takes its own rows, and their S-slice when ``model`` is an EP axis.
+Per rank: router, handle, staged dispatch, the SwiGLU expert FFN as three
+grouped GEMMs over the rank's experts, staged combine. The expert weights
+hold the experts of the hosted ranks in rank order, L each (all E for
+``LocalComm``, a ``DistComm`` process's shard from ``weights.shard_params``);
+with expert tensor parallelism (a ``model`` axis that is not an EP axis)
+they hold an F-slice and the FFN's output is summed over ``model``. The aux
+loss is the mean over the ranks that carry tokens. With no communicator, or
+an EP extent of 1, it takes the dense reference path exactly as JAX does.
 """
 from __future__ import annotations
 
+import math
 import warnings
 
 import torch
@@ -58,7 +66,8 @@ def router_config(m) -> RouterConfig:
 
 
 def _expert_ffn(group, y3d, counts, w1, w3, w2):
-    """Grouped SwiGLU over [L, A, D], rows past each count left zero."""
+    """Grouped SwiGLU over [L, A, D], rows past each count left zero; under
+    expert-TP the partial sum of this process's F-slice."""
     if P.positional_layout(group):
         # rows land by position (baseline, LL deepep), not packed from row 0,
         # so every row is computed: unfilled rows are zero rows and combine
@@ -103,21 +112,24 @@ def ep_group(cfg: ArchConfig, comm, tokens_per_rank: int):
     return ep_create_group(gcfg, comm)
 
 
+def ep_active(cfg: ArchConfig, comm) -> bool:
+    """Whether ``cfg``'s MoE layers take the EP path over ``comm`` (else the
+    dense fallback, on every expert's full weights)."""
+    return comm is not None and comm.size > 1 and cfg.moe.num_experts % comm.size == 0
+
+
 def moe_block(p, x: torch.Tensor, cfg: ArchConfig, comm):
     """x: [B, S, D] -> (y [B, S, D], aux_loss scalar)."""
     m = cfg.moe
     check_supported(m)
-    if comm is None or comm.size <= 1 or m.num_experts % comm.size:
+    if not ep_active(cfg, comm):
         return _moe_dense_fallback(p, x, cfg), torch.zeros((), device=x.device)
-    B, S, D = x.shape
-    n = len(comm.ranks)
-    if B % n:
-        raise ValueError(f"batch {B} must split evenly over the {n} hosted ranks")
-    Bl = B // n
-    T = Bl * S
+    parts = comm.shard_tokens(x)
+    Bl, Sl, D = parts[0].shape
+    T = Bl * Sl
     group = ep_group(cfg, comm, T)
     L = group.local_experts
-    xs = [x[i * Bl:(i + 1) * Bl].reshape(T, D) for i in range(n)]
+    xs = [xp.reshape(T, D) for xp in parts]
     rcfg = router_config(m)
     rs = [route(xt.float() @ p["router"], rcfg, p.get("sel_bias")) for xt in xs]
     handles = ep_create_handle(group, [r.topk_idx for r in rs],
@@ -125,13 +137,20 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig, comm):
     # staged send/complete is every backend's primitive (as in JAX); the
     # seam is where a micro-batching scheduler would overlap expert compute
     recv = ep_complete(group, handles, ep_dispatch(group, handles, xs, send_only=True))
+    # hosted rank i's experts are rows [i*L, (i+1)*L) of the weights held here
     y3ds = [_expert_ffn(group, y3d, counts,
-                        p["w_gate"][r * L:(r + 1) * L], p["w_up"][r * L:(r + 1) * L],
-                        p["w_down"][r * L:(r + 1) * L])
-            for r, (y3d, counts) in zip(comm.ranks, recv)]
+                        p["w_gate"][i * L:(i + 1) * L], p["w_up"][i * L:(i + 1) * L],
+                        p["w_down"][i * L:(i + 1) * L])
+            for i, (y3d, counts) in enumerate(recv)]
+    if comm.tp_axis is not None:
+        y3ds = comm.all_reduce(y3ds, axis=comm.tp_axis)     # expert-TP partials
     outs = ep_complete(group, handles, ep_combine(group, handles, y3ds, send_only=True))
-    y = torch.cat([o.to(x.dtype).reshape(Bl, S, D) for o in outs])
-    aux = torch.stack([r.aux_loss + r.z_loss for r in rs]).mean()
+    y = comm.unshard_tokens([o.to(x.dtype).reshape(Bl, Sl, D) for o in outs])
+    # the mean over the ranks that carry tokens (JAX: pmean over the batch
+    # and sequence axes; the value is the same along an expert-TP axis)
+    sizes = dict(comm.mesh)
+    aux = (comm.all_reduce([r.aux_loss + r.z_loss for r in rs], axis=comm.token_axes)[0]
+           / math.prod(sizes[a] for a in comm.token_axes))
     if m.shared_experts:
         y = y + ffn_apply(p["shared"], x, cfg.act)
     return y, aux

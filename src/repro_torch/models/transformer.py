@@ -20,9 +20,9 @@ from repro_torch.models import kv_pages as KVP
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import ArchConfig, ParamSpec
-from repro_torch.models.layers import (cross_entropy, embed_lookup, embed_spec,
-                                       ffn_apply, ffn_spec, logits_out, rmsnorm,
-                                       rmsnorm_spec)
+from repro_torch.models.layers import (cross_entropy_sum, embed_lookup, embed_spec,
+                                       ffn_apply, ffn_spec, logits_out, mean_of_sum,
+                                       rmsnorm, rmsnorm_spec)
 
 
 def _stack_sizes(cfg: ArchConfig) -> tuple[int, int]:
@@ -171,7 +171,13 @@ def lm_forward(params, batch, cfg: ArchConfig, comm):
     [B, S]}. Returns (loss, {"aux": aux}): the mean next-token cross-entropy
     plus the MoE layers' router aux and z losses, and with ``cfg.mtp`` 0.3
     times the MTP layer's cross-entropy against the token after next (that
-    layer's aux added to the aux)."""
+    layer's aux added to the aux).
+
+    Over a ``DistComm``, ``batch`` holds this process's rows
+    (``comm.batch_rows``) and the returned values are the reference's
+    global ones: each cross-entropy's (sum, count) is summed over the
+    processes that hold other rows (masked rows count as the mask says),
+    and each MoE layer's aux is already its mean over the token ranks."""
     check_supported(cfg)
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens)
@@ -186,7 +192,12 @@ def lm_forward(params, batch, cfg: ArchConfig, comm):
     if targets is None:
         targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = batch.get("loss_mask")
-    loss = cross_entropy(logits_out(x, head), targets, mask)
+
+    def ce(logits, tg):
+        sc = cross_entropy_sum(logits, tg, mask)
+        return mean_of_sum(sc if comm is None else comm.sum_over_batch(sc))
+
+    loss = ce(logits_out(x, head), targets)
     if cfg.mtp:
         # depth-1 MTP: predict t+2 from [h_t ; emb(t+1)]
         nxt = embed_lookup(params["embed"], targets)
@@ -195,7 +206,7 @@ def lm_forward(params, batch, cfg: ArchConfig, comm):
         h2, _, a2 = layer_apply(params["mtp_layer"], h2, cfg, comm)
         aux = aux + a2
         t2 = torch.cat([targets[:, 1:], targets[:, :1]], dim=1)
-        loss = loss + 0.3 * cross_entropy(logits_out(h2, head), t2, mask)
+        loss = loss + 0.3 * ce(logits_out(h2, head), t2)
     return loss + aux, dict(aux=aux)
 
 

@@ -11,7 +11,13 @@ between steps.
 
 The EP ranks of the MoE layers are hosted in this process by a
 ``LocalComm(ep_size)``; with ``ep_size=1`` the MoE layers take the dense
-reference path, as the JAX server does off-mesh. The clock stops after
+reference path, as the JAX server does off-mesh. ``DecodeServer(...,
+comm=DistComm(...))`` is one process of a mesh launched one process per
+rank (``launch/serve.py``): ``batch`` stays the global batch, as in the JAX
+server, each process steps its own rows (``comm.batch_rows``), and
+``serve`` gathers the token streams, so ``last_tokens`` is the global
+stream in every process; the clocks are each process's own. A step over a
+gloo ``DistComm`` is not captured (``_compiled_step``). The clock stops after
 ``torch.cuda.synchronize()`` where the JAX server calls
 ``block_until_ready``.
 
@@ -32,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.comm import LocalComm
+from repro_torch.comm import DistComm, LocalComm
 from repro_torch.device import disable_tf32, resolve_device, synchronize
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.kv_pages import PageAllocator, pages_for_tokens
@@ -72,20 +78,28 @@ class ServeMetrics:
 class DecodeServer:
     def __init__(self, cfg: ArchConfig, batch: int, max_len: int, *,
                  ep_size: int = 1, params=None, seed: int = 0, device=None,
-                 pipeline_depth: int = 1):
+                 pipeline_depth: int = 1, comm=None):
         check_supported(cfg)
         self.device = resolve_device(device)
         disable_tf32()                    # the router matmul stays full f32
         self.cfg, self.batch = cfg, batch
-        self.comm = LocalComm(ep_size) if ep_size > 1 else None
-        if self.comm is not None and batch % ep_size:
+        if comm is not None and ep_size != 1:
+            raise ValueError("pass ep_size (hosted ranks) or comm, not both")
+        self.comm = comm if comm is not None else (LocalComm(ep_size) if ep_size > 1
+                                                   else None)
+        if comm is None and ep_size > 1 and batch % ep_size:
             raise ValueError(f"batch {batch} must divide by ep_size {ep_size}")
-        self.params = (init_params(cfg, seed, self.device) if params is None
-                       else params)
+        # the rows of the global batch this process steps
+        self.rows = self.comm.batch_rows(batch) if self.comm is not None else slice(0, batch)
+        local = self.rows.stop - self.rows.start
+        # without given params, each process draws the full tree from the
+        # seed and keeps its shard
+        self.params = (init_params(cfg, seed, self.device, comm=self.comm)
+                       if params is None else params)
         self.pipeline_depth = max(int(pipeline_depth), 1)
-        self.state = self._init_state(batch, max_len)
+        self.state = self._init_state(local, max_len)
         # the step's token input, which a captured step reads in place
-        self._tokens = torch.zeros((batch, 1), dtype=torch.int32, device=self.device)
+        self._tokens = torch.zeros((local, 1), dtype=torch.int32, device=self.device)
         # compiled serve steps, keyed by placement, bounded to {current,
         # previous}: see _compiled_step
         self._step_cache: collections.OrderedDict = collections.OrderedDict()
@@ -112,7 +126,11 @@ class DecodeServer:
         if key in self._step_cache:
             self._step_cache.move_to_end(key)
         else:
-            self._step_cache[key] = CompiledStep(self._step_factory())
+            # a gloo DistComm stages its collectives through the host,
+            # which a CUDA graph cannot hold: its steps run eagerly
+            self._step_cache[key] = CompiledStep(
+                self._step_factory(),
+                capture=self.comm is None or self.comm.capturable)
             while len(self._step_cache) > 2:
                 self._step_cache.popitem(last=False)
         return self._step_cache[key]
@@ -125,7 +143,8 @@ class DecodeServer:
         self._serve_step = self._compiled_step()
 
     def step(self, tokens: torch.Tensor) -> torch.Tensor:
-        """One greedy decode step: [B, 1] tokens in, [B, 1] next tokens out."""
+        """One greedy decode step over this process's rows: [b, 1] tokens
+        in, [b, 1] next tokens out (b = batch on one process)."""
         self._tokens.copy_(tokens)
         tok, self.state = self._serve_step(self.params, self.state,
                                            {"tokens": self._tokens})
@@ -133,8 +152,9 @@ class DecodeServer:
 
     def prefill(self, prompts):
         """Token-by-token prefill through the decode step (as the JAX
-        harness does). Returns (first generated token [B, 1], seconds)."""
-        prompts = torch.as_tensor(prompts, dtype=torch.int32, device=self.device)
+        harness does) of this process's rows of the global prompts [B, P].
+        Returns (first generated token [b, 1], seconds)."""
+        prompts = torch.as_tensor(prompts, dtype=torch.int32, device=self.device)[self.rows]
         t0 = time.perf_counter()
         tok = None
         for i in range(prompts.shape[1]):
@@ -143,8 +163,9 @@ class DecodeServer:
         return tok, time.perf_counter() - t0
 
     def decode(self, first_tok: torch.Tensor, steps: int):
-        """``steps`` greedy steps. Returns (tokens [B, steps+1] numpy, the
-        first token included, and the per-step latencies in seconds)."""
+        """``steps`` greedy steps of this process's rows. Returns (tokens [b,
+        steps+1] numpy, the first token included, and the per-step
+        latencies in seconds)."""
         if self.pipeline_depth > 1:
             return self._decode_pipelined(first_tok, steps)
         tok = first_tok
@@ -200,6 +221,8 @@ class DecodeServer:
         # over the decode wall clock, not itls.sum(): the pipelined path's
         # itls leave the fill interval out
         decode_wall = time.perf_counter() - t0
+        if self.comm is not None:         # every process's rows, in batch order
+            toks = self.comm.gather_batch(torch.from_numpy(toks).to(self.device)).cpu().numpy()
         self.last_tokens = toks           # [B, gen_steps+1] generated stream
         total = toks.shape[0] * toks.shape[1]
         return ServeMetrics(
@@ -243,6 +266,10 @@ class ContinuousDecodeServer(DecodeServer):
         if int(kwargs.get("pipeline_depth", 1)) > 1:
             raise ValueError("continuous batching is depth-1: the next step "
                              "consumes this step's tokens host-side")
+        if isinstance(kwargs.get("comm"), DistComm):
+            raise NotImplementedError(
+                "continuous batching over a DistComm needs a scheduler that "
+                "makes the same admissions in every process (ROADMAP A2b)")
         self.page_size = int(page_size)
         # page-table width: enough pages for max_len, rounded up so the
         # configured split count divides it (the extra entries are pad)

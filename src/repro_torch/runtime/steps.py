@@ -73,17 +73,23 @@ class CompiledStep:
     A call must pass the params and the state the graph was captured with;
     a capture or replay that fails raises, and nothing falls back to eager.
 
-    On the CPU every call runs the uncompiled step.
+    On the CPU every call runs the uncompiled step, and so does every call
+    with ``capture=False`` (a step whose collectives a graph cannot hold:
+    gloo stages them through the host). A step over NCCL is captured: its
+    warm-up runs every collective eagerly first, which creates NCCL's
+    communicators before the capture, and ``ProcessGroupNCCL`` joins its
+    own stream to the capture stream with events, which the graph records.
     """
 
-    def __init__(self, fn):
+    def __init__(self, fn, capture: bool = True):
         self.fn = fn
+        self.capture = capture
         self.graph: torch.cuda.CUDAGraph | None = None
         self.capture_s: float | None = None   # wall time of the capture
         self._static = None                   # (params, state, batch, tokens out)
 
     def __call__(self, params, state, batch):
-        if batch["tokens"].device.type != "cuda":
+        if batch["tokens"].device.type != "cuda" or not self.capture:
             return self.fn(params, state, batch)
         if self.graph is None:
             return self._warm_up_and_capture(params, state, batch)

@@ -8,6 +8,13 @@ the second-to-last dim. The values are drawn on the device from a seeded
 too many to draw on the CPU); they are not JAX's values. Tests that compare
 the packages build one tree with JAX and carry it over with
 ``params_from_jax``. Both keep JAX's layouts and names.
+
+``shard_params`` cuts a full tree down to what one process of a
+``DistComm`` mesh holds: the experts of its EP rank and, under expert
+tensor parallelism, its F-slice of them (``src/repro/models/moe.py``'s
+``ew_spec``); everything else is replicated. ``init_params(..., comm=)``
+draws the same values as the full tree and keeps only that shard, one leaf
+at a time.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.moe import ep_active
 from repro_torch.models.transformer import check_supported, lm_spec
 
 # numpy dtypes torch.from_numpy does not know, by name -> (bit view, torch dtype)
@@ -40,8 +48,49 @@ def _set(tree: dict, path, value) -> None:
     tree[path[-1]] = value
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device=None):
-    """Random parameters for ``cfg``, drawn on ``device`` (CUDA by default)."""
+# expert-stacked weights and the dim of each that expert-TP slices
+# (w_gate, w_up [..., E, D, F]: F last; w_down [..., E, F, D])
+_EXPERT_F_DIM = {"w_gate": -1, "w_up": -1, "w_down": -2}
+
+
+def _shard_leaf(path, t: torch.Tensor, cfg: ArchConfig, comm) -> torch.Tensor:
+    """The part of leaf ``path`` that this process of ``comm`` holds."""
+    if len(path) < 2 or path[-2] != "moe" or path[-1] not in _EXPERT_F_DIM \
+            or not ep_active(cfg, comm):
+        return t
+    if len(comm.ranks) == comm.size and comm.tp_axis is None:
+        return t                             # every rank is hosted here
+    L = cfg.moe.num_experts // comm.size
+    e_dim = t.dim() - 3                      # after a stacked layer dim, if any
+    t = t.narrow(e_dim, comm.ranks[0] * L, len(comm.ranks) * L)
+    if comm.tp_axis is not None:
+        m = dict(comm.mesh)[comm.tp_axis]
+        f_dim = t.dim() + _EXPERT_F_DIM[path[-1]]
+        if t.shape[f_dim] % m:
+            raise ValueError(f"{'/'.join(path)}: d_ff_expert {t.shape[f_dim]} must "
+                             f"split evenly over {comm.tp_axis}={m}")
+        f = t.shape[f_dim] // m
+        t = t.narrow(f_dim, comm.coords[comm.tp_axis] * f, f)
+    return t.contiguous()
+
+
+def shard_params(params, cfg: ArchConfig, comm):
+    """This process's part of the full tree ``params`` (``init_params`` or
+    ``params_from_jax``): the experts [r*L, (r+1)*L) of each hosted EP rank
+    r, their F-slice at its ``model`` coordinate under expert-TP, the rest
+    as it is. A ``LocalComm`` hosts every rank: its part is the whole tree.
+    Leaves that are not cut are the same tensors."""
+    out: dict = {}
+    for path, t in _leaves(params):
+        _set(out, path, _shard_leaf(path, t, cfg, comm))
+    return out
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device=None, comm=None):
+    """Random parameters for ``cfg``, drawn on ``device`` (CUDA by default);
+    with ``comm``, the shard of them this process holds
+    (``shard_params(init_params(cfg, seed, device), cfg, comm)``, with one
+    full leaf at a time on the device)."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -56,7 +105,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None):
             std = s.scale / math.sqrt(max(fan_in, 1))
             t = torch.empty(s.shape, dtype=s.dtype, device=dev).normal_(
                 0.0, std, generator=gen)
-        _set(params, path, t)
+        _set(params, path, t if comm is None else _shard_leaf(path, t, cfg, comm))
+        del t
     return params
 
 

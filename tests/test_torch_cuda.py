@@ -41,14 +41,15 @@ from repro_torch.kernels import fp8
 from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import recv_unpack as ru
 from repro_torch.kernels import ref
-from repro_torch.core import route
+from repro_torch.core import (ep_combine, ep_complete, ep_create_handle, ep_dispatch,
+                              route)
 from repro_torch.models.moe import (_expert_ffn, _moe_dense_fallback, ep_group,
                                     moe_block, router_config)
 from repro_torch.runtime.decode import decode_loop, naive_decode_step, pipelined_decode_step
 from repro_torch.runtime.prefill import _handle
 from repro_torch.runtime.scheduler import Request
 from repro_torch.runtime.server import ContinuousDecodeServer, DecodeServer
-from repro_torch.runtime.steps import capture_stream
+from repro_torch.runtime.steps import CompiledStep, capture_stream
 from repro_torch.weights import init_params
 
 
@@ -1006,3 +1007,111 @@ def test_cuda_deepseek_captured_servers_match_eager(hopper):
     assert np.array_equal(toks["captured"], toks["eager"])
     for a, b in zip(streams["captured"], streams["eager"]):
         assert np.array_equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# one EP rank per process over NCCL: a spawned child per card
+# --------------------------------------------------------------------------
+
+NCCL_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "int32": torch.int32,
+               "fp8": torch.float8_e4m3fn}
+NCCL_LAYOUTS = ("nccl_ep", "deepep_fp8")
+
+
+def _nccl_layer(cfg, comm, router, w1, w3, w2):
+    """The EP API over ``comm`` on one MoE layer as a CompiledStep step;
+    the weights hold the hosted ranks' experts in rank order."""
+    def step(params, state, batch):
+        xs = list(batch["tokens"].unbind(0))
+        group = ep_group(cfg, comm, xs[0].shape[0])
+        L = group.local_experts
+        rs = [route(x.float() @ router, router_config(cfg.moe)) for x in xs]
+        hs = ep_create_handle(group, [r.topk_idx for r in rs], [r.topk_weights for r in rs])
+        recv = ep_complete(group, hs, ep_dispatch(group, hs, xs, send_only=True))
+        ys = [_expert_ffn(group, y, c, w1[i * L:(i + 1) * L], w3[i * L:(i + 1) * L],
+                          w2[i * L:(i + 1) * L]) for i, (y, c) in enumerate(recv)]
+        outs = ep_complete(group, hs, ep_combine(group, hs, ys, send_only=True))
+        return torch.stack([o.to(xs[0].dtype) for o in outs]), state
+    return step
+
+
+def _nccl_rank(rank, world, init_method):
+    """One rank over NCCL (cuda:rank): DistComm's primitives against
+    LocalComm(world)'s on the same stacked inputs, and one EP layer of the
+    smoke config (d_model 128, bf16) per layout, eager against LocalComm
+    and captured against eager. Returns what the tests assert."""
+    from repro_torch.comm import DistComm
+    from repro_torch.launch.mesh import init_process
+    axes = (("data", world),)
+    dev = init_process(axes, None, init_method, rank=rank, world=world)
+    disable_tf32()
+    comm, lc = DistComm(axes), LocalComm(world)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, dt in NCCL_DTYPES.items():
+        x = torch.randn((world, world, 8, 64), generator=gen, device=dev) * 4
+        x = (x.to(torch.int32) if dt == torch.int32 else
+             x.clamp(-448, 448).to(dt))
+        as_bytes = (lambda t: t.view(torch.uint8) if t.dtype.itemsize == 1 else t)
+        out["a2a", name] = torch.equal(as_bytes(comm.all_to_all([x[rank]])[0]),
+                                       as_bytes(lc.all_to_all(list(x))[rank]))
+        out["gather", name] = torch.equal(as_bytes(comm.all_gather([x[rank, 0]])[0]),
+                                          as_bytes(lc.all_gather(list(x[:, 0]))[rank]))
+        if name in ("f32", "int32"):
+            got, want = comm.all_reduce([x[rank, 0]])[0], lc.all_reduce(list(x[:, 0]))[rank]
+            out["reduce", name] = (torch.equal(got, want) if name == "int32" else
+                                   torch.allclose(got, want, rtol=1e-6, atol=1e-5))
+    cfg = dataclasses.replace(smoke_config(), d_model=128)
+    E, D, Fe = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    w = [_rand(s, torch.bfloat16, dev, 0.1, seed=i + 1)
+         for i, s in enumerate([(E, D, Fe), (E, D, Fe), (E, Fe, D)])]
+    router = _rand((D, E), torch.float32, dev, seed=4)
+    L = E // world
+    mine = [t[rank * L:(rank + 1) * L].contiguous() for t in w]
+    x = _rand((world, 16, D), torch.bfloat16, dev, seed=5)
+    for layout in NCCL_LAYOUTS:
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, ep_mode="ll", ll_layout="deepep" if layout == "deepep_fp8" else layout,
+            quantize_dispatch=layout.endswith("fp8")))
+        want = _nccl_layer(c, lc, router, *w)(None, {}, {"tokens": x})[0][rank]
+        eager = _nccl_layer(c, comm, router, *mine)(None, {}, {"tokens": x[rank:rank + 1]})[0][0]
+        step, state, batch = (CompiledStep(_nccl_layer(c, comm, router, *mine)), {},
+                              {"tokens": x[rank:rank + 1].clone()})
+        first, _ = step(None, state, batch)
+        replay, _ = step(None, state, batch)
+        torch.cuda.synchronize()
+        out["layer", layout] = dict(local=torch.equal(eager, want),
+                                    warm_up=torch.equal(first[0], eager),
+                                    replay=torch.equal(replay[0], eager),
+                                    captured=step.graph is not None)
+    return out
+
+
+@pytest.fixture(scope="module")
+def nccl_ranks():
+    """Every rank's results, one spawned process per card."""
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("needs an NVIDIA sm_90 (Hopper) card")
+    from repro_torch.launch.mesh import spawn
+    return spawn(_nccl_rank, torch.cuda.device_count(), timeout=300)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,dtype", [(op, d) for op in ("a2a", "gather") for d in NCCL_DTYPES]
+                         + [("reduce", "f32"), ("reduce", "int32")])
+def test_cuda_nccl_primitives_match_local_comm(nccl_ranks, op, dtype):
+    """DistComm over NCCL (world = the card count) against LocalComm on the
+    same stacked inputs: bitwise (fp8 as bytes), f32 sums within rounding."""
+    for r in nccl_ranks:
+        assert r[op, dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", NCCL_LAYOUTS)
+def test_cuda_nccl_ep_layer_captured(nccl_ranks, layout):
+    """One EP layer over NCCL: bitwise against LocalComm(world) eagerly,
+    captured by CompiledStep (NCCL's communicator made by the warm-up) and
+    replayed bitwise."""
+    for r in nccl_ranks:
+        assert r["layer", layout] == dict(local=True, warm_up=True, replay=True,
+                                          captured=True)

@@ -30,6 +30,7 @@ def test_port_imports_no_jax():
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
         "assert 'repro_torch.runtime.scheduler' in sys.modules, mods\n"
+        "assert {'repro_torch.launch.mesh', 'repro_torch.launch.serve'} <= set(sys.modules), mods\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))

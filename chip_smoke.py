@@ -149,16 +149,30 @@
    ``nccl_ep`` and ``deepep`` + fp8, bitwise against ``LocalComm(world)``,
    with B1 to B4 launched, and captured by ``CompiledStep`` with its replay
    bitwise equal to eager; ``DecodeServer(comm=DistComm)`` over DBRX (its
-   4 layers), 128 x (8 + 16), captured, its tokens equal to the dense
-   server's at world 1. (b) With several cards, the same child's serve runs
-   at EP extent = world and its tokens must equal ``LocalComm(world)``'s on
-   one card; on one card a line says (b) did not run and why. (c) Two
-   processes sharing the card over gloo (CUDA tensors through the host): the
-   fixed-batch serve at EP extent 2 in ``nccl_ep``, eager (a gloo step is
-   not captured), tokens bitwise equal to an eager ``LocalComm(2)`` serve,
-   its ITL printed as "gloo via host". A child that fails fails the script.
-   ``python3 chip_smoke.py --dist-only`` builds the kernels and runs this
-   phase alone (for a machine with several cards).
+   4 layers), 128 x (8 + 16), captured; ``ContinuousDecodeServer(comm=
+   DistComm)``, 128 slots over paged KV (page 16, 512 pages), 64 requests,
+   captured, exact launch counts, two requests that joined and left
+   mid-stream served again alone through the same engine bitwise, the
+   per-step token gather timed. At world 1 both servers' tokens must
+   equal the dense-path servers' on the card bitwise, and the prefill
+   forward does not run (EP extent 1 takes the dense MoE path): a line
+   says so. (b) With several cards the same child runs at EP extent =
+   world: each server's first-step logits within 2e-2 of
+   ``LocalComm(world)``'s on one card (cuBLAS picks its kernel by the row
+   count, so tokens are compared, not required equal); then the
+   ``train_4k`` prefill forward, 8 x 4096 global, fp8, capacity 1.25, HT
+   flat at EP extent 4 and, over two pods of two, hierarchical at 1 and 2
+   chunks: each loss finite, bitwise on a repeat, within 1e-3 relative of
+   ``LocalComm(4)``'s on card 0, its EP launches exact; 2 chunks bitwise
+   equal to 1. On one card a line says (b) did not run and why. (c) Two
+   processes sharing the card over gloo (CUDA tensors through the host),
+   EP extent 2, eager (a gloo step is not captured): the fixed-batch serve,
+   its ITL printed as "gloo via host", the continuous serve and the flat
+   prefill forward, with the checks of (b) against ``LocalComm(2)``.
+   Every rank's continuous admission log, (step, rid, slot), must be the
+   same. A child that fails fails the script. ``python3 chip_smoke.py
+   --dist-only`` builds the kernels and runs this phase alone (for a
+   machine with several cards).
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. The last line is
@@ -179,6 +193,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile
@@ -211,7 +226,8 @@ from repro_torch.models.transformer import (_decode_splits, _index,  # noqa: E40
 from repro_torch.runtime.decode import (decode_loop, naive_decode_step,  # noqa: E402
                                         pipelined_decode_step)
 from repro_torch.runtime.prefill import _handle, prefill_moe, sequential_prefill  # noqa: E402
-from repro_torch.runtime.scheduler import Request  # noqa: E402
+from repro_torch.models.kv_pages import PageAllocator  # noqa: E402
+from repro_torch.runtime.scheduler import ContinuousScheduler, Request  # noqa: E402
 from repro_torch.runtime.server import (ContinuousDecodeServer,  # noqa: E402
                                         DecodeServer)
 from repro_torch.runtime.steps import CompiledStep, capture_stream  # noqa: E402
@@ -360,13 +376,15 @@ def moe_layers(cfg) -> int:
     return cfg.num_layers - cfg.moe.first_k_dense
 
 
-def ep_launches(cfg, path: str) -> dict:
+def ep_launches(cfg, path: str, chunks: int = HIER_CHUNKS) -> dict:
     """EP launches per MoE layer and hosted rank of one step (or forward)
-    of ``cfg`` on ``path``: EP_LAUNCHES[path], and of B1's, those in quant
+    of ``cfg`` on ``path``: EP_LAUNCHES[path] (on the hierarchical path,
+    ``hier_launches`` of ``chunks`` chunks), and of B1's, those in quant
     mode: under fp8 dispatch each dispatch send (one, or one per chunk on
     the hierarchical path), else none."""
-    per = dict(EP_LAUNCHES[path])
-    per[DP_QUANT] = (HIER_CHUNKS if path == "hier" else 1) if cfg.moe.quantize_dispatch else 0
+    fp8 = cfg.moe.quantize_dispatch
+    per = hier_launches(chunks, fp8) if path == "hier" else dict(EP_LAUNCHES[path])
+    per[DP_QUANT] = (chunks if path == "hier" else 1) if fp8 else 0
     return per
 
 
@@ -1112,6 +1130,23 @@ def make_requests(vocab: int, n: int = REQUESTS, seed: int = 4) -> list[Request]
                     arrival_step=int(arrivals[i])) for i in range(n)]
 
 
+def served_tokens(cfg, srv: ContinuousDecodeServer, metrics, reqs) -> list:
+    """Each request's tokens of a finished ``serve_requests``, once every
+    request has completed with in-vocabulary tokens and every page and
+    reservation has come back."""
+    sched = srv.reqsched
+    check(sched.done and metrics.requests_completed == len(reqs),
+          f"{metrics.requests_completed} of {len(reqs)} requests completed")
+    toks = [sched.tokens_for(r.rid) for r in reqs]
+    for r, t in zip(reqs, toks):
+        check(len(t) == r.max_new_tokens and t.min() >= 0 and t.max() < cfg.vocab,
+              f"request {r.rid}: bad token stream {t}")
+    check(sched.alloc.live_count == 0 and sched._reserved == 0
+          and sched.alloc.free_count == srv.num_pages,
+          f"pages not returned: {sched.alloc.live_count} live, {sched._reserved} reserved")
+    return toks
+
+
 def continuous_phase(cfg, params, card: str, n: int = REQUESTS, seed: int = 4,
                      serves: int = SERVES, keep: bool = True):
     """The continuous-batching main path: ContinuousDecodeServer.
@@ -1137,19 +1172,11 @@ def continuous_phase(cfg, params, card: str, n: int = REQUESTS, seed: int = 4,
             metrics = srv.serve_requests(reqs)
             launches = counts()
             sched, steps = srv.reqsched, metrics.serve_steps
-            check(sched.done and metrics.requests_completed == n,
-                  f"{metrics.requests_completed} of {n} requests completed")
-            toks = [sched.tokens_for(r.rid) for r in reqs]
-            for r, t in zip(reqs, toks):
-                check(len(t) == r.max_new_tokens and t.min() >= 0 and t.max() < cfg.vocab,
-                      f"request {r.rid}: bad token stream {t}")
+            toks = served_tokens(cfg, srv, metrics, reqs)
             if want is None:
                 want = toks
             check(all(np.array_equal(a, b) for a, b in zip(toks, want)),
                   f"the {mode} continuous serve's tokens differ from the first serve's")
-            check(sched.alloc.live_count == 0 and sched._reserved == 0
-                  and sched.alloc.free_count == srv.num_pages,
-                  f"pages not returned: {sched.alloc.live_count} live, {sched._reserved} reserved")
             check(metrics.pages_peak <= metrics.pages_dense_equiv,
                   f"pages_peak {metrics.pages_peak} > dense {metrics.pages_dense_equiv}")
             m = metrics.as_dict()
@@ -2530,10 +2557,12 @@ DIST_ITERS = 50
 DIST_TIMEOUT_S = 420
 
 
-def check_dist_counts(launches: dict, cfg, path: str, calls: int, where: str) -> None:
-    """One hosted rank's EP launches over ``calls`` layer calls of ``path``
-    must be ``ep_launches``' count for each."""
-    for name, per in ep_launches(cfg, path).items():
+def check_dist_counts(launches: dict, cfg, path: str, calls: int, where: str,
+                      chunks: int = HIER_CHUNKS) -> None:
+    """The EP launches over ``calls`` layer calls of ``path``, one call
+    per MoE layer and hosted rank, must be ``ep_launches``' count for
+    each."""
+    for name, per in ep_launches(cfg, path, chunks).items():
         check(launches.get(name, 0) == per * calls, f"{name} launched "
               f"{launches.get(name, 0)} times on {where}, expected {per * calls}")
 
@@ -2781,11 +2810,241 @@ def dist_serve_phase(cfg, comm, dev, rank: int, world: int) -> dict:
     return out
 
 
+# the dist phase's continuous serve: DIST_REQUESTS requests of
+# make_requests (the continuous phase's generator and seed) over BATCH
+# slots, DIST_SOLO of them served again alone
+DIST_REQUESTS, DIST_SOLO = 64, 2
+# a DistComm prefill forward's loss against LocalComm(EP extent)'s on one
+# card, relative: the dense products of a process see its rows, LocalComm's
+# the whole batch, and cuBLAS picks its kernel by the row count
+PF_LOSS_REL = 1e-3
+# the hierarchical dist prefill's mesh (four processes): two pods of two
+DIST_HIER_AXES = (("pod", 2), ("data", 2))
+
+
+def dist_continuous_serve(cfg, params, comm, dev, reqs) -> tuple:
+    """ContinuousDecodeServer.serve_requests of ``reqs`` over ``comm`` (a
+    DistComm, a LocalComm or None: dense) on its compiled step, every
+    launch counter read (``served_tokens`` checks the serve). Returns the
+    server, its metrics, the launches and each request's tokens by id."""
+    srv = ContinuousDecodeServer(cfg, BATCH, CMAX_LEN, comm=comm, params=params,
+                                 device=dev, page_size=PAGE)
+    reset_counts()
+    m = srv.serve_requests(reqs)
+    launches = {k: n for k, n in counts().items() if n}
+    toks = served_tokens(cfg, srv, m, reqs)
+    return srv, m, launches, {r.rid: t for r, t in zip(reqs, toks)}
+
+
+def dist_mid_stream(reqs, admissions, steps: int, n: int) -> list:
+    """n requests admitted after step 0 whose last token came before the
+    serve's last step, spread over them. A request admitted at step s
+    emits its last token at step s + prompt + new - 2, so the picks follow
+    from the admission log alone, the same in every process."""
+    at = {rid: step for step, rid, _ in admissions}
+    picks = [r for r in reqs if at[r.rid] > 0
+             and at[r.rid] + r.prompt.size + r.max_new_tokens - 2 < steps - 1]
+    return [picks[len(picks) * (i + 1) // (2 * n)] for i in range(n)]
+
+
+def continuous_step0_logits(cfg, params, comm, dev, reqs, table: tuple) -> torch.Tensor:
+    """The f32 logits [B, V] of the continuous serve's first step: the
+    scheduler's step-0 inputs, this process's rows of them, through one
+    paged step on fresh pools of ``table`` = (page-table width, pages),
+    gathered over the batch (every process of a DistComm takes part)."""
+    max_pages, num_pages = table
+    sched = ContinuousScheduler(reqs, BATCH, max_pages, PageAllocator(num_pages, PAGE))
+    rows = comm.batch_rows(BATCH) if comm is not None else slice(0, BATCH)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(dev)
+             for k, v in sched.advance(0, now=0.0).items()}
+    state = init_paged_decode_state(cfg, num_pages, PAGE, dev)
+    logits, _ = lm_paged_decode_step(params, state, batch, cfg, comm)
+    out = logits[:, -1, :cfg.vocab].float()
+    return comm.gather_batch(out) if comm is not None else out
+
+
+def dist_continuous_phase(cfg, comm, dev, rank: int) -> dict:
+    """ContinuousDecodeServer(comm=DistComm) over DBRX (full width, LAYERS
+    layers): DIST_REQUESTS requests over BATCH slots of paged KV (page
+    PAGE, the default pool) on its compiled step (captured over NCCL, eager
+    over gloo); exact launch counts (B6 on every layer, B1 to B4 at EP
+    extent > 1); DIST_SOLO requests that joined and left mid-stream served
+    again alone through the same engine, bitwise; the per-step token gather
+    timed. Then, on rank 0 alone, the reference on this card: the
+    dense-path continuous server at EP extent 1 (the path DistComm's extent
+    1 runs, on the same rows: streams bitwise), else LocalComm(EP extent)'s
+    (first-step logits within TOL, the stream agreement printed); either
+    way the same admission log."""
+    # rank 0 may still be running the last phase's reference: start every
+    # process's clock together
+    dist.barrier()
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, dev, comm=comm)
+    reqs = make_requests(cfg.vocab, DIST_REQUESTS)
+    srv, m, launches, toks = dist_continuous_serve(cfg, params, comm, dev, reqs)
+    graphed = srv._serve_step.graph is not None
+    where = f"the DistComm continuous server over {comm.backend}"
+    check(graphed == comm.capturable,
+          f"{where} {'did not capture' if comm.capturable else 'captured'} its step")
+    # captured: the warm-up and the capture; else every step
+    steps = 2 if graphed else m.serve_steps
+    if comm.size > 1:
+        check_dist_counts(launches, cfg, "nccl_ep", steps * moe_layers(cfg), where)
+    check(launches.get(PAGED, 0) == cfg.num_layers * steps,
+          f"{PAGED} launched {launches.get(PAGED, 0)} times on {where}, expected "
+          f"{cfg.num_layers * steps}")
+    admissions, table = list(srv.reqsched.admissions), (srv.max_pages, srv.num_pages)
+    md = m.as_dict()
+    picks = dist_mid_stream(reqs, admissions, m.serve_steps, DIST_SOLO)
+    for r in picks:
+        srv.serve_requests([Request(r.rid, r.prompt, r.max_new_tokens)])
+        got = srv.reqsched.tokens_for(r.rid)
+        check(np.array_equal(got, toks[r.rid]), f"request {r.rid} alone through the "
+              f"DistComm engine gives {got}, among co-residents {toks[r.rid]}")
+    b = srv.rows.stop - srv.rows.start
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    gather = (call_ms(lambda: comm.gather_batch(tok), DIST_ITERS),
+              queued_ms(lambda: comm.gather_batch(tok), DIST_ITERS)[0])
+    srv.close()
+    logits = continuous_step0_logits(cfg, params, comm, dev, reqs, table)
+    out = dict(ep=comm.size, rows=b, graphed=graphed, steps=m.serve_steps,
+               tokens=m.total_tokens, tok_s=m.output_tok_s, itl=m.itl_mean_s,
+               ttft_p50=md["ttft_p50_s"], ttft_p99=md["ttft_p99_s"],
+               itl_p50=md["itl_p50_s"], itl_p99=md["itl_p99_s"], pages_peak=m.pages_peak,
+               pages_dense=m.pages_dense_equiv, launches=launches, admissions=admissions,
+               solo=[(r.rid, r.arrival_step) for r in picks], gather=gather,
+               peak_gib=dist_peak())
+    del srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        full = init_params(cfg, 0, dev)
+        ref_comm = None if comm.size == 1 else LocalComm(comm.size)
+        rsrv, rm, _, want = dist_continuous_serve(cfg, full, ref_comm, dev, reqs)
+        check(list(rsrv.reqsched.admissions) == admissions,
+              "the DistComm continuous server's admissions differ from the one-card "
+              "server's")
+        rsrv.close()
+        del rsrv
+        want_logits = continuous_step0_logits(cfg, full, ref_comm, dev, reqs, table)
+        err = float((logits - want_logits).abs().max() / want_logits.abs().max())
+        agree = np.asarray([np.array_equal(toks[r.rid], want[r.rid]) for r in reqs])
+        out.update(ref_itl=rm.itl_mean_s, logits_err=err, agree=float(agree.mean()),
+                   bitwise=bool(agree.all()))
+        if comm.size == 1:
+            check(bool(agree.all()), "the DistComm continuous server's streams differ from "
+                  f"the dense-path server's: {agree.mean():.4f} equal")
+        check(err <= TOL, f"the DistComm continuous server's first-step logits are "
+              f"{err:.3g} off LocalComm({comm.size})'s")
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def dist_prefill_run(cfg, params, comm, dev, path: str, chunks: int = 1) -> dict:
+    """The prefill forward of this process's rows of the seeded batch (the
+    prefill phase's tokens) over ``comm`` (a DistComm, or the LocalComm
+    hosting its mesh), every launch counter read (the EP counts exact for
+    ``path`` and the hosted ranks, flash attention once per layer), then a
+    timed repeat whose loss must be bitwise equal. Returns the loss, wall,
+    tokens per second, peak memory, plan host time and dropped shares."""
+    tokens = np.random.default_rng(10).integers(0, cfg.vocab, (PF_BATCH, PF_SEQ))
+    rows = comm.batch_rows(PF_BATCH)
+    batch = {"tokens": torch.from_numpy(tokens[rows].astype(np.int32)).to(dev)}
+    forward = get_model(cfg).forward
+    probes: list = []
+    reset_counts()
+    with handle_probe(probes):
+        loss, aux = forward(params, batch, cfg, comm)
+        torch.cuda.synchronize()
+    launches = {k: n for k, n in counts().items() if n}
+    label = f"the {path} prefill over {type(comm).__name__}({comm.size})"
+    check(bool(torch.isfinite(loss)), f"{label}: loss {loss.item()} is not finite")
+    check_dist_counts(launches, cfg, path, moe_layers(cfg) * len(comm.ranks), label, chunks)
+    check(launches.get(FLASH, 0) == LAYERS and PAGED not in launches,
+          f"{label}: {launches.get(FLASH, 0)} flash and {launches.get(PAGED, 0)} paged "
+          f"attention launches, expected {LAYERS} and 0")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss2, _ = forward(params, batch, cfg, comm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(torch.equal(loss, loss2), f"{label}: a repeat gave loss {loss2.item()}, the "
+          f"first {loss.item()}")
+    n = batch["tokens"].numel()
+    return dict(loss=loss.item(), aux=aux["aux"].item(), wall=wall, tok_s=n / wall,
+                total_tok_s=PF_BATCH * PF_SEQ / wall, peak_gib=dist_peak(),
+                plan_s=sum(dt for _, dt in probes), dropped=[round(d, 6) for d, _ in probes],
+                launches=launches, rows=tuple(batch["tokens"].shape))
+
+
+def dist_hier_config(cfg, chunks: int):
+    """The train_4k preset on the hierarchical path with ``chunks`` chunks."""
+    h = hier_config(cfg)
+    return dataclasses.replace(h, moe=dataclasses.replace(h.moe, ht_num_chunks=chunks))
+
+
+def dist_prefill_phase(comm, hcomm, dev, rank: int) -> dict | None:
+    """The train_4k prefill forward (LAYERS layers, PF_BATCH x PF_SEQ
+    global, fp8 dispatch, capacity 1.25) with one EP rank per process: HT
+    flat at EP extent = the world, and over ``hcomm`` (a DistComm of
+    DIST_HIER_AXES, or None) the hierarchical path at 1 and 2 chunks, 2
+    bitwise equal to 1; each run's loss finite, bitwise on a repeat, its
+    EP launches exact. Then, on rank 0 alone, LocalComm's loss of each run
+    on this card (the same mesh hosted in one process): within
+    PF_LOSS_REL. None at EP extent 1, where the MoE layers take the dense
+    path and no HT runs."""
+    if comm.size == 1:
+        return None
+    t = time.perf_counter()
+    _, cfg = prefill_config()
+    runs = {}
+    plans = [("flat", cfg, comm, "nccl_ep", 1)]
+    if hcomm is not None:
+        plans += [(f"hierarchical, {nc} chunk{'s' if nc > 1 else ''}",
+                   dist_hier_config(cfg, nc), hcomm, "hier", nc) for nc in (1, 2)]
+    for name, c, cm, path, nc in plans:
+        params = init_params(c, 0, dev, comm=cm)
+        runs[name] = dict(dist_prefill_run(c, params, cm, dev, path, nc),
+                          ep=cm.size, axes=cm.axes)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    if hcomm is not None:
+        one, two = runs["hierarchical, 1 chunk"], runs["hierarchical, 2 chunks"]
+        check(one["loss"] == two["loss"] and one["aux"] == two["aux"],
+              f"the hierarchical prefill's loss at 2 chunks, {two['loss']!r}, differs from "
+              f"1 chunk's, {one['loss']!r} (dropped shares {two['dropped']})")
+    if rank == 0:
+        full = init_params(cfg, 0, dev)
+        for name, c, cm, path, nc in plans:
+            ref_comm = LocalComm(cm.size, axes=cm.axes)
+            want = dist_prefill_run(c, full, ref_comm, dev, path, nc)
+            r = runs[name]
+            r["ref_loss"], r["ref_wall"] = want["loss"], want["wall"]
+            r["loss_err"] = abs(r["loss"] - want["loss"]) / abs(want["loss"])
+            check(r["loss_err"] <= PF_LOSS_REL, f"the DistComm {name} prefill's loss "
+                  f"{r['loss']!r} is {r['loss_err']:.3g} off LocalComm({cm.size})'s "
+                  f"{want['loss']!r}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return dict(runs=runs, seconds=time.perf_counter() - t)
+
+
 def dist_child(rank: int, world: int, init_method: str, backend: str) -> dict:
     """One rank of a DistComm mesh of ``world`` processes over ``backend``:
     NCCL takes card ``rank``; gloo puts every process on card 0 (CUDA
     tensors staged through the host). The primitives, the EP layer, the
-    serve."""
+    fixed-batch serve, the continuous serve, the prefill forward (flat,
+    and hierarchical over two pods of two when the world is 4)."""
     t0 = time.perf_counter()
     axes = (("data", world),)
     tmo = datetime.timedelta(seconds=DIST_TIMEOUT_S)
@@ -2793,6 +3052,7 @@ def dist_child(rank: int, world: int, init_method: str, backend: str) -> dict:
                        world=world, backend=backend, timeout=tmo)
     disable_tf32()
     comm = DistComm(axes, timeout=tmo)
+    hcomm = DistComm(DIST_HIER_AXES, timeout=tmo) if world == 4 else None
     lc = LocalComm(world)
     out = dict(rank=rank, device=str(dev), backend=comm.backend)
     t = time.perf_counter()
@@ -2807,6 +3067,10 @@ def dist_child(rank: int, world: int, init_method: str, backend: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["serve"] = dist_serve_phase(cfg, comm, dev, rank, world)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["continuous"] = dist_continuous_phase(cfg, comm, dev, rank)
+    out["prefill"] = dist_prefill_phase(comm, hcomm, dev, rank)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -2846,6 +3110,49 @@ def dist_lines(res: list, world: int, card: str, label: str) -> None:
               f"{sv['itl']:.5f} s{itl_label}, p99 {sv['p99']:.5f} s, ttft {sv['ttft']:.4f} s"
               f"{ref}; launches {sv['launches']}; peak {sv['peak_gib']:.2f} GiB; "
               f"{sv['seconds']:.1f} s")
+        cs = r["continuous"]
+        ref = ""
+        if "ref_itl" in cs:
+            name = "the dense-path server" if cs["ep"] == 1 else f"LocalComm({cs['ep']})"
+            ref = (f"; against {name} on one card (its itl {cs['ref_itl']:.5f} s): the same "
+                   f"admissions, streams {'bitwise equal' if cs['bitwise'] else 'not bitwise equal'}"
+                   f" ({cs['agree']:.4f} of the requests), first-step logits "
+                   f"{cs['logits_err']:.3g} off relative to their largest")
+        solo = ", ".join(f"{rid} (arrived at step {a})" for rid, a in cs["solo"])
+        print(f"dist ({label}) ContinuousDecodeServer(comm=DistComm), {who}, EP extent "
+              f"{cs['ep']}, {cs['rows']} of {BATCH} slots a process, DBRX {LAYERS} layers, "
+              f"{DIST_REQUESTS} requests, page {PAGE}, "
+              f"{'captured' if cs['graphed'] else 'eager'} ({card}): {cs['steps']} steps, "
+              f"{cs['tokens']} tokens, {cs['tok_s']:.1f} output tok/s; ttft p50 "
+              f"{cs['ttft_p50']:.4f} s, p99 {cs['ttft_p99']:.4f} s; itl mean {cs['itl']:.5f} s"
+              f"{itl_label}, p50 {cs['itl_p50']:.5f} s, p99 {cs['itl_p99']:.5f} s; pages peak "
+              f"{cs['pages_peak']} of {cs['pages_dense']} dense; the step's token gather "
+              f"{cs['gather'][0]:.5f} ms a call ({cs['gather'][1]:.5f} ms queued); requests "
+              f"{solo} alone through the same engine bitwise equal{ref}; launches "
+              f"{cs['launches']}; peak {cs['peak_gib']:.2f} GiB; {cs['seconds']:.1f} s")
+        pf = r["prefill"]
+        if pf is None:
+            print(f"dist ({label}) prefill forward, {who}: not run, EP extent 1 takes the "
+                  "dense MoE path, so no HT dispatch or combine runs")
+            continue
+        for name, run in pf["runs"].items():
+            ref = ""
+            if "ref_loss" in run:
+                ref = (f"; LocalComm({run['ep']}) on one card: loss {run['ref_loss']:.6f}, "
+                       f"{run['loss_err']:.3g} off relative (limit {PF_LOSS_REL}), wall "
+                       f"{run['ref_wall']:.3f} s")
+            print(f"dist ({label}) prefill forward {name}, {who}, EP over {run['axes']}, "
+                  f"DBRX train_4k {LAYERS} layers, {PF_BATCH} x {PF_SEQ} global, rows "
+                  f"{run['rows']} a process, fp8 dispatch, capacity 1.25 ({card}): loss "
+                  f"{run['loss']:.6f} (aux {run['aux']:.6f}), repeat bitwise equal; wall "
+                  f"{run['wall']:.3f} s after a warm-up, {run['tok_s']:.1f} prefill tok/s "
+                  f"this card, {run['total_tok_s']:.1f} in total; peak {run['peak_gib']:.2f} "
+                  f"GiB; plan host time {run['plan_s']:.3f} s (handle creation, card "
+                  f"synchronised); dropped shares {run['dropped']}{ref}; launches "
+                  f"{run['launches']}")
+        if "hierarchical, 2 chunks" in pf["runs"]:
+            print(f"dist ({label}) prefill, {who}: hierarchical 2 chunks bitwise equal to 1 "
+                  f"chunk (loss and aux); {pf['seconds']:.1f} s")
 
 
 def dist_phase(card: str) -> None:
@@ -2856,16 +3163,20 @@ def dist_phase(card: str) -> None:
     world = torch.cuda.device_count()
     t0 = time.perf_counter()
     work = _build.BUILD_DIR.parent
-    dist_lines(spawn(dist_child, world, "nccl", timeout=DIST_TIMEOUT_S, workdir=work),
-               world, card, "a" if world == 1 else "a, b")
-    if world < 2:
-        print(f"dist (b) did not run: world {world}, this machine has one card, and NCCL "
-              "puts no two ranks of a communicator on one card")
-    print(f"dist (a{'' if world < 2 else ', b'}) {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    dist_lines(spawn(dist_child, 2, "gloo", timeout=DIST_TIMEOUT_S, workdir=work),
-               2, card, "c")
-    print(f"dist (c) {time.perf_counter() - t0:.1f} s")
+    for n, backend, label in ((world, "nccl", "a" if world == 1 else "a, b"),
+                              (2, "gloo", "c")):
+        res = spawn(dist_child, n, backend, timeout=DIST_TIMEOUT_S, workdir=work)
+        dist_lines(res, n, card, label)
+        logs = [r["continuous"]["admissions"] for r in res]
+        check(all(log == logs[0] for log in logs),
+              f"dist ({label}): the ranks' continuous admission logs differ")
+        print(f"dist ({label}) every rank's continuous admission log equal: {len(logs[0])} "
+              f"admissions (step, rid, slot), the first {logs[0][:3]}")
+        if backend == "nccl" and world < 2:
+            print(f"dist (b) did not run: world {world}, this machine has one card, and "
+                  "NCCL puts no two ranks of a communicator on one card")
+        print(f"dist ({label}) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv

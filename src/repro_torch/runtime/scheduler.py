@@ -20,6 +20,13 @@ top of every live request's outstanding reservation. Pages are still
 allocated lazily as tokens land, but a request, once admitted, can never
 hit ``PagePoolExhausted`` and always runs to completion. The JAX
 scheduler's tracer hook waits for the port's telemetry (ROADMAP A9).
+
+Every decision depends only on the step index, the arrivals, the allocator
+and the tokens observed: no clock (it feeds only the per-request times), no
+randomness, no iteration over a set. Processes that run one scheduler each
+over the same requests and observe the same tokens therefore decide alike,
+which the servers over a ``DistComm`` rely on; ``admissions`` logs each
+decision as (step, rid, slot) so that they can be compared.
 """
 from __future__ import annotations
 
@@ -91,6 +98,7 @@ class ContinuousScheduler:
                                            key=lambda r: (r.arrival_step, r.rid))
         self.slots: list[_Slot | None] = [None] * self.B
         self.finished: dict[int, _Slot] = {}
+        self.admissions: list[tuple[int, int, int]] = []   # (step, rid, slot)
         self._reserved = 0              # pages promised to live requests
         # persistent host-side batch inputs (rebuilt in place each step)
         self._tbl = np.full((self.B, self.max_pages), allocator.pad_page,
@@ -130,6 +138,7 @@ class ContinuousScheduler:
                 break                    # the pool cannot guarantee completion yet
             self.queue.pop(0)
             self.slots[i] = _Slot(req=r, pages=[], admit_t=now)
+            self.admissions.append((step, r.rid, i))
             self._reserved += need
             self._tbl[i, :] = self.alloc.pad_page
             self._lens[i] = 0

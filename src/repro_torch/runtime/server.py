@@ -16,8 +16,13 @@ comm=DistComm(...))`` is one process of a mesh launched one process per
 rank (``launch/serve.py``): ``batch`` stays the global batch, as in the JAX
 server, each process steps its own rows (``comm.batch_rows``), and
 ``serve`` gathers the token streams, so ``last_tokens`` is the global
-stream in every process; the clocks are each process's own. A step over a
-gloo ``DistComm`` is not captured (``_compiled_step``). The clock stops after
+stream in every process; the clocks are each process's own. The same holds
+for ``ContinuousDecodeServer``: every process runs the one scheduler over
+the global slots and observes the global tokens of each step, gathered over
+the batch axes, so every process admits, pages and recycles alike, and
+each steps its own rows of the step's inputs against page pools of the
+global size. A step over a gloo ``DistComm`` is not captured
+(``_compiled_step``). The clock stops after
 ``torch.cuda.synchronize()`` where the JAX server calls
 ``block_until_ready``.
 
@@ -38,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.comm import DistComm, LocalComm
+from repro_torch.comm import LocalComm
 from repro_torch.device import disable_tf32, resolve_device, synchronize
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.kv_pages import PageAllocator, pages_for_tokens
@@ -244,6 +249,15 @@ class ContinuousDecodeServer(DecodeServer):
     same engine: rows are independent end to end given zero-drop MoE
     capacity. A capacity_factor would let co-residents compete for expert
     slots, so it is refused.
+
+    Over a ``DistComm`` every process builds the scheduler over the global
+    ``batch`` from the same requests, steps its own rows (``self.rows``)
+    and gathers each step's tokens over the batch axes before the
+    scheduler observes them (one small all-gather a step, outside the
+    compiled step). The scheduler reads no clock, randomness or set order
+    for a decision, so the processes' admissions agree. Each process's
+    page pools are the reference's global shape: page ids stay global and
+    a process's rows write only the pages the scheduler gave them.
     """
 
     def __init__(self, cfg: ArchConfig, batch: int, max_len: int, *,
@@ -266,10 +280,6 @@ class ContinuousDecodeServer(DecodeServer):
         if int(kwargs.get("pipeline_depth", 1)) > 1:
             raise ValueError("continuous batching is depth-1: the next step "
                              "consumes this step's tokens host-side")
-        if isinstance(kwargs.get("comm"), DistComm):
-            raise NotImplementedError(
-                "continuous batching over a DistComm needs a scheduler that "
-                "makes the same admissions in every process (ROADMAP A2b)")
         self.page_size = int(page_size)
         # page-table width: enough pages for max_len, rounded up so the
         # configured split count divides it (the extra entries are pad)
@@ -283,10 +293,12 @@ class ContinuousDecodeServer(DecodeServer):
         self.max_len = max_len
         self.reqsched: ContinuousScheduler | None = None
         super().__init__(cfg, batch, max_len, **kwargs)
-        # the step's inputs: one int32 device buffer, each input's view at a
-        # 16-byte aligned offset, filled from one pinned host buffer
-        shapes = dict(tokens=(batch, 1), page_tbl=(batch, self.max_pages),
-                      kv_lens=(batch,), active=(batch,))
+        # the step's inputs for this process's rows: one int32 device
+        # buffer, each input's view at a 16-byte aligned offset, filled from
+        # one pinned host buffer
+        b = self.rows.stop - self.rows.start
+        shapes = dict(tokens=(b, 1), page_tbl=(b, self.max_pages),
+                      kv_lens=(b,), active=(b,))
         offs, n = {}, 0
         for name, shape in shapes.items():
             offs[name] = n
@@ -315,14 +327,15 @@ class ContinuousDecodeServer(DecodeServer):
                                   "step_feed / serve_requests, not step")
 
     def step_feed(self, feed: dict) -> torch.Tensor:
-        """One paged step on the scheduler's numpy inputs, written into the
-        pinned host buffer and copied to the step's input buffer in one
-        transfer. Returns the next tokens [B, 1] on the device."""
+        """One paged step on the scheduler's numpy inputs over the global
+        batch: this process's rows of them, written into the pinned host
+        buffer and copied to the step's input buffer in one transfer.
+        Returns the next tokens [b, 1] of those rows on the device."""
         if self._feed_copied is not None:
             self._feed_copied.synchronize()    # the last copy has read the host buffer
         host = self._feed_host.numpy()
         for name, sl in self._feed_slices.items():
-            host[sl] = np.asarray(feed[name]).reshape(-1)
+            host[sl] = np.asarray(feed[name])[self.rows].reshape(-1)
         self._feed_dev.copy_(self._feed_host, non_blocking=True)
         if self.device.type == "cuda":
             self._feed_copied = torch.cuda.Event()
@@ -344,8 +357,12 @@ class ContinuousDecodeServer(DecodeServer):
             if max_steps is not None and step_idx >= max_steps:
                 break
             feed = sched.advance(step_idx)
-            out = self.step_feed(feed).cpu().numpy()   # waits for the step
-            sched.observe(out, time.perf_counter())
+            tok = self.step_feed(feed)
+            if self.comm is not None:
+                # every process observes the global tokens, so every
+                # scheduler makes the same decisions
+                tok = self.comm.gather_batch(tok)
+            sched.observe(tok.cpu().numpy(), time.perf_counter())   # waits for the step
             step_idx += 1
         wall = time.perf_counter() - t0
         recs = [sched.request_metrics(rid) for rid in sorted(sched.finished)]

@@ -22,6 +22,10 @@ the same tokens bit for bit as the uncompiled step, in both engines and all
 three EP layouts; the two-stream ``decode_loop`` must equal the naive step
 bit for bit, eager and captured; B3 on two streams at once must give each
 stream's single-stream result (its split-tile counters are per stream).
+Over NCCL, in a spawned process per card: ``DistComm``'s primitives
+against ``LocalComm``'s, one EP layer captured, and the continuous server
+captured, every rank admitting alike (at world 1 its streams bitwise equal
+to the dense-path server's).
 """
 import dataclasses
 
@@ -1084,6 +1088,34 @@ def _nccl_rank(rank, world, init_method):
                                     warm_up=torch.equal(first[0], eager),
                                     replay=torch.equal(replay[0], eager),
                                     captured=step.graph is not None)
+    out["continuous"] = _nccl_continuous(cfg, comm, dev, world)
+    return out
+
+
+def _nccl_continuous(cfg, comm, dev, world):
+    """ContinuousDecodeServer over the NCCL DistComm, captured, requests
+    joining and leaving: its streams and admission log; at world 1 (EP
+    extent 1, the dense MoE path) also the dense-path server's streams on
+    the same weights."""
+    rng = np.random.default_rng(2)
+    spec = [(rng.integers(0, cfg.vocab, int(rng.integers(1, 6))), int(rng.integers(2, 6)),
+             int(rng.integers(0, 4))) for _ in range(12)]
+
+    def serve(c, params):
+        srv = ContinuousDecodeServer(cfg, 8, 16, comm=c, params=params, device=dev,
+                                     page_size=4)
+        m = srv.serve_requests([Request(i, p, n, arrival_step=a)
+                                for i, (p, n, a) in enumerate(spec)])
+        assert m.requests_completed == len(spec)
+        toks = [srv.reqsched.tokens_for(i) for i in range(len(spec))]
+        return toks, list(srv.reqsched.admissions), srv._serve_step.graph is not None
+
+    toks, log, captured = serve(comm, init_params(cfg, seed=0, device=dev, comm=comm))
+    out = dict(tokens=toks, admissions=log, captured=captured)
+    if world == 1:
+        want, want_log, _ = serve(None, init_params(cfg, seed=0, device=dev))
+        out["dense_equal"] = (log == want_log
+                              and all(np.array_equal(a, b) for a, b in zip(toks, want)))
     return out
 
 
@@ -1115,3 +1147,17 @@ def test_cuda_nccl_ep_layer_captured(nccl_ranks, layout):
     for r in nccl_ranks:
         assert r["layer", layout] == dict(local=True, warm_up=True, replay=True,
                                           captured=True)
+
+
+@pytest.mark.gpu
+def test_cuda_nccl_continuous_server_captured(nccl_ranks):
+    """ContinuousDecodeServer over NCCL, one process per card: captured,
+    every rank's admission log the same; at world 1 its streams bitwise
+    equal to the dense-path continuous server's."""
+    for r in nccl_ranks:
+        c = r["continuous"]
+        assert c["captured"] and c["admissions"] == nccl_ranks[0]["continuous"]["admissions"]
+        assert all(np.array_equal(a, b) for a, b in
+                   zip(c["tokens"], nccl_ranks[0]["continuous"]["tokens"]))
+    if len(nccl_ranks) == 1:
+        assert nccl_ranks[0]["continuous"]["dense_equal"]

@@ -31,8 +31,9 @@ parent-side functions.
   bitwise against the naive step and against ``LocalComm``'s loop;
   ``prefill_moe`` bitwise against ``sequential_prefill``;
   ``lm_forward`` on the HT flat path with and without a loss mask: loss
-  and aux within 1e-5 of JAX's; ``launch/serve.py`` end to end; the
-  continuous server refusing a ``DistComm``.
+  and aux within 1e-5 of JAX's; ``launch/serve.py`` end to end. The
+  continuous server and the hierarchical forward over a ``DistComm`` are
+  held in ``tests/test_torch_dist_serve.py``.
 """
 import dataclasses
 import datetime
@@ -59,7 +60,7 @@ from repro_torch.models.moe import moe_block
 from repro_torch.models.transformer import _index, lm_spec
 from repro_torch.runtime.decode import decode_loop, naive_decode_step
 from repro_torch.runtime.prefill import prefill_moe, sequential_prefill
-from repro_torch.runtime.server import ContinuousDecodeServer, DecodeServer
+from repro_torch.runtime.server import DecodeServer
 from repro_torch.weights import _leaves, _set, init_params, params_from_jax, shard_params
 
 N = 4
@@ -383,12 +384,6 @@ def worker(rank: int, world: int, init_method: str, inp: dict) -> dict:
     out["forward"] = {m: forward_case(flat, inp["fwd_params"], inp["fwd_tokens"],
                                       inp["fwd_mask"] if m == "masked" else None)
                       for m in ("plain", "masked")}
-    try:
-        ContinuousDecodeServer(config("dbrx"), batch=8, max_len=8, comm=flat,
-                               device="cpu", page_size=4)
-        out["continuous"] = None
-    except NotImplementedError as e:
-        out["continuous"] = str(e)
     out["ranks"] = dict(world=flat.ranks, pod_data=pd.ranks, coords=pd.coords,
                         backend=flat.backend, capturable=flat.capturable)
     if rank == 0:               # while the parent runs JAX
@@ -738,11 +733,6 @@ def test_launch_serve_end_to_end(run):
     vals = dict(kv.split("=") for kv in lines[0].split())
     assert set(vals) == {"output_tok_s", "ttft_ms", "itl_mean_ms", "itl_p99_ms"}
     assert all(float(v) > 0 for v in vals.values())
-
-
-def test_continuous_server_refuses_dist_comm(run):
-    for r in run["ranks"]:
-        assert r["continuous"] is not None and "A2b" in r["continuous"]
 
 
 # ---------------------------------------------------------------------------

@@ -137,7 +137,22 @@
    with the kernel each timed call ran, which must be the shared-pool
    tensor-core path; ``ep_create_handle``'s card time for one
    MoE layer at E 256, K 8; the phase's peak device memory. Its rows join
-   the kernels JSON.
+   the kernels JSON. Then, those weights freed, DeepSeek-V3's ``train_4k``
+   prefill forward with MTP (HT flat, fp8 dispatch, capacity 1.25): the 3
+   dense layers and 1 MoE layer plus the MTP layer, a second 256-expert MoE
+   layer (49.8 GiB), 4 x 4096 tokens over 4 EP ranks hosted on the card.
+   The loss finite and bitwise equal on a repeat, the MTP term present (the
+   loss without it, on the same parameters less the ``mtp_*`` leaves,
+   differs), the EP launches exact for both MoE layers and every hosted
+   rank, no flash or paged launches (MLA's prefill takes ``_mla_chunked``,
+   plain torch, one batch row at a time). Reports its wall time after a
+   warm-up, tok/s, peak memory, dropped shares and the plan's host time,
+   and traces one forward: the device time by kernel, and the shares of
+   the f32 head products, of ``_mla_chunked`` (and of its GEMMs) and of B3
+   (each range must be recorded). Last, B1 to B4 at this forward's HT
+   shapes (rank 0 of MoE layer 0 over ``LocalComm(4)``, 4096 tokens a rank:
+   64 local experts, fp8 blocks over H 7168, top-8 combine) against their
+   plain versions, as at DBRX's HT shapes, and timed.
 
 9. One EP rank per process (``comm.DistComm``), in spawned child processes
    once every weight of the main process is freed (``dist_phase``). (a)
@@ -164,7 +179,9 @@
    flat at EP extent 4 and, over two pods of two, hierarchical at 1 and 2
    chunks: each loss finite, bitwise on a repeat, within 1e-3 relative of
    ``LocalComm(4)``'s on card 0, its EP launches exact; 2 chunks bitwise
-   equal to 1. On one card a line says (b) did not run and why. (c) Two
+   equal to 1. Each rank prints a progress line as each sub-phase ends,
+   and the continuous serve each batch rank's share of the live rows.
+   On one card a line says (b) did not run and why. (c) Two
    processes sharing the card over gloo (CUDA tensors through the host),
    EP extent 2, eager (a gloo step is not captured): the fixed-batch serve,
    its ITL printed as "gloo via host", the continuous serve and the flat
@@ -183,6 +200,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import faulthandler
 import gc
 from collections import Counter
 import json
@@ -215,7 +233,9 @@ from repro_torch.kernels import fp8 as fp8_mod  # noqa: E402
 from repro_torch.kernels import grouped_gemm as gg_mod  # noqa: E402
 from repro_torch.kernels import recv_unpack as ru_mod  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import mla as mla_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer as tf_mod  # noqa: E402
 from repro_torch.models.moe import (_expert_ffn, _moe_dense_fallback,  # noqa: E402
                                     ep_group, moe_block, router_config)
 from repro_torch.models.layers import logits_out  # noqa: E402
@@ -275,6 +295,9 @@ PAGED_TOL = 1e-4
 KV_PAGES = 2048              # page-table width of the paged kernel phase
 DS_KV_PAGES = 2048           # likewise, DeepSeek-V3's shared pool (32k tokens)
 DEV = torch.device("cuda")
+# profiler ranges of one forward's parts (``forward_ranges``)
+HEAD_RANGE, MLA_RANGE = "f32 head product (logits_out)", "MLA chunked attention (_mla_chunked)"
+RANGES = (HEAD_RANGE, MLA_RANGE)
 # the prefill forward: batch rows x tokens (one row of 4096 per hosted rank,
 # the paper's HT regime); tokens per rank of the HT oracle
 PF_BATCH, PF_SEQ, ORACLE_T = 8, 4096, 512
@@ -376,6 +399,17 @@ def moe_layers(cfg) -> int:
     return cfg.num_layers - cfg.moe.first_k_dense
 
 
+def forward_moe_layers(cfg) -> int:
+    """MoE layers one forward runs: the stack's, and the MTP layer's."""
+    return moe_layers(cfg) + int(cfg.mtp)
+
+
+def flash_layers(cfg) -> int:
+    """Flash attention launches of one forward: one per GQA layer (and the
+    MTP layer's); MLA's prefill takes ``_mla_chunked``, plain torch."""
+    return 0 if cfg.attn.kind == "mla" else cfg.num_layers + int(cfg.mtp)
+
+
 def ep_launches(cfg, path: str, chunks: int = HIER_CHUNKS) -> dict:
     """EP launches per MoE layer and hosted rank of one step (or forward)
     of ``cfg`` on ``path``: EP_LAUNCHES[path] (on the hierarchical path,
@@ -389,9 +423,13 @@ def ep_launches(cfg, path: str, chunks: int = HIER_CHUNKS) -> dict:
 
 
 def check_ep_counts(launches: dict, cfg, steps: int, where: str,
-                    path: str = "nccl_ep") -> None:
+                    path: str = "nccl_ep", ranks: int = RANKS,
+                    layers: int | None = None) -> None:
+    """The EP launches of ``steps`` steps over ``layers`` MoE layers (the
+    stack's by default) and ``ranks`` hosted ranks."""
+    layers = moe_layers(cfg) if layers is None else layers
     for name, per in ep_launches(cfg, path).items():
-        want = per * moe_layers(cfg) * RANKS * steps
+        want = per * layers * ranks * steps
         check(launches[name] == want, f"{name} launched {launches[name]} times "
               f"on {where}, expected {want}")
 
@@ -423,11 +461,17 @@ def call_ms(fn, iters: int, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def is_range(e) -> bool:
+    """Whether a profiler event is a ``record_function`` range (on the card,
+    the span of the kernels launched inside it), not a kernel."""
+    return getattr(e, "is_user_annotation", False) or e.name in RANGES
+
+
 def device_intervals(prof) -> list[tuple[float, float, str]]:
     """(start_us, end_us, name) of every kernel, copy and set the profiler
     saw on the card, in start order."""
     return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+                  if e.device_type == torch.autograd.DeviceType.CUDA and not is_range(e))
 
 
 def busy_us(iv) -> float:
@@ -754,8 +798,8 @@ def kernel_phase(cfg, params) -> dict:
 def trace_phase(label: str, run, itl_s: float, untraced: str = "ITL mean"):
     """One more step under the profiler: the card's busy time against the
     untraced step time ``itl_s`` (``untraced`` names it), and where the
-    device time goes. Returns the device intervals and the traced wall time
-    in seconds."""
+    device time goes. Returns the device intervals, the traced wall time in
+    seconds and the profiler."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -777,7 +821,7 @@ def trace_phase(label: str, run, itl_s: float, untraced: str = "ITL mean"):
     gemm = [e - s for s, e, n in iv if "grouped_gemm_bf16" in n]
     print(f"  grouped_gemm: {sum(gemm) / 1e3:.3f} ms in {len(gemm)} calls, "
           f"{sum(gemm) / busy:.4f} of the busy time")
-    return iv, wall_us / 1e6
+    return iv, wall_us / 1e6, prof
 
 
 def serve_prompts(vocab: int) -> torch.Tensor:
@@ -847,7 +891,7 @@ def trace_fixed(path: str, srv: DecodeServer, itl: float) -> None:
     profiler, against its captured ITL mean; its EP launches, read from the
     kernels' names, must be the path's."""
     tok = torch.zeros((BATCH, 1), dtype=torch.int32, device=DEV)
-    iv, _ = trace_phase(f"replayed {srv.cfg.name} {path} decode step", lambda: srv.step(tok),
+    iv, _, _ = trace_phase(f"replayed {srv.cfg.name} {path} decode step", lambda: srv.step(tok),
                         itl, "captured ITL mean")
     if path != "dense":
         check_replayed_launches(iv, expected_device_kernels(srv.cfg, path),
@@ -1533,26 +1577,29 @@ def hier_comm() -> LocalComm:
     return LocalComm(RANKS, axes=HIER_AXES)
 
 
-def prefill_run(label: str, params, cfg, comm, card: str, path: str) -> dict:
+def prefill_run(label: str, params, cfg, comm, card: str, path: str,
+                rows: int = PF_BATCH, seq: int = PF_SEQ) -> dict:
     """One prefill forward, ``get_model(cfg).forward``, on the seeded batch
-    with every launch counter read (the EP counts must be ``path``'s, flash
-    attention once per layer), then a second after it, timed: its loss
-    must be bitwise equal to the first's. Returns the launches, the wall
-    time, tokens per second, peak memory, the dropped shares and the
-    batch."""
+    of ``rows`` x ``seq`` tokens with every launch counter read (the EP
+    counts must be ``path``'s over the MoE layers and the MTP layer, flash
+    attention once per GQA layer and never under MLA), then a second after
+    it, timed: its loss must be bitwise equal to the first's. Returns the
+    launches, the loss, the wall time, tokens per second, peak memory, the
+    dropped shares, the plan's host time and the batch."""
     m = cfg.moe
-    group = ep_group(cfg, comm, PF_SEQ)
+    ranks, nmoe = comm.size, forward_moe_layers(cfg)
+    group = ep_group(cfg, comm, rows * seq // ranks)
     geo = (f"two stages over {comm.axes}, {group.cfg.ht_num_chunks} chunks: C1 "
            f"{group.ht_stage1_cap}, C2 {group.ht_stage2_cap}" if group.hierarchical
            else f"flat: ht_pair_cap {group.ht_pair_cap}")
-    print(f"{label}: DBRX-132B train_4k preset, {LAYERS} of {prefill_config()[0].num_layers} "
-          f"layers, batch {PF_BATCH} x {PF_SEQ} tokens over {RANKS} hosted ranks "
-          f"({PF_BATCH * PF_SEQ // RANKS} per rank); EP {group.mode} ({geo}), fp8 "
-          f"dispatch {m.quantize_dispatch} (block {group.cfg.quant_block}), capacity "
-          f"factors {m.capacity_factor}/{m.expert_capacity_factor}: ht_expert_cap "
-          f"{group.ht_expert_cap}")
+    print(f"{label}: {cfg.name} train_4k preset, {cfg.num_layers} layers"
+          f"{' + the MTP layer' if cfg.mtp else ''} ({nmoe} MoE), batch {rows} x {seq} "
+          f"tokens over {ranks} hosted ranks ({rows * seq // ranks} per rank); EP "
+          f"{group.mode} ({geo}), fp8 dispatch {m.quantize_dispatch} (block "
+          f"{group.cfg.quant_block}), capacity factors {m.capacity_factor}/"
+          f"{m.expert_capacity_factor}: ht_expert_cap {group.ht_expert_cap}")
     rng = np.random.default_rng(10)
-    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (PF_BATCH, PF_SEQ))
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (rows, seq))
                                         .astype(np.int32)).to(DEV)}
     forward = get_model(cfg).forward
     probes: list = []
@@ -1562,11 +1609,11 @@ def prefill_run(label: str, params, cfg, comm, card: str, path: str) -> dict:
         torch.cuda.synchronize()
     launches = counts()
     check(bool(torch.isfinite(loss)), f"{label}: loss {loss.item()} is not finite")
-    check_ep_counts(launches, cfg, 1, f"the {label}", path)
-    check(launches[FLASH] == LAYERS, f"flash_attention launched "
-          f"{launches[FLASH]} times in the {label}, expected {LAYERS}")
+    check_ep_counts(launches, cfg, 1, f"the {label}", path, ranks, nmoe)
+    check(launches[FLASH] == flash_layers(cfg), f"flash_attention launched "
+          f"{launches[FLASH]} times in the {label}, expected {flash_layers(cfg)}")
     check(launches[PAGED] == 0, f"the {label} launched paged attention")
-    check(len(probes) == LAYERS, f"{len(probes)} MoE handles for {LAYERS} layers")
+    check(len(probes) == nmoe, f"{len(probes)} MoE handles for {nmoe} MoE layers")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     loss2, _ = forward(params, batch, cfg, comm)
@@ -1574,17 +1621,20 @@ def prefill_run(label: str, params, cfg, comm, card: str, path: str) -> dict:
     wall = time.perf_counter() - t0
     check(torch.equal(loss, loss2), f"{label}: a repeat gave loss {loss2.item()}, "
           f"the first {loss.item()}")
-    ntok = PF_BATCH * PF_SEQ
-    out = dict(launches=launches, wall=wall, tok_s=ntok / wall,
+    ntok = rows * seq
+    out = dict(launches=launches, loss=loss.item(), wall=wall, tok_s=ntok / wall,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-               dropped=[round(d, 6) for d, _ in probes], batch=batch)
-    per = {k: v / (LAYERS * RANKS) for k, v in launches.items()
+               dropped=[round(d, 6) for d, _ in probes],
+               plan_s=sum(dt for _, dt in probes), batch=batch)
+    per = {k: v / (nmoe * ranks) for k, v in launches.items()
            if k in EP_LAUNCHES[path]}
     print(f"{label} ({card}): loss {loss.item():.6f} (aux {aux['aux'].item():.6f}; "
           f"ln of the vocabulary {np.log(cfg.vocab):.4f}), repeat bitwise equal; wall "
           f"{wall:.3f} s after a warm-up, {out['tok_s']:.1f} prefill tok/s; peak device "
-          f"memory {out['peak_gib']:.2f} GiB; dropped-entry share by layer "
-          f"{out['dropped']}; launches {launches}; EP launches per layer and rank {per}")
+          f"memory {out['peak_gib']:.2f} GiB; dropped-entry share by MoE layer "
+          f"{out['dropped']}; plan host time {out['plan_s']:.3f} s (handle creation, "
+          f"card synchronised, in the first forward); launches {launches}; EP launches "
+          f"per layer and rank {per}")
     del loss, loss2, aux
     return out
 
@@ -1613,15 +1663,60 @@ def hier_prefill_phase(params, card: str, flat: dict) -> None:
           f"{run['dropped']} / {flat['dropped']}")
 
 
+
+
+@contextlib.contextmanager
+def forward_ranges():
+    """While open, each f32 head product (``logits_out``) and each call of
+    MLA's chunked attention (``_mla_chunked``) runs inside a profiler range
+    named HEAD_RANGE or MLA_RANGE."""
+    orig = tf_mod.logits_out, mla_mod._mla_chunked
+
+    def ranged(name, fn):
+        def run(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return run
+    tf_mod.logits_out, mla_mod._mla_chunked = ranged(HEAD_RANGE, orig[0]), ranged(MLA_RANGE,
+                                                                               orig[1])
+    try:
+        yield
+    finally:
+        tf_mod.logits_out, mla_mod._mla_chunked = orig
+
+
+def range_device_us(prof, name: str) -> tuple[int, float, float]:
+    """The ``record_function`` ranges named ``name``: their count, their
+    device time (the card-side span of each range: the first of its kernels
+    to start until the last to end, the profiler's GPU annotation) and of
+    it the GEMM kernels' time (each kernel linked to the op that launched
+    it, in the range's CPU event)."""
+    n, total, gemm = 0, 0.0, 0.0
+
+    def gemms(e) -> float:
+        return (sum(k.duration for k in e.kernels if "gemm" in k.name.lower())
+                + sum(gemms(c) for c in e.cpu_children))
+    for e in prof.events():
+        if e.name != name:
+            continue
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total += e.time_range.end - e.time_range.start
+        else:
+            n += 1
+            gemm += gemms(e)
+    return n, total, gemm
+
+
 def prefill_trace_phase(params, cfg, batch, wall: float, comm=None,
                         label: str = "prefill forward") -> None:
     """One traced forward: busy share, time by kernel, flash attention's
-    and B4's shares, and the plan's share of the traced forward (handle
+    and B4's shares, the f32 head products' and (under MLA) the chunked
+    attention's, and the plan's share of the traced forward (handle
     creation with the card synchronised on both sides)."""
     probes: list = []
     comm = comm or LocalComm(RANKS)
-    with handle_probe(probes):
-        iv, traced = trace_phase(label, lambda: get_model(cfg).forward(
+    with handle_probe(probes), forward_ranges():
+        iv, traced, prof = trace_phase(label, lambda: get_model(cfg).forward(
             params, batch, cfg, comm), wall, "forward")
     busy = busy_us(iv)
     flash_us = sum(e - s for s, e, n in iv if "flash_" in n)
@@ -1629,33 +1724,46 @@ def prefill_trace_phase(params, cfg, batch, wall: float, comm=None,
     plan_s = sum(dt for _, dt in probes)
     print(f"  flash attention: {flash_us / 1e3:.3f} ms, {flash_us / busy:.4f} of "
           f"the busy time; combine_gather_reduce: {reduce_us / 1e3:.3f} ms, "
-          f"{reduce_us / busy:.4f}; EP plans (handle creation of {LAYERS} layers x "
-          f"{RANKS} ranks): {plan_s:.3f} s, {plan_s / traced:.4f} of the traced forward")
+          f"{reduce_us / busy:.4f}; EP plans (handle creation of "
+          f"{forward_moe_layers(cfg)} MoE layers x {comm.size} ranks): {plan_s:.3f} s, "
+          f"{plan_s / traced:.4f} of the traced forward")
+    for name, runs in ((HEAD_RANGE, True), (MLA_RANGE, cfg.attn.kind == "mla")):
+        if not runs:
+            continue
+        n, total, gemm = range_device_us(prof, name)
+        check(n > 0 and total > 0, f"{label}: the profiler recorded {n} ranges named "
+              f"{name!r} ({total} us on the card): forward_ranges no longer reaches it")
+        print(f"  {name}: {n} calls, {total / 1e3:.3f} ms of device time, "
+              f"{total / busy:.4f} of the busy time; its GEMM kernels {gemm / 1e3:.3f} "
+              f"ms, {gemm / busy:.4f}")
 
 
-def ht_kernel_phase(cfg, params) -> None:
-    """The EP kernels at the prefill's HT shapes: rank 0 of MoE layer 0 at
-    4096 tokens per rank. fp8 pack and dequant unpack bitwise against their
-    plain versions; every kernel timed beside its plain version and bound."""
+def ht_kernel_phase(cfg, params, comm=None, tokens: int = PF_SEQ, model: str = "") -> None:
+    """The EP kernels at a prefill's HT shapes: rank 0 of MoE layer 0 of
+    ``cfg`` over ``comm`` (default LocalComm(RANKS)) at ``tokens`` tokens per
+    rank. fp8 pack and dequant unpack bitwise against their plain versions,
+    the grouped GEMMs and the combine within their limits; every kernel
+    timed beside its plain version and bound. ``model`` prefixes the lines."""
     dev, dt, d = DEV, cfg.dtype, cfg.d_model
-    p = {k: v[0] for k, v in params["moe_stack"]["moe"].items()}
-    comm = LocalComm(RANKS)
-    group = ep_group(cfg, comm, PF_SEQ)
+    p = _index(params["moe_stack"]["moe"], 0)
+    comm = comm or LocalComm(RANKS)
+    n = comm.size
+    group = ep_group(cfg, comm, tokens)
     L, qb = group.local_experts, group.cfg.quant_block
     gen = torch.Generator(device=dev).manual_seed(12)
-    xs = [torch.randn((PF_SEQ, d), generator=gen, device=dev).to(dt) for _ in range(RANKS)]
-    rs = [route(x.float() @ p["router"], router_config(cfg.moe)) for x in xs]
+    xs = [torch.randn((tokens, d), generator=gen, device=dev).to(dt) for _ in range(n)]
+    rs = [route(x.float() @ p["router"], router_config(cfg.moe), p.get("sel_bias")) for x in xs]
     hs = ep_create_handle(group, [r.topk_idx for r in rs], [r.topk_weights for r in rs])
     pl = hs[0].plan
     x0, g0 = xs[0], pl.disp_send_gmap
     q, sc = dp_mod.dispatch_pack(x0, g0, quant_block=qb)
     wq, ws = ref.dispatch_pack(x0, g0, qb)
     check(torch.equal(q.view(torch.uint8), wq.view(torch.uint8)) and torch.equal(sc, ws),
-          "dispatch_pack (fp8) differs from its plain version at HT shapes")
-    live = int((g0 < PF_SEQ).sum())
-    bnd = bound(nbytes(x0, read_rows(g0, PF_SEQ)) + nbytes(q) + nbytes(sc) + nbytes(g0),
+          f"dispatch_pack (fp8) differs from its plain version at {model}HT shapes")
+    live = int((g0 < tokens).sum())
+    bnd = bound(nbytes(x0, read_rows(g0, tokens)) + nbytes(q) + nbytes(sc) + nbytes(g0),
                 3 * live * d, F32_OPS_S)
-    print(f"HT shapes (rank 0, MoE layer 0): dispatch_pack fp8 [{PF_SEQ}, {d}] -> "
+    print(f"{model}HT shapes (rank 0 of {n}, MoE layer 0): dispatch_pack fp8 [{tokens}, {d}] -> "
           f"{list(q.shape)} + scales {list(sc.shape)}, {live} live slots: bitwise equal; "
           f"kernel {device_ms(lambda: dp_mod.dispatch_pack(x0, g0, quant_block=qb), 20):.4f} ms, "
           f"plain {device_ms(lambda: ref.dispatch_pack(x0, g0, qb), 5):.4f} ms, bound "
@@ -1667,7 +1775,7 @@ def ht_kernel_phase(cfg, params) -> None:
     gr = pl.disp_recv_gmap
     y3d = ru_mod.recv_unpack(qrecv, gr, srecv, out_dtype=dt)
     check(torch.equal(y3d, ref.recv_unpack(qrecv, gr, srecv, dt)),
-          "recv_unpack (fp8 dequant) differs from its plain version at HT shapes")
+          f"recv_unpack (fp8 dequant) differs from its plain version at {model}HT shapes")
     live = int((gr < qrecv.shape[0]).sum())
     src = read_rows(gr, qrecv.shape[0])
     bnd = bound(nbytes(qrecv, src) + nbytes(srecv, src) + nbytes(y3d) + nbytes(gr),
@@ -1681,21 +1789,21 @@ def ht_kernel_phase(cfg, params) -> None:
     w1, w3, w2 = p["w_gate"][:L], p["w_up"][:L], p["w_down"][:L]
     del qrecv, srecv
     # the HT combine send: dispatch_pack's copy mode over the expert regions
-    copy_case("HT combine send", y3d.reshape(-1, d), pl.comb_send_gmap, 20)
-    gemm_case("HT gate", y3d, w1, counts_, 5, 2)
+    copy_case(f"{model}HT combine send", y3d.reshape(-1, d), pl.comb_send_gmap, 20)
+    gemm_case(f"{model}HT gate", y3d, w1, counts_, 5, 2)
     hmid = (F.silu(ref.grouped_gemm(y3d, w1, counts_).float())
             * ref.grouped_gemm(y3d, w3, counts_).float()).to(dt)
-    gemm_case("HT down", hmid, w2, counts_, 5, 2)
+    gemm_case(f"{model}HT down", hmid, w2, counts_, 5, 2)
     del hmid
-    crecv = torch.randn((RANKS * group.ht_pair_cap, d), generator=gen, device=dev).to(dt)
+    crecv = torch.randn((n * group.ht_pair_cap, d), generator=gen, device=dev).to(dt)
     crows, cw = pl.comb_recv_rows, hs[0].topk_weights
     got = cg_mod.combine_gather_reduce(crecv, crows, cw)
     want = ref.combine_gather_reduce(crecv, crows, cw)
     err = max_err(got, want)
     check(torch.allclose(got.float(), want.float(), rtol=TOL, atol=TOL),
-          "combine_gather_reduce differs from its plain version beyond 2e-2 at HT shapes")
+          f"combine_gather_reduce differs from its plain version beyond 2e-2 at {model}HT shapes")
     check(torch.equal(cg_mod.combine_gather_reduce(crecv, crows, cw), got),
-          "combine_gather_reduce: two calls differ at HT shapes")
+          f"combine_gather_reduce: two calls differ at {model}HT shapes")
     del want
     valid = int((crows < crecv.shape[0]).sum())
     bnd = bound(nbytes(crecv, read_rows(crows, crecv.shape[0])) + nbytes(crows) + nbytes(cw)
@@ -2257,7 +2365,7 @@ def trace_continuous(csrv: ContinuousDecodeServer, itl: float) -> None:
                 page_tbl=np.arange(BATCH * mp, dtype=np.int32).reshape(BATCH, mp),
                 kv_lens=np.full(BATCH, CMAX_LEN // 2, np.int32),
                 active=np.ones(BATCH, np.int32))
-    iv, _ = trace_phase(f"replayed {cfg.name} continuous step (all {BATCH} slots at "
+    iv, _, _ = trace_phase(f"replayed {cfg.name} continuous step (all {BATCH} slots at "
                         f"{CMAX_LEN // 2} tokens)", lambda: csrv.step_feed(feed), itl,
                         "captured ITL mean")
     check_replayed_launches(iv, expected_device_kernels(cfg, "nccl_ep"),
@@ -2298,11 +2406,21 @@ def replay_trace_phase(fixed: dict, csrv: ContinuousDecodeServer, citl: tuple) -
 DS_LAYERS = 5
 # the continuous serve's requests, from their own seed
 DS_REQUESTS, DS_SEED = 64, 14
+# the train_4k forward (HT flat, fp8 dispatch, capacity 1.25, MTP on): the 3
+# dense layers and 1 MoE layer, plus the MTP layer, a second MoE layer of 256
+# experts (about 53 GB); a global batch of 4 x 4096 tokens over 4 hosted EP
+# ranks, one row each (S >= 2048: MLA takes _mla_chunked)
+DS_PF_LAYERS, DS_PF_RANKS, DS_PF_BATCH, DS_PF_SEQ = 4, 4, 4, 4096
 
 
 def ds_config():
     full = ds_full_config("decode_32k")
     return full, dataclasses.replace(full, num_layers=DS_LAYERS)
+
+
+def ds_prefill_config():
+    full = ds_full_config("train_4k")
+    return full, dataclasses.replace(full, num_layers=DS_PF_LAYERS)
 
 
 def ds_record(base: str, label: str, err, ms, plain_ms, bnd, library_ms, launches) -> dict:
@@ -2546,6 +2664,54 @@ def deepseek_phase(card: str) -> list:
     return rows
 
 
+def deepseek_forward_phase(card: str) -> None:
+    """DeepSeek-V3's train_4k prefill forward with MTP at full width, on the
+    card alone once the decode phase's weights are freed: DS_PF_LAYERS
+    layers plus the MTP layer over LocalComm(DS_PF_RANKS), DS_PF_BATCH x
+    DS_PF_SEQ tokens. The loss finite and bitwise equal on a repeat, the EP
+    launches exact for every MoE layer (the MTP layer's too) and hosted
+    rank, no flash or paged attention (MLA's prefill takes _mla_chunked),
+    and the MTP term present: the forward with mtp off, on the same
+    parameters less the mtp_* leaves, gives another loss. Then one traced
+    forward."""
+    full, cfg = ds_prefill_config()
+    m = cfg.moe
+    print(f"DeepSeek-V3 prefill forward at full width: train_4k preset (HT "
+          f"{'hierarchical' if m.ht_hierarchical else 'flat'}, fp8 dispatch "
+          f"{m.quantize_dispatch}, capacity factors {m.capacity_factor}/"
+          f"{m.expert_capacity_factor}, MTP {cfg.mtp}); num_layers cut from "
+          f"{full.num_layers} to {DS_PF_LAYERS} ({m.first_k_dense} dense, {moe_layers(cfg)} "
+          f"MoE) plus the MTP layer for memory; widths not cut; global batch "
+          f"{DS_PF_BATCH} x {DS_PF_SEQ} (the preset's microbatch of {full.microbatch} rows "
+          f"cut to {DS_PF_BATCH}) over {DS_PF_RANKS} EP ranks on one card")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, DEV)
+    torch.cuda.synchronize()
+    print(f"DeepSeek-V3 forward init: random weights on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{sum(t.nbytes for t in leaves(params)) / 2**30:.2f} GiB")
+    comm = LocalComm(DS_PF_RANKS)
+    label = "DeepSeek-V3 prefill forward"
+    run = prefill_run(label, params, cfg, comm, card, "nccl_ep", DS_PF_BATCH, DS_PF_SEQ)
+    ncfg = dataclasses.replace(cfg, mtp=False)
+    nparams = {k: v for k, v in params.items() if not k.startswith("mtp")}
+    nloss, _ = get_model(ncfg).forward(nparams, run["batch"], ncfg, comm)
+    nloss = nloss.item()
+    check(np.isfinite(nloss) and nloss != run["loss"], f"{label}: with mtp off the loss "
+          f"is {nloss!r}, with it {run['loss']!r}: the MTP term is missing")
+    print(f"{label}: without MTP (its {len(params) - len(nparams)} mtp_* leaves dropped) "
+          f"loss {nloss:.6f}, with it {run['loss']:.6f}: the MTP term is in the loss")
+    prefill_trace_phase(params, cfg, run["batch"], run["wall"], comm, label)
+    ht_kernel_phase(cfg, params, comm, DS_PF_BATCH * DS_PF_SEQ // DS_PF_RANKS, "DeepSeek-V3 ")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"DeepSeek-V3 forward phase: peak device memory {peak:.2f} GiB (of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f})")
+    del params, nparams, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # one EP rank per process (comm.DistComm): NCCL at world = the card count,
 # two ranks sharing a card over gloo
@@ -2764,14 +2930,32 @@ def row_invariance(cfg, params, dev, rows: int) -> str:
     return "; ".join(parts)
 
 
+def logit_errors(got: torch.Tensor, want: torch.Tensor) -> str:
+    """First-step logits [B, V] against a reference's: relative to the
+    largest, and by row (each row's largest error over its largest logit)."""
+    rows = (got - want).abs().amax(-1) / want.abs().amax(-1)
+    return (f"first-step logits {float((got - want).abs().max() / want.abs().max()):.3g} off "
+            f"relative to their largest; by row median {float(rows.median()):.3g}, max "
+            f"{float(rows.max()):.3g}, {int((rows > TOL).sum())} of {rows.numel()} rows above "
+            f"{TOL}")
+
+
+def model_label(cfg) -> str:
+    return f"{cfg.name} {cfg.num_layers} layers"
+
+
 def dist_serve_phase(cfg, comm, dev, rank: int, world: int) -> dict:
-    """DecodeServer(comm=DistComm) over DBRX (full width, LAYERS layers) on
-    its compiled step (captured over NCCL, eager over gloo), exact EP launch
-    counts; then, on rank 0 alone, the reference on this
-    card: the dense server at EP extent 1 (the path DistComm's extent 1
-    runs, on the same rows: tokens bitwise), else LocalComm(EP extent), whose
-    dense products see the whole batch where each process sees its rows:
-    the first step's logits within TOL, the token agreement printed."""
+    """DecodeServer(comm=DistComm) over ``cfg`` (DBRX's or DeepSeek-V3's
+    decode_32k preset, full width, cut in depth) on its compiled step
+    (captured over NCCL, eager over gloo), exact EP launch counts; then, on
+    rank 0 alone, the reference on this card: the dense server at EP extent
+    1 (the path DistComm's extent 1 runs, on the same rows: tokens bitwise),
+    else LocalComm(EP extent), whose dense products see the whole batch
+    where each process sees its rows: the first step's logits within TOL,
+    the token agreement printed."""
+    # rank 0 may still be running the last phase's reference: start every
+    # process's clock together
+    dist.barrier()
     t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, 0, dev, comm=comm)
@@ -2783,9 +2967,11 @@ def dist_serve_phase(cfg, comm, dev, rank: int, world: int) -> dict:
         check_dist_counts(launches, cfg, "nccl_ep", steps * moe_layers(cfg),
                           f"the DistComm server over {comm.backend}")
     logits = step0_logits(cfg, params, comm, dev)
+    progress(rank, f"{model_label(cfg)}: its DistComm serve", t)
     out = dict(itl=m.itl_mean_s, p99=m.itl_p99_s, ttft=m.ttft_s, tok_s=m.output_tok_s,
                launches=launches, peak_gib=dist_peak(), ep=comm.size, graphed=graphed,
-               rows=comm.batch_rows(BATCH).stop - comm.batch_rows(BATCH).start)
+               rows=comm.batch_rows(BATCH).stop - comm.batch_rows(BATCH).start,
+               model=model_label(cfg))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2796,6 +2982,8 @@ def dist_serve_phase(cfg, comm, dev, rank: int, world: int) -> dict:
                                     "compiled" if comm.capturable else "eager")
         want_logits = step0_logits(cfg, full, ref_comm, dev)
         err = float((logits - want_logits).abs().max() / want_logits.abs().max())
+        progress(rank, f"{model_label(cfg)}: the reference serve "
+                 f"({logit_errors(logits, want_logits)})", t)
         agree = toks == want
         out.update(ref_itl=rm.itl_mean_s, logits_err=err, agree=float(agree.mean()),
                    agree_first=float(agree[:, 0].mean()), bitwise=bool(agree.all()),
@@ -2863,18 +3051,31 @@ def continuous_step0_logits(cfg, params, comm, dev, reqs, table: tuple) -> torch
     return comm.gather_batch(out) if comm is not None else out
 
 
+def live_shares(reqs, admissions, ep: int) -> list[float]:
+    """Each batch rank's share of the live row-steps of a continuous serve,
+    from its admission log: a request admitted at step s into slot i holds
+    its slot, on batch rank i // (BATCH / ep), for prompt + new - 1 steps."""
+    per = BATCH // ep
+    at = {rid: (step, slot) for step, rid, slot in admissions}
+    live = [0] * ep
+    for r in reqs:
+        live[at[r.rid][1] // per] += r.prompt.size + r.max_new_tokens - 1
+    return [n / sum(live) for n in live]
+
+
 def dist_continuous_phase(cfg, comm, dev, rank: int) -> dict:
-    """ContinuousDecodeServer(comm=DistComm) over DBRX (full width, LAYERS
-    layers): DIST_REQUESTS requests over BATCH slots of paged KV (page
-    PAGE, the default pool) on its compiled step (captured over NCCL, eager
-    over gloo); exact launch counts (B6 on every layer, B1 to B4 at EP
-    extent > 1); DIST_SOLO requests that joined and left mid-stream served
-    again alone through the same engine, bitwise; the per-step token gather
-    timed. Then, on rank 0 alone, the reference on this card: the
-    dense-path continuous server at EP extent 1 (the path DistComm's extent
-    1 runs, on the same rows: streams bitwise), else LocalComm(EP extent)'s
-    (first-step logits within TOL, the stream agreement printed); either
-    way the same admission log."""
+    """ContinuousDecodeServer(comm=DistComm) over ``cfg`` (DBRX's or
+    DeepSeek-V3's decode_32k preset, full width, cut in depth):
+    DIST_REQUESTS requests over BATCH slots of paged KV (page PAGE, the default pool) on
+    its compiled step (captured over NCCL, eager over gloo); exact launch
+    counts (B6 on every layer, B1 to B4 at EP extent > 1); each batch
+    rank's share of the live rows; DIST_SOLO requests that joined and left
+    mid-stream served again alone through the same engine, bitwise; the
+    per-step token gather timed. Then, on rank 0 alone, the reference on
+    this card: the dense-path continuous server at EP extent 1 (the path
+    DistComm's extent 1 runs, on the same rows: streams bitwise), else
+    LocalComm(EP extent)'s (first-step logits within TOL, the stream
+    agreement printed); either way the same admission log."""
     # rank 0 may still be running the last phase's reference: start every
     # process's clock together
     dist.barrier()
@@ -2908,13 +3109,15 @@ def dist_continuous_phase(cfg, comm, dev, rank: int) -> dict:
               queued_ms(lambda: comm.gather_batch(tok), DIST_ITERS)[0])
     srv.close()
     logits = continuous_step0_logits(cfg, params, comm, dev, reqs, table)
+    progress(rank, f"{model_label(cfg)}: its DistComm continuous serve", t)
     out = dict(ep=comm.size, rows=b, graphed=graphed, steps=m.serve_steps,
                tokens=m.total_tokens, tok_s=m.output_tok_s, itl=m.itl_mean_s,
                ttft_p50=md["ttft_p50_s"], ttft_p99=md["ttft_p99_s"],
                itl_p50=md["itl_p50_s"], itl_p99=md["itl_p99_s"], pages_peak=m.pages_peak,
                pages_dense=m.pages_dense_equiv, launches=launches, admissions=admissions,
                solo=[(r.rid, r.arrival_step) for r in picks], gather=gather,
-               peak_gib=dist_peak())
+               peak_gib=dist_peak(), model=model_label(cfg), requests=DIST_REQUESTS,
+               live=live_shares(reqs, admissions, comm.size))
     del srv, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2929,6 +3132,8 @@ def dist_continuous_phase(cfg, comm, dev, rank: int) -> dict:
         del rsrv
         want_logits = continuous_step0_logits(cfg, full, ref_comm, dev, reqs, table)
         err = float((logits - want_logits).abs().max() / want_logits.abs().max())
+        progress(rank, f"{model_label(cfg)}: the reference continuous serve "
+                 f"({logit_errors(logits, want_logits)})", t)
         agree = np.asarray([np.array_equal(toks[r.rid], want[r.rid]) for r in reqs])
         out.update(ref_itl=rm.itl_mean_s, logits_err=err, agree=float(agree.mean()),
                    bitwise=bool(agree.all()))
@@ -2946,15 +3151,16 @@ def dist_continuous_phase(cfg, comm, dev, rank: int) -> dict:
 
 
 def dist_prefill_run(cfg, params, comm, dev, path: str, chunks: int = 1) -> dict:
-    """The prefill forward of this process's rows of the seeded batch (the
-    prefill phase's tokens) over ``comm`` (a DistComm, or the LocalComm
-    hosting its mesh), every launch counter read (the EP counts exact for
-    ``path`` and the hosted ranks, flash attention once per layer), then a
+    """The prefill forward of this process's rows of the seeded batch of
+    PF_BATCH x PF_SEQ tokens (the prefill phase's tokens) over ``comm`` (a
+    DistComm, or the LocalComm hosting its mesh), every launch counter read
+    (the EP counts exact for ``path``, the MoE and MTP layers and the hosted
+    ranks, flash attention once per GQA layer and never under MLA), then a
     timed repeat whose loss must be bitwise equal. Returns the loss, wall,
     tokens per second, peak memory, plan host time and dropped shares."""
     tokens = np.random.default_rng(10).integers(0, cfg.vocab, (PF_BATCH, PF_SEQ))
-    rows = comm.batch_rows(PF_BATCH)
-    batch = {"tokens": torch.from_numpy(tokens[rows].astype(np.int32)).to(dev)}
+    mine = comm.batch_rows(PF_BATCH)
+    batch = {"tokens": torch.from_numpy(tokens[mine].astype(np.int32)).to(dev)}
     forward = get_model(cfg).forward
     probes: list = []
     reset_counts()
@@ -2964,10 +3170,11 @@ def dist_prefill_run(cfg, params, comm, dev, path: str, chunks: int = 1) -> dict
     launches = {k: n for k, n in counts().items() if n}
     label = f"the {path} prefill over {type(comm).__name__}({comm.size})"
     check(bool(torch.isfinite(loss)), f"{label}: loss {loss.item()} is not finite")
-    check_dist_counts(launches, cfg, path, moe_layers(cfg) * len(comm.ranks), label, chunks)
-    check(launches.get(FLASH, 0) == LAYERS and PAGED not in launches,
+    check_dist_counts(launches, cfg, path, forward_moe_layers(cfg) * len(comm.ranks), label,
+                      chunks)
+    check(launches.get(FLASH, 0) == flash_layers(cfg) and PAGED not in launches,
           f"{label}: {launches.get(FLASH, 0)} flash and {launches.get(PAGED, 0)} paged "
-          f"attention launches, expected {LAYERS} and 0")
+          f"attention launches, expected {flash_layers(cfg)} and 0")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     loss2, _ = forward(params, batch, cfg, comm)
@@ -2988,29 +3195,33 @@ def dist_hier_config(cfg, chunks: int):
     return dataclasses.replace(h, moe=dataclasses.replace(h.moe, ht_num_chunks=chunks))
 
 
-def dist_prefill_phase(comm, hcomm, dev, rank: int) -> dict | None:
-    """The train_4k prefill forward (LAYERS layers, PF_BATCH x PF_SEQ
-    global, fp8 dispatch, capacity 1.25) with one EP rank per process: HT
-    flat at EP extent = the world, and over ``hcomm`` (a DistComm of
-    DIST_HIER_AXES, or None) the hierarchical path at 1 and 2 chunks, 2
-    bitwise equal to 1; each run's loss finite, bitwise on a repeat, its
-    EP launches exact. Then, on rank 0 alone, LocalComm's loss of each run
-    on this card (the same mesh hosted in one process): within
-    PF_LOSS_REL. None at EP extent 1, where the MoE layers take the dense
-    path and no HT runs."""
+def dist_prefill_phase(cfg, comm, hcomm, dev, rank: int) -> dict | None:
+    """The train_4k prefill forward of ``cfg`` (full width, cut in depth;
+    PF_BATCH x PF_SEQ global, fp8 dispatch, capacity 1.25) with one EP rank
+    per process: HT flat at EP extent = the world, and over ``hcomm`` (a
+    DistComm of DIST_HIER_AXES, or None) the hierarchical path at 1 and 2
+    chunks, 2 bitwise equal to 1; each run's loss finite, bitwise on a
+    repeat, its EP launches exact. Then, on rank 0 alone,
+    LocalComm's loss of each run on this card (the same mesh hosted in one
+    process): within PF_LOSS_REL. None at EP extent 1, where the MoE layers
+    take the dense path and no HT runs."""
     if comm.size == 1:
         return None
+    dist.barrier()
     t = time.perf_counter()
-    _, cfg = prefill_config()
     runs = {}
     plans = [("flat", cfg, comm, "nccl_ep", 1)]
     if hcomm is not None:
         plans += [(f"hierarchical, {nc} chunk{'s' if nc > 1 else ''}",
                    dist_hier_config(cfg, nc), hcomm, "hier", nc) for nc in (1, 2)]
     for name, c, cm, path, nc in plans:
+        torch.cuda.reset_peak_memory_stats()
         params = init_params(c, 0, dev, comm=cm)
+        weights = sum(t.nbytes for t in leaves(params)) / 2**30
         runs[name] = dict(dist_prefill_run(c, params, cm, dev, path, nc),
-                          ep=cm.size, axes=cm.axes)
+                          ep=cm.size, axes=cm.axes, model=model_label(c), mtp=c.mtp,
+                          weights_gib=weights)
+        progress(rank, f"{model_label(c)}: the DistComm {name} forward", t)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3030,6 +3241,7 @@ def dist_prefill_phase(comm, hcomm, dev, rank: int) -> dict | None:
             check(r["loss_err"] <= PF_LOSS_REL, f"the DistComm {name} prefill's loss "
                   f"{r['loss']!r} is {r['loss_err']:.3g} off LocalComm({cm.size})'s "
                   f"{want['loss']!r}")
+            progress(rank, f"{model_label(c)}: the LocalComm {name} forward", t)
             gc.collect()
             torch.cuda.empty_cache()
         del full
@@ -3039,13 +3251,23 @@ def dist_prefill_phase(comm, hcomm, dev, rank: int) -> dict | None:
     return dict(runs=runs, seconds=time.perf_counter() - t)
 
 
+def progress(rank: int, what: str, t0: float) -> None:
+    """A child's progress line on stderr (a run that times out shows how far
+    each rank got)."""
+    print(f"dist rank {rank}: {what} done at {time.perf_counter() - t0:.1f} s", file=sys.stderr,
+          flush=True)
+
+
 def dist_child(rank: int, world: int, init_method: str, backend: str) -> dict:
     """One rank of a DistComm mesh of ``world`` processes over ``backend``:
     NCCL takes card ``rank``; gloo puts every process on card 0 (CUDA
     tensors staged through the host). The primitives, the EP layer, the
     fixed-batch serve, the continuous serve, the prefill forward (flat,
-    and hierarchical over two pods of two when the world is 4)."""
+    and hierarchical over two pods of two when the world is 4), all over
+    DBRX."""
     t0 = time.perf_counter()
+    # every thread's stack on stderr shortly before the parent's timeout
+    faulthandler.dump_traceback_later(DIST_TIMEOUT_S - 60, exit=False)
     axes = (("data", world),)
     tmo = datetime.timedelta(seconds=DIST_TIMEOUT_S)
     dev = init_process(axes, None if backend == "nccl" else "cuda:0", init_method, rank=rank,
@@ -3064,21 +3286,92 @@ def dist_child(rank: int, world: int, init_method: str, backend: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     out["layer"] = dist_layer_phase(cfg, comm, lc, dev, rank)
     out["layer_seconds"], out["layer_peak_gib"] = time.perf_counter() - t, dist_peak()
+    progress(rank, "primitives and DBRX's EP layer", t0)
     gc.collect()
     torch.cuda.empty_cache()
     out["serve"] = dist_serve_phase(cfg, comm, dev, rank, world)
+    progress(rank, "DBRX's fixed-batch serve", t0)
     gc.collect()
     torch.cuda.empty_cache()
     out["continuous"] = dist_continuous_phase(cfg, comm, dev, rank)
-    out["prefill"] = dist_prefill_phase(comm, hcomm, dev, rank)
+    progress(rank, "DBRX's continuous serve", t0)
+    out["prefill"] = dist_prefill_phase(prefill_config()[1], comm, hcomm, dev, rank)
+    progress(rank, "DBRX's prefill forward", t0)
+    faulthandler.cancel_dump_traceback_later()
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+def serve_line(sv: dict, who: str, label: str, card: str, gloo: bool) -> None:
+    ref = ""
+    if "ref_itl" in sv:
+        name = "the dense server" if sv["ep"] == 1 else f"LocalComm({sv['ep']})"
+        ref = (f"; against {name} on one card (its itl {sv['ref_itl']:.5f} s): tokens "
+               f"{'bitwise equal' if sv['bitwise'] else 'not bitwise equal'} ({sv['agree']:.4f} "
+               f"of all, {sv['agree_first']:.4f} of the first), first-step logits "
+               f"{sv['logits_err']:.3g} off relative to their largest; {sv['rows_line']}")
+    print(f"dist ({label}) DecodeServer(comm=DistComm), {who}, EP extent {sv['ep']}, "
+          f"{sv['rows']} rows a process, {sv['model']}, {BATCH} x ({PROMPT} + {GEN}), "
+          f"{'captured' if sv['graphed'] else 'eager'} ({card}): itl mean {sv['itl']:.5f} s"
+          f"{' (gloo via host)' if gloo else ''}, p99 {sv['p99']:.5f} s, ttft "
+          f"{sv['ttft']:.4f} s{ref}; launches {sv['launches']}; peak {sv['peak_gib']:.2f} "
+          f"GiB; {sv['seconds']:.1f} s")
+
+
+def continuous_line(cs: dict, who: str, label: str, card: str, gloo: bool) -> None:
+    ref = ""
+    if "ref_itl" in cs:
+        name = "the dense-path server" if cs["ep"] == 1 else f"LocalComm({cs['ep']})"
+        ref = (f"; against {name} on one card (its itl {cs['ref_itl']:.5f} s): the same "
+               f"admissions, streams {'bitwise equal' if cs['bitwise'] else 'not bitwise equal'}"
+               f" ({cs['agree']:.4f} of the requests), first-step logits "
+               f"{cs['logits_err']:.3g} off relative to their largest")
+    solo = ", ".join(f"{rid} (arrived at step {a})" for rid, a in cs["solo"])
+    live = ", ".join(f"{x:.4f}" for x in cs["live"])
+    print(f"dist ({label}) ContinuousDecodeServer(comm=DistComm), {who}, EP extent "
+          f"{cs['ep']}, {cs['rows']} of {BATCH} slots a process, {cs['model']}, "
+          f"{cs['requests']} requests, page {PAGE}, "
+          f"{'captured' if cs['graphed'] else 'eager'} ({card}): {cs['steps']} steps, "
+          f"{cs['tokens']} tokens, {cs['tok_s']:.1f} output tok/s; ttft p50 "
+          f"{cs['ttft_p50']:.4f} s, p99 {cs['ttft_p99']:.4f} s; itl mean {cs['itl']:.5f} s"
+          f"{' (gloo via host)' if gloo else ''}, p50 {cs['itl_p50']:.5f} s, p99 "
+          f"{cs['itl_p99']:.5f} s; live row-steps by batch rank {live}; pages peak "
+          f"{cs['pages_peak']} of {cs['pages_dense']} dense; the step's token gather "
+          f"{cs['gather'][0]:.5f} ms a call ({cs['gather'][1]:.5f} ms queued); requests "
+          f"{solo} alone through the same engine bitwise equal{ref}; launches "
+          f"{cs['launches']}; peak {cs['peak_gib']:.2f} GiB; {cs['seconds']:.1f} s")
+
+
+def prefill_lines(pf: dict | None, who: str, label: str, card: str) -> None:
+    if pf is None:
+        print(f"dist ({label}) prefill forward, {who}: not run, EP extent 1 takes the "
+              "dense MoE path, so no HT dispatch or combine runs")
+        return
+    for name, run in pf["runs"].items():
+        ref = ""
+        if "ref_loss" in run:
+            ref = (f"; LocalComm({run['ep']}) on one card: loss {run['ref_loss']:.6f}, "
+                   f"{run['loss_err']:.3g} off relative (limit {PF_LOSS_REL}), wall "
+                   f"{run['ref_wall']:.3f} s")
+        print(f"dist ({label}) prefill forward {name}, {who}, EP over {run['axes']}, "
+              f"{run['model']}{' + MTP' if run['mtp'] else ''} train_4k, {PF_BATCH} x {PF_SEQ} "
+              f"global, rows {run['rows']} a process, fp8 dispatch, capacity 1.25 "
+              f"({card}): loss {run['loss']:.6f} (aux {run['aux']:.6f}), repeat bitwise "
+              f"equal; wall {run['wall']:.3f} s after a warm-up, {run['tok_s']:.1f} prefill "
+              f"tok/s this card, {run['total_tok_s']:.1f} in total; weights "
+              f"{run['weights_gib']:.2f} GiB, peak {run['peak_gib']:.2f} GiB; plan host "
+              f"time {run['plan_s']:.3f} s (handle creation, card synchronised); dropped "
+              f"shares {run['dropped']}{ref}; launches {run['launches']}")
+    if "hierarchical, 2 chunks" in pf["runs"]:
+        print(f"dist ({label}) prefill, {who}: hierarchical 2 chunks bitwise equal to 1 "
+              f"chunk (loss and aux); {pf['seconds']:.1f} s")
 
 
 def dist_lines(res: list, world: int, card: str, label: str) -> None:
     """One line per rank and sub-phase of a dist child's results."""
     for r in res:
         who = f"rank {r['rank']} of {world}, {r['backend']} on {r['device']}"
+        gloo = r["backend"] == "gloo"
         pr = r["prims"]
         times = "; ".join(f"{k} {v[0]:.5f} ms a call ({v[1]:.5f} ms queued)"
                           for k, v in pr["times"].items())
@@ -3095,64 +3388,9 @@ def dist_lines(res: list, world: int, card: str, label: str) -> None:
               f"LocalComm({world}); the compiled step's calls bitwise against eager; {lay}; "
               f"decode_loop on two streams bitwise against the naive step over 3 steps; "
               f"peak {r['layer_peak_gib']:.2f} GiB; {r['layer_seconds']:.1f} s")
-        sv = r["serve"]
-        ref = ""
-        if "ref_itl" in sv:
-            name = "the dense server" if sv["ep"] == 1 else f"LocalComm({sv['ep']})"
-            ref = (f"; against {name} on one card (its itl {sv['ref_itl']:.5f} s): tokens "
-                   f"{'bitwise equal' if sv['bitwise'] else 'not bitwise equal'} ({sv['agree']:.4f} "
-                   f"of all, {sv['agree_first']:.4f} of the first), first-step logits "
-                   f"{sv['logits_err']:.3g} off relative to their largest; {sv['rows_line']}")
-        itl_label = " (gloo via host)" if r["backend"] == "gloo" else ""
-        print(f"dist ({label}) DecodeServer(comm=DistComm), {who}, EP extent {sv['ep']}, "
-              f"{sv['rows']} rows a process, DBRX {LAYERS} layers, {BATCH} x ({PROMPT} + "
-              f"{GEN}), {'captured' if sv['graphed'] else 'eager'} ({card}): itl mean "
-              f"{sv['itl']:.5f} s{itl_label}, p99 {sv['p99']:.5f} s, ttft {sv['ttft']:.4f} s"
-              f"{ref}; launches {sv['launches']}; peak {sv['peak_gib']:.2f} GiB; "
-              f"{sv['seconds']:.1f} s")
-        cs = r["continuous"]
-        ref = ""
-        if "ref_itl" in cs:
-            name = "the dense-path server" if cs["ep"] == 1 else f"LocalComm({cs['ep']})"
-            ref = (f"; against {name} on one card (its itl {cs['ref_itl']:.5f} s): the same "
-                   f"admissions, streams {'bitwise equal' if cs['bitwise'] else 'not bitwise equal'}"
-                   f" ({cs['agree']:.4f} of the requests), first-step logits "
-                   f"{cs['logits_err']:.3g} off relative to their largest")
-        solo = ", ".join(f"{rid} (arrived at step {a})" for rid, a in cs["solo"])
-        print(f"dist ({label}) ContinuousDecodeServer(comm=DistComm), {who}, EP extent "
-              f"{cs['ep']}, {cs['rows']} of {BATCH} slots a process, DBRX {LAYERS} layers, "
-              f"{DIST_REQUESTS} requests, page {PAGE}, "
-              f"{'captured' if cs['graphed'] else 'eager'} ({card}): {cs['steps']} steps, "
-              f"{cs['tokens']} tokens, {cs['tok_s']:.1f} output tok/s; ttft p50 "
-              f"{cs['ttft_p50']:.4f} s, p99 {cs['ttft_p99']:.4f} s; itl mean {cs['itl']:.5f} s"
-              f"{itl_label}, p50 {cs['itl_p50']:.5f} s, p99 {cs['itl_p99']:.5f} s; pages peak "
-              f"{cs['pages_peak']} of {cs['pages_dense']} dense; the step's token gather "
-              f"{cs['gather'][0]:.5f} ms a call ({cs['gather'][1]:.5f} ms queued); requests "
-              f"{solo} alone through the same engine bitwise equal{ref}; launches "
-              f"{cs['launches']}; peak {cs['peak_gib']:.2f} GiB; {cs['seconds']:.1f} s")
-        pf = r["prefill"]
-        if pf is None:
-            print(f"dist ({label}) prefill forward, {who}: not run, EP extent 1 takes the "
-                  "dense MoE path, so no HT dispatch or combine runs")
-            continue
-        for name, run in pf["runs"].items():
-            ref = ""
-            if "ref_loss" in run:
-                ref = (f"; LocalComm({run['ep']}) on one card: loss {run['ref_loss']:.6f}, "
-                       f"{run['loss_err']:.3g} off relative (limit {PF_LOSS_REL}), wall "
-                       f"{run['ref_wall']:.3f} s")
-            print(f"dist ({label}) prefill forward {name}, {who}, EP over {run['axes']}, "
-                  f"DBRX train_4k {LAYERS} layers, {PF_BATCH} x {PF_SEQ} global, rows "
-                  f"{run['rows']} a process, fp8 dispatch, capacity 1.25 ({card}): loss "
-                  f"{run['loss']:.6f} (aux {run['aux']:.6f}), repeat bitwise equal; wall "
-                  f"{run['wall']:.3f} s after a warm-up, {run['tok_s']:.1f} prefill tok/s "
-                  f"this card, {run['total_tok_s']:.1f} in total; peak {run['peak_gib']:.2f} "
-                  f"GiB; plan host time {run['plan_s']:.3f} s (handle creation, card "
-                  f"synchronised); dropped shares {run['dropped']}{ref}; launches "
-                  f"{run['launches']}")
-        if "hierarchical, 2 chunks" in pf["runs"]:
-            print(f"dist ({label}) prefill, {who}: hierarchical 2 chunks bitwise equal to 1 "
-                  f"chunk (loss and aux); {pf['seconds']:.1f} s")
+        serve_line(r["serve"], who, label, card, gloo)
+        continuous_line(r["continuous"], who, label, card, gloo)
+        prefill_lines(r["prefill"], who, label, card)
 
 
 def dist_phase(card: str) -> None:
@@ -3177,6 +3415,7 @@ def dist_phase(card: str) -> None:
                   "NCCL puts no two ranks of a communicator on one card")
         print(f"dist ({label}) {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
@@ -3268,6 +3507,9 @@ def main(argv=None) -> int:
     print(f"DBRX released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
     ds_rows = deepseek_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    deepseek_forward_phase(card)
     gc.collect()
     torch.cuda.empty_cache()
     dist_phase(card)

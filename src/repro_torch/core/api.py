@@ -26,14 +26,16 @@ from repro_torch.core import baseline as _baseline  # noqa: F401  (registers bas
 from repro_torch.core import ht as _ht  # noqa: F401  (registers the HT backend)
 from repro_torch.core import ll as _ll  # noqa: F401  (registers the LL backend)
 from repro_torch.core import plan as _plan
-from repro_torch.core.backend import EpPending, get_backend
-from repro_torch.core.group import EpGroup, EpGroupConfig, EpHandle, ep_create_group
+from repro_torch.core.backend import EpPending, get_backend, registered_modes
+from repro_torch.core.group import (EpGroup, EpGroupConfig, EpHandle, ep_create_group,
+                                    ep_handle_destroy, ep_handle_get_num_recv_tokens)
 from repro_torch.core.tensor import EpTensor, EpTensorTag, validate
 
 __all__ = [
     "EpGroup", "EpGroupConfig", "EpHandle", "EpPending", "ep_create_group",
     "ep_create_handle", "ep_handle_refresh", "ep_dispatch", "ep_combine",
     "ep_complete", "ep_dispatch_tensors", "ep_combine_tensors",
+    "ep_handle_get_num_recv_tokens", "ep_handle_destroy", "registered_modes",
 ]
 
 

@@ -93,3 +93,8 @@ def get_backend(mode: str) -> BaseBackend:
         return _REGISTRY[mode]
     raise KeyError(f"no EP backend registered for mode {mode!r}; "
                    f"known: {sorted(_REGISTRY)}")
+
+
+def registered_modes() -> tuple[str, ...]:
+    """Registered backend mode names, sorted."""
+    return tuple(sorted(_REGISTRY))

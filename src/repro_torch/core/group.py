@@ -109,6 +109,21 @@ class EpGroup:
                              f"token count {num_tokens}")
         return nc
 
+    # ---- buffer byte accounting (the paper's Eq. 3) ----
+    def payload_bytes_per_token(self) -> int:
+        """Bytes one dispatched token takes: fp8 plus an f32 scale per
+        ``quant_block`` when quantizing, else the payload dtype's size."""
+        h = self.cfg.hidden
+        if self.cfg.quantize_dispatch:
+            return h + 4 * math.ceil(h / self.cfg.quant_block)
+        return h * self.cfg.payload_dtype.itemsize
+
+    def ll_dispatch_buffer_bytes(self) -> int:
+        return self.ep_size * self.ll_disp_cap * self.payload_bytes_per_token()
+
+    def ll_combine_buffer_bytes(self) -> int:
+        return self.ep_size * self.ll_comb_cap * self.cfg.hidden * self.cfg.payload_dtype.itemsize
+
 
 def ep_create_group(cfg: EpGroupConfig, comm=None, *, ep_size: int | None = None,
                     inner_size: int | None = None) -> EpGroup:
@@ -209,3 +224,16 @@ class EpHandle:
     num_tokens: int                   # valid tokens on this rank (<= T)
     plan: object | None = None
     routing_hash: torch.Tensor | None = None
+
+
+def ep_handle_get_num_recv_tokens(handle: EpHandle) -> torch.Tensor:
+    """``ncclEpHandleGetNumRecvTokens``: the exact receive count, the
+    handle's [] device tensor (never read back, so legal in a captured
+    step)."""
+    return handle.num_recv_tokens
+
+
+def ep_handle_destroy(handle: EpHandle) -> None:
+    """A no-op (the caching allocator owns the buffers); kept for API
+    parity."""
+    del handle

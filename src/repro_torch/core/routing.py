@@ -81,3 +81,10 @@ def route(logits: torch.Tensor, cfg: RouterConfig,
     z = (torch.logsumexp(logits, -1) ** 2).mean() * cfg.z_loss_weight
     return RouterOutput(topk_idx=idx.to(torch.int32), topk_weights=topk_w.float(),
                         aux_loss=aux, z_loss=z, expert_load=f)
+
+
+def update_selection_bias(bias: torch.Tensor, expert_load: torch.Tensor,
+                          update_rate: float = 1e-3) -> torch.Tensor:
+    """Aux-loss-free balancing bias update (DeepSeek-V3): raise the bias of
+    underloaded experts, lower it for overloaded ones."""
+    return bias + update_rate * torch.sign(expert_load.mean() - expert_load)

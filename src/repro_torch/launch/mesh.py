@@ -15,8 +15,10 @@ import math
 import os
 import pathlib
 import pickle
+import sys
 import tempfile
 import time
+import traceback
 
 import torch
 import torch.distributed as dist
@@ -83,12 +85,18 @@ def init_process(axes, device=None, init_method: str | None = None, *,
 
 def _run(rank: int, fn, world: int, init_method: str, out_dir: str, args) -> None:
     """One spawned rank: ``fn``'s result pickled into ``out_dir``, and its
-    process group destroyed whatever happens."""
+    process group destroyed. A rank that raises prints its traceback and
+    leaves at once: its peers may wait in a collective it will never join,
+    and tearing an NCCL group down, here or at the interpreter's exit,
+    waits for them until the group's timeout."""
     try:
         result = fn(rank, world, init_method, *args)
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    if dist.is_initialized():
+        dist.destroy_process_group()
     with open(pathlib.Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
         pickle.dump(result, f)
 

@@ -147,8 +147,13 @@ def mla_attention(p, x: torch.Tensor, cfg: ArchConfig, *, positions=None,
 
     if cache is None:
         if S >= CHUNKED_ATTN_THRESHOLD:
-            o = _mla_chunked(p, q_nope, q_rope, ckv, k_rope, scale, x.dtype,
-                             chunk=cfg.attn.kv_chunk)
+            # one batch row at a time: a chunk step's f32 scores are [rows,
+            # H, Sq, chunk], 2 GiB a row at 128 heads, Sq 4096 and chunk 1024,
+            # and the sum, mask and exp copy them. Every row's arithmetic is
+            # the same as in one call over the batch
+            o = torch.cat([_mla_chunked(p, q_nope[b:b + 1], q_rope[b:b + 1], ckv[b:b + 1],
+                                        k_rope[b:b + 1], scale, x.dtype,
+                                        chunk=cfg.attn.kv_chunk) for b in range(B)])
         else:
             k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["wk_b"])
             v = torch.einsum("bsr,rhk->bshk", ckv, p["wv_b"])

@@ -14,7 +14,7 @@ the packages build one tree with JAX and carry it over with
 tensor parallelism, its F-slice of them (``src/repro/models/moe.py``'s
 ``ew_spec``); everything else is replicated. ``init_params(..., comm=)``
 draws the same values as the full tree and keeps only that shard, one leaf
-at a time.
+(and of stacked experts, one layer) at a time.
 """
 from __future__ import annotations
 
@@ -86,26 +86,45 @@ def shard_params(params, cfg: ArchConfig, comm):
     return out
 
 
+def _draw(shape, s, gen, dev) -> torch.Tensor:
+    """One leaf of spec ``s`` at ``shape``: its constant, or normal values
+    drawn from ``gen``."""
+    if s.init in ("zeros", "ones"):
+        return (torch.zeros if s.init == "zeros" else torch.ones)(shape, dtype=s.dtype,
+                                                                  device=dev)
+    fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+    std = s.scale / math.sqrt(max(fan_in, 1))
+    return torch.empty(shape, dtype=s.dtype, device=dev).normal_(0.0, std, generator=gen)
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device=None, comm=None):
     """Random parameters for ``cfg``, drawn on ``device`` (CUDA by default);
     with ``comm``, the shard of them this process holds
-    (``shard_params(init_params(cfg, seed, device), cfg, comm)``, with one
-    full leaf at a time on the device)."""
+    (``shard_params(init_params(cfg, seed, device), cfg, comm)``). A leaf of
+    stacked experts ([layers, E, D, F]: 7.5 GB a layer at DeepSeek-V3's
+    width) is drawn one layer at a time, with or without ``comm``, and each
+    layer is cut to the shard at once, so a process never holds more than
+    one full layer of it beside its shard."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params: dict = {}
     for path, s in _leaves(lm_spec(cfg)):
-        if s.init == "zeros":
-            t = torch.zeros(s.shape, dtype=s.dtype, device=dev)
-        elif s.init == "ones":
-            t = torch.ones(s.shape, dtype=s.dtype, device=dev)
+        if path[-1] in _EXPERT_F_DIM and len(path) >= 2 and path[-2] == "moe" \
+                and len(s.shape) == 4:
+            t = None
+            for i in range(s.shape[0]):
+                layer = _draw(s.shape[1:], s, gen, dev)
+                part = layer if comm is None else _shard_leaf(path, layer, cfg, comm)
+                if t is None:
+                    t = torch.empty((s.shape[0],) + tuple(part.shape), dtype=s.dtype,
+                                    device=dev)
+                t[i].copy_(part)
+                del layer, part
+            _set(params, path, t)
         else:
-            fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
-            std = s.scale / math.sqrt(max(fan_in, 1))
-            t = torch.empty(s.shape, dtype=s.dtype, device=dev).normal_(
-                0.0, std, generator=gen)
-        _set(params, path, t if comm is None else _shard_leaf(path, t, cfg, comm))
+            t = _draw(s.shape, s, gen, dev)
+            _set(params, path, t if comm is None else _shard_leaf(path, t, cfg, comm))
         del t
     return params
 

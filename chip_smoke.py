@@ -27,6 +27,12 @@
    arrivals of 4 per step. Every request must complete with in-vocabulary
    tokens, bitwise equal in every run, every page must come back, and the
    launch counts of all kernels must equal the count the path implies.
+   Once more captured with a ``Tracer`` and a ``TimeSeries``
+   (``runtime/telemetry.py``, after the traces of step 4): streams bitwise
+   equal to the untraced serve's, one ``serve_step`` and one ``admission``
+   span a step, one ``admit`` and one ``complete`` instant a request, one
+   series row a step; its Chrome trace written under ``build/traces/`` and
+   held by the port's validator; its ITL printed beside the untraced one.
 4. Steady-state EP decode (``runtime/decode.py``): MoE layer 0 over the 8
    ranks, a micro-batch pair of 16 tokens per rank, in the three layouts:
    ``decode_loop`` over 4 steps (a changed routing, a replayed one) and a
@@ -154,7 +160,24 @@
    64 local experts, fp8 blocks over H 7168, top-8 combine) against their
    plain versions, as at DBRX's HT shapes, and timed.
 
-9. One EP rank per process (``comm.DistComm``), in spawned child processes
+9. The dense configs of the ``lm`` family at full width and full depth,
+   one at a time, each freed before the next (``dense_phase``):
+   ChatGLM3-6B (28 layers, GQA 32/2 heads, RoPE on half of each head),
+   InternLM2-20B (48 layers, GQA 48/8) and MiniCPM3-4B (62 layers, MLA over
+   40 heads padded to 48, tied embeddings), random weights. Each through
+   ``DecodeServer`` without EP, 128 x (8 + 16), captured and eager (tokens
+   bitwise equal, no kernel launched: the dense-cache decode is plain
+   torch), ``ContinuousDecodeServer`` with the 256 requests of step 3,
+   captured and eager (B6 once a layer and step: GQA on ``paged_gqa_kernel``,
+   MiniCPM3's shared pool at dk 288 / dv 256 on the CUDA-core path), each
+   server's replayed step traced, and the ``train_4k`` forward at the
+   preset's microbatch of 4096-token rows (B7 once a GQA layer; MiniCPM3's
+   MLA takes ``_mla_chunked``), finite and bitwise on a repeat. Then B6 at
+   the serve's shapes and B7 at the forward's against their plain versions
+   (within 1e-4; 5e-3 relative and 2e-2), timed beside SDPA for B7; their
+   rows join the kernels JSON.
+
+10. One EP rank per process (``comm.DistComm``), in spawned child processes
    once every weight of the main process is freed (``dist_phase``). (a)
    NCCL at world = the card count, one process per card: the primitives
    against ``LocalComm(world)`` on the same stacked inputs (all-to-all and
@@ -189,7 +212,19 @@
    Every rank's continuous admission log, (step, rid, slot), must be the
    same. A child that fails fails the script. ``python3 chip_smoke.py
    --dist-only`` builds the kernels and runs this phase alone (for a
-   machine with several cards).
+   machine with several cards). At world 4 (four cards), after DBRX's
+   sub-phases, DeepSeek-V3 at one EP rank a card (``ds_dist_phase``): the
+   fixed-batch serve at 5 layers captured, its first-step logits within
+   2e-2 of ``LocalComm(4)``'s on card 0; the ``train_4k`` forward with MTP
+   at the one-card cut (4 layers + the MTP layer, 4 x 4096, one row a
+   card) within 1e-3 relative of ``LocalComm(4)``'s; the fixed-batch serve
+   at 3 dense + ``DS_DEEP_MOE_LAYERS`` MoE layers (5.64 GB of experts a
+   layer and card) captured and eager, tokens bitwise equal, no one-card
+   reference fitting; last, the continuous serve of 256 requests over the
+   MLA pools (every batch rank stepping live rows), held like DBRX's. Its
+   first-step logits do not hold on H100s: the idle rows' shared input sits
+   at a routing near-tie that the row count moves (ROADMAP Queue C), so
+   the four-card run fails there, after every other check.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. The last line is
@@ -251,6 +286,9 @@ from repro_torch.runtime.scheduler import ContinuousScheduler, Request  # noqa: 
 from repro_torch.runtime.server import (ContinuousDecodeServer,  # noqa: E402
                                         DecodeServer)
 from repro_torch.runtime.steps import CompiledStep, capture_stream  # noqa: E402
+from repro_torch.runtime.telemetry import (TimeSeries, Tracer, load_chrome_trace,  # noqa: E402
+                                           validate_chrome_trace)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.weights import init_params  # noqa: E402
 from repro_torch.device import disable_tf32  # noqa: E402
 from repro_torch.launch.mesh import init_process, spawn  # noqa: E402
@@ -395,8 +433,15 @@ def counts() -> dict:
 
 
 def moe_layers(cfg) -> int:
-    """MoE layers of a config: those after its dense prefix."""
-    return cfg.num_layers - cfg.moe.first_k_dense
+    """MoE layers of a config: those after its dense prefix (none in a
+    dense config)."""
+    return 0 if cfg.moe is None else cfg.num_layers - cfg.moe.first_k_dense
+
+
+def hosted(cfg) -> int:
+    """EP ranks a one-card server hosts: RANKS, or 1 (no EP) in a dense
+    config."""
+    return RANKS if cfg.moe else 1
 
 
 def forward_moe_layers(cfg) -> int:
@@ -416,7 +461,7 @@ def ep_launches(cfg, path: str, chunks: int = HIER_CHUNKS) -> dict:
     ``hier_launches`` of ``chunks`` chunks), and of B1's, those in quant
     mode: under fp8 dispatch each dispatch send (one, or one per chunk on
     the hierarchical path), else none."""
-    fp8 = cfg.moe.quantize_dispatch
+    fp8 = bool(cfg.moe and cfg.moe.quantize_dispatch)
     per = hier_launches(chunks, fp8) if path == "hier" else dict(EP_LAUNCHES[path])
     per[DP_QUANT] = (chunks if path == "hier" else 1) if fp8 else 0
     return per
@@ -870,6 +915,9 @@ def serve_run(srv: DecodeServer, card: str, path: str, mode: str) -> tuple[dict,
                         f"the {cfg.name} {path} DecodeServer path ({mode})", path)
     check(launches[PAGED] == 0 and launches[FLASH] == 0,
           "the dense decode path launched paged or flash attention")
+    if path == "dense":
+        check(not any(launches.values()), f"the {cfg.name} serve without EP launched "
+              f"{ {k: n for k, n in launches.items() if n} }")
     toks = srv.last_tokens
     check(toks.shape == (BATCH, GEN + 1) and toks.min() >= 0 and toks.max() < cfg.vocab,
           f"bad token stream {toks.shape}")
@@ -952,7 +1000,7 @@ def fixed_serve_phase(cfg, params, card: str, paths=FIXED_PATHS, serves: int = S
               f"eager serves; ITL mean captured {means['captured']} s, eager {means['eager']} "
               f"s; ITL p99 captured {p99s['captured']} s, eager {p99s['eager']} s; "
               f"captured/eager mean {np.mean(means['captured']) / np.mean(means['eager']):.4f}")
-        if path != "nccl_ep":
+        if path != "nccl_ep" and "nccl_ep" in out:
             agree = toks == out["nccl_ep"]["tokens"]
             print(f"  greedy tokens equal to the nccl_ep serve: {agree.mean():.4f} of all, "
                   f"{agree[:, 0].mean():.4f} of the first; bitwise equal stream "
@@ -1208,7 +1256,7 @@ def continuous_phase(cfg, params, card: str, n: int = REQUESTS, seed: int = 4,
     kept, first, itls, want = None, None, {"captured": [], "eager": []}, None
     for _ in range(serves):
         for mode in ("captured", "eager"):
-            srv = ContinuousDecodeServer(cfg, BATCH, CMAX_LEN, ep_size=RANKS,
+            srv = ContinuousDecodeServer(cfg, BATCH, CMAX_LEN, ep_size=hosted(cfg),
                                          params=params, page_size=PAGE)
             if mode == "eager":
                 eager(srv)
@@ -1427,15 +1475,17 @@ def check_paged(label, q, kp, vp, tbl, lens, unused, chunk, **kw):
     return got, err, plain
 
 
-def paged_bound(lens, q, lt, out, Hkv, dk, dv, elt) -> tuple[tuple[float, str], int]:
-    """Bound of one paged attention call: the live K/V rows, q, the lengths,
-    the table entries read and the output, each moved once; 2 (dk + dv)
-    operations per live token and query head at the rate of the pools'
-    type (bf16). Returns the bound and the bytes."""
+def paged_bound(lens, q, lt, out, Hkv, dk, dv, elt,
+                share: bool = False) -> tuple[tuple[float, str], int]:
+    """Bound of one paged attention call: the live K/V rows (of the shared
+    pool, one [ckv | k_rope] row, the values its leading dv columns), q,
+    the lengths, the table entries read and the output, each moved once;
+    2 (dk + dv) operations per live token and query head at the rate of
+    the pools' type (bf16). Returns the bound and the bytes."""
     live = int(lens.sum())
     pages_read = int((-(-lens // PAGE)).sum())
-    nb = (live * Hkv * (dk + dv) * elt + nbytes(q) + nbytes(lt) + pages_read * 4
-          + nbytes(out))
+    nb = (live * Hkv * (dk if share else dk + dv) * elt + nbytes(q) + nbytes(lt)
+          + pages_read * 4 + nbytes(out))
     return bound(nb, 2 * live * q.shape[1] * (dk + dv), BF16_OPS_S), nb
 
 
@@ -1587,17 +1637,20 @@ def prefill_run(label: str, params, cfg, comm, card: str, path: str,
     launches, the loss, the wall time, tokens per second, peak memory, the
     dropped shares, the plan's host time and the batch."""
     m = cfg.moe
-    ranks, nmoe = comm.size, forward_moe_layers(cfg)
-    group = ep_group(cfg, comm, rows * seq // ranks)
-    geo = (f"two stages over {comm.axes}, {group.cfg.ht_num_chunks} chunks: C1 "
-           f"{group.ht_stage1_cap}, C2 {group.ht_stage2_cap}" if group.hierarchical
-           else f"flat: ht_pair_cap {group.ht_pair_cap}")
+    ranks, nmoe = (1 if comm is None else comm.size), forward_moe_layers(cfg)
+    if m is None:
+        ep = "dense FFNs, no EP"
+    else:
+        group = ep_group(cfg, comm, rows * seq // ranks)
+        geo = (f"two stages over {comm.axes}, {group.cfg.ht_num_chunks} chunks: C1 "
+               f"{group.ht_stage1_cap}, C2 {group.ht_stage2_cap}" if group.hierarchical
+               else f"flat: ht_pair_cap {group.ht_pair_cap}")
+        ep = (f"EP {group.mode} ({geo}), fp8 dispatch {m.quantize_dispatch} (block "
+              f"{group.cfg.quant_block}), capacity factors {m.capacity_factor}/"
+              f"{m.expert_capacity_factor}: ht_expert_cap {group.ht_expert_cap}")
     print(f"{label}: {cfg.name} train_4k preset, {cfg.num_layers} layers"
           f"{' + the MTP layer' if cfg.mtp else ''} ({nmoe} MoE), batch {rows} x {seq} "
-          f"tokens over {ranks} hosted ranks ({rows * seq // ranks} per rank); EP "
-          f"{group.mode} ({geo}), fp8 dispatch {m.quantize_dispatch} (block "
-          f"{group.cfg.quant_block}), capacity factors {m.capacity_factor}/"
-          f"{m.expert_capacity_factor}: ht_expert_cap {group.ht_expert_cap}")
+          f"tokens over {ranks} hosted ranks ({rows * seq // ranks} per rank); {ep}")
     rng = np.random.default_rng(10)
     batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (rows, seq))
                                         .astype(np.int32)).to(DEV)}
@@ -1627,7 +1680,7 @@ def prefill_run(label: str, params, cfg, comm, card: str, path: str,
                dropped=[round(d, 6) for d, _ in probes],
                plan_s=sum(dt for _, dt in probes), batch=batch)
     per = {k: v / (nmoe * ranks) for k, v in launches.items()
-           if k in EP_LAUNCHES[path]}
+           if k in EP_LAUNCHES[path] and nmoe}
     print(f"{label} ({card}): loss {loss.item():.6f} (aux {aux['aux'].item():.6f}; "
           f"ln of the vocabulary {np.log(cfg.vocab):.4f}), repeat bitwise equal; wall "
           f"{wall:.3f} s after a warm-up, {out['tok_s']:.1f} prefill tok/s; peak device "
@@ -2423,11 +2476,13 @@ def ds_prefill_config():
     return full, dataclasses.replace(full, num_layers=DS_PF_LAYERS)
 
 
-def ds_record(base: str, label: str, err, ms, plain_ms, bnd, library_ms, launches) -> dict:
-    """A DeepSeek-shape row of the kernels JSON: the kernel's own record,
-    named for its shape, with the launches of its DeepSeek main path."""
+def model_record(base: str, label: str, err, ms, plain_ms, bnd, library_ms, launches,
+                 model: str = "DeepSeek-V3") -> dict:
+    """A row of the kernels JSON at another model's shapes: the kernel's
+    own record, named for the model and shape, with the launches of that
+    model's main path."""
     r = record(base, err, ms, plain_ms, bnd, library_ms)
-    r["name"] = f"{base} [DeepSeek-V3 {label}]"
+    r["name"] = f"{base} [{model} {label}]"
     r["launches"] = launches
     return r
 
@@ -2469,7 +2524,7 @@ def ds_kernel_phase(cfg, params, launches: dict, paged_launches: dict, table: tu
               plain_iters=None):
         ms, plain_ms = device_ms(kernel, iters), device_ms(plain, plain_iters or iters)
         library_ms = None if library is None else device_ms(library, iters)
-        rows.append(ds_record(base, label, err, ms, plain_ms, bnd, library_ms, n_launch))
+        rows.append(model_record(base, label, err, ms, plain_ms, bnd, library_ms, n_launch))
         lib = "" if library_ms is None else f", library {library_ms:.5f} ms"
         print(f"{base} [DeepSeek-V3 {label}] {shape}: max_abs_err {err:.3g}, kernel {ms:.5f} ms "
               f"on the card ({call_ms(kernel, iters):.4f} ms per call from the host), plain "
@@ -2512,11 +2567,11 @@ def ds_kernel_phase(cfg, params, launches: dict, paged_launches: dict, table: tu
     counts_ = pl.disp_counts
     w1, w3, w2 = p["w_gate"][:L], p["w_up"][:L], p["w_down"][:L]
     gate = gemm_case("DeepSeek-V3 gate, nccl_ep counts", y3d, w1, counts_, 10, 3)
-    rows.append(ds_record("grouped_gemm", "decode gate", *gate, launches["grouped_gemm"]))
+    rows.append(model_record("grouped_gemm", "decode gate", *gate, launches["grouped_gemm"]))
     hmid = (F.silu(ref.grouped_gemm(y3d, w1, counts_).float())
             * ref.grouped_gemm(y3d, w3, counts_).float()).to(dt)
     down = gemm_case("DeepSeek-V3 down, nccl_ep counts", hmid, w2, counts_, 10, 3)
-    rows.append(ds_record("grouped_gemm", "decode down", *down, launches["grouped_gemm"]))
+    rows.append(model_record("grouped_gemm", "decode down", *down, launches["grouped_gemm"]))
     del hmid
 
     # ---- B1 copy mode at the combine send, then B4 at rank 0's combine recv
@@ -2581,11 +2636,7 @@ def ds_kernel_phase(cfg, params, launches: dict, paged_launches: dict, table: tu
             f"DeepSeek-V3 share_kv, {label} (q [{BATCH}, {Hq}, {dk}], pool "
             f"{list(kp.shape)} bf16, table [{BATCH}, {width}], dv {dv}, kv_lens "
             f"{lens.min()} to {lens.max()})", q, kp, None, tbl, lt, unused, 16, **kw)
-        # one [ckv | k_rope] row read per live token (the values are its
-        # leading dv columns); q, lengths, table entries and the output once
-        nb = (int(lens.sum()) * dk * kp.element_size() + nbytes(q) + nbytes(lt)
-              + int((-(-lens // PAGE)).sum()) * 4 + nbytes(out))
-        bnd = bound(nb, 2 * int(lens.sum()) * Hq * (dk + dv), BF16_OPS_S)
+        bnd, nb = paged_bound(lens, q, lt, out, 1, dk, dv, kp.element_size(), share=True)
 
         def kernel():
             return da_mod.paged_decode_attention(q, kp, None, tbl, lt, **kw)
@@ -2713,14 +2764,219 @@ def deepseek_forward_phase(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the dense configs of the lm family, whole on one card
+# ---------------------------------------------------------------------------
+
+# id -> the name their kernel rows carry
+DENSE_ARCHS = {"chatglm3-6b": "ChatGLM3-6B", "internlm2-20b": "InternLM2-20B",
+               "minicpm3-4b": "MiniCPM3-4B"}
+
+
+def dense_paged_row(cfg, model: str, table: tuple, launches: int) -> dict:
+    """B6 at the continuous serve's shapes of a dense config (bf16 pools of
+    the serve's pages, its table width and split count, lengths up to the
+    table's with idle rows): GQA over K and V pools, MLA over the shared
+    pool of [ckv | k_rope] (values its leading kv_lora columns). Against
+    the plain version, the kernel it ran named, timed."""
+    mp, num_pages = table
+    rng = np.random.default_rng(31)
+    lens = rng.integers(1, mp * PAGE + 1, BATCH)
+    lens[:8] = 0
+    lens[8:8 + mp] = np.arange(1, mp + 1) * PAGE
+    Hq = cfg.padded_heads()
+    if cfg.attn.kind == "mla":
+        m = cfg.mla
+        Hkv, dk, dv, share = 1, m.kv_lora_rank + m.qk_rope_dim, m.kv_lora_rank, True
+        scale, want_kernel = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5, "paged_stage1_kernel"
+    else:
+        a = cfg.attn
+        Hkv, dk, dv, share = a.n_kv, a.head_dim, a.head_dim, False
+        scale, want_kernel = a.head_dim ** -0.5, "paged_gqa_kernel"
+    q, kp, vp, tbl, lt, unused = paged_case(rng, BATCH, Hq, Hkv, dk, dv, mp, lens, share,
+                                            num_pages=num_pages)
+    kw = dict(scale=scale, num_kv_splits=_decode_splits(cfg, mp), dv=dv if share else None)
+    label = (f"{'share_kv' if share else 'GQA'} at the serve's shapes (q [{BATCH}, {Hq}, {dk}], "
+             f"pool {list(kp.shape)} bf16, table [{BATCH}, {mp}], dv {dv}, kv_lens "
+             f"{lens.min()} to {lens.max()})")
+    out, err, plain = check_paged(f"{model} {label}", q, kp, vp, tbl, lt, unused, BATCH, **kw)
+
+    def kernel():
+        return da_mod.paged_decode_attention(q, kp, vp, tbl, lt, **kw)
+    ran = kernel_names(kernel)
+    check(want_kernel in " ".join(ran), f"B6 at {model}'s shapes ran {ran}, not {want_kernel}")
+    bnd, nb = paged_bound(lens, q, lt, out, Hkv, dk, dv, kp.element_size(), share)
+    ms, plain_ms = device_ms(kernel, 50), device_ms(plain, 10)
+    print(f"{PAGED} [{model} {label}]: kernel {ms:.5f} ms on the card ({call_ms(kernel, 50):.4f} "
+          f"ms per call from the host), ran {ran}, plain {plain_ms:.5f} ms, bound "
+          f"{bnd[0]:.5f} ms ({bnd[1]}, {nb / 1e6:.3f} MB); {ms / bnd[0]:.2f}x the bound; "
+          f"{launches} launches on the continuous path")
+    row = model_record(PAGED, "continuous serve", err, ms, plain_ms, bnd, None, launches, model)
+    del q, kp, vp, tbl, lt, unused, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def dense_flash_row(cfg, model: str, rows: int, launches: int) -> dict:
+    """B7 at a dense GQA config's forward shapes ([rows, PF_SEQ, H, d],
+    causal) against the plain version, two calls bitwise, SDPA within TOL;
+    the kernel, the plain version and SDPA timed."""
+    a = cfg.attn
+    Hq, Hkv, d = cfg.padded_heads(), a.n_kv, a.head_dim
+    gen = torch.Generator(device=DEV).manual_seed(33)
+    q, k, v = (torch.randn((rows, PF_SEQ, h, d), generator=gen, device=DEV).to(torch.bfloat16)
+               for h in (Hq, Hkv, Hkv))
+    kw = dict(scale=d ** -0.5)
+    err = flash_case(f"{model} forward, causal, G {Hq // Hkv}", q, k, v, TOL, **kw)
+
+    def kernel():
+        return fa_mod.flash_attention_bshd(q, k, v, **kw)
+
+    def plain():
+        return ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True, **kw)
+    out = kernel()
+    check(torch.equal(kernel(), out), f"flash_attention at {model}'s shapes: two calls differ")
+    check(torch.allclose(library().transpose(1, 2).float(), out.float(), rtol=TOL, atol=TOL),
+          f"scaled_dot_product_attention disagrees with the kernel at {model}'s shapes")
+    del out
+    ms, plain_ms, library_ms = device_ms(kernel, 10), device_ms(plain, 2), device_ms(library, 10)
+    ops = 4 * rows * Hq * d * (PF_SEQ * (PF_SEQ + 1) // 2)
+    bnd = bound(ref.hbm_bytes(rows, Hq, Hkv, PF_SEQ, PF_SEQ, d, 2), ops, BF16_OPS_S)
+    print(f"{FLASH} [{model} forward] q {list(q.shape)}, k/v {list(k.shape)}: kernel {ms:.4f} ms "
+          f"({ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms (SDPA, is_causal, enable_gqa; {ms / library_ms:.3f}x), bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}); {launches} launches in the forward")
+    row = model_record(FLASH, "forward", err, ms, plain_ms, bnd, library_ms, launches, model)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
+
+
+def dense_config_phase(arch: str, card: str) -> list:
+    """One dense config at full width and full depth on the card alone: the
+    fixed-batch serve, BATCH x (PROMPT + GEN), captured and eager (tokens
+    bitwise equal, no kernel launched: the dense-cache decode is plain
+    torch); the continuous serve of REQUESTS requests over BATCH slots,
+    captured and eager (B6 once a layer and step, streams bitwise equal);
+    each traced on one replayed step; the train_4k forward at the preset's
+    microbatch of PF_SEQ tokens (B7 once a GQA layer, none under MLA: S >=
+    2048 takes _mla_chunked), bitwise on a repeat. Then, the weights
+    freed, B6 at the serve's shapes and B7 at the forward's against their
+    plain versions, timed. Returns the kernels JSON rows."""
+    model = DENSE_ARCHS[arch]
+    cfg, pcfg = get_config(arch, "decode_32k"), get_config(arch, "train_4k")
+    a = cfg.attn
+    attn = (f"MLA over {a.n_heads} heads (padded to {cfg.padded_heads()}; q_lora "
+            f"{cfg.mla.q_lora_rank}, kv_lora {cfg.mla.kv_lora_rank}, nope {cfg.mla.qk_nope_dim}, "
+            f"rope {cfg.mla.qk_rope_dim}, v {cfg.mla.v_head_dim})" if a.kind == "mla" else
+            f"{a.n_heads}/{a.n_kv} heads of {a.head_dim}, rope fraction {a.rope_fraction}, "
+            f"base {a.rope_base:g}")
+    print(f"{model} at full width and depth: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{attn}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied embeddings {cfg.tie_embeddings}, "
+          f"{cfg.dtype}; dense, no EP; nothing cut")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, DEV)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    print(f"{model} init: random weights on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{n / 1e9:.3f} B parameters, {sum(t.nbytes for t in leaves(params)) / 2**30:.2f} GiB")
+    fixed_serve_phase(cfg, params, card, ("dense",), 1, keep=False)
+    _, claunches, _, _, _, table = continuous_phase(cfg, params, card, REQUESTS, 4, 1, keep=False)
+    label = f"{model} prefill forward"
+    flash = prefill_run(label, params, pcfg, None, card, "nccl_ep", pcfg.microbatch,
+                        PF_SEQ)["launches"][FLASH]
+    print(f"{label}: {pcfg.microbatch} x {PF_SEQ} tokens, the train_4k preset's microbatch, "
+          f"not cut")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = [dense_paged_row(cfg, model, table, claunches[PAGED])]
+    if a.kind != "mla":
+        rows.append(dense_flash_row(pcfg, model, pcfg.microbatch, flash))
+    print(f"{model} phase: peak device memory {peak:.2f} GiB (of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def dense_phase(card: str) -> list:
+    """Every dense config in turn, each freed before the next."""
+    rows = []
+    for arch in DENSE_ARCHS:
+        rows += dense_config_phase(arch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the serving telemetry on the card
+# ---------------------------------------------------------------------------
+
+def traced_continuous_phase(cfg, params, card: str, reqs, want: dict) -> None:
+    """DBRX's continuous serve of ``reqs`` twice more, captured, back to
+    back: untraced, then with a Tracer and a TimeSeries. Every stream of
+    each bitwise equal to the first serve's (``want``); in the traced one
+    one serve_step and one admission span a step, one admit and one
+    complete instant a request, one series row a step; its Chrome trace
+    written under the build dir and held by the port's validator; the two
+    ITLs side by side (what tracing costs, in one process state)."""
+    itl = {}
+    for traced in (False, True):
+        tracer, series = (Tracer(), TimeSeries()) if traced else (None, None)
+        srv = ContinuousDecodeServer(cfg, BATCH, CMAX_LEN, ep_size=hosted(cfg), params=params,
+                                     page_size=PAGE, tracer=tracer, series=series)
+        m = srv.serve_requests(reqs)
+        toks = served_tokens(cfg, srv, m, reqs)
+        what = "traced" if traced else "untraced"
+        check(all(np.array_equal(t, want[r.rid]) for r, t in zip(reqs, toks)),
+              f"the {what} continuous serve's tokens differ from the first serve's")
+        check(srv._serve_step.graph is not None, f"the {what} continuous serve captured no graph")
+        srv.close()
+        itl[what] = m.itl_mean_s
+    path = tracer.write_chrome_trace(_build.BUILD_DIR.parent / "traces" /
+                                     f"{cfg.name}_continuous.json")
+    ev = validate_chrome_trace(load_chrome_trace(path))
+    tl, steps = m.timeline, m.serve_steps
+    want_counts = {"serve_step": steps, "admission": steps, "admit": len(reqs),
+                   "complete": len(reqs)}
+    got_counts = {k: v["count"] for k, v in tl.items()}
+    check(got_counts == want_counts and len(m.series) == steps,
+          f"the traced serve's timeline {got_counts} and {len(m.series)} series rows, "
+          f"expected {want_counts} and {steps}")
+    rows = np.asarray([r["itl_s"] for r in m.series])
+    print(f"{cfg.name} continuous serve, captured, traced ({card}): streams bitwise equal to "
+          f"the untraced serve's; itl mean {itl['traced']:.5f} s (the untraced serve just "
+          f"before {itl['untraced']:.5f} s, {itl['traced'] / itl['untraced']:.4f}x), step-row "
+          f"itl mean {rows.mean():.5f} s (step 0's warm-up and capture included), "
+          f"p99 {np.percentile(rows, 99):.5f} s; spans serve_step {tl['serve_step']['total_s']:.4f} "
+          f"s over {steps} steps, admission {tl['admission']['total_s']:.4f} s; "
+          f"{len(ev)} trace events in {path.relative_to(_build.BUILD_DIR.parent.parent)}, "
+          f"valid; series rows {len(m.series)}, queue depth peak "
+          f"{max(r['queue_depth'] for r in m.series)}, pages peak {m.series[-1]['pages_peak']}")
+
+
+# ---------------------------------------------------------------------------
 # one EP rank per process (comm.DistComm): NCCL at world = the card count,
 # two ranks sharing a card over gloo
 # ---------------------------------------------------------------------------
 
 # per-call timings: calls a reading, readings
 DIST_ITERS = 50
-# a child's whole run, and the process group's timeout inside it
+# a child's whole run, and the process group's timeout inside it: DBRX's
+# sub-phases alone (worlds 1 and 2), and with DeepSeek-V3's (world 4: 180 s
+# more, about five times the 34.3 s its sub-phases took on four H100s)
 DIST_TIMEOUT_S = 420
+DS_DIST_TIMEOUT_S = 600
+
+
+def dist_timeout(world: int) -> int:
+    return DS_DIST_TIMEOUT_S if world == DS_DIST_WORLD else DIST_TIMEOUT_S
 
 
 def check_dist_counts(launches: dict, cfg, path: str, calls: int, where: str,
@@ -2773,6 +3029,11 @@ def dist_layer_step(cfg, comm, p):
 
 def dist_peak() -> float:
     return torch.cuda.max_memory_allocated() / 2**30
+
+
+def memory_line() -> str:
+    return (f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, peak {dist_peak():.2f}")
 
 
 def dist_primitives(comm, lc, dev, rank: int) -> dict:
@@ -2912,15 +3173,18 @@ def step0_logits(cfg, params, comm, dev) -> torch.Tensor:
 
 
 def row_invariance(cfg, params, dev, rows: int) -> str:
-    """Whether layer 0's bf16 K projection and the f32 logits product give
-    the first ``rows`` rows of a batch the same bits computed alone as in
-    the whole batch (cuBLAS picks its kernel by the row count)."""
+    """Whether MoE layer 0's bf16 K (under MLA, latent) projection and the
+    f32 logits product give the first ``rows`` rows of a batch the same bits
+    computed alone as in the whole batch (cuBLAS picks its kernel by the row
+    count)."""
     h = (torch.randn((BATCH, 1, cfg.d_model), generator=torch.Generator(device=dev)
                      .manual_seed(14), device=dev)).to(cfg.dtype)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    wk = params["moe_stack"]["attn"]["wk"][0].reshape(cfg.d_model, -1)
+    attn = params["moe_stack"]["attn"]
+    what, w = ("K", attn["wk"]) if "wk" in attn else ("MLA latent (wkv_a)", attn["wkv_a"])
+    wk = w[0].reshape(cfg.d_model, -1)
     parts = []
-    for label, fn in (("bf16 K projection", lambda t: t @ wk),
+    for label, fn in ((f"bf16 {what} projection", lambda t: t @ wk),
                       ("f32 logits product", lambda t: logits_out(t, table))):
         whole, part = fn(h)[:rows].float(), fn(h[:rows]).float()
         parts.append(f"{label} of {rows} rows alone " + (
@@ -2930,14 +3194,23 @@ def row_invariance(cfg, params, dev, rows: int) -> str:
     return "; ".join(parts)
 
 
-def logit_errors(got: torch.Tensor, want: torch.Tensor) -> str:
+def logit_errors(got: torch.Tensor, want: torch.Tensor, live=None) -> str:
     """First-step logits [B, V] against a reference's: relative to the
-    largest, and by row (each row's largest error over its largest logit)."""
+    largest, and by row (each row's largest error over its largest logit);
+    given the live rows' mask (a continuous step's ``active``), the live and
+    the idle rows apart."""
     rows = (got - want).abs().amax(-1) / want.abs().amax(-1)
-    return (f"first-step logits {float((got - want).abs().max() / want.abs().max()):.3g} off "
-            f"relative to their largest; by row median {float(rows.median()):.3g}, max "
-            f"{float(rows.max()):.3g}, {int((rows > TOL).sum())} of {rows.numel()} rows above "
-            f"{TOL}")
+    out = (f"first-step logits {float((got - want).abs().max() / want.abs().max()):.3g} off "
+           f"relative to their largest; by row median {float(rows.median()):.3g}, max "
+           f"{float(rows.max()):.3g}, {int((rows > TOL).sum())} of {rows.numel()} rows above "
+           f"{TOL}")
+    if live is not None:
+        live = torch.as_tensor(np.asarray(live) == 1, device=rows.device)
+        for name, part in (("live", rows[live]), ("idle", rows[~live])):
+            if part.numel():
+                out += (f"; {part.numel()} {name} rows: by row min {float(part.min()):.3g}, "
+                        f"max {float(part.max()):.3g}, {int((part > TOL).sum())} above {TOL}")
+    return out
 
 
 def model_label(cfg) -> str:
@@ -2976,6 +3249,7 @@ def dist_serve_phase(cfg, comm, dev, rank: int, world: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     if rank == 0:
+        progress(rank, f"{model_label(cfg)}: the shard freed ({memory_line()})", t)
         full = init_params(cfg, 0, dev)
         ref_comm = None if comm.size == 1 else LocalComm(comm.size)
         want, rm, _, _ = dist_serve(cfg, full, ref_comm, dev,
@@ -3035,16 +3309,23 @@ def dist_mid_stream(reqs, admissions, steps: int, n: int) -> list:
     return [picks[len(picks) * (i + 1) // (2 * n)] for i in range(n)]
 
 
+def continuous_step0_feed(reqs, table: tuple) -> dict:
+    """The scheduler's step-0 inputs over the global batch for a pool of
+    ``table`` = (page-table width, pages)."""
+    max_pages, num_pages = table
+    sched = ContinuousScheduler(reqs, BATCH, max_pages, PageAllocator(num_pages, PAGE))
+    return sched.advance(0, now=0.0)
+
+
 def continuous_step0_logits(cfg, params, comm, dev, reqs, table: tuple) -> torch.Tensor:
     """The f32 logits [B, V] of the continuous serve's first step: the
     scheduler's step-0 inputs, this process's rows of them, through one
-    paged step on fresh pools of ``table`` = (page-table width, pages),
-    gathered over the batch (every process of a DistComm takes part)."""
-    max_pages, num_pages = table
-    sched = ContinuousScheduler(reqs, BATCH, max_pages, PageAllocator(num_pages, PAGE))
+    paged step on fresh pools of ``table``, gathered over the batch (every
+    process of a DistComm takes part)."""
+    num_pages = table[1]
     rows = comm.batch_rows(BATCH) if comm is not None else slice(0, BATCH)
     batch = {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(dev)
-             for k, v in sched.advance(0, now=0.0).items()}
+             for k, v in continuous_step0_feed(reqs, table).items()}
     state = init_paged_decode_state(cfg, num_pages, PAGE, dev)
     logits, _ = lm_paged_decode_step(params, state, batch, cfg, comm)
     out = logits[:, -1, :cfg.vocab].float()
@@ -3063,10 +3344,10 @@ def live_shares(reqs, admissions, ep: int) -> list[float]:
     return [n / sum(live) for n in live]
 
 
-def dist_continuous_phase(cfg, comm, dev, rank: int) -> dict:
+def dist_continuous_phase(cfg, comm, dev, rank: int, n: int = DIST_REQUESTS) -> dict:
     """ContinuousDecodeServer(comm=DistComm) over ``cfg`` (DBRX's or
-    DeepSeek-V3's decode_32k preset, full width, cut in depth):
-    DIST_REQUESTS requests over BATCH slots of paged KV (page PAGE, the default pool) on
+    DeepSeek-V3's decode_32k preset, full width, cut in depth): n requests
+    over BATCH slots of paged KV (page PAGE, the default pool) on
     its compiled step (captured over NCCL, eager over gloo); exact launch
     counts (B6 on every layer, B1 to B4 at EP extent > 1); each batch
     rank's share of the live rows; DIST_SOLO requests that joined and left
@@ -3082,7 +3363,7 @@ def dist_continuous_phase(cfg, comm, dev, rank: int) -> dict:
     t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, 0, dev, comm=comm)
-    reqs = make_requests(cfg.vocab, DIST_REQUESTS)
+    reqs = make_requests(cfg.vocab, n)
     srv, m, launches, toks = dist_continuous_serve(cfg, params, comm, dev, reqs)
     graphed = srv._serve_step.graph is not None
     where = f"the DistComm continuous server over {comm.backend}"
@@ -3116,24 +3397,27 @@ def dist_continuous_phase(cfg, comm, dev, rank: int) -> dict:
                itl_p50=md["itl_p50_s"], itl_p99=md["itl_p99_s"], pages_peak=m.pages_peak,
                pages_dense=m.pages_dense_equiv, launches=launches, admissions=admissions,
                solo=[(r.rid, r.arrival_step) for r in picks], gather=gather,
-               peak_gib=dist_peak(), model=model_label(cfg), requests=DIST_REQUESTS,
+               peak_gib=dist_peak(), model=model_label(cfg), requests=n,
                live=live_shares(reqs, admissions, comm.size))
     del srv, params
     gc.collect()
     torch.cuda.empty_cache()
     if rank == 0:
+        progress(rank, f"{model_label(cfg)}: the shard freed ({memory_line()})", t)
         full = init_params(cfg, 0, dev)
         ref_comm = None if comm.size == 1 else LocalComm(comm.size)
         rsrv, rm, _, want = dist_continuous_serve(cfg, full, ref_comm, dev, reqs)
-        check(list(rsrv.reqsched.admissions) == admissions,
-              "the DistComm continuous server's admissions differ from the one-card "
-              "server's")
+        same = list(rsrv.reqsched.admissions) == admissions
         rsrv.close()
         del rsrv
         want_logits = continuous_step0_logits(cfg, full, ref_comm, dev, reqs, table)
         err = float((logits - want_logits).abs().max() / want_logits.abs().max())
-        progress(rank, f"{model_label(cfg)}: the reference continuous serve "
-                 f"({logit_errors(logits, want_logits)})", t)
+        live = continuous_step0_feed(reqs, table)["active"]
+        progress(rank, f"{model_label(cfg)}: the reference continuous serve (admissions "
+                 f"{'equal' if same else 'differ'}; {logit_errors(logits, want_logits, live)}; "
+                 f"{memory_line()})", t)
+        check(same, "the DistComm continuous server's admissions differ from the one-card "
+              "server's")
         agree = np.asarray([np.array_equal(toks[r.rid], want[r.rid]) for r in reqs])
         out.update(ref_itl=rm.itl_mean_s, logits_err=err, agree=float(agree.mean()),
                    bitwise=bool(agree.all()))
@@ -3150,16 +3434,17 @@ def dist_continuous_phase(cfg, comm, dev, rank: int) -> dict:
     return out
 
 
-def dist_prefill_run(cfg, params, comm, dev, path: str, chunks: int = 1) -> dict:
+def dist_prefill_run(cfg, params, comm, dev, path: str, chunks: int = 1,
+                     rows: int = PF_BATCH) -> dict:
     """The prefill forward of this process's rows of the seeded batch of
-    PF_BATCH x PF_SEQ tokens (the prefill phase's tokens) over ``comm`` (a
+    rows x PF_SEQ tokens (the prefill phase's tokens) over ``comm`` (a
     DistComm, or the LocalComm hosting its mesh), every launch counter read
     (the EP counts exact for ``path``, the MoE and MTP layers and the hosted
     ranks, flash attention once per GQA layer and never under MLA), then a
     timed repeat whose loss must be bitwise equal. Returns the loss, wall,
     tokens per second, peak memory, plan host time and dropped shares."""
-    tokens = np.random.default_rng(10).integers(0, cfg.vocab, (PF_BATCH, PF_SEQ))
-    mine = comm.batch_rows(PF_BATCH)
+    tokens = np.random.default_rng(10).integers(0, cfg.vocab, (rows, PF_SEQ))
+    mine = comm.batch_rows(rows)
     batch = {"tokens": torch.from_numpy(tokens[mine].astype(np.int32)).to(dev)}
     forward = get_model(cfg).forward
     probes: list = []
@@ -3184,7 +3469,7 @@ def dist_prefill_run(cfg, params, comm, dev, path: str, chunks: int = 1) -> dict
           f"first {loss.item()}")
     n = batch["tokens"].numel()
     return dict(loss=loss.item(), aux=aux["aux"].item(), wall=wall, tok_s=n / wall,
-                total_tok_s=PF_BATCH * PF_SEQ / wall, peak_gib=dist_peak(),
+                total_tok_s=rows * PF_SEQ / wall, peak_gib=dist_peak(), batch=rows,
                 plan_s=sum(dt for _, dt in probes), dropped=[round(d, 6) for d, _ in probes],
                 launches=launches, rows=tuple(batch["tokens"].shape))
 
@@ -3195,7 +3480,7 @@ def dist_hier_config(cfg, chunks: int):
     return dataclasses.replace(h, moe=dataclasses.replace(h.moe, ht_num_chunks=chunks))
 
 
-def dist_prefill_phase(cfg, comm, hcomm, dev, rank: int) -> dict | None:
+def dist_prefill_phase(cfg, comm, hcomm, dev, rank: int, rows: int = PF_BATCH) -> dict | None:
     """The train_4k prefill forward of ``cfg`` (full width, cut in depth;
     PF_BATCH x PF_SEQ global, fp8 dispatch, capacity 1.25) with one EP rank
     per process: HT flat at EP extent = the world, and over ``hcomm`` (a
@@ -3218,7 +3503,7 @@ def dist_prefill_phase(cfg, comm, hcomm, dev, rank: int) -> dict | None:
         torch.cuda.reset_peak_memory_stats()
         params = init_params(c, 0, dev, comm=cm)
         weights = sum(t.nbytes for t in leaves(params)) / 2**30
-        runs[name] = dict(dist_prefill_run(c, params, cm, dev, path, nc),
+        runs[name] = dict(dist_prefill_run(c, params, cm, dev, path, nc, rows),
                           ep=cm.size, axes=cm.axes, model=model_label(c), mtp=c.mtp,
                           weights_gib=weights)
         progress(rank, f"{model_label(c)}: the DistComm {name} forward", t)
@@ -3231,10 +3516,11 @@ def dist_prefill_phase(cfg, comm, hcomm, dev, rank: int) -> dict | None:
               f"the hierarchical prefill's loss at 2 chunks, {two['loss']!r}, differs from "
               f"1 chunk's, {one['loss']!r} (dropped shares {two['dropped']})")
     if rank == 0:
+        progress(rank, f"{model_label(cfg)}: the shards freed ({memory_line()})", t)
         full = init_params(cfg, 0, dev)
         for name, c, cm, path, nc in plans:
             ref_comm = LocalComm(cm.size, axes=cm.axes)
-            want = dist_prefill_run(c, full, ref_comm, dev, path, nc)
+            want = dist_prefill_run(c, full, ref_comm, dev, path, nc, rows)
             r = runs[name]
             r["ref_loss"], r["ref_wall"] = want["loss"], want["wall"]
             r["loss_err"] = abs(r["loss"] - want["loss"]) / abs(want["loss"])
@@ -3251,6 +3537,89 @@ def dist_prefill_phase(cfg, comm, hcomm, dev, rank: int) -> dict | None:
     return dict(runs=runs, seconds=time.perf_counter() - t)
 
 
+# DeepSeek-V3 at one EP rank a card: the world it runs at; its continuous
+# serve's requests (make_requests' arrivals of RATE a step and lives of 11 to
+# 63 steps keep about 150 live, so every batch rank steps live rows); the
+# deep serve's MoE layers after the 3 dense ones (5.64 GB of experts a card
+# each, as a deployment's card holds them): 63.59 GiB of weights a card and
+# a peak of 70.65 GiB, when the 7.5 GB of one layer's stacked expert leaf is
+# drawn, of an H100's 79.18 (8 MoE layers: 59.27 GiB)
+DS_DIST_WORLD, DS_DIST_REQUESTS, DS_DEEP_MOE_LAYERS = 4, 256, 10
+
+
+def ds_deep_config():
+    _, cfg = ds_config()
+    return dataclasses.replace(cfg, num_layers=cfg.moe.first_k_dense + DS_DEEP_MOE_LAYERS)
+
+
+def ds_deep_serve_phase(comm, dev, rank: int) -> dict:
+    """DeepSeek-V3's fixed-batch serve at ds_deep_config()'s depth over
+    DistComm, no one-card reference fitting: captured and eager, tokens
+    bitwise equal, exact EP launches in each."""
+    cfg = ds_deep_config()
+    dist.barrier()
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, dev, comm=comm)
+    weights = sum(x.nbytes for x in leaves(params)) / 2**30
+    progress(rank, f"{model_label(cfg)}: the shard drawn, {weights:.2f} GiB "
+             f"({memory_line()})", t)
+    runs = {}
+    for mode in ("compiled", "eager"):
+        toks, m, launches, graphed = dist_serve(cfg, params, comm, dev, mode)
+        check(graphed == (mode == "compiled" and comm.capturable),
+              f"the deep DistComm serve ({mode}) captured {graphed}")
+        steps = 2 if graphed else PROMPT + GEN
+        check_dist_counts(launches, cfg, "nccl_ep", steps * moe_layers(cfg),
+                          f"the deep DistComm serve ({mode})")
+        runs[mode] = dict(toks=toks, itl=m.itl_mean_s, p99=m.itl_p99_s, ttft=m.ttft_s,
+                          tok_s=m.output_tok_s, launches=launches)
+        progress(rank, f"{model_label(cfg)}: its {mode} DistComm serve ({memory_line()})", t)
+    check(np.array_equal(runs["compiled"]["toks"], runs["eager"]["toks"]),
+          f"the deep DistComm serve's captured tokens differ from eager: "
+          f"{float((runs['compiled']['toks'] == runs['eager']['toks']).mean()):.4f} equal")
+    out = dict(model=model_label(cfg), ep=comm.size, weights_gib=weights, peak_gib=dist_peak(),
+               rows=comm.batch_rows(BATCH).stop - comm.batch_rows(BATCH).start,
+               runs={k: {a: b for a, b in v.items() if a != "toks"} for k, v in runs.items()})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def ds_dist_phase(comm, dev, rank: int, who: str, label: str, card: str) -> dict:
+    """DeepSeek-V3 at one EP rank a card (EP extent DS_DIST_WORLD): the
+    fixed-batch serve at DS_LAYERS held to LocalComm's on card 0; the
+    train_4k forward with MTP at the one-card cut, one row a card, within
+    PF_LOSS_REL of LocalComm's; the deep fixed-batch serve, captured =
+    eager; last, the continuous serve of DS_DIST_REQUESTS requests at
+    DS_LAYERS held to LocalComm's (every batch rank's share of its live
+    rows above 0). Each sub-phase's line is printed as it ends."""
+    out = {}
+    _, cfg = ds_config()
+    t0 = time.perf_counter()
+    out["serve"] = dist_serve_phase(cfg, comm, dev, rank, comm.size)
+    serve_line(out["serve"], who, label, card, False)
+    progress(rank, "DeepSeek-V3's fixed-batch serve", t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["prefill"] = dist_prefill_phase(ds_prefill_config()[1], comm, None, dev, rank,
+                                        DS_PF_BATCH)
+    prefill_lines(out["prefill"], who, label, card)
+    progress(rank, "DeepSeek-V3's prefill forward", t0)
+    out["deep"] = ds_deep_serve_phase(comm, dev, rank)
+    deep_line(out["deep"], who, label, card)
+    progress(rank, "DeepSeek-V3's deep serve", t0)
+    out["continuous"] = cs = dist_continuous_phase(cfg, comm, dev, rank, DS_DIST_REQUESTS)
+    continuous_line(cs, who, label, card, False)
+    check(all(x > 0 for x in cs["live"]), f"DeepSeek-V3's continuous serve over "
+          f"{comm.size} ranks left a batch rank idle: live shares {cs['live']}")
+    progress(rank, "DeepSeek-V3's continuous serve", t0)
+    return out
+
+
 def progress(rank: int, what: str, t0: float) -> None:
     """A child's progress line on stderr (a run that times out shows how far
     each rank got)."""
@@ -3258,18 +3627,23 @@ def progress(rank: int, what: str, t0: float) -> None:
           flush=True)
 
 
-def dist_child(rank: int, world: int, init_method: str, backend: str) -> dict:
+def dist_child(rank: int, world: int, init_method: str, backend: str, card: str,
+               label: str) -> dict:
     """One rank of a DistComm mesh of ``world`` processes over ``backend``:
     NCCL takes card ``rank``; gloo puts every process on card 0 (CUDA
     tensors staged through the host). The primitives, the EP layer, the
     fixed-batch serve, the continuous serve, the prefill forward (flat,
     and hierarchical over two pods of two when the world is 4), all over
-    DBRX."""
+    DBRX; then, at world DS_DIST_WORLD over NCCL, DeepSeek-V3's
+    sub-phases. The rank prints its lines as they end, so that a later
+    failure loses none."""
     t0 = time.perf_counter()
+    # a rank that raises leaves with os._exit: nothing may wait in a buffer
+    sys.stdout.reconfigure(line_buffering=True)
     # every thread's stack on stderr shortly before the parent's timeout
-    faulthandler.dump_traceback_later(DIST_TIMEOUT_S - 60, exit=False)
+    faulthandler.dump_traceback_later(dist_timeout(world) - 60, exit=False)
     axes = (("data", world),)
-    tmo = datetime.timedelta(seconds=DIST_TIMEOUT_S)
+    tmo = datetime.timedelta(seconds=dist_timeout(world))
     dev = init_process(axes, None if backend == "nccl" else "cuda:0", init_method, rank=rank,
                        world=world, backend=backend, timeout=tmo)
     disable_tf32()
@@ -3297,6 +3671,9 @@ def dist_child(rank: int, world: int, init_method: str, backend: str) -> dict:
     progress(rank, "DBRX's continuous serve", t0)
     out["prefill"] = dist_prefill_phase(prefill_config()[1], comm, hcomm, dev, rank)
     progress(rank, "DBRX's prefill forward", t0)
+    dist_lines([out], world, card, label)
+    if world == DS_DIST_WORLD and backend == "nccl":
+        out["ds"] = ds_dist_phase(comm, dev, rank, dist_who(out, world), label, card)
     faulthandler.cancel_dump_traceback_later()
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -3354,7 +3731,7 @@ def prefill_lines(pf: dict | None, who: str, label: str, card: str) -> None:
                    f"{run['loss_err']:.3g} off relative (limit {PF_LOSS_REL}), wall "
                    f"{run['ref_wall']:.3f} s")
         print(f"dist ({label}) prefill forward {name}, {who}, EP over {run['axes']}, "
-              f"{run['model']}{' + MTP' if run['mtp'] else ''} train_4k, {PF_BATCH} x {PF_SEQ} "
+              f"{run['model']}{' + MTP' if run['mtp'] else ''} train_4k, {run['batch']} x {PF_SEQ} "
               f"global, rows {run['rows']} a process, fp8 dispatch, capacity 1.25 "
               f"({card}): loss {run['loss']:.6f} (aux {run['aux']:.6f}), repeat bitwise "
               f"equal; wall {run['wall']:.3f} s after a warm-up, {run['tok_s']:.1f} prefill "
@@ -3367,10 +3744,14 @@ def prefill_lines(pf: dict | None, who: str, label: str, card: str) -> None:
               f"chunk (loss and aux); {pf['seconds']:.1f} s")
 
 
+def dist_who(r: dict, world: int) -> str:
+    return f"rank {r['rank']} of {world}, {r['backend']} on {r['device']}"
+
+
 def dist_lines(res: list, world: int, card: str, label: str) -> None:
-    """One line per rank and sub-phase of a dist child's results."""
+    """One line per rank and sub-phase of a dist child's DBRX results."""
     for r in res:
-        who = f"rank {r['rank']} of {world}, {r['backend']} on {r['device']}"
+        who = dist_who(r, world)
         gloo = r["backend"] == "gloo"
         pr = r["prims"]
         times = "; ".join(f"{k} {v[0]:.5f} ms a call ({v[1]:.5f} ms queued)"
@@ -3393,6 +3774,17 @@ def dist_lines(res: list, world: int, card: str, label: str) -> None:
         prefill_lines(r["prefill"], who, label, card)
 
 
+def deep_line(d: dict, who: str, label: str, card: str) -> None:
+    """The deep DeepSeek-V3 serve's line."""
+    modes = "; ".join(f"{k}: itl mean {v['itl']:.5f} s, p99 {v['p99']:.5f} s, ttft "
+                      f"{v['ttft']:.4f} s, {v['tok_s']:.1f} tok/s, launches {v['launches']}"
+                      for k, v in d["runs"].items())
+    print(f"dist ({label}) deep DecodeServer(comm=DistComm), {who}, EP extent {d['ep']}, "
+          f"{d['rows']} rows a process, {d['model']}, {BATCH} x ({PROMPT} + {GEN}) ({card}): "
+          f"captured tokens bitwise equal to eager; {modes}; weights {d['weights_gib']:.2f} "
+          f"GiB a card, peak {d['peak_gib']:.2f} GiB; {d['seconds']:.1f} s")
+
+
 def dist_phase(card: str) -> None:
     """One EP rank per process, in child processes (the parent's weights are
     freed first): (a) NCCL at world = the card count, one card each, which
@@ -3403,13 +3795,15 @@ def dist_phase(card: str) -> None:
     work = _build.BUILD_DIR.parent
     for n, backend, label in ((world, "nccl", "a" if world == 1 else "a, b"),
                               (2, "gloo", "c")):
-        res = spawn(dist_child, n, backend, timeout=DIST_TIMEOUT_S, workdir=work)
-        dist_lines(res, n, card, label)
-        logs = [r["continuous"]["admissions"] for r in res]
-        check(all(log == logs[0] for log in logs),
-              f"dist ({label}): the ranks' continuous admission logs differ")
-        print(f"dist ({label}) every rank's continuous admission log equal: {len(logs[0])} "
-              f"admissions (step, rid, slot), the first {logs[0][:3]}")
+        res = spawn(dist_child, n, backend, card, label, timeout=dist_timeout(n), workdir=work)
+        for model, key in (("DBRX", None), ("DeepSeek-V3", "ds")):
+            if key is not None and key not in res[0]:
+                continue
+            logs = [(r if key is None else r[key])["continuous"]["admissions"] for r in res]
+            check(all(log == logs[0] for log in logs),
+                  f"dist ({label}): the ranks' {model} continuous admission logs differ")
+            print(f"dist ({label}) every rank's {model} continuous admission log equal: "
+                  f"{len(logs[0])} admissions (step, rid, slot), the first {logs[0][:3]}")
         if backend == "nccl" and world < 2:
             print(f"dist (b) did not run: world {world}, this machine has one card, and "
                   "NCCL puts no two ranks of a communicator on one card")
@@ -3468,6 +3862,7 @@ def main(argv=None) -> int:
     print(f"graphs released: {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (the weights "
           f"{sum(t.nbytes for t in leaves(params)) / 2**30:.2f} GiB)")
+    traced_continuous_phase(cfg, params, card, reqs, want)
     pcfg, flat_run = prefill_phase(params, card)
     plaunches = flat_run["launches"]
     prefill_trace_phase(params, pcfg, flat_run["batch"], flat_run["wall"])
@@ -3512,9 +3907,10 @@ def main(argv=None) -> int:
     deepseek_forward_phase(card)
     gc.collect()
     torch.cuda.empty_cache()
+    dense_rows = dense_phase(card)
     dist_phase(card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": list(records.values()) + ds_rows}))
+    print(json.dumps({"kernels": list(records.values()) + ds_rows + dense_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

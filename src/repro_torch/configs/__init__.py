@@ -1,16 +1,20 @@
-"""Model configurations ported so far (DBRX-132B, DeepSeek-V3-671B), by the
-JAX package's ids (``src/repro/configs/__init__.py``)."""
+"""Model configurations ported so far, by the JAX package's ids
+(``src/repro/configs/__init__.py``): every config of the ``lm`` family
+(DBRX-132B, DeepSeek-V3-671B, ChatGLM3-6B, InternLM2-20B, MiniCPM3-4B)."""
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = {"dbrx-132b": "dbrx_132b", "deepseek-v3-671b": "deepseek_v3_671b"}
+ARCH_IDS = {"dbrx-132b": "dbrx_132b", "deepseek-v3-671b": "deepseek_v3_671b",
+            "chatglm3-6b": "chatglm3_6b", "internlm2-20b": "internlm2_20b",
+            "minicpm3-4b": "minicpm3_4b"}
 
 
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
-        raise NotImplementedError(f"arch {arch_id!r} is not ported yet; the port "
-                                  f"has {sorted(ARCH_IDS)} (ROADMAP A12)")
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet: the gemma3, vlm, ssm, hybrid and "
+            f"encdec families wait for ROADMAP A12; the port has {sorted(ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{ARCH_IDS[arch_id]}")
 
 

@@ -18,8 +18,9 @@ Admission is reservation-based: a request is admitted only if the page pool
 can cover its worst-case footprint (prompt + max_new_tokens - 1 tokens) on
 top of every live request's outstanding reservation. Pages are still
 allocated lazily as tokens land, but a request, once admitted, can never
-hit ``PagePoolExhausted`` and always runs to completion. The JAX
-scheduler's tracer hook waits for the port's telemetry (ROADMAP A9).
+hit ``PagePoolExhausted`` and always runs to completion. With a
+``tracer`` (``runtime/telemetry.py``) each admission and each completion
+is an instant event, with the reference's args.
 
 Every decision depends only on the step index, the arrivals, the allocator
 and the tokens observed: no clock (it feeds only the per-request times), no
@@ -78,10 +79,11 @@ class ContinuousScheduler:
     now)`` records outputs, completes requests and frees their pages."""
 
     def __init__(self, requests, max_concurrency: int, max_pages: int,
-                 allocator: PageAllocator):
+                 allocator: PageAllocator, tracer=None):
         self.B = int(max_concurrency)
         self.max_pages = int(max_pages)
         self.alloc = allocator
+        self.tracer = tracer
         page = allocator.page_size
         for r in requests:
             need = pages_for_tokens(r.total_tokens, page)
@@ -142,6 +144,9 @@ class ContinuousScheduler:
             self._reserved += need
             self._tbl[i, :] = self.alloc.pad_page
             self._lens[i] = 0
+            if self.tracer is not None:
+                self.tracer.instant("admit", rid=r.rid, step=step, slot=i,
+                                    queued=len(self.queue))
         for i, s in enumerate(self.slots):
             if s is None:
                 self._active[i] = 0
@@ -188,6 +193,9 @@ class ContinuousScheduler:
                 self._reserved -= self._outstanding(s)
                 self.finished[s.req.rid] = s
                 completed.append(s.req.rid)
+                if self.tracer is not None:
+                    self.tracer.instant("complete", rid=s.req.rid,
+                                        tokens=len(s.generated))
                 self.slots[i] = None
                 self._tbl[i, :] = self.alloc.pad_page
                 self._lens[i] = 0

@@ -31,8 +31,21 @@ the step is captured once as a CUDA graph and replayed over the server's
 own input buffers and state (``steps.CompiledStep``), where JAX jits it; on
 the CPU it runs eagerly. ``pipeline_depth > 1`` keeps up to that many
 fixed-batch steps in flight before the host blocks on the oldest; the next
-token feeds device to device. EPLB, fault tolerance, preemption and
-telemetry are not ported yet (ROADMAP A9, A10).
+token feeds device to device.
+
+Telemetry (``runtime/telemetry.py``): ``tracer=`` and ``series=`` take a
+``Tracer`` and a ``TimeSeries`` (None: the shared no-op singletons). The
+spans wrap host code at step boundaries the servers already have:
+``prefill`` around the token-by-token prefill and its synchronisation,
+``serve_step`` around each step and the read-back that ends it (the
+synchronisation of a fixed-batch step; a continuous step's token gather
+over a ``DistComm`` and its copy to the host), ``admission`` around the
+scheduler's ``advance``; the scheduler adds its ``admit`` and ``complete``
+instants, and the continuous server one series row a step. They add no
+device sync, so a captured step stays one replay and the token streams
+are bitwise the same with tracing on or off. Over a ``DistComm`` each
+process keeps its own. EPLB, fault tolerance and preemption, and their
+spans, are not ported yet (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -52,6 +65,7 @@ from repro_torch.models.transformer import (check_supported, init_decode_state,
 from repro_torch.runtime.scheduler import ContinuousScheduler
 from repro_torch.runtime.steps import (CompiledStep, make_paged_serve_step,
                                       make_serve_step)
+from repro_torch.runtime.telemetry import NULL_SERIES, NULL_TRACER, json_safe
 from repro_torch.weights import init_params
 
 
@@ -75,17 +89,24 @@ class ServeMetrics:
     pages_peak: int | None = None
     pages_dense_equiv: int | None = None
     per_request: list | None = None        # per-request ttft/itl records
+    # telemetry (None when tracing is off): Tracer.summary(), per span name
+    # its count and total seconds; the TimeSeries rows
+    timeline: dict | None = None
+    series: list | None = None
 
     def as_dict(self):
-        return dataclasses.asdict(self)
+        # json_safe: the telemetry rows may carry numpy or torch scalars
+        return json_safe(dataclasses.asdict(self))
 
 
 class DecodeServer:
     def __init__(self, cfg: ArchConfig, batch: int, max_len: int, *,
                  ep_size: int = 1, params=None, seed: int = 0, device=None,
-                 pipeline_depth: int = 1, comm=None):
+                 pipeline_depth: int = 1, comm=None, tracer=None, series=None):
         check_supported(cfg)
         self.device = resolve_device(device)
+        self.tracer = NULL_TRACER if tracer is None else tracer
+        self.series = NULL_SERIES if series is None else series
         disable_tf32()                    # the router matmul stays full f32
         self.cfg, self.batch = cfg, batch
         if comm is not None and ep_size != 1:
@@ -162,9 +183,10 @@ class DecodeServer:
         prompts = torch.as_tensor(prompts, dtype=torch.int32, device=self.device)[self.rows]
         t0 = time.perf_counter()
         tok = None
-        for i in range(prompts.shape[1]):
-            tok = self.step(prompts[:, i:i + 1])
-        synchronize(self.device)
+        with self.tracer.span("prefill", tokens=int(prompts.shape[1])):
+            for i in range(prompts.shape[1]):
+                tok = self.step(prompts[:, i:i + 1])
+            synchronize(self.device)
         return tok, time.perf_counter() - t0
 
     def decode(self, first_tok: torch.Tensor, steps: int):
@@ -177,8 +199,9 @@ class DecodeServer:
         outs, itls = [tok], []
         for _ in range(steps):
             t0 = time.perf_counter()
-            tok = self.step(tok)
-            synchronize(self.device)
+            with self.tracer.span("serve_step"):
+                tok = self.step(tok)
+                synchronize(self.device)
             itls.append(time.perf_counter() - t0)
             outs.append(tok)
         return torch.cat(outs, dim=1).cpu().numpy(), np.asarray(itls)
@@ -233,7 +256,9 @@ class DecodeServer:
         return ServeMetrics(
             ttft_s=ttft, itl_mean_s=float(itls.mean()),
             itl_p99_s=float(np.percentile(itls, 99)),
-            output_tok_s=total / (ttft + decode_wall), total_tokens=total)
+            output_tok_s=total / (ttft + decode_wall), total_tokens=total,
+            timeline=self.tracer.summary() or None,
+            series=list(self.series.rows) or None)
 
 
 class ContinuousDecodeServer(DecodeServer):
@@ -349,20 +374,34 @@ class ContinuousDecodeServer(DecodeServer):
         (or ``max_steps``)."""
         allocator = PageAllocator(self.num_pages, self.page_size)
         sched = ContinuousScheduler(requests, self.batch, self.max_pages,
-                                    allocator)
+                                    allocator,
+                                    tracer=self.tracer if self.tracer.enabled else None)
         self.reqsched = sched
-        t0 = time.perf_counter()
+        record = self.series.enabled
+        t0 = last = time.perf_counter()
         step_idx = 0
         while not sched.done:
             if max_steps is not None and step_idx >= max_steps:
                 break
-            feed = sched.advance(step_idx)
-            tok = self.step_feed(feed)
-            if self.comm is not None:
-                # every process observes the global tokens, so every
-                # scheduler makes the same decisions
-                tok = self.comm.gather_batch(tok)
-            sched.observe(tok.cpu().numpy(), time.perf_counter())   # waits for the step
+            with self.tracer.span("admission"):
+                feed = sched.advance(step_idx)
+            with self.tracer.span("serve_step"):
+                tok = self.step_feed(feed)
+                if self.comm is not None:
+                    # every process observes the global tokens, so every
+                    # scheduler makes the same decisions
+                    tok = self.comm.gather_batch(tok)
+                out = tok.cpu().numpy()              # waits for the step
+            now = time.perf_counter()
+            sched.observe(out, now)
+            if record:
+                # host state only: the engine's occupancy at this boundary
+                self.series.record(
+                    kind="step", step=step_idx, itl_s=now - last,
+                    queue_depth=len(sched.queue), active=sched.live_count,
+                    pages_live=allocator.live_count,
+                    pages_peak=allocator.peak_live)
+            last = now
             step_idx += 1
         wall = time.perf_counter() - t0
         recs = [sched.request_metrics(rid) for rid in sorted(sched.finished)]
@@ -388,4 +427,6 @@ class ContinuousDecodeServer(DecodeServer):
             # cache pins whatever the live occupancy
             pages_dense_equiv=self.batch * pages_for_tokens(self.max_len,
                                                             self.page_size),
-            per_request=recs)
+            per_request=recs,
+            timeline=self.tracer.summary() or None,
+            series=list(self.series.rows) or None)

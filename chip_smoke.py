@@ -118,7 +118,29 @@
    layer, the logits within 2e-4 at every step. Reads each layout's send
    and receive buffer bytes per rank and MoE layer from its tensors.
 
-8. Serves DeepSeek-V3-671B at full width (``configs/deepseek_v3_671b.py``,
+8. EPLB through both servers (``eplb_phase``), with the reference serving
+   example's settings: ``track_expert_heat``, a rebalance every 16 steps,
+   8 redundant slots (24 slots, 3 a rank). First B3 at the decode shapes
+   with 2 and 3 experts a rank: which tiles stream-K splits depends on L,
+   a row's bits must not (the first two experts' rows bitwise equal).
+   Then ``DecodeServer`` at 128 x (8 + 64) without EPLB (the reference),
+   and with it in logical mode (each step gathers the slots' experts from
+   the logical weights) and in physical mode (adopt-once: the weights
+   rebound in place at each swap), each captured (every placement's step
+   warmed up and captured anew) and eager: tokens bitwise equal to the
+   reference's, exact launch counts, at least one swap; the placements'
+   fingerprints, the ITL of the step after a swap apart from the rest,
+   each capture's and the adoptions' time, the heat's max/mean and the
+   peak printed. ``ContinuousDecodeServer`` on step 3's 256 requests in
+   both modes, captured: streams bitwise equal to step 3's, the same
+   admissions, each window's heat max/mean per expert and per rank. Last
+   the EP layer under skew: MoE layer 0's experts over 8 ranks, 16 tokens
+   a rank with Zipf-like routing on rank 0's block, through
+   ``rebalancing_decode_loop`` under the contiguous, the rebalanced (R 0)
+   and the redundant (R 8) placement: outputs bitwise equal, the largest
+   receive a rank against the mean and the experts' card time printed.
+
+9. Serves DeepSeek-V3-671B at full width (``configs/deepseek_v3_671b.py``,
    ``decode_32k``: d_model 7168, MLA with 128 heads, 256 experts top-8 with
    sigmoid group-limited routing, a selection bias and a shared expert, LL
    ``nccl_ep`` with fp8 dispatch), its 61 layers cut to 5 (the 3 dense and
@@ -160,7 +182,7 @@
    64 local experts, fp8 blocks over H 7168, top-8 combine) against their
    plain versions, as at DBRX's HT shapes, and timed.
 
-9. The dense configs of the ``lm`` family at full width and full depth,
+10. The dense configs of the ``lm`` family at full width and full depth,
    one at a time, each freed before the next (``dense_phase``):
    ChatGLM3-6B (28 layers, GQA 32/2 heads, RoPE on half of each head),
    InternLM2-20B (48 layers, GQA 48/8) and MiniCPM3-4B (62 layers, MLA over
@@ -177,7 +199,7 @@
    (within 1e-4; 5e-3 relative and 2e-2), timed beside SDPA for B7; their
    rows join the kernels JSON.
 
-10. One EP rank per process (``comm.DistComm``), in spawned child processes
+11. One EP rank per process (``comm.DistComm``), in spawned child processes
    once every weight of the main process is freed (``dist_phase``). (a)
    NCCL at world = the card count, one process per card: the primitives
    against ``LocalComm(world)`` on the same stacked inputs (all-to-all and
@@ -221,10 +243,22 @@
    at 3 dense + ``DS_DEEP_MOE_LAYERS`` MoE layers (5.64 GB of experts a
    layer and card) captured and eager, tokens bitwise equal, no one-card
    reference fitting; last, the continuous serve of 256 requests over the
-   MLA pools (every batch rank stepping live rows), held like DBRX's. Its
-   first-step logits do not hold on H100s: the idle rows' shared input sits
-   at a routing near-tie that the row count moves (ROADMAP Queue C), so
-   the four-card run fails there, after every other check.
+   MLA pools (every batch rank stepping live rows), held like DBRX's. A
+   continuous serve's first-step logits are held against ``LocalComm``'s
+   step fed one batch rank's rows at a time (``blocked_step0_logits``), so
+   that its bf16 products run at a process's row count: the idle rows'
+   shared input sits at a routing near-tie that the row count moves; the
+   whole-batch comparison is printed too, and ``ProductShapes`` prints the
+   products of each by rows and checks the blocked reference's bf16 ones
+   against a process's. Between DBRX's sub-phases and DeepSeek-V3's, over
+   NCCL at world > 1, each child runs DBRX with the EPLB hook (``dist_eplb_phase``): physical mode, a rebalance
+   every 16 steps, 4 redundant slots (5 a card), 128 x (8 + 64), captured:
+   tokens bitwise equal to the same ``DistComm`` serve without EPLB, every
+   rank's placement fingerprints equal (all-gathered), each card's
+   migrated expert rows bitwise equal to its slots of rank 0's
+   ``LocalComm`` adoption, the first-step logits under the last table
+   within 2e-2 of ``LocalComm(4)``'s; each swap's migration bytes and
+   time printed.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. The last line is
@@ -250,6 +284,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
@@ -279,7 +314,9 @@ from repro_torch.models.transformer import (_decode_splits, _index,  # noqa: E40
                                             init_paged_decode_state,
                                             lm_decode_step, lm_paged_decode_step)
 from repro_torch.runtime.decode import (decode_loop, naive_decode_step,  # noqa: E402
-                                        pipelined_decode_step)
+                                        pipelined_decode_step, rebalancing_decode_loop)
+from repro_torch.checkpoint import adopt_expert_params  # noqa: E402
+from repro_torch.core import placement as PL  # noqa: E402
 from repro_torch.runtime.prefill import _handle, prefill_moe, sequential_prefill  # noqa: E402
 from repro_torch.models.kv_pages import PageAllocator  # noqa: E402
 from repro_torch.runtime.scheduler import ContinuousScheduler, Request  # noqa: E402
@@ -921,8 +958,10 @@ def serve_run(srv: DecodeServer, card: str, path: str, mode: str) -> tuple[dict,
     toks = srv.last_tokens
     check(toks.shape == (BATCH, GEN + 1) and toks.min() >= 0 and toks.max() < cfg.vocab,
           f"bad token stream {toks.shape}")
-    m = {k: v for k, v in metrics.as_dict().items() if v is not None}
-    check(all(np.isfinite(v) and v > 0 for v in m.values()), f"bad metrics {m}")
+    m = {k: v for k, v in metrics.as_dict().items()
+         if v is not None and k != "stragglers_flagged"}
+    check(all(np.isfinite(v) and v > 0 for v in m.values())
+          and metrics.stragglers_flagged >= 0, f"bad metrics {m}")
     graph = ""
     if mode == "captured":
         check(srv._serve_step.graph is not None, f"the {path} server captured no graph")
@@ -3272,6 +3311,302 @@ def dist_serve_phase(cfg, comm, dev, rank: int, world: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# EPLB: heat-driven placement swaps through both servers (one card)
+# ---------------------------------------------------------------------------
+
+# the reference serving example's settings (examples/serve_decode.py): a
+# swap every EPLB_EVERY steps, EPLB_R redundant slots (DBRX: 16 + 8 = 24
+# slots, 3 a rank over 8); the fixed batch decodes EPLB_GEN tokens, so the
+# swaps fall after steps 15, 31 and 47 and later steps run under each table
+EPLB_EVERY, EPLB_R, EPLB_GEN = 16, 8, 64
+EPLB_MAX_LEN = PROMPT + EPLB_GEN + 2
+# the skewed EP layer: Zipf-like routing p(e) ~ (1+e)^-EPLB_SKEW over the
+# experts, concentrated on rank 0's block (benchmarks/bench_imbalance.py)
+EPLB_SKEW, EPLB_LAYER_STEPS = 1.2, 4
+
+
+def eplb_cfg(cfg, physical: bool):
+    """``cfg`` tracking expert heat, its expert weights logical or in the
+    placement's slot order (adopt-once)."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, track_expert_heat=True, params_physical=physical))
+
+
+def to_logical(params, cfg) -> None:
+    """Rebind a physical server's expert weights back to logical order, in
+    place (each expert's primary replica)."""
+    pl = cfg.moe.placement
+    if pl is not None:
+        spec = tf_mod.lm_spec(dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, params_physical=False)))
+        adopt_expert_params(params, spec, pl, None)
+
+
+def eplb_fixed_run(cfg, params, card: str, mode: str, want: np.ndarray) -> dict:
+    """DecodeServer with the EPLB hook over 8 hosted ranks, BATCH x (PROMPT
+    + EPLB_GEN), captured (each placement's step warmed up and captured
+    anew) or eager (every placement's uncompiled step): tokens bitwise
+    equal to the serve without EPLB, launch counts exact, at least one swap
+    adopted, L = 3 slots a rank after it."""
+    tr = Tracer()
+    srv = DecodeServer(cfg, BATCH, EPLB_MAX_LEN, ep_size=RANKS, params=params,
+                       rebalance_every=EPLB_EVERY, num_redundant_experts=EPLB_R, tracer=tr)
+    made = []
+    if mode == "eager":
+        srv._compiled_step = srv._step_factory
+        srv._serve_step = srv._step_factory()
+    else:
+        compiled = srv._compiled_step
+
+        def record_step():
+            step = compiled()
+            made.append(step)
+            return step
+        srv._compiled_step = record_step
+        made.append(srv._serve_step)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    m = srv.serve(serve_prompts(cfg.vocab), EPLB_GEN)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    pls = list(srv.placements)
+    check(len(pls) >= 1, f"the EPLB {mode} serve adopted no placement")
+    check(np.array_equal(srv.last_tokens, want), f"the EPLB serve ({mode}, "
+          f"{'physical' if cfg.moe.params_physical else 'logical'}) differs from the serve "
+          f"without EPLB: first at (row, step) "
+          f"{np.argwhere(srv.last_tokens != want)[:1].tolist()}")
+    check(srv.cfg.moe.placement.slots_per_rank == 3, "the adopted tables do not hold 3 slots a rank")
+    swaps = [i for i in range(EPLB_GEN) if (i + 1) % EPLB_EVERY == 0]
+    if mode == "eager":
+        steps = PROMPT + EPLB_GEN
+    else:
+        ran = [st for st in made if st.graph is not None]
+        steps = 2 * len(ran)
+        # one compiled step a placement; one adopted after the last step
+        # never runs
+        check(len(made) == 1 + len(pls) and len(made) - len(ran) <= 1,
+              f"{len(ran)} captured of {len(made)} compiled steps for {len(pls)} adoptions")
+    check_ep_counts(launches, cfg, steps, f"the EPLB {mode} serve")
+    itls = srv.last_itls
+    after = [itls[i + 1] for i in swaps if i + 1 < len(itls)]
+    rest = [t for j, t in enumerate(itls) if j not in {i + 1 for i in swaps}]
+    summ = tr.summary()
+    out = dict(tokens=srv.last_tokens, placements=[(p.version, p.fingerprint()) for p in pls],
+               itl=float(np.mean(rest)), itl_after=float(np.mean(after)), ttft=m.ttft_s,
+               heat=m.heat_max_mean, rank_heat=m.rank_heat_max_mean, wall=wall,
+               captures=[st.capture_s for st in made if st.capture_s is not None],
+               adopt=summ.get("adopt", {}).get("total_s", 0.0),
+               adopts=summ.get("adopt", {}).get("count", 0),
+               rebalance=summ.get("rebalance", {}).get("total_s", 0.0),
+               peak=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+    srv.close()
+    to_logical(params, srv.cfg if cfg.moe.params_physical else cfg)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def eplb_continuous_run(cfg, params, reqs, want: dict, admissions) -> dict:
+    """ContinuousDecodeServer with the EPLB hook, captured: streams bitwise
+    equal to the serve without EPLB, the same admissions; the heat's
+    max/mean per expert and per rank of each window (the first ran under
+    the contiguous layout, the second under the first adopted table)."""
+    se = TimeSeries()
+    srv = ContinuousDecodeServer(cfg, BATCH, CMAX_LEN, ep_size=RANKS, params=params,
+                                 page_size=PAGE, rebalance_every=EPLB_EVERY,
+                                 num_redundant_experts=EPLB_R, series=se)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    m = srv.serve_requests(reqs)
+    toks = served_tokens(cfg, srv, m, reqs)
+    check(all(np.array_equal(t, want[r.rid]) for r, t in zip(reqs, toks)),
+          "the EPLB continuous serve's streams differ from the serve without EPLB")
+    check(list(srv.reqsched.admissions) == list(admissions),
+          "the EPLB continuous serve admitted otherwise than the serve without EPLB")
+    check(len(srv.placements) >= 1, "the EPLB continuous serve adopted no placement")
+    wins = [r for r in se.rows if r["kind"] == "rebalance"]
+    out = dict(steps=m.serve_steps, itl=m.itl_mean_s, tok_s=m.output_tok_s,
+               placements=[(p.version, p.fingerprint()) for p in srv.placements],
+               windows=[(r["step"], r["heat_max_mean"], r["imbalance"]) for r in wins[:3]],
+               heat=m.heat_max_mean, rank_heat=m.rank_heat_max_mean,
+               peak=torch.cuda.max_memory_allocated() / 2**30, launches=counts())
+    srv.close()
+    if cfg.moe.params_physical:
+        to_logical(params, srv.cfg)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def eplb_layer_phase(cfg, params, card: str) -> None:
+    """The EP layer under skew at DBRX's widths: MoE layer 0's experts (the
+    adopt-once rows of ``rebalancing_decode_loop``) over 8 hosted ranks,
+    BATCH / RANKS tokens a rank, Zipf-like routing on rank 0's block;
+    ``rebalancing_decode_loop`` with a swap after EPLB_LAYER_STEPS / 2 steps
+    of the same inputs: its first window runs the contiguous layout, its
+    second the rebalanced table (R = 0) or the redundant one (R =
+    EPLB_R). Prints the largest received-token count a rank against the
+    mean and the experts' card time a step (the three B3 calls a rank and
+    the SiLU) under each; the outputs must be bitwise equal across the
+    three. A printed line, not a claim."""
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    t = BATCH // RANKS
+    rng = np.random.default_rng(21)
+    p = (1.0 + np.arange(E)) ** -EPLB_SKEW
+    p /= p.sum()
+    topk = [torch.from_numpy(np.stack([rng.choice(E, K, replace=False, p=p)
+                                       for _ in range(t)]).astype(np.int32)).to(DEV)
+            for _ in range(RANKS)]
+    w = [torch.softmax(torch.from_numpy(rng.standard_normal((t, K)).astype(np.float32)), -1)
+         .to(DEV) for _ in range(RANKS)]
+    xs = [(torch.randn((t, cfg.d_model), generator=torch.Generator(device=DEV).manual_seed(30 + r),
+                       device=DEV) * 0.5).to(cfg.dtype) for r in range(RANKS)]
+    # zero-drop, so that no placement drops an entry another keeps
+    base = dataclasses.replace(ep_group(cfg, LocalComm(RANKS), t).cfg, capacity_factor=None,
+                               expert_capacity_factor=None)
+    moe = params["moe_stack"]["moe"]
+    layer0 = {k: moe[k][0] for k in ("w_gate", "w_up", "w_down")}
+    seen: dict = {}
+
+    def make_window(group, rows):
+        L = group.local_experts
+        name = ("contiguous" if group.placement is None else
+                "redundant" if group.placement.num_redundant else "rebalanced")
+
+        def cycle():
+            handles = ep_create_handle(group, topk, w)
+            recv = ep_dispatch(group, handles, xs)
+            ffn = lambda: [_expert_ffn(group, y3d, c, *(rows[k][i * L:(i + 1) * L]  # noqa: E731
+                                                        for k in ("w_gate", "w_up", "w_down")))
+                           for i, (y3d, c) in enumerate(recv)]
+            return handles, recv, ffn
+
+        def window(steps):
+            outs = []
+            for _ in steps:
+                handles, _, ffn = cycle()
+                outs.append(torch.stack(ep_combine(group, handles, ffn())))
+            handles, _, ffn = cycle()
+            recv_rank = [int(h.tokens_per_expert.sum()) for h in handles]
+            seen[name] = dict(out=outs[-1], recv=recv_rank, ms=device_ms(ffn, 3), L=L)
+            return outs, PL.heat_from_topk(torch.stack(topk), E)
+        return window
+
+    for r in (0, EPLB_R):
+        rebalancing_decode_loop(base, make_window, list(range(EPLB_LAYER_STEPS)),
+                                rebalance_every=EPLB_LAYER_STEPS // 2, ep_size=RANKS,
+                                comm=LocalComm(RANKS), num_redundant=r, params=dict(layer0),
+                                donate_params=False)
+    check(sorted(seen) == ["contiguous", "rebalanced", "redundant"], f"placements run {sorted(seen)}")
+    for name in ("rebalanced", "redundant"):
+        check(torch.equal(seen[name]["out"], seen["contiguous"]["out"]),
+              f"the skewed EP layer's output under the {name} placement differs from the "
+              "contiguous layout's")
+    parts = []
+    for name in ("contiguous", "rebalanced", "redundant"):
+        v = seen[name]
+        parts.append(f"{name} (L {v['L']}): max {max(v['recv'])} against mean "
+                     f"{np.mean(v['recv']):.1f} received entries a rank "
+                     f"({max(v['recv']) / np.mean(v['recv']):.3f}), experts {v['ms']:.4f} ms "
+                     "of card time a step")
+    print(f"EPLB EP layer 0 under skew ({card}): {RANKS} ranks x {t} tokens, top-{K} over "
+          f"{E} experts, p(e) ~ (1+e)^-{EPLB_SKEW}; outputs bitwise equal under the three "
+          f"placements; " + "; ".join(parts))
+    del layer0, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def gemm_slot_phase(cfg, params, card: str) -> None:
+    """B3 at the decode shapes with 2 and with 3 experts a rank (the slots a
+    rank holds without EPLB and with 8 redundant slots over 8 ranks): which
+    tiles stream-K splits, and where, depends on L and on an expert's slot,
+    a row's bits must not. The first two experts' outputs at L = 3 bitwise
+    equal to L = 2's and to L = 3's with the slots in reverse order, gate
+    and down, and within GEMM_REL of the plain version."""
+    moe = params["moe_stack"]["moe"]
+    g = torch.Generator(device=DEV).manual_seed(23)
+    parts = []
+    for label, w in (("gate", moe["w_gate"][0][:3]), ("down", moe["w_down"][0][:3])):
+        x = (torch.randn((3, BATCH, w.shape[1]), generator=g, device=DEV) * 0.5).to(cfg.dtype)
+        counts3 = torch.tensor([BATCH, 41, 97], dtype=torch.int32, device=DEV)
+        out3 = gg_mod.grouped_gemm(x, w, counts3)
+        out2 = gg_mod.grouped_gemm(x[:2].contiguous(), w[:2].contiguous(), counts3[:2].contiguous())
+        want = ref.grouped_gemm(x, w, counts3)
+        rel = float((out3.float() - want.float()).norm() / want.float().norm())
+        check(torch.equal(out3[:2], out2), f"grouped_gemm {label}: the rows of L = 3 differ "
+              f"from the same rows at L = 2 (max {float((out3[:2].float() - out2.float()).abs().max()):.3g})")
+        check(rel <= GEMM_REL, f"grouped_gemm {label} at L = 3 off its plain version by {rel:.3g}")
+        rev = gg_mod.grouped_gemm(x.flip(0).contiguous(), w.flip(0).contiguous(),
+                                  counts3.flip(0).contiguous()).flip(0)
+        check(torch.equal(rev, out3), f"grouped_gemm {label}: an expert's rows move when "
+              f"its slot does (max {float((rev.float() - out3.float()).abs().max()):.3g})")
+        p2, p3 = (gg_mod.plan(n, BATCH, w.shape[1], w.shape[2]) for n in (2, 3))
+        parts.append(f"{label} [L, {BATCH}, {w.shape[1]}] @ [L, {w.shape[1]}, {w.shape[2]}]: "
+                     f"{p2.sk_tiles} and {p3.sk_tiles} split tiles at L 2 and 3, segments of "
+                     f"{p3.seg} k blocks; rows bitwise equal, and in reversed slots; {rel:.3g} "
+                     "relative to the plain version")
+    print(f"grouped_gemm over the slot counts of EPLB ({card}): " + "; ".join(parts))
+
+
+def eplb_phase(cfg, params, card: str, reqs, want: dict, admissions) -> None:
+    """EPLB through both servers on one card (the reference's serving example:
+    track_expert_heat, rebalance_every=16, num_redundant_experts=8): the
+    fixed batch without EPLB as the reference; with EPLB in logical mode
+    (each step gathers the slots' experts from the logical weights) and in
+    physical mode (adopt-once: the weights rebound in place at each swap),
+    each captured and eager; the continuous serve of the continuous phase's
+    requests in both modes, captured; then the skewed EP layer. Leaves
+    ``params`` logical. Prints the ITL of the steps just after a swap apart
+    from the rest, each recapture's and adoption's time, the peaks and the
+    heat's max/mean before and after the first swap."""
+    t0 = time.perf_counter()
+    gemm_slot_phase(cfg, params, card)
+    srv = DecodeServer(cfg, BATCH, EPLB_MAX_LEN, ep_size=RANKS, params=params)
+    srv.serve(serve_prompts(cfg.vocab), EPLB_GEN)
+    base = srv.last_tokens
+    base_itl = float(np.mean(srv.last_itls))
+    srv.close()
+    del srv
+    print(f"EPLB reference ({card}): {cfg.name} {BATCH} x ({PROMPT} + {EPLB_GEN}) without "
+          f"EPLB, captured, itl mean {base_itl:.5f} s")
+    for physical in (False, True):
+        mode = "physical" if physical else "logical"
+        c = eplb_cfg(cfg, physical)
+        runs = {m: eplb_fixed_run(c, params, card, m, base) for m in ("captured", "eager")}
+        check(np.array_equal(runs["captured"]["tokens"], runs["eager"]["tokens"]),
+              f"EPLB {mode}: captured and eager tokens differ")
+        check(runs["captured"]["placements"] == runs["eager"]["placements"],
+              f"EPLB {mode}: captured and eager adopted other placements")
+        for m, r in runs.items():
+            caps = ", ".join(f"{x:.4f}" for x in r["captures"])
+            print(f"EPLB fixed serve, {mode}, {m} ({card}): {BATCH} x ({PROMPT} + {EPLB_GEN}), "
+                  f"rebalance every {EPLB_EVERY}, {EPLB_R} redundant slots (3 a rank); tokens "
+                  f"bitwise equal to the serve without EPLB; placements (version, fingerprint) "
+                  f"{r['placements']}; itl mean {r['itl']:.5f} s, the step after a swap "
+                  f"{r['itl_after']:.5f} s; ttft {r['ttft']:.4f} s; "
+                  + (f"captures {caps} s; " if caps else "")
+                  + f"rebalance {r['rebalance']:.4f} s in all, adopt {r['adopt']:.4f} s in "
+                  f"{r['adopts']}; heat max/mean {r['heat']:.4f} per expert, "
+                  f"{r['rank_heat']:.4f} per rank; peak {r['peak']:.2f} GiB; {r['wall']:.1f} s; "
+                  f"launches {r['launches']}")
+        cs = eplb_continuous_run(c, params, reqs, want, admissions)
+        wins = "; ".join(f"window to step {st}: heat max/mean {h:.4f} per expert, {i:.4f} per "
+                         f"rank" for st, h, i in cs["windows"])
+        print(f"EPLB continuous serve, {mode}, captured ({card}): {len(reqs)} requests, "
+              f"{cs['steps']} steps, {cs['tok_s']:.1f} output tok/s, itl mean {cs['itl']:.5f} "
+              f"s; streams bitwise equal to the serve without EPLB, admissions equal; "
+              f"placements {cs['placements']}; {wins}; over the serve {cs['heat']:.4f} per "
+              f"expert, {cs['rank_heat']:.4f} per rank; peak {cs['peak']:.2f} GiB; launches "
+              f"{cs['launches']}")
+    eplb_layer_phase(cfg, params, card)
+    print(f"EPLB phase {time.perf_counter() - t0:.1f} s")
+
+
 # the dist phase's continuous serve: DIST_REQUESTS requests of
 # make_requests (the continuous phase's generator and seed) over BATCH
 # slots, DIST_SOLO of them served again alone
@@ -3332,6 +3667,69 @@ def continuous_step0_logits(cfg, params, comm, dev, reqs, table: tuple) -> torch
     return comm.gather_batch(out) if comm is not None else out
 
 
+def blocked_step0_logits(cfg, params, ep: int, dev, reqs, table: tuple,
+                         blocks: int) -> torch.Tensor:
+    """The continuous serve's first-step logits [B, V] computed as a
+    ``DistComm`` mesh of ``blocks`` batch ranks computes them, on one card:
+    for each batch rank b, one paged step over ``LocalComm(ep)`` fed only
+    rank b's rows of the step-0 inputs (``comm.batch_rows``' contiguous
+    block), on fresh pools of ``table``; the blocks concatenated. Every
+    dense product of the attention, the dense layers, the shared expert and
+    the head then runs at a process's row count, where the whole-batch
+    reference (``continuous_step0_logits`` over ``LocalComm``) runs them
+    over all BATCH rows; the function is the same (bitwise on the CPU in
+    f32, ``tests/test_torch_blocked_reference.py``)."""
+    feed = continuous_step0_feed(reqs, table)
+    b = BATCH // blocks
+    outs = []
+    for i in range(blocks):
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v[i * b:(i + 1) * b])).to(dev)
+                 for k, v in feed.items()}
+        state = init_paged_decode_state(cfg, table[1], PAGE, dev)
+        logits, _ = lm_paged_decode_step(params, state, batch, cfg, LocalComm(ep))
+        outs.append(logits[:, -1, :cfg.vocab].float())
+        del state
+    return torch.cat(outs)
+
+
+class ProductShapes(TorchDispatchMode):
+    """Counts the dense products (``mm``, ``addmm``, ``bmm``, ``baddbmm``)
+    a call runs, by (op, left operand's shape, right operand's shape,
+    dtype): which products see how many rows. The hand-written kernels
+    (B3's grouped GEMM among them) are not aten ops and do not appear."""
+
+    OPS = {"mm": (0, 1), "addmm": (1, 2), "bmm": (0, 1), "baddbmm": (1, 2)}
+
+    def __init__(self):
+        super().__init__()
+        self.seen: Counter = Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in self.OPS:
+            a, b = (args[i] for i in self.OPS[name])
+            self.seen[(name, tuple(a.shape), tuple(b.shape), str(a.dtype))] += 1
+        return func(*args, **(kwargs or {}))
+
+    def rows(self, dtype: str | None = None) -> dict:
+        """{rows of the left operand (all but its last dim): products}."""
+        out: Counter = Counter()
+        for (_, a, _, dt), n in self.seen.items():
+            if dtype is None or dt == dtype:
+                out[int(np.prod(a[:-1]))] += n
+        return dict(sorted(out.items()))
+
+    def of(self, dtype: str) -> Counter:
+        return Counter({k: n for k, n in self.seen.items() if k[3] == dtype})
+
+
+def product_line(shapes: dict) -> str:
+    """Each call's products by dtype and row count."""
+    return "; ".join(f"{label}: " + ", ".join(
+        f"{dt.replace('torch.', '')} " + " ".join(f"{r} rows x{n}" for r, n in ps.rows(dt).items())
+        for dt in sorted({k[3] for k in ps.seen})) for label, ps in shapes.items())
+
+
 def live_shares(reqs, admissions, ep: int) -> list[float]:
     """Each batch rank's share of the live row-steps of a continuous serve,
     from its admission log: a request admitted at step s into slot i holds
@@ -3389,7 +3787,8 @@ def dist_continuous_phase(cfg, comm, dev, rank: int, n: int = DIST_REQUESTS) -> 
     gather = (call_ms(lambda: comm.gather_batch(tok), DIST_ITERS),
               queued_ms(lambda: comm.gather_batch(tok), DIST_ITERS)[0])
     srv.close()
-    logits = continuous_step0_logits(cfg, params, comm, dev, reqs, table)
+    with ProductShapes() as dist_products:
+        logits = continuous_step0_logits(cfg, params, comm, dev, reqs, table)
     progress(rank, f"{model_label(cfg)}: its DistComm continuous serve", t)
     out = dict(ep=comm.size, rows=b, graphed=graphed, steps=m.serve_steps,
                tokens=m.total_tokens, tok_s=m.output_tok_s, itl=m.itl_mean_s,
@@ -3410,22 +3809,51 @@ def dist_continuous_phase(cfg, comm, dev, rank: int, n: int = DIST_REQUESTS) -> 
         same = list(rsrv.reqsched.admissions) == admissions
         rsrv.close()
         del rsrv
-        want_logits = continuous_step0_logits(cfg, full, ref_comm, dev, reqs, table)
+        # the whole-batch reference stays on the record; the check holds the
+        # serve to the reference whose dense products see a process's rows
+        with ProductShapes() as whole_products:
+            whole_logits = continuous_step0_logits(cfg, full, ref_comm, dev, reqs, table)
+        blocks = BATCH // b
+        if comm.size == 1:          # one process steps the whole batch
+            want_logits, blocked_products = whole_logits, whole_products
+        else:
+            with ProductShapes() as blocked_products:
+                want_logits = blocked_step0_logits(cfg, full, comm.size, dev, reqs, table,
+                                                   blocks)
+        whole_err = float((logits - whole_logits).abs().max() / whole_logits.abs().max())
         err = float((logits - want_logits).abs().max() / want_logits.abs().max())
         live = continuous_step0_feed(reqs, table)["active"]
+        bf16 = str(torch.bfloat16)
+        rows_equal = blocked_products.of(bf16) == Counter(
+            {k: n * (1 if comm.size == 1 else blocks) for k, n in dist_products.of(bf16).items()})
         progress(rank, f"{model_label(cfg)}: the reference continuous serve (admissions "
-                 f"{'equal' if same else 'differ'}; {logit_errors(logits, want_logits, live)}; "
-                 f"{memory_line()})", t)
+                 f"{'equal' if same else 'differ'}; against the whole-batch "
+                 f"LocalComm({comm.size}) step: {logit_errors(logits, whole_logits, live)}; "
+                 f"against {blocks} blocks of {b} rows over LocalComm({comm.size}): "
+                 f"{logit_errors(logits, want_logits, live)}; {memory_line()})", t)
+        out["products"] = product_line({
+            "a DistComm process's step": dist_products,
+            f"LocalComm({comm.size}) over the whole batch": whole_products,
+            f"LocalComm({comm.size}) over {blocks} blocks": blocked_products})
+        print(f"dist rank 0: {model_label(cfg)} continuous step 0, products by rows: "
+              f"{out['products']}; the bf16 products of the blocked reference "
+              f"{'are' if rows_equal else 'are not'} those of {blocks} processes' steps",
+              file=sys.stderr, flush=True)
         check(same, "the DistComm continuous server's admissions differ from the one-card "
               "server's")
+        check(rows_equal, "the blocked reference runs a bf16 product at another shape than "
+              f"a DistComm process: {out['products']}")
         agree = np.asarray([np.array_equal(toks[r.rid], want[r.rid]) for r in reqs])
-        out.update(ref_itl=rm.itl_mean_s, logits_err=err, agree=float(agree.mean()),
-                   bitwise=bool(agree.all()))
+        out.update(ref_itl=rm.itl_mean_s, logits_err=err, whole_err=whole_err,
+                   whole_line=logit_errors(logits, whole_logits, live),
+                   blocked_line=logit_errors(logits, want_logits, live),
+                   agree=float(agree.mean()), bitwise=bool(agree.all()))
         if comm.size == 1:
             check(bool(agree.all()), "the DistComm continuous server's streams differ from "
                   f"the dense-path server's: {agree.mean():.4f} equal")
         check(err <= TOL, f"the DistComm continuous server's first-step logits are "
-              f"{err:.3g} off LocalComm({comm.size})'s")
+              f"{err:.3g} off LocalComm({comm.size})'s over {blocks} blocks of {b} rows "
+              f"(the process's row count)")
         del full
         gc.collect()
         torch.cuda.empty_cache()
@@ -3620,6 +4048,108 @@ def ds_dist_phase(comm, dev, rank: int, who: str, label: str, card: str) -> dict
     return out
 
 
+# redundant slots of the four-card EPLB serve: DBRX's 16 experts + 4 = 20
+# slots, 5 a card
+DIST_EPLB_R = 4
+EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def dist_eplb_phase(cfg, comm, dev, rank: int) -> dict:
+    """DBRX with the EPLB hook at one EP rank a card over NCCL, physical
+    mode, rebalance every EPLB_EVERY steps, DIST_EPLB_R redundant slots,
+    BATCH x (PROMPT + EPLB_GEN), captured: tokens bitwise equal to the same
+    DistComm serve without EPLB; every rank's placement fingerprints equal
+    (all-gathered); each card's migrated expert rows bitwise equal to its
+    slots of rank 0's LocalComm adoption of the last table (its leaves
+    broadcast one at a time); the first-step logits under that table and
+    those rows within TOL of LocalComm's on card 0. Each swap's migration
+    time and bytes are kept."""
+    dist.barrier()
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    c = eplb_cfg(cfg, True)
+    prompts = serve_prompts(cfg.vocab)
+    params = init_params(c, 0, dev, comm=comm)
+    srv = DecodeServer(c, BATCH, EPLB_MAX_LEN, comm=comm, params=params, device=dev)
+    srv.serve(prompts, EPLB_GEN)
+    base, base_itl = srv.last_tokens, float(np.mean(srv.last_itls))
+    srv.close()
+    del srv
+    srv = DecodeServer(c, BATCH, EPLB_MAX_LEN, comm=comm, params=params, device=dev,
+                       rebalance_every=EPLB_EVERY, num_redundant_experts=DIST_EPLB_R)
+    reset_counts()
+    m = srv.serve(prompts, EPLB_GEN)
+    launches = {k: n for k, n in counts().items() if n}
+    check(np.array_equal(srv.last_tokens, base), "the DistComm EPLB serve's tokens differ "
+          f"from the serve without EPLB: first at (row, step) "
+          f"{np.argwhere(srv.last_tokens != base)[:1].tolist()}")
+    pls = list(srv.placements)
+    check(len(pls) >= 1, "the DistComm EPLB serve adopted no placement")
+    fps = torch.tensor([p.fingerprint() for p in pls], dtype=torch.int64, device=dev)
+    every = comm.all_gather([fps])[0]
+    check(bool((every == fps).all()), f"the ranks adopted other placements: {every.tolist()}")
+    # the table adopted after the last step has a step that never ran
+    check(any(st.graph is not None for st in srv._step_cache.values())
+          or not comm.capturable, "the DistComm EPLB server did not capture its step")
+    logits = step0_logits(srv.cfg, srv.params, comm, dev)
+    pl, pcfg = srv.cfg.moe.placement, srv.cfg
+    rows = {k: srv.params["moe_stack"]["moe"][k] for k in EXPERT_KEYS}
+    out = dict(ep=comm.size, itl=m.itl_mean_s, base_itl=base_itl, ttft=m.ttft_s,
+               placements=[(p.version, p.fingerprint()) for p in pls],
+               migrations=srv.migrations, heat=m.heat_max_mean, rank_heat=m.rank_heat_max_mean,
+               launches=launches, slots=pl.slots_per_rank, model=model_label(cfg))
+    srv.close()
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = None
+    if rank == 0:
+        full = init_params(cfg, 0, dev)
+        adopt_expert_params(full, tf_mod.lm_spec(cfg), None, pl)
+    me, S = comm.ranks[0], pl.slots_per_rank
+    same = True
+    for k in EXPERT_KEYS:
+        shape = (rows[k].shape[0], pl.num_slots) + tuple(rows[k].shape[2:])
+        buf = (full["moe_stack"]["moe"][k] if rank == 0 else
+               torch.empty(shape, dtype=rows[k].dtype, device=dev))
+        dist.broadcast(buf, src=0)
+        same &= torch.equal(rows[k], buf[:, me * S:(me + 1) * S])
+        del buf
+    check(same, f"rank {rank}'s migrated expert rows differ from its slots of the "
+          "LocalComm adoption")
+    out["rows_equal"] = same
+    if rank == 0:
+        want = step0_logits(pcfg, full, LocalComm(comm.size), dev)
+        err = float((logits - want).abs().max() / want.abs().max())
+        out["logits_line"] = logit_errors(logits, want)
+        check(err <= TOL, f"the DistComm EPLB serve's first-step logits under the last "
+              f"table are {err:.3g} off LocalComm({comm.size})'s")
+        del full
+    del params, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["peak_gib"], out["seconds"] = dist_peak(), time.perf_counter() - t
+    return out
+
+
+def eplb_dist_line(e: dict, who: str, label: str, card: str) -> None:
+    moves = "; ".join(f"after step {mv['step']}: {mv['bytes_sent'] / 2**30:.3f} GiB sent, "
+                      f"{mv['bytes_local'] / 2**30:.3f} GiB copied on the card, "
+                      f"{mv['seconds']:.3f} s" for mv in e["migrations"])
+    ref = (f"; first-step logits under the last table against LocalComm({e['ep']}) on "
+           f"card 0: {e['logits_line']}" if "logits_line" in e else "")
+    print(f"dist ({label}) EPLB DecodeServer(comm=DistComm), {who}, EP extent {e['ep']}, "
+          f"{e['model']}, physical, rebalance every {EPLB_EVERY}, {DIST_EPLB_R} redundant slots "
+          f"({e['slots']} a card), {BATCH} x ({PROMPT} + {EPLB_GEN}), captured ({card}): tokens "
+          f"bitwise equal to the serve without EPLB (its itl {e['base_itl']:.5f} s); every "
+          f"rank's placements equal {e['placements']}; migrated expert rows bitwise equal to "
+          f"the LocalComm adoption; itl mean {e['itl']:.5f} s, ttft {e['ttft']:.4f} s; "
+          f"migrations {moves}; heat max/mean {e['heat']:.4f} per expert, {e['rank_heat']:.4f} "
+          f"per rank{ref}; launches {e['launches']}; peak {e['peak_gib']:.2f} GiB; "
+          f"{e['seconds']:.1f} s")
+
+
 def progress(rank: int, what: str, t0: float) -> None:
     """A child's progress line on stderr (a run that times out shows how far
     each rank got)."""
@@ -3672,6 +4202,15 @@ def dist_child(rank: int, world: int, init_method: str, backend: str, card: str,
     out["prefill"] = dist_prefill_phase(prefill_config()[1], comm, hcomm, dev, rank)
     progress(rank, "DBRX's prefill forward", t0)
     dist_lines([out], world, card, label)
+    if world > 1 and backend == "nccl":
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["eplb"] = dist_eplb_phase(cfg, comm, dev, rank)
+        eplb_dist_line(out["eplb"], dist_who(out, world), label, card)
+        progress(rank, "DBRX's EPLB serve", t0)
+    else:
+        print(f"dist ({label}) EPLB serve, {dist_who(out, world)}: not run (it runs at EP "
+              "extent > 1 over NCCL, one card a rank)")
     if world == DS_DIST_WORLD and backend == "nccl":
         out["ds"] = ds_dist_phase(comm, dev, rank, dist_who(out, world), label, card)
     faulthandler.cancel_dump_traceback_later()
@@ -3701,8 +4240,10 @@ def continuous_line(cs: dict, who: str, label: str, card: str, gloo: bool) -> No
         name = "the dense-path server" if cs["ep"] == 1 else f"LocalComm({cs['ep']})"
         ref = (f"; against {name} on one card (its itl {cs['ref_itl']:.5f} s): the same "
                f"admissions, streams {'bitwise equal' if cs['bitwise'] else 'not bitwise equal'}"
-               f" ({cs['agree']:.4f} of the requests), first-step logits "
-               f"{cs['logits_err']:.3g} off relative to their largest")
+               f" ({cs['agree']:.4f} of the requests); first-step logits against its "
+               f"step over the process's row blocks (the check, limit {TOL}): "
+               f"{cs['blocked_line']}; against its step over the whole batch (on the "
+               f"record): {cs['whole_line']}; products by rows: {cs['products']}")
     solo = ", ".join(f"{rid} (arrived at step {a})" for rid, a in cs["solo"])
     live = ", ".join(f"{x:.4f}" for x in cs["live"])
     print(f"dist ({label}) ContinuousDecodeServer(comm=DistComm), {who}, EP extent "
@@ -3850,6 +4391,7 @@ def main(argv=None) -> int:
     fixed = fixed_serve_phase(cfg, params, card)
     pipelined_phase(cfg, params, card, fixed["nccl_ep"]["tokens"])
     csrv, claunches, reqs, citl, want, _ = continuous_phase(cfg, params, card)
+    cadmissions = list(csrv.reqsched.admissions)
     decode_loop_phase(cfg, params, card)
     replay_trace_phase(fixed, csrv, citl)
     # release every captured graph and its pool, and the fixed-batch servers,
@@ -3895,6 +4437,7 @@ def main(argv=None) -> int:
     check(sorted(records) == sorted(KERNELS)
           and all(r["launches"] is not None for r in records.values()),
           f"kernel records {sorted(records)}")
+    eplb_phase(cfg, params, card, reqs, want, cadmissions)
     # DeepSeek-V3 runs alone on the card: every DBRX tensor goes first
     del params, csrv, fixed, reqs, want
     gc.collect()

@@ -12,6 +12,7 @@ Hopper (``kernels/``, sources in ``csrc/``). On the card both servers step
 through a CUDA graph captured once (``runtime.steps.CompiledStep``). The
 model stack covers GQA (DBRX-132B) and DeepSeek-V3's Multi-head Latent
 Attention (``models/mla.py``), whose paged decode runs the same paged
-kernel over one shared latent pool.
+kernel over one shared latent pool. EPLB expert placement
+(``core/placement.py``) swaps heat-driven placements through both servers.
 """
 from repro_torch.device import disable_tf32, resolve_device  # noqa: F401

@@ -300,6 +300,23 @@ class DistComm:
         dist.all_to_all_single(out, src, group=group)
         return [out.view(x.dtype)]
 
+    def all_to_all_rows(self, x: torch.Tensor, send_counts: list[int],
+                        recv_counts: list[int]) -> torch.Tensor:
+        """Uneven exchange over the EP axes: rows [sum(send_counts), ...] of
+        ``x``, send_counts[d] of them to EP rank d in order, -> the rows
+        received, recv_counts[s] from EP rank s in order
+        (``all_to_all_single`` with split sizes: the placement's weight
+        migration)."""
+        group, n = self._group(None)
+        if len(send_counts) != n or len(recv_counts) != n:
+            raise ValueError(f"all_to_all_rows over {n} ranks got {len(send_counts)} "
+                             f"send and {len(recv_counts)} receive counts")
+        src = _bytes_view(x).contiguous()
+        out = src.new_empty((sum(recv_counts),) + tuple(x.shape[1:]))
+        dist.all_to_all_single(out, src, output_split_sizes=list(recv_counts),
+                               input_split_sizes=list(send_counts), group=group)
+        return out.view(x.dtype)
+
     def all_gather(self, xs: list[torch.Tensor], axis=None) -> list[torch.Tensor]:
         """xs[0]: [T, ...] -> [N, T, ...] in rank order over the EP axes
         (``axis=None``) or the named axes, gathered as the concatenation of

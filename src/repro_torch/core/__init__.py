@@ -1,7 +1,7 @@
 """repro_torch.core: the unified EP API over a communicator, in its three
 modes: LL (``nccl_ep`` and ``deepep`` layouts), HT (flat, and hierarchical
 with its chunk pipeline) and the baseline a2a dispatcher; with the
-tagged-tensor surface."""
+tagged-tensor surface and EPLB placement (``placement``)."""
 from repro_torch.core.api import (  # noqa: F401
     EpGroup, EpGroupConfig, EpHandle, EpPending, ep_combine, ep_combine_tensors,
     ep_complete, ep_create_group, ep_create_handle, ep_dispatch,
@@ -10,6 +10,12 @@ from repro_torch.core.api import (  # noqa: F401
 )
 from repro_torch.core.backend import (  # noqa: F401
     BaseBackend, get_backend, register_backend,
+)
+from repro_torch.core.placement import (  # noqa: F401
+    EpPlacement, HeatTracker, collapse_expert_params, expand_expert_params,
+    fold_slot_counts, heat_from_topk, identity_placement, imbalance,
+    placement_from_jsonable, placement_to_jsonable, rank_loads, rebalance,
+    redundant_placement,
 )
 from repro_torch.core.plan import EpPlan, build_plan, routing_hash  # noqa: F401
 from repro_torch.core.routing import RouterConfig, RouterOutput, route  # noqa: F401

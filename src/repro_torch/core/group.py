@@ -49,9 +49,14 @@ class EpGroupConfig:
     # many static slices that stream through the two stages (1 = monolithic;
     # bitwise equal for any value at zero-drop capacities)
     ht_num_chunks: int = 1
-    # EPLB placement and fault domains come with ROADMAP A10; only None
+    # EPLB (core/placement.py): an explicit EpPlacement with optional
+    # redundant replicas; None = contiguous striping (expert e at rank
+    # e // L). A placement with redundant slots implies their count; the
+    # count without a table is an error (the table says where they live)
     placement: object | None = None
     num_redundant_experts: int = 0
+    # FaultDomains: rank -> correlated-failure unit; None derives it from
+    # the HT hierarchy (EpGroup.fault_domains)
     fault_domains: object | None = None
     slot_align: int = 8
 
@@ -69,7 +74,9 @@ class EpGroup:
 
     cfg: EpGroupConfig
     ep_size: int                 # N: total EP ranks
-    local_experts: int           # L = E / N
+    # L: physical expert slots per rank, E / N contiguous, the placement's
+    # slots per rank under one (every capacity and buffer keys off it)
+    local_experts: int
     ll_disp_cap: int             # C_d: slots per (src, dst) pair, dispatch
     ll_comb_cap: int             # C_c: slots per (src, dst) pair, combine
     ll_expert_cap: int           # A: rows per local expert in the 3D output
@@ -86,10 +93,34 @@ class EpGroup:
         return self.cfg.resolved_mode()
 
     @property
+    def placement(self):
+        """The group's EpPlacement, or None for the contiguous default."""
+        return self.cfg.placement
+
+    @property
     def placement_salt(self) -> int:
-        """Placement fingerprint mixed into the routing hash: 0 for the
-        contiguous layout, the only one this slice has."""
-        return 0
+        """Placement fingerprint mixed into the routing hash (0 for the
+        contiguous default): a placement swap changes the salt, which
+        forces ``ep_handle_refresh`` to rebuild the maps, while a routing
+        replay under an unchanged placement keeps the cached ones."""
+        pl = self.cfg.placement
+        return 0 if pl is None else pl.fingerprint()
+
+    @property
+    def physical_experts(self) -> int:
+        """Total physical expert slots (experts plus redundant replicas)."""
+        return self.ep_size * self.local_experts
+
+    def fault_domains(self):
+        """The group's correlated-failure topology: ``cfg.fault_domains``
+        when set; else the pod (``rank // inner_size``) over a hierarchy of
+        more than one pod; else every rank its own domain."""
+        from repro_torch.core.placement import domains_from_geometry, trivial_domains
+        if self.cfg.fault_domains is not None:
+            return self.cfg.fault_domains
+        if self.outer_size > 1:
+            return domains_from_geometry(self.ep_size, self.inner_size)
+        return trivial_domains(self.ep_size)
 
     @property
     def hierarchical(self) -> bool:
@@ -132,11 +163,6 @@ def ep_create_group(cfg: EpGroupConfig, comm=None, *, ep_size: int | None = None
     or over an explicit ``ep_size`` for capacity arithmetic alone. The
     hierarchical path exchanges over the communicator's axes, so they must
     be ``cfg.ep_axis`` with the pod of ``inner_size`` ranks innermost."""
-    if cfg.placement is not None or cfg.fault_domains is not None \
-            or cfg.num_redundant_experts:
-        raise NotImplementedError(
-            "EPLB placement, redundant experts and fault domains are not "
-            "ported yet (ROADMAP A10)")
     if comm is not None:
         if ep_size is not None and ep_size != comm.size:
             raise ValueError(f"ep_size={ep_size} but the communicator has "
@@ -152,9 +178,38 @@ def ep_create_group(cfg: EpGroupConfig, comm=None, *, ep_size: int | None = None
 
     E, K, B = cfg.num_experts, cfg.top_k, cfg.max_tokens_per_rank
     N = ep_size
-    if E % N != 0:
-        raise ValueError(f"num_experts={E} must divide by ep_size={N}")
-    L = E // N
+    # EPLB: a placement table defines the physical slot grid (experts plus
+    # redundant replicas); the contiguous default keeps L = E / N
+    R = cfg.num_redundant_experts
+    if cfg.placement is not None:
+        pl = cfg.placement
+        if pl.num_experts != E:
+            raise ValueError(f"placement covers {pl.num_experts} experts, "
+                             f"group has num_experts={E}")
+        if pl.num_ranks != N:
+            raise ValueError(f"placement spans {pl.num_ranks} ranks, "
+                             f"group has ep_size={N}")
+        if R not in (0, pl.num_redundant):
+            raise ValueError(
+                f"num_redundant_experts={R} contradicts the placement's "
+                f"{pl.num_redundant} redundant slots")
+        # slots per rank straight from the table ((E + R) / N for a healthy
+        # one; a degraded table packs every expert onto the survivors)
+        L = pl.slots_per_rank
+    elif R:
+        raise ValueError(
+            f"num_redundant_experts={R} requires an explicit placement "
+            "(the table defines where replicas live: build one with "
+            "repro_torch.core.placement.rebalance or redundant_placement)")
+    else:
+        if E % N != 0:
+            raise ValueError(f"num_experts={E} (+{R} redundant) must divide "
+                             f"by ep_size={N}")
+        L = E // N
+    if cfg.fault_domains is not None and cfg.fault_domains.num_ranks != N:
+        raise ValueError(
+            f"fault_domains cover {cfg.fault_domains.num_ranks} ranks, "
+            f"group has ep_size={N}")
     cf = cfg.capacity_factor
     al = cfg.slot_align
 

@@ -1,12 +1,18 @@
 """EpPlan: the precomputed slot-map engine for LL (``nccl_ep`` and
 ``deepep`` layouts), HT (flat and hierarchical, chunked) and the baseline
-a2a dispatcher (port of ``src/repro/core/plan.py`` less EPLB placement).
+a2a dispatcher (port of ``src/repro/core/plan.py``), placement-aware.
 
 Every gather map and count of every phase is derived once, at handle
 creation, so dispatch and combine are single gather passes over int32 maps
 (the one-pass-per-phase invariant). A map value equal to the source row
 count is the empty sentinel. The JAX functions read their rank from
 ``axis_index``; here it comes in as an argument.
+
+Placement (``core/placement.py``) is resolved here and nowhere else:
+``dest_of`` maps a logical expert to its physical (rank, slot), under an
+``EpPlacement`` by a lookup in device tables made once per placement, with
+replica ``src_rank % replica_count``; the phases only gather through the
+maps this module builds.
 
 Port notes: JAX's ``.at[...].set(..., mode="drop")`` becomes a scatter
 into a trash column or slot past the end that is sliced off (torch
@@ -26,19 +32,37 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import placement as PL
 from repro_torch.core import slots as S
 from repro_torch.core.group import EpGroup, EpHandle
 
 _MASK32 = 0xFFFFFFFF
 
 
-def dest_of(group: EpGroup, experts: torch.Tensor):
-    """(dest_rank, dest_slot) of global expert ids under the contiguous
-    layout: expert e lives at rank e // L, slot e % L. The padding expert E
-    maps to rank N, out of range everywhere."""
-    L = group.local_experts
-    r = torch.div(experts, L, rounding_mode="floor")
-    return r, experts - r * L
+def dest_of(group: EpGroup, experts: torch.Tensor, src_rank=0):
+    """(dest_rank, dest_slot) of global expert ids. Contiguous layout:
+    expert e lives at rank e // L, slot e % L. Under an ``EpPlacement``:
+    the table lookup, replica ``src_rank % replica_count`` (an int, or a
+    tensor broadcastable to ``experts``: a pure function of the gathered
+    routing, so both ends of every transfer agree). The padding expert E
+    maps to rank N, out of range everywhere. Entries not owned by the
+    caller return their slot at *their* rank: mask by ``dest_rank == me``
+    before using slots locally."""
+    if group.placement is None:
+        L = group.local_experts
+        r = torch.div(experts, L, rounding_mode="floor")
+        return r, experts - r * L
+    r, sl = PL.assign(group.placement, experts, src_rank)
+    return r.to(experts.dtype), sl.to(experts.dtype)
+
+
+def _src_rank_grid(group: EpGroup, device) -> torch.Tensor | int:
+    """Source-rank coordinates [N, 1, 1] of a gathered routing tensor [N,
+    T, K]: the replica key of receiver-side ``dest_of``. The contiguous
+    layout reads none, so it gets 0 and the plan launches nothing for it."""
+    if group.placement is None:
+        return 0
+    return torch.arange(group.ep_size, device=device)[:, None, None]
 
 
 @dataclasses.dataclass
@@ -152,11 +176,18 @@ def routing_hash(topk_idx: torch.Tensor, salt: int = 0) -> torch.Tensor:
     i = torch.arange(flat.shape[0], dtype=torch.int64, device=flat.device)
     h1 = _mix((flat + _mulu32(i, 0x9E3779B9)) & _MASK32).sum() & _MASK32
     h2 = _mix(flat ^ _mulu32(i + 1, 0x85EBCA6B)).sum() & _MASK32
-    h = torch.stack([h1, h2])
     if salt:
-        s = torch.tensor(salt & _MASK32, dtype=torch.int64, device=h.device)
-        h = h ^ torch.stack([_mix(s), _mix(s ^ 0x9E3779B9)])
-    return h
+        # mixed on the host: a captured step makes no tensor from host data
+        s = salt & _MASK32
+        h1, h2 = h1 ^ _mix_int(s), h2 ^ _mix_int(s ^ 0x9E3779B9)
+    return torch.stack([h1, h2])
+
+
+def _mix_int(x: int) -> int:
+    """``_mix`` of one uint32 on the host."""
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & _MASK32
+    x = ((x ^ (x >> 15)) * 0x846CA68B) & _MASK32
+    return x ^ (x >> 16)
 
 
 # --------------------------------------------------------------------------
@@ -205,9 +236,11 @@ def gather_weights(group: EpGroup, topk_weights: list) -> list:
 
 
 def recv_counts(group: EpGroup, rank: int, topk_g: torch.Tensor) -> torch.Tensor:
-    """[L] entries routed to each of ``rank``'s experts (capacity-blind)."""
+    """[L] entries routed to each of ``rank``'s expert slots
+    (capacity-blind); under a redundant placement each entry counts at the
+    replica its source rank selects."""
     L = group.local_experts
-    r_dst, s_dst = dest_of(group, topk_g)
+    r_dst, s_dst = dest_of(group, topk_g, _src_rank_grid(group, topk_g.device))
     mine = (r_dst == rank).reshape(-1).to(torch.int32)
     e_l = s_dst.clamp(0, L - 1).reshape(-1).to(torch.int64)
     counts = torch.zeros((L,), dtype=torch.int32, device=topk_g.device)
@@ -230,7 +263,7 @@ def _ll_ncclep_plan(group: EpGroup, me: int, topk_idx: torch.Tensor,
 
     # ---- sender side: slot of token t in the me->d block is the running
     # count of senders to d up to t (the "atomic counter")
-    dst, _ = dest_of(group, topk_idx)                        # [T, K]
+    dst, _ = dest_of(group, topk_idx, me)                    # [T, K]
     token_valid = torch.arange(T, device=dev) < num_tokens
     sends = torch.zeros((T, N + 1), dtype=torch.bool, device=dev)
     col = torch.where((dst >= 0) & (dst < N), dst, N).to(torch.int64)
@@ -243,7 +276,7 @@ def _ll_ncclep_plan(group: EpGroup, me: int, topk_idx: torch.Tensor,
                                         sends.reshape(-1), N, Cd, sentinel=T)
 
     # ---- receiver side: mirror the senders' counters
-    dst_g, slot_g = dest_of(group, topk_g)                   # [N, T, K]
+    dst_g, slot_g = dest_of(group, topk_g, _src_rank_grid(group, dev))  # [N, T, K]
     mine = dst_g == me
     e_l = slot_g.clamp(0, L - 1).reshape(-1)
     sends_to_me = mine.any(-1)                               # [N, T]
@@ -290,7 +323,7 @@ def _ll_deepep_plan(group: EpGroup, me: int, topk_idx: torch.Tensor,
     if T > B:
         raise ValueError(f"the deepep layout holds B={B} tokens per rank, got {T}")
     dev = topk_idx.device
-    dst, e_l = dest_of(group, topk_idx)                      # [T, K]
+    dst, e_l = dest_of(group, topk_idx, me)                  # [T, K]
     token_valid = torch.arange(T, device=dev) < num_tokens
     t_idx = torch.arange(T, device=dev)[:, None].expand(T, Kk)
     disp_send_gmap = S.build_gather_map(
@@ -320,14 +353,14 @@ def _ht_flat_plan(group: EpGroup, me: int, topk_idx: torch.Tensor,
     i32 = torch.int32
 
     # ---- sender side
-    dst = dest_of(group, topk_idx)[0].reshape(-1)           # [T*K]
+    dst = dest_of(group, topk_idx, me)[0].reshape(-1)       # [T*K]
     valid = (torch.arange(T, device=dev) < num_tokens)[:, None].expand(T, Kk).reshape(-1)
     c_pos, _ = S.positions_by_dest(dst, N, valid)
     t_of = torch.arange(T, device=dev)[:, None].expand(T, Kk).reshape(-1)
     disp_send_gmap = S.build_gather_map(dst, c_pos, t_of, valid, N, C, sentinel=T)
 
     # ---- receiver side: every sender's counter restricted to me
-    dst_g, slot_g = dest_of(group, topk_g)                  # [N, T, K]
+    dst_g, slot_g = dest_of(group, topk_g, _src_rank_grid(group, dev))  # [N, T, K]
     e_l = slot_g.clamp(0, L - 1).reshape(-1)
     flat_mine = (dst_g == me).reshape(N, T * Kk)
     pos_r = (torch.cumsum(flat_mine.to(i32), 1) - 1).to(i32)
@@ -385,7 +418,8 @@ def _hier_geometry(group: EpGroup, topk_g: torch.Tensor) -> dict:
     C1 = group.ht_stage1_cap
     N, T, Kk = topk_g.shape
     g = topk_g.reshape(No, Ni, T, Kk)
-    r_dst, s_dst = dest_of(group, g)
+    src = torch.arange(No * Ni, device=g.device).reshape(No, Ni, 1, 1)
+    r_dst, s_dst = dest_of(group, g, src)                   # placement-aware
     o_dst, i_dst = rank_pod(r_dst, Ni), r_dst % Ni          # [No, Ni, T, K]
     # stage 1 (per source rank): dedup over the destination's inner
     # coordinate. The padding expert has r_dst == N, whose i_dst could alias
@@ -558,7 +592,7 @@ def _baseline_plan(group: EpGroup, me: int, topk_idx: torch.Tensor,
     T, Kk = topk_idx.shape
     Ce = _per_expert_cap(group)
     dev = topk_idx.device
-    dst, e_l = dest_of(group, topk_idx)                      # [T, K]
+    dst, e_l = dest_of(group, topk_idx, me)                  # [T, K]
     valid = (topk_idx < group.cfg.num_experts).reshape(-1)
     block = torch.where(valid, (dst * L + e_l).reshape(-1), N * L)
     pos, _ = S.positions_by_dest(block, N * L, valid)

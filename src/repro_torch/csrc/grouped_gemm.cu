@@ -22,11 +22,21 @@
 //     96 KB of weights in flight per SM, loaded with an evict-first L2
 //     policy. The tiles that fill whole waves of 132 lanes go whole; the
 //     k blocks of the rest are laid end to end and cut into 132 equal
-//     shares (stream-K), so every SM streams the same bytes. A split
-//     tile's pieces other than the first write f32 partials to scratch and
-//     count themselves in; the first piece, last in its lane, waits for the
-//     count and adds the partials to its own in piece order, so the sum
-//     order depends only on (A, H, F).
+//     shares (stream-K), so every SM streams the same bytes. Which tiles
+//     are split, and where, depends on the tile count, so on L; a row's
+//     sum must not. Every tile's k blocks are cut into fixed segments of
+//     seg blocks (a divisor of K), each summed from zero, and the segments
+//     are folded in k order, whole tile or split. A share that ends inside
+//     a segment first sums that segment's blocks up to its end and hands
+//     the f32 partial to the next lane, which goes on accumulating the
+//     segment from it after its own whole segments: wgmma adds into the
+//     same f32 registers either way, so the bits are those of an unbroken
+//     sum. A split tile's pieces other than the first write each of their
+//     segments to its own scratch slot and count themselves in; the first
+//     piece, last in its lane, folds its own segments, waits for the count
+//     and folds the others' after them. A row's bits thus depend only on
+//     (A, H, F): a placement that changes the slots a rank holds changes
+//     no row, and the shares stay equal to one k block.
 //   * compute, A > 128 (HT prefill): bound by the tensor cores. 128 x 256
 //     tiles, four stages, every tile whole, walked in bands of eight row
 //     tiles so that concurrent tiles share their strips of x and w in L2.
@@ -76,9 +86,10 @@ struct Shape {
   int group_m;             // row tiles per band of the walk
   int tiles;               // L * m_tiles * n_tiles
   int sk_tiles, sk_per;    // the first sk_tiles are split: sk_per k blocks a lane
-  int max_pieces;          // most pieces of a split tile (its scratch slots)
+  int slots;               // scratch slots of a split tile: its segments
   int lanes;               // blocks of the persistent grid
   int stream;              // 1: weights read once per call, evicted first
+  int seg;                 // stream: k blocks a segment (a divisor of kb_total)
 };
 
 // Tile t -> (expert, row tile, column tile): row tiles walked in bands of
@@ -95,28 +106,51 @@ __device__ __forceinline__ void tile_coords(const Shape& s, int t, int& l, int& 
   nt = within / gm;
 }
 
-// The pieces of work of one lane, in order: first its share of the split
+// The runs of work of one lane, in order: first, when its share of the
+// split tiles ends inside a segment, the hand-on run (that segment's blocks
+// up to the share's end, from the segment's start or, when the share lies
+// inside the segment, from the share's start); then its share of the split
 // tiles (k blocks [lane * sk_per, (lane + 1) * sk_per) of the first
-// sk_tiles tiles laid end to end; piece j of n of a tile), then whole tiles
-// sk_tiles + lane, + lanes, ... kernels/grouped_gemm.py lane_work is the
-// same walk.
+// sk_tiles tiles laid end to end; piece j of n of a tile, the last without
+// the hand-on run's blocks), then whole tiles sk_tiles + lane, + lanes, ...
+// kernels/grouped_gemm.py lane_runs is the same walk.
 struct Walk {
   int lane, it, end;  // the lane's k blocks of split tiles not yet taken
   int t;              // its next whole tile
+  int ht, h0, h1;     // the hand-on run: tile (-1: none), k blocks [h0, h1)
+  bool pending;       // the hand-on run is still to come
 };
 
 __device__ __forceinline__ Walk walk_start(const Shape& s, int lane) {
-  Walk w{lane, 0, 0, s.sk_tiles + lane};
+  Walk w{lane, 0, 0, s.sk_tiles + lane, -1, 0, 0, false};
   if (s.sk_tiles > 0) {
+    const int K = s.kb_total, total = s.sk_tiles * K;
     w.it = lane * s.sk_per;
-    w.end = min(w.it + s.sk_per, s.sk_tiles * s.kb_total);
+    w.end = min(w.it + s.sk_per, total);
+    if (w.it < w.end && w.end < total && (w.end % K) % s.seg != 0) {
+      const int e = w.end % K;
+      w.ht = w.end / K;
+      w.h0 = max(e - e % s.seg, w.it - w.ht * K);
+      w.h1 = e;
+      w.pending = true;
+    }
   }
   return w;
 }
 
-__device__ __forceinline__ bool walk_next(const Shape& s, Walk& w, int& t, int& kb0,
-                                          int& kb1, int& j, int& n) {
+__device__ __forceinline__ bool walk_next(const Shape& s, Walk& w, bool& hand, int& t,
+                                          int& kb0, int& kb1, int& j, int& n) {
   const int K = s.kb_total;
+  hand = w.pending;
+  if (hand) {
+    w.pending = false;
+    t = w.ht;
+    kb0 = w.h0;
+    kb1 = w.h1;
+    j = -1;
+    n = 0;
+    return true;
+  }
   if (w.it < w.end) {
     t = w.it / K;
     kb0 = w.it % K;
@@ -125,6 +159,7 @@ __device__ __forceinline__ bool walk_next(const Shape& s, Walk& w, int& t, int& 
     j = w.lane - first;
     n = last - first + 1;
     w.it += kb1 - kb0;
+    if (t == w.ht) kb1 = w.h0;  // its last blocks went in the hand-on run
     return true;
   }
   if (w.t >= s.tiles) return false;
@@ -196,6 +231,134 @@ __device__ __forceinline__ void store_frag(__nv_bfloat16* out, const Shape& s,
 
 __device__ __forceinline__ void consumers_sync() { bar_sync(1, CONSUMERS); }
 
+// Accumulator registers to and from a scratch slot, in accumulator order, so
+// that each thread reads back what the same thread of another lane wrote.
+// Register 4j + 2h + e holds row rbase + 8h; rows at or past the count are
+// not written, nor read back into a fold (what their registers hold is
+// never stored). A partial taken up by wgmma is read whole, so that no
+// accumulator is written on a path that depends on the thread.
+// The base address as an opaque value where it is used: otherwise the
+// compiler keeps an address per register live across the whole walk.
+__device__ __forceinline__ float* here(const float* p) {
+  asm volatile("" : "+l"(p));
+  return const_cast<float*>(p);
+}
+
+template <int R>
+__device__ __forceinline__ void slot_store(float* p, const float* r, int t_wg, int rbase,
+                                           int cnt) {
+  p = here(p) + t_wg;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (rbase + 8 * ((i >> 1) & 1) < cnt) __stcg(p + i * 128, r[i]);
+}
+
+template <int R>
+__device__ __forceinline__ void slot_add(float* r, const float* p, int t_wg, int rbase,
+                                         int cnt) {
+  p = here(p) + t_wg;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (rbase + 8 * ((i >> 1) & 1) < cnt) r[i] += __ldcg(p + i * 128);
+}
+
+template <int R>
+__device__ __forceinline__ void slot_take(float* r, const float* p, int t_wg) {
+  p = here(p) + t_wg;
+#pragma unroll
+  for (int i = 0; i < R; ++i) r[i] = __ldcg(p + i * 128);
+}
+
+// One consumer thread waits until *c reaches v (acquire) and sets it back
+// to 0 for the next call; then every consumer may read what was written
+// before it was counted. A wait past 2^36 cycles (about half a minute)
+// traps, so that a broken walk fails the launch instead of hanging the card.
+__device__ __forceinline__ void await_take(int* c, int v) {
+  if (threadIdx.x == 0) {
+    const long long t0 = clock64();
+    int x;
+    do {
+      asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(x) : "l"(c) : "memory");
+      if (clock64() - t0 > (1LL << 36)) __trap();
+    } while (x < v);
+    *c = 0;
+  }
+  consumers_sync();
+  __threadfence();
+}
+
+// Counts one in at *c once every consumer's writes are visible.
+__device__ __forceinline__ void count_in(int* c) {
+  __threadfence();
+  consumers_sync();
+  if (threadIdx.x == 0) atomicAdd(c, 1);
+}
+
+// The consumers' multiply of k blocks [k0, k1) of the current tile from the
+// ring, one segment at a time (without segments, compute: one run straight
+// into acc). A segment is accumulated in seg, from zero where it starts or
+// from what seg holds where the run starts inside it; every segment ends on
+// a full wgmma wait, and one that is complete is folded into acc (slot
+// null) or written to its scratch slot (slot + its index). The waits sit on
+// no branch a thread could take alone, so that the compiler never
+// serialises the wgmmas (it does, too, when a wgmma's scale-d is chosen at
+// run time while seg may have been loaded from scratch).
+template <int BN>
+__device__ __forceinline__ void mma_blocks(const Shape& s, uint8_t* smem, uint64_t* full,
+                                           uint64_t* empty, int& stage, uint32_t& phase,
+                                           int wg, int lane, int k0, int k1, float* acc,
+                                           float* seg, float* slot, int t_wg, int rbase,
+                                           int cnt) {
+  using C = Cfg<BN>;
+  constexpr bool SEGMENTED = BN == 128;
+  float* mma = SEGMENTED ? seg : acc;
+  for (int a = k0; a < k1;) {
+    const int b = SEGMENTED ? min(k1, (a / s.seg + 1) * s.seg) : k1;
+    if (SEGMENTED && a % s.seg == 0) {  // a segment starts
+#pragma unroll
+      for (int i = 0; i < C::REGS; ++i) seg[i] = 0.f;
+    }
+    int prev = -1;
+    for (int kb = a; kb < b; ++kb) {
+      mbar_wait(&full[stage], phase);
+      const uint32_t sa = smem_u32(smem + stage * C::STAGE_BYTES) + wg * BOX_BYTES;
+      const uint32_t sb = smem_u32(smem + stage * C::STAGE_BYTES + C::A_BYTES);
+      fence_regs<C::REGS>(mma);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        // x: 16 k a step is 32 bytes along the swizzled row; 8-row groups
+        // 1024 bytes apart. w: 16 k a step is 16 rows of 128 bytes; 64-
+        // column boxes BOX_BYTES apart, 8-row groups 1024 bytes apart.
+        wgmma_k16<BN>(mma, sw128_desc(sa + kk * 32, 16, 1024),
+                      sw128_desc(sb + kk * 16 * 128, BOX_BYTES, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      fence_regs<C::REGS>(mma);
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == C::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs<C::REGS>(mma);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+    if constexpr (SEGMENTED) {
+      if (b % s.seg == 0) {  // a whole segment
+        if (slot != nullptr) {
+          slot_store<C::REGS>(slot + (a / s.seg) * (BM * BN), seg, t_wg, rbase, cnt);
+        } else {
+#pragma unroll
+          for (int i = 0; i < C::REGS; ++i) acc[i] += seg[i];
+        }
+      }
+    }
+    a = b;
+  }
+}
+
 template <int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 grouped_gemm_bf16_kernel(const __grid_constant__ CUtensorMap tmx,
@@ -205,6 +368,9 @@ grouped_gemm_bf16_kernel(const __grid_constant__ CUtensorMap tmx,
                          float* __restrict__ scratch, int* __restrict__ sems,
                          const Shape s) {
   using C = Cfg<BN>;
+  // stream (BN 128, the only split schedule) folds its fixed segments;
+  // compute (BN 256) accumulates a tile whole
+  constexpr bool SEGMENTED = BN == 128;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -224,6 +390,7 @@ grouped_gemm_bf16_kernel(const __grid_constant__ CUtensorMap tmx,
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   Walk walk = walk_start(s, blockIdx.x);
   int t, kb0, kb1, j, npieces;
+  bool hand;
 
   if (wg == 2) {  // ---- producer: one thread issues every TMA load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
@@ -235,14 +402,18 @@ grouped_gemm_bf16_kernel(const __grid_constant__ CUtensorMap tmx,
       asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(wpol));
     int stage = 0;
     uint32_t phase = 0;
-    while (walk_next(s, walk, t, kb0, kb1, j, npieces)) {
+    while (walk_next(s, walk, hand, t, kb0, kb1, j, npieces)) {
       int l, mt, nt;
       tile_coords(s, t, l, mt, nt);
       const int cnt = min(counts[l], s.A), r0 = mt * BM;
       if (r0 >= cnt || s.kb_total == 0) continue;  // nothing of the tile is loaded
       const int groups = cnt - r0 > 64 ? 2 : 1;
       const uint32_t bytes = groups * BOX_BYTES + C::B_BYTES;
-      for (int kb = kb0; kb < kb1; ++kb) {
+      // a later piece: its whole segments, then the blocks before its first
+      // segment edge (the consumers' order)
+      const int c = SEGMENTED && !hand && j > 0 ? (kb0 + s.seg - 1) / s.seg * s.seg : kb0;
+      for (int i = 0; i < kb1 - kb0; ++i) {
+        const int kb = c + i < kb1 ? c + i : kb0 + (c + i - kb1);
         mbar_wait(&empty[stage], phase ^ 1);
         mbar_expect_tx(&full[stage], bytes);
         uint8_t* sa = smem + stage * C::STAGE_BYTES;
@@ -250,12 +421,12 @@ grouped_gemm_bf16_kernel(const __grid_constant__ CUtensorMap tmx,
         for (int g = 0; g < groups; ++g)
           tma_load_3d(sa + g * BOX_BYTES, &tmx, &full[stage], kb * BK, r0 + 64 * g, l);
 #pragma unroll
-        for (int c = 0; c < BN / BOX; ++c) {
+        for (int cb = 0; cb < BN / BOX; ++cb) {
           if (s.stream)
-            tma_load_3d_hint(sb + c * BOX_BYTES, &tmw, &full[stage], nt * BN + c * BOX,
+            tma_load_3d_hint(sb + cb * BOX_BYTES, &tmw, &full[stage], nt * BN + cb * BOX,
                              kb * BK, l, wpol);
           else
-            tma_load_3d(sb + c * BOX_BYTES, &tmw, &full[stage], nt * BN + c * BOX,
+            tma_load_3d(sb + cb * BOX_BYTES, &tmw, &full[stage], nt * BN + cb * BOX,
                         kb * BK, l);
         }
         if (++stage == C::STAGES) {
@@ -270,81 +441,62 @@ grouped_gemm_bf16_kernel(const __grid_constant__ CUtensorMap tmx,
     int stage = 0;
     uint32_t phase = 0;
     float acc[C::REGS];
-    while (walk_next(s, walk, t, kb0, kb1, j, npieces)) {
+    // stream: the segment being multiplied; acc folds the segments in order
+    float seg[SEGMENTED ? C::REGS : 1];
+    while (walk_next(s, walk, hand, t, kb0, kb1, j, npieces)) {
       int l, mt, nt;
       tile_coords(s, t, l, mt, nt);
       const int cnt = __shfl_sync(0xffffffffu, min(counts[l], s.A), 0);
       const int r0 = mt * BM, n0 = nt * BN;
       if (r0 >= cnt || s.kb_total == 0) {  // nothing loaded: zeros, by the first piece
-        if (j == 0)
+        if (!hand && j == 0)
           zero_rows(out, s, l, r0, min(r0 + BM, s.A), n0, min(n0 + BN, s.F),
                     threadIdx.x, CONSUMERS);
         continue;
       }
+      const int rbase = r0 + wg * 64 + warp * 16 + lane / 4;
+      // scratch: each split tile's segment slots, then each lane's handed-on
+      // partial; sems: each split tile's count, then each lane's flag
+      const int64_t tile_f = BM * BN;
+      float* slots = scratch + static_cast<int64_t>(t) * s.slots * tile_f + wg * (64 * BN);
+      float* hand_out = scratch + (static_cast<int64_t>(s.sk_tiles) * s.slots + blockIdx.x) *
+                        tile_f + wg * (64 * BN);
+      int* flag = sems + s.sk_tiles + blockIdx.x;
+      // up to two runs: [kb0, kb1) (a hand-on run, a whole tile, a first
+      // piece), or a later piece's whole segments [c, kb1) then [kb0, c)
+      const bool later = SEGMENTED && !hand && j > 0;
+      const int c = later && kb1 > kb0 ? (kb0 + s.seg - 1) / s.seg * s.seg : kb0;
+      if (!later) {
 #pragma unroll
-      for (int i = 0; i < C::REGS; ++i) acc[i] = 0.f;
-      int prev = -1;
-      for (int kb = kb0; kb < kb1; ++kb) {
-        mbar_wait(&full[stage], phase);
-        const uint32_t sa = smem_u32(smem + stage * C::STAGE_BYTES) + wg * BOX_BYTES;
-        const uint32_t sb = smem_u32(smem + stage * C::STAGE_BYTES + C::A_BYTES);
-        fence_regs<C::REGS>(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-          // x: 16 k a step is 32 bytes along the swizzled row; 8-row groups
-          // 1024 bytes apart. w: 16 k a step is 16 rows of 128 bytes; 64-
-          // column boxes BOX_BYTES apart, 8-row groups 1024 bytes apart.
-          wgmma_k16<BN>(acc, sw128_desc(sa + kk * 32, 16, 1024),
-                        sw128_desc(sb + kk * 16 * 128, BOX_BYTES, 1024));
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous stage's products are done
-        fence_regs<C::REGS>(acc);
-        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-        prev = stage;
-        if (++stage == C::STAGES) {
-          stage = 0;
-          phase ^= 1;
-        }
+        for (int i = 0; i < C::REGS; ++i) acc[i] = 0.f;
       }
-      wgmma_wait<0>();
-      fence_regs<C::REGS>(acc);
-      if (lane == 0) mbar_arrive(&empty[prev]);
-      const bool live = r0 + wg * 64 < cnt;
-      if (npieces > 1) {
-        // partials in accumulator order, so that each thread reads back
-        // what the same thread of another lane wrote
-        float* tp = scratch + static_cast<int64_t>(t) * s.max_pieces * (BM * BN) + wg * (64 * BN);
-        if (j > 0) {  // write the partial, count it in, go on
-          if (live) {
-#pragma unroll
-            for (int i = 0; i < C::REGS; ++i) __stcg(tp + j * (BM * BN) + i * 128 + t_wg, acc[i]);
-          }
-          __threadfence();
-          consumers_sync();
-          if (threadIdx.x == 0) atomicAdd(&sems[t], 1);
+      for (int run = 0; run < 2; ++run) {
+        const int a = run == 0 ? c : kb0, b = run == 0 ? kb1 : c;
+        if (a >= b) continue;
+        if (SEGMENTED && a % s.seg != 0) {  // go on from the lane before's partial
+          await_take(flag - 1, 1);
+          slot_take<C::REGS>(seg, hand_out - tile_f, t_wg);
+        }
+        mma_blocks<BN>(s, smem, full, empty, stage, phase, wg, lane, a, b, acc, seg,
+                       later ? slots : nullptr, t_wg, rbase, cnt);
+      }
+      if constexpr (SEGMENTED) {
+        if (hand) {  // hand the partial on
+          slot_store<C::REGS>(hand_out, seg, t_wg, rbase, cnt);
+          count_in(flag);
           continue;
         }
-        // the first piece: wait for the others (earlier in their lanes),
-        // add them in piece order, reset the counter for the next call
-        if (threadIdx.x == 0) {
-          int v;
-          do {
-            asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(sems + t) : "memory");
-          } while (v < npieces - 1);
-          sems[t] = 0;
+        if (later) {  // its segments are written: count it in
+          count_in(sems + t);
+          continue;
         }
-        consumers_sync();
-        __threadfence();
-        if (live) {
-          for (int k = 1; k < npieces; ++k) {
-#pragma unroll
-            for (int i = 0; i < C::REGS; ++i) acc[i] += __ldcg(tp + k * (BM * BN) + i * 128 + t_wg);
-          }
+        if (npieces > 1) {  // a first piece: then the others' segments, in order
+          await_take(sems + t, npieces - 1);
+          for (int k = kb1 / s.seg; k < s.slots; ++k)
+            slot_add<C::REGS>(acc, slots + k * tile_f, t_wg, rbase, cnt);
         }
       }
-      store_frag<BN>(out, s, acc, l, r0 + wg * 64 + warp * 16 + lane / 4,
-                     n0 + (lane % 4) * 2, cnt);
+      store_frag<BN>(out, s, acc, l, rbase, n0 + (lane % 4) * 2, cnt);
     }
   }
 }
@@ -446,9 +598,10 @@ cudaError_t launch_bf16(const CUtensorMap& tmx, const CUtensorMap& tmw, const in
 }  // namespace
 
 // plan (bf16 only): int64 {bn, kb_total, m_tiles, n_tiles, group_m, tiles,
-// sk_tiles, sk_per, max_pieces, grid, stream, x map[7], w map[7]} from
-// kernels/grouped_gemm.py Plan.args; scratch (f32 partials) and sems (a
-// zeroed counter per split tile) when sk_tiles > 0.
+// sk_tiles, sk_per, slots, grid, stream, x map[7], w map[7], seg} from
+// kernels/grouped_gemm.py Plan.args; scratch (f32 segment sums and handed-on
+// partials, Plan.scratch_floats) and sems (Plan.flags zeroed counters) when
+// sk_tiles > 0.
 extern "C" int ep_grouped_gemm(const void* x, const void* w, const void* counts,
                                void* out, int L, int A, int H, int F, int dt,
                                const void* plan, void* scratch, void* sems,
@@ -466,11 +619,14 @@ extern "C" int ep_grouped_gemm(const void* x, const void* w, const void* counts,
     s.tiles = static_cast<int>(p[5]);
     s.sk_tiles = static_cast<int>(p[6]);
     s.sk_per = static_cast<int>(p[7]);
-    s.max_pieces = static_cast<int>(p[8]);
+    s.slots = static_cast<int>(p[8]);
     s.lanes = static_cast<int>(p[9]);
     s.stream = static_cast<int>(p[10]);
+    s.seg = static_cast<int>(p[25]);
     if (s.lanes < 1 || s.group_m < 1 ||
-        (s.sk_tiles > 0 && (s.sk_per < 1 || scratch == nullptr || sems == nullptr)))
+        (p[0] == 128 && (s.seg < 1 || s.kb_total % s.seg != 0)) ||
+        (s.sk_tiles > 0 && (s.sk_per < 1 || s.slots != s.kb_total / s.seg ||
+                            scratch == nullptr || sems == nullptr)))
       return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap tmx{}, tmw{};
     if (H > 0 && (!encode(&tmx, x, p + 11) || !encode(&tmw, w, p + 18)))

@@ -17,8 +17,19 @@ static shape (A, H, F) alone, never from ``counts``:
   flight per SM under an evict-first L2 policy. The tiles that fill whole
   waves of the 132 SMs go whole; the k blocks of the rest are laid end to
   end and cut into 132 equal shares (stream-K), so every SM streams the
-  same bytes. A split tile's first piece adds the others' f32 partials to
-  its own in piece order, so the sum order depends only on (A, H, F).
+  same bytes. Which tiles are split, and where, depends on the tile
+  count, so on L; a row's bits must not. Every tile's k blocks are cut
+  into fixed segments of ``seg`` blocks, each summed from zero and folded
+  in k order, whole tile or split. A share may end inside a segment: the
+  lane first sums that segment's blocks up to its end and hands the f32
+  partial on, and the next lane goes on accumulating the same segment
+  from it, which gives the bits of an unbroken sum. A split tile's pieces
+  other than the first write each of their segments to a scratch slot;
+  the first piece folds its own, then theirs (scratch holds only the rows
+  below the count). So the shares stay equal to one k block and a row's
+  bits depend on (A, H, F) alone: an EPLB
+  placement that gives a rank another slot count changes none of them.
+  ``seg`` is the largest divisor of K up to ``SEG_MAX`` (``segment``).
 * **compute** (A > 128, HT prefill). Bound by the tensor cores: 128 x 256
   tiles, four stages, every tile whole, walked in bands of eight row tiles
   so that concurrent tiles share their strips of x and w in L2.
@@ -48,6 +59,10 @@ BM, BK, BOX = 128, 64, 64  # rows per tile, k per stage, TMA box edge (128 B of 
 STREAM_MAX_A = 128         # one tile holds every row of an expert up to here
 STREAM_BN, COMPUTE_BN = 128, 256
 GROUP_M = 8                # row tiles per band of the compute walk
+# most k blocks a stream segment (``segment``): of 24, 32 and 64, the one
+# that timed least over DBRX's and DeepSeek-V3's decode shapes on an H100
+# (tools/grouped_gemm_ab.py --seg-max 32,64,24)
+SEG_MAX = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,10 +83,21 @@ class Plan:
     grid: int              # lanes: blocks of the persistent grid
     x_map: tuple           # TMA map of x: dims (H, A, L), strides (bytes), box
     w_map: tuple           # TMA map of w: dims (F, H, L), strides (bytes), box
+    seg: int = 0           # stream: k blocks a segment (0: compute, no segments)
+
+    @property
+    def slots(self) -> int:
+        """Scratch slots of a split tile: one per segment."""
+        return self.kb_total // self.seg if self.seg else 0
 
     def scratch_floats(self) -> int:
-        """f32 partials of the split tiles (0 without any)."""
-        return self.sk_tiles * self.max_pieces * BM * self.bn
+        """f32 segment sums of the split tiles, then one handed-on partial
+        a lane (0 without split tiles)."""
+        return (self.sk_tiles * self.slots + self.grid) * BM * self.bn if self.sk_tiles else 0
+
+    def flags(self) -> int:
+        """int32 counters: one per split tile, then one per lane."""
+        return self.sk_tiles + self.grid if self.sk_tiles else 0
 
     @functools.cached_property
     def c_args(self) -> ctypes.Array:
@@ -83,8 +109,8 @@ class Plan:
     def args(self) -> list[int]:
         """The int64 plan the C entry reads."""
         return [self.bn, self.kb_total, self.m_tiles, self.n_tiles, self.group_m,
-                self.tiles, self.sk_tiles, self.sk_per, self.max_pieces, self.grid,
-                int(self.schedule == "stream"), *self.x_map, *self.w_map]
+                self.tiles, self.sk_tiles, self.sk_per, self.slots, self.grid,
+                int(self.schedule == "stream"), *self.x_map, *self.w_map, self.seg]
 
 
 @functools.lru_cache(maxsize=64)
@@ -93,11 +119,13 @@ def plan(L: int, A: int, H: int, F: int) -> Plan:
 
     stream: the tiles that fill whole waves of the 132 lanes go whole; the
     k blocks of the rest are laid end to end and cut into equal shares of
-    the lanes (stream-K), so every SM streams the same bytes; a split
-    tile's pieces are summed in piece order. compute: every tile whole."""
+    the lanes (stream-K), so every SM streams the same bytes; every tile's
+    fixed segments are folded in k order. compute: every tile whole."""
     K = -(-H // BK)
+    seg = 0
     if A <= STREAM_MAX_A:
         schedule, bn, group_m = "stream", STREAM_BN, 1
+        seg = segment(K)
     else:
         schedule, bn, group_m = "compute", COMPUTE_BN, GROUP_M
     m_tiles, n_tiles = -(-A // BM), -(-F // bn)
@@ -115,7 +143,15 @@ def plan(L: int, A: int, H: int, F: int) -> Plan:
     x_map = (H, A, L, H * 2, A * H * 2, BOX, BOX)
     w_map = (F, H, L, F * 2, H * F * 2, BOX, BOX)
     return Plan(schedule, bn, K, m_tiles, n_tiles, group_m, tiles, sk_tiles, sk_per,
-                max_pieces, grid, x_map, w_map)
+                max_pieces, grid, x_map, w_map, seg)
+
+
+def segment(K: int) -> int:
+    """The stream schedule's segment, in k blocks: the largest divisor of K
+    up to SEG_MAX. It depends on H alone, never on L, so that a tile's fold
+    is the same at every slot count. A longer segment writes fewer sums to
+    scratch; a share shorter than a segment waits for the lane before it."""
+    return max((d for d in range(1, min(K, SEG_MAX) + 1) if K % d == 0), default=1)
 
 
 def tile_coords(p: Plan, t: int) -> tuple[int, int, int]:
@@ -147,14 +183,46 @@ def lane_work(p: Plan, lane: int) -> list[tuple[int, int, int, int, int]]:
     return out
 
 
+def handoff(p: Plan, lane: int) -> tuple[int, int, int] | None:
+    """The k blocks (tile, kb0, kb1) that lane ``lane`` sums first and hands
+    on to the next lane, when its share ends inside a segment: from the
+    segment's start (or from the share's start, if the share lies inside
+    the segment; then it goes on from the previous lane's partial) to the
+    share's end. None when the share ends on a segment edge."""
+    if not p.sk_tiles:
+        return None
+    K = p.kb_total
+    it, end = lane * p.sk_per, min((lane + 1) * p.sk_per, p.sk_tiles * K)
+    if it >= end or end == p.sk_tiles * K or (end % K) % p.seg == 0:
+        return None
+    t, e = divmod(end, K)
+    return t, max(e - e % p.seg, it - t * K), e
+
+
+def lane_runs(p: Plan, lane: int) -> list[tuple[str, int, int, int, int, int]]:
+    """The runs (kind, tile, kb0, kb1, piece, pieces) of lane ``lane`` in the
+    order the kernel's ``walk_next`` takes them: its hand-on run first, if
+    any ("handoff"), then its pieces ("piece"; the last one without the
+    blocks of the hand-on run)."""
+    h = handoff(p, lane)
+    out = [] if h is None else [("handoff", h[0], h[1], h[2], -1, 0)]
+    for t, kb0, kb1, j, n in lane_work(p, lane):
+        if h is not None and t == h[0]:   # the lane's last split piece
+            kb1 = h[1]
+        out.append(("piece", t, kb0, kb1, j, n))
+    return out
+
+
 _sems: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def _semaphores(dev: torch.device, n: int) -> torch.Tensor:
-    """A zeroed int32 counter per split tile, kept per (card, stream) so that
-    a call launches nothing but the kernel: the tile's first piece sets its
-    counter back to 0, so the buffer stays zero between calls on one stream,
-    and calls on two streams at once never share a counter. The buffer is
+    """Zeroed int32 counters (``Plan.flags``: one per split tile, one per
+    lane), kept per (card, stream) so that a call launches nothing but the
+    kernel: whoever waits on a counter sets it back to 0 (a tile's first
+    piece, the lane a partial is handed to), so the buffer stays zero
+    between calls on one stream, and calls on two streams at once never
+    share a counter. The buffer is
     made outside any CUDA graph capture (one first made during a capture
     would live in that graph's private pool): a capture must follow an
     uncaptured call on its stream."""
@@ -201,7 +269,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
         if p.sk_tiles:
             scratch = torch.empty(p.scratch_floats(), dtype=torch.float32,
                                   device=x.device)
-            sems = _semaphores(x.device, p.sk_tiles)
+            sems = _semaphores(x.device, p.flags())
     _build.launch("ep_grouped_gemm", x.data_ptr(), w.data_ptr(),
                   counts.data_ptr(), out.data_ptr(), L, A, H, F, dt,
                   None if args is None else ctypes.addressof(args),

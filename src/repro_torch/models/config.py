@@ -1,7 +1,8 @@
 """Architecture configuration schema (port of ``src/repro/models/config.py``)
 with torch dtypes, plus ``ParamSpec``, the shape/dtype/initializer of one
-parameter (``src/repro/parallel/sharding.py:ParamSpec`` without the sharding
-axes, which the port has no use for yet)."""
+parameter (``src/repro/parallel/sharding.py:ParamSpec``; of its logical
+axes the port reads only ``"expert"``, which tells the placement rebinds
+which dim holds the experts)."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,6 +19,7 @@ class ParamSpec:
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"       # normal | zeros | ones | embed
     scale: float = 1.0
+    axes: tuple | None = None  # logical axis names, where a dim has one
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,9 +69,20 @@ class MoESpec:
     ht_hierarchical: bool = False
     ht_num_chunks: int = 1
     quantize_dispatch: bool = False
-    # --- EPLB (ROADMAP A10: only the defaults are ported) ---
+    # --- EPLB (core/placement.py) ---
+    # explicit expert placement table (EpPlacement) with optional redundant
+    # replicas; None = contiguous striping. In the default logical mode the
+    # expert weights stay logical [E, ...] and moe_block gathers each
+    # hosted rank's slots from them every step.
     placement: object | None = None
+    # adopt-once physical mode (the serving fast path): the expert-stacked
+    # weights are stored already in ``placement``'s physical [N*S, ...]
+    # slot order, rebound once at each adoption (checkpoint.
+    # adopt_expert_params), and moe_block reads them as they are
     params_physical: bool = False
+    # fold per-logical-expert routed-token counts into the decode state
+    # ("expert_heat", [E] f32) for the servers' rebalance hook; exact below
+    # 2**24 routed tokens per expert and window
     track_expert_heat: bool = False
 
 

@@ -5,7 +5,9 @@ MLA attention, dense or MoE FFNs, an optional dense prefix
 prediction (MTP) term in the forward.
 
 Parameters keep the JAX layout: per-layer trees stacked along a leading
-[n_layers] axis in ``dense_stack`` and ``moe_stack``. The layer stack is a
+[n_layers] axis in ``dense_stack`` and ``moe_stack`` (the expert-stacked
+MoE weights [n_moe, rows, ...], rows logical E or, under
+``MoESpec.params_physical``, the placement's slots). The layer stack is a
 Python loop over those slices (JAX scans it, with remat for training; the
 port's forward has no backward yet, so it keeps nothing to recompute).
 """
@@ -40,8 +42,6 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError("an lm without attention is not ported")
     if _is_mla(cfg) and cfg.mla is None:
         raise ValueError("attention kind 'mla' needs ArchConfig.mla")
-    if cfg.moe is not None:
-        MOE.check_supported(cfg.moe)
 
 
 def _is_mla(cfg: ArchConfig) -> bool:
@@ -63,7 +63,8 @@ def _stack(specs, n: int):
     """Stack a layer's ParamSpec tree n times along a leading axis."""
     if isinstance(specs, dict):
         return {k: _stack(v, n) for k, v in specs.items()}
-    return ParamSpec((n,) + specs.shape, specs.dtype, specs.init, specs.scale)
+    axes = None if specs.axes is None else ("stack",) + tuple(specs.axes)
+    return ParamSpec((n,) + specs.shape, specs.dtype, specs.init, specs.scale, axes)
 
 
 def lm_spec(cfg: ArchConfig):
@@ -96,16 +97,34 @@ def lm_decode_state_spec(cfg: ArchConfig, batch: int, max_len: int):
             for name, n in zip(("dense", "moe"), _stack_sizes(cfg)) if n}
 
 
+def tracks_heat(cfg: ArchConfig) -> bool:
+    """Whether the decode states of ``cfg`` carry ``expert_heat``."""
+    return bool(cfg.moe and cfg.moe.track_expert_heat and _stack_sizes(cfg)[1])
+
+
+def _with_heat(cfg: ArchConfig, state: dict, device: torch.device) -> dict:
+    """``state`` plus, under ``track_expert_heat``, ``expert_heat``: [E] f32
+    per-logical-expert routed tokens summed over the MoE layers and the
+    steps, in both weight layouts (the rebalancer reasons about logical
+    experts, so an adoption never invalidates the state). The steps add to
+    it in place, so a replayed graph advances it."""
+    if tracks_heat(cfg):
+        state["expert_heat"] = torch.zeros((cfg.moe.num_experts,), dtype=torch.float32,
+                                           device=device)
+    return state
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device: torch.device):
     """Zeroed stacked caches, one per layer stack (a KVCache, or an
     MLACache for MLA), each with its filled length as a 0-dim int32 tensor
-    on ``device``."""
+    on ``device``; and ``expert_heat`` when the config tracks it."""
     cache = MLA.MLACache if _is_mla(cfg) else ATT.KVCache
-    return {name: cache(**{k: torch.zeros(s.shape, dtype=s.dtype, device=device)
-                           for k, s in arrays.items()},
-                        length=torch.zeros((), dtype=torch.int32, device=device))
-            for name, arrays in lm_decode_state_spec(cfg, batch, max_len).items()}
+    return _with_heat(cfg, {
+        name: cache(**{k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                       for k, s in arrays.items()},
+                    length=torch.zeros((), dtype=torch.int32, device=device))
+        for name, arrays in lm_decode_state_spec(cfg, batch, max_len).items()}, device)
 
 
 def _index(tree, i: int):
@@ -121,37 +140,43 @@ def _layer_cache(stacked, i: int):
                          length=stacked.length)
 
 
-def _ffn_half(p, x, cfg: ArchConfig, comm):
-    """The second half of a layer: x + FFN or MoE of its norm -> (x, aux)."""
+def _ffn_half(p, x, cfg: ArchConfig, comm, heat=None):
+    """The second half of a layer: x + FFN or MoE of its norm -> (x, aux).
+    ``heat``, an [E] f32 counter, gets the MoE layer's routed tokens added
+    in place."""
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
-        f, aux = MOE.moe_block(p["moe"], h, cfg, comm)
+        if heat is None:
+            f, aux = MOE.moe_block(p["moe"], h, cfg, comm)
+        else:
+            f, aux, hh = MOE.moe_block(p["moe"], h, cfg, comm, with_heat=True)
+            heat.add_(hh)
     else:
         f, aux = ffn_apply(p["ffn"], h, cfg.act), torch.zeros((), device=x.device)
     return x + f, aux
 
 
-def layer_apply(p, x, cfg: ArchConfig, comm, *, cache=None):
+def layer_apply(p, x, cfg: ArchConfig, comm, *, cache=None, heat=None):
     """One decoder layer -> (x, new_cache, aux); without a cache it attends
-    over x itself and new_cache is None."""
+    over x itself and new_cache is None. ``heat`` as in ``_ffn_half``."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if _is_mla(cfg):
         a, new_cache = MLA.mla_attention(p["attn"], h, cfg, cache=cache)
     else:
         a, new_cache = ATT.attention(p["attn"], h, cfg, cache=cache)
-    x, aux = _ffn_half(p, x + a, cfg, comm)
+    x, aux = _ffn_half(p, x + a, cfg, comm, heat)
     return x, new_cache, aux
 
 
 def paged_layer_apply(p, x, cfg: ArchConfig, comm, pool, page_tbl, kv_lens,
-                      active, *, num_kv_splits: int):
+                      active, *, num_kv_splits: int, heat=None):
     """layer_apply's paged twin: attention against the paged KV pool, the
     FFN/MoE half the same -> (x, pool, aux)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     attend = MLA.paged_mla_attention if _is_mla(cfg) else ATT.paged_attention
     a, pool = attend(p["attn"], h, cfg, pool, page_tbl, kv_lens, active,
                      num_kv_splits=num_kv_splits)
-    x, aux = _ffn_half(p, x + a, cfg, comm)
+    x, aux = _ffn_half(p, x + a, cfg, comm, heat)
     return x, pool, aux
 
 
@@ -215,16 +240,19 @@ def lm_decode_step(params, state, batch, cfg: ArchConfig, comm):
     The caches in ``state`` are written in place and their lengths advanced
     in place after the last layer (every layer of a stack reads the same
     start), so the returned state is ``state``, its tensors the same
-    objects: what a captured step needs (JAX donates the state instead)."""
+    objects: what a captured step needs (JAX donates the state instead).
+    ``state["expert_heat"]``, where present, gets each MoE layer's routed
+    tokens added in place."""
     x = embed_lookup(params["embed"], batch["tokens"])
     new_lens = {}
+    heat = state.get("expert_heat")
     for name in ("dense", "moe"):
         if name not in state:
             continue
         st, stack = state[name], params[f"{name}_stack"]
         for i in range(stack["ln1"].shape[0]):
             x, c, _ = layer_apply(_index(stack, i), x, cfg, comm,
-                                  cache=_layer_cache(st, i))
+                                  cache=_layer_cache(st, i), heat=heat)
         new_lens[name] = c.length
     for name, n in new_lens.items():
         state[name].length.copy_(n)
@@ -252,11 +280,13 @@ def lm_paged_decode_state_spec(cfg: ArchConfig, num_pages: int, page_size: int):
 
 def init_paged_decode_state(cfg: ArchConfig, num_pages: int, page_size: int,
                             device: torch.device):
-    """Zeroed stacked page pools on ``device``, one dict of pools per stack."""
-    return {name: {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
-                   for k, s in pools.items()}
-            for name, pools in lm_paged_decode_state_spec(cfg, num_pages,
-                                                          page_size).items()}
+    """Zeroed stacked page pools on ``device``, one dict of pools per stack,
+    and ``expert_heat`` when the config tracks it."""
+    return _with_heat(cfg, {
+        name: {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+               for k, s in pools.items()}
+        for name, pools in lm_paged_decode_state_spec(cfg, num_pages, page_size).items()},
+        device)
 
 
 def _decode_splits(cfg: ArchConfig, max_pages: int) -> int:
@@ -277,6 +307,7 @@ def lm_paged_decode_step(params, state, batch, cfg: ArchConfig, comm):
     x = embed_lookup(params["embed"], batch["tokens"])
     tbl, lens, act = batch["page_tbl"], batch["kv_lens"], batch["active"]
     splits = _decode_splits(cfg, tbl.shape[1])
+    heat = state.get("expert_heat")
     for name in ("dense", "moe"):
         if name not in state:
             continue
@@ -284,5 +315,5 @@ def lm_paged_decode_step(params, state, batch, cfg: ArchConfig, comm):
         for i in range(stack["ln1"].shape[0]):
             x, _, _ = paged_layer_apply(_index(stack, i), x, cfg, comm,
                                         _index(pools, i), tbl, lens, act,
-                                        num_kv_splits=splits)
+                                        num_kv_splits=splits, heat=heat)
     return _head(params, x, cfg), state

@@ -17,8 +17,8 @@ Steady state is plan-free: after step 0, handles are refreshed with
 instead of rebuilt. The loop is mode-agnostic: the staged surface is part
 of every backend's contract. As everywhere in the port's EP API, a value per
 hosted rank is a list indexed like ``group.comm.ranks``; ``router_fn`` and
-``expert_fn`` are those of ``runtime/prefill.py``. The EPLB loop
-(``rebalancing_decode_loop``) needs the placement engine (ROADMAP A10).
+``expert_fn`` are those of ``runtime/prefill.py``. ``rebalancing_decode_loop``
+swaps EPLB placements between windows of steps (``placement.run_rebalancing``).
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import ep_combine, ep_complete, ep_dispatch, ep_handle_refresh
-from repro_torch.core.group import EpGroup
+from repro_torch.core import placement as PL
+from repro_torch.core.group import EpGroup, EpGroupConfig
 from repro_torch.runtime.prefill import ExpertFn, RouterFn, _experts, _handle
 
 # the two streams of each card's micro-batch chains, made at first use and
@@ -115,3 +116,40 @@ def decode_loop(group: EpGroup, router_fn: RouterFn, expert_fn: ExpertFn,
                                               xa, xb)
         outs.append(pair)
     return outs
+
+
+def rebalancing_decode_loop(base_cfg: EpGroupConfig, make_window, xs, *,
+                            rebalance_every: int, ep_size: int, comm=None,
+                            num_redundant: int = 0, inner_size: int | None = None,
+                            decay: float = 0.0, rebalance_fn=PL.rebalance,
+                            params=None, expert_keys: tuple = PL.EXPERT_PARAM_KEYS,
+                            donate_params: bool = True, fault_injector=None,
+                            min_replicas: int = 1, fault_domains=None,
+                            max_slots_per_rank: int | None = None):
+    """Host-level EPLB decode driver: placements swap between steps, at
+    window boundaries. ``make_window(group) -> fn(steps) -> (outs, heat)``
+    runs a window of steps (typically ``decode_loop`` plus a routed-token
+    histogram) on a group over ``comm`` built for the window's placement;
+    every ``rebalance_every`` steps the folded heat drives the rebalancer
+    and the next window runs under the new table. Windows are cached per
+    placement (an unchanged table reuses its object and its window), and
+    handles carried across a swap are rebuilt by the placement-salted
+    routing hash. Returns ``(outs, placements)``: the per-step outputs and
+    each window's placement (None = contiguous).
+
+    Adopt-once physical weights: with ``params`` (expert-stacked leaves
+    under ``expert_keys``, laid out for ``base_cfg.placement``),
+    ``make_window(group, params)`` gets the leaves rebound once per adopted
+    placement; the driver takes ownership unless ``donate_params=False``.
+    ``fault_injector`` raises ``NotImplementedError`` (ROADMAP A10b)."""
+    if rebalance_every < 1:
+        raise ValueError(f"rebalance_every={rebalance_every} must be >= 1")
+    windows = [xs[s:s + rebalance_every] for s in range(0, len(xs), rebalance_every)]
+    win_outs, placements = PL.run_rebalancing(
+        base_cfg, make_window, windows, advance_every=1, ep_size=ep_size, comm=comm,
+        num_redundant=num_redundant, inner_size=inner_size, decay=decay,
+        rebalance_fn=rebalance_fn, params=params, expert_keys=expert_keys,
+        donate_params=donate_params, fault_injector=fault_injector,
+        min_replicas=min_replicas, fault_domains=fault_domains,
+        max_slots_per_rank=max_slots_per_rank)
+    return [o for w in win_outs for o in w], placements

@@ -13,6 +13,7 @@ a run-dependent order).
 As everywhere in the port's EP API, a value per hosted rank is a list
 indexed like ``group.comm.ranks``. Size the group's ``max_tokens_per_rank``
 to the micro-batch (T / P): each micro-batch carries its own handle.
+``rebalancing_prefill`` swaps EPLB placements between batches.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from typing import Callable
 import torch
 
 from repro_torch.core import ep_combine, ep_complete, ep_create_handle, ep_dispatch
-from repro_torch.core.group import EpGroup
+from repro_torch.core import placement as PL
+from repro_torch.core.group import EpGroup, EpGroupConfig
 
 # router_fn: one rank's tokens [T, H] -> (topk_idx [T, K], topk_weights [T, K])
 RouterFn = Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]
@@ -78,8 +80,26 @@ def prefill_moe(group: EpGroup, router_fn: RouterFn, expert_fn: ExpertFn,
     return [torch.cat(parts) for parts in zip(*outs)]
 
 
-def rebalancing_prefill(*args, **kwargs):
-    """Heat-driven EPLB placement swaps between prefill batches: needs the
-    placement engine, which is not ported yet."""
-    raise NotImplementedError("rebalancing_prefill needs EPLB placement, which is "
-                              "not ported yet (ROADMAP A10)")
+def rebalancing_prefill(base_cfg: EpGroupConfig, make_layer, batches, *,
+                        rebalance_every: int, ep_size: int, comm=None,
+                        num_redundant: int = 0, inner_size: int | None = None,
+                        decay: float = 0.0, rebalance_fn=PL.rebalance, params=None,
+                        expert_keys: tuple = PL.EXPERT_PARAM_KEYS,
+                        donate_params: bool = True, min_replicas: int = 1,
+                        fault_domains=None, max_slots_per_rank: int | None = None):
+    """Prefill mirror of ``runtime/decode.py rebalancing_decode_loop``:
+    placements swap between batches, the natural boundary (within one batch
+    the micro-batched pipeline runs on one placement). ``make_layer(group)
+    -> fn(x) -> (out, heat)`` runs one staged prefill layer (typically
+    ``prefill_moe`` plus a routed-token histogram) on a group over
+    ``comm``. Every ``rebalance_every`` batches the folded heat drives the
+    shared ``RebalanceScheduler``. Returns ``(outs, placements)``, one
+    placement per batch (None = contiguous); ``params`` as in the decode
+    driver."""
+    return PL.run_rebalancing(
+        base_cfg, make_layer, list(batches), advance_every=rebalance_every,
+        ep_size=ep_size, comm=comm, num_redundant=num_redundant,
+        inner_size=inner_size, decay=decay, rebalance_fn=rebalance_fn, params=params,
+        expert_keys=expert_keys, donate_params=donate_params,
+        min_replicas=min_replicas, fault_domains=fault_domains,
+        max_slots_per_rank=max_slots_per_rank)

@@ -4,11 +4,15 @@ contracts; plain Python, no torch).
 
 * ``Tracer`` records named spans and instant events at step boundaries the
   servers already have (``prefill``, ``serve_step``, ``admission``; the
-  scheduler's ``admit`` and ``complete`` instants) and exports Chrome-trace
-  / Perfetto JSON. The reference's EPLB and fault spans come with those
-  paths (ROADMAP A10).
+  scheduler's ``admit`` and ``complete`` instants; the EPLB hook's
+  ``rebalance``, ``adopt`` and ``drain`` spans, ``placement_swap`` instant
+  and ``rank_imbalance`` counter; the watchdog's ``straggler`` and
+  ``watchdog_rebase`` instants) and exports Chrome-trace / Perfetto JSON.
+  The reference's fault spans come with those paths (ROADMAP A10b).
 * ``TimeSeries`` records rows (the continuous server: one per step, with
-  ITL, queue depth, active slots, pages live and peak) and exports JSONL.
+  ITL, queue depth, active slots, pages live and peak; both servers: one
+  per heat window, with its heat, per-rank loads and imbalance) and
+  exports JSONL.
 
 Hard contracts (``tests/test_torch_telemetry.py``):
 

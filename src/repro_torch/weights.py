@@ -15,6 +15,13 @@ tensor parallelism, its F-slice of them (``src/repro/models/moe.py``'s
 ``ew_spec``); everything else is replicated. ``init_params(..., comm=)``
 draws the same values as the full tree and keeps only that shard, one leaf
 (and of stacked experts, one layer) at a time.
+
+EPLB: under ``MoESpec.params_physical`` with a placement the expert leaves
+are in the placement's slot order. ``init_params`` still draws the logical
+tree (so replicas of one expert hold the same bits, and the values equal a
+server's without EPLB on the same seed) and adopts the placement once,
+layer by layer; a process of a ``DistComm`` keeps the rows of its own
+slots. ``params_from_jax`` takes a physical tree as the spec says.
 """
 from __future__ import annotations
 
@@ -23,6 +30,9 @@ import math
 import numpy as np
 import torch
 
+import dataclasses
+
+from repro_torch.core import placement as PL
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.moe import ep_active
@@ -60,7 +70,9 @@ def _shard_leaf(path, t: torch.Tensor, cfg: ArchConfig, comm) -> torch.Tensor:
         return t
     if len(comm.ranks) == comm.size and comm.tp_axis is None:
         return t                             # every rank is hosted here
-    L = cfg.moe.num_experts // comm.size
+    m = cfg.moe
+    L = (m.placement.num_slots if m.params_physical and m.placement is not None
+         else m.num_experts) // comm.size
     e_dim = t.dim() - 3                      # after a stacked layer dim, if any
     t = t.narrow(e_dim, comm.ranks[0] * L, len(comm.ranks) * L)
     if comm.tp_axis is not None:
@@ -76,8 +88,8 @@ def _shard_leaf(path, t: torch.Tensor, cfg: ArchConfig, comm) -> torch.Tensor:
 
 def shard_params(params, cfg: ArchConfig, comm):
     """This process's part of the full tree ``params`` (``init_params`` or
-    ``params_from_jax``): the experts [r*L, (r+1)*L) of each hosted EP rank
-    r, their F-slice at its ``model`` coordinate under expert-TP, the rest
+    ``params_from_jax``): the experts (physical mode: the slots) [r*L,
+    (r+1)*L) of each hosted EP rank r, their F-slice at its ``model`` coordinate under expert-TP, the rest
     as it is. A ``LocalComm`` hosts every rank: its part is the whole tree.
     Leaves that are not cut are the same tensors."""
     out: dict = {}
@@ -97,24 +109,38 @@ def _draw(shape, s, gen, dev) -> torch.Tensor:
     return torch.empty(shape, dtype=s.dtype, device=dev).normal_(0.0, std, generator=gen)
 
 
+def _physical(cfg: ArchConfig):
+    """The placement the expert weights of ``cfg`` are laid out for, or
+    None when they are logical."""
+    m = cfg.moe
+    return m.placement if m is not None and m.params_physical else None
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device=None, comm=None):
     """Random parameters for ``cfg``, drawn on ``device`` (CUDA by default);
     with ``comm``, the shard of them this process holds
     (``shard_params(init_params(cfg, seed, device), cfg, comm)``). A leaf of
     stacked experts ([layers, E, D, F]: 7.5 GB a layer at DeepSeek-V3's
     width) is drawn one layer at a time, with or without ``comm``, and each
-    layer is cut to the shard at once, so a process never holds more than
-    one full layer of it beside its shard."""
+    layer is adopted into the physical slot order (under
+    ``params_physical``) and cut to the shard at once, so a process never
+    holds more than one full layer of it beside its shard."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    placement = _physical(cfg)
+    # draw the logical tree: replicas then hold identical bits
+    logical = cfg if placement is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, params_physical=False))
     params: dict = {}
-    for path, s in _leaves(lm_spec(cfg)):
+    for path, s in _leaves(lm_spec(logical)):
         if path[-1] in _EXPERT_F_DIM and len(path) >= 2 and path[-2] == "moe" \
                 and len(s.shape) == 4:
             t = None
             for i in range(s.shape[0]):
                 layer = _draw(s.shape[1:], s, gen, dev)
+                if placement is not None:
+                    layer = PL.expand_expert_params(layer, placement)
                 part = layer if comm is None else _shard_leaf(path, layer, cfg, comm)
                 if t is None:
                     t = torch.empty((s.shape[0],) + tuple(part.shape), dtype=s.dtype,
@@ -124,6 +150,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None, comm=None):
             _set(params, path, t)
         else:
             t = _draw(s.shape, s, gen, dev)
+            if placement is not None and s.axes is not None and "expert" in s.axes:
+                t = PL.expand_expert_params(t, placement, s.axes.index("expert"))
             _set(params, path, t if comm is None else _shard_leaf(path, t, cfg, comm))
         del t
     return params

@@ -121,6 +121,24 @@ def test_cuda_grouped_gemm_and_combine(hopper, dt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("H,F", [(6144, 10752), (10752, 6144), (1024, 128 * 70)],
+                         ids=["dbrx-gate", "dbrx-down", "h1024"])
+def test_cuda_grouped_gemm_rows_do_not_depend_on_the_slot_count(hopper, H, F):
+    """EPLB changes the experts a rank holds (L), so which tiles the stream
+    schedule splits; the first two experts' rows at L = 3 must be bitwise
+    those at L = 2 (the fixed segment fold)."""
+    dt = torch.bfloat16
+    x = _rand((3, 128, H), dt, hopper, 0.5, 21)
+    w = _rand((3, H, F), dt, hopper, H ** -0.5, 22)
+    counts = torch.tensor([128, 41, 97], device=hopper, dtype=torch.int32)
+    out3 = gg.grouped_gemm(x, w, counts)
+    out2 = gg.grouped_gemm(x[:2].contiguous(), w[:2].contiguous(), counts[:2].contiguous())
+    assert gg.plan(2, 128, H, F).sk_tiles != gg.plan(3, 128, H, F).sk_tiles
+    assert torch.equal(out3[:2], out2)
+    torch.testing.assert_close(out3, ref.grouped_gemm(x, w, counts), **tol(dt))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("L", [1, 3])
 @pytest.mark.parametrize("A", [128, 136, 1000], ids=["stream", "compute-136", "compute-1000"])
 def test_cuda_grouped_gemm_bf16_schedules(hopper, A, L):

@@ -200,6 +200,15 @@ def test_step_cache_bounded_to_two_placements():
     assert again is srv._step_cache["p2"] and list(srv._step_cache) == ["p3", "p2"]
     srv.close()
     assert len(srv._step_cache) == 1
+    # real swaps: the EPLB hook adopts a table every 2 steps, each with a
+    # compiled step of its own, and keeps the current and the previous one
+    heat = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, track_expert_heat=True))
+    srv = DecodeServer(heat, batch=8, max_len=16, ep_size=N, device="cpu",
+                       rebalance_every=2, num_redundant_experts=8)
+    srv.serve(np.random.default_rng(5).integers(0, cfg.vocab, (8, 2)).astype(np.int32), 10)
+    assert len(srv.placements) >= 3
+    assert list(srv._step_cache) == srv.placements[-2:]
+    assert srv._serve_step is srv._step_cache[srv.placements[-1]]
 
 
 # --------------------------------------------------------------------------

@@ -67,11 +67,15 @@ def test_entry_points_need_cuda_unless_given_cpu(no_cuda):
 def test_unported_options_raise():
     import dataclasses
     cfg = smoke_config()
+    # expert heat and EPLB serve since their slice landed; fault tolerance
+    # is refused until its own (ROADMAP A10b)
     heat = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, track_expert_heat=True))
-    with pytest.raises(NotImplementedError, match="A10"):
-        DecodeServer(heat, batch=8, max_len=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        ContinuousDecodeServer(heat, batch=8, max_len=8, device="cpu", page_size=4)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        DecodeServer(heat, batch=8, max_len=8, device="cpu", fault_injector=object())
+    with pytest.raises(NotImplementedError, match="A10b"):
+        ContinuousDecodeServer(heat, batch=8, max_len=8, device="cpu", page_size=4,
+                               ckpt_dir="ckpt")
+    assert "expert_heat" in DecodeServer(heat, batch=8, max_len=8, device="cpu").state
     # the baseline dispatcher was refused until its backend landed; both
     # servers now run it
     base = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_mode="baseline"))
@@ -81,7 +85,9 @@ def test_unported_options_raise():
     csrv = ContinuousDecodeServer(base, batch=8, max_len=8, ep_size=8, device="cpu",
                                   page_size=4)
     assert csrv.serve_requests([Request(0, [1], 1)]).requests_completed == 1
-    with pytest.raises(TypeError):                # EPLB options are not accepted yet
+    # EPLB options are validated as the reference server does: the heat
+    # drives the rebalancer
+    with pytest.raises(ValueError, match="track_expert_heat"):
         ContinuousDecodeServer(cfg, batch=8, max_len=8, device="cpu", rebalance_every=4)
 
 

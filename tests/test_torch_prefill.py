@@ -217,8 +217,10 @@ def test_prefill_moe_bitwise_equal_to_sequential():
         assert len(pipe) == N and pipe[0].shape == (T, H)
         for a, b in zip(pipe, seq):
             assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="A10"):
-        rebalancing_prefill()
+    # the EPLB prefill driver (tests/test_torch_eplb.py) checks its window
+    with pytest.raises(ValueError, match="rebalance_every=0"):
+        rebalancing_prefill(EpGroupConfig(num_experts=E, max_tokens_per_rank=T, hidden=H,
+                                          top_k=K), None, [], rebalance_every=0, ep_size=N)
 
 
 def test_prefill_moe_matches_jax_prefill():

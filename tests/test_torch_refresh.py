@@ -13,7 +13,8 @@ build's, in every mode. The hierarchical HT plan carries the one
 weight-dependent field, ``h_w_slot``: a refresh rebinds it through
 ``h_entry_slot`` (JAX on a ("pod", "data") mesh of 2 x 4, the port on
 ``LocalComm`` with the same axes). The placement refresh tests of
-``tests/test_refresh.py`` wait for their feature (ROADMAP A10).
+``tests/test_refresh.py`` have their counterparts in
+``tests/test_torch_eplb.py``.
 """
 import dataclasses
 

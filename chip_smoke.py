@@ -139,6 +139,28 @@
    ``rebalancing_decode_loop`` under the contiguous, the rebalanced (R 0)
    and the redundant (R 8) placement: outputs bitwise equal, the largest
    receive a rank against the mean and the experts' card time printed.
+   Then elastic EP (``elastic_phase``): the fixed batch 128 x (8 + 64) in
+   physical mode from the redundant placement (16 redundant slots, every
+   expert on two ranks, 4 slots a rank; the scheduler runs for the
+   detector, with no periodic rebalance), rank 2 killed at step 20 and
+   rejoined at step 44 (``FaultInjector``, ``miss_threshold`` 2), captured
+   and eager: tokens bitwise equal to the serve without EPLB, the
+   recoveries a shrink at step 21 (28 slots on 7 ranks, still 4 a rank)
+   and an expand, no expert lost, no restore, rank 2's row of the degraded
+   table all ``EMPTY``, ``degraded_steps`` the schedule's 23, three
+   distinct fingerprints, at most two cached steps; each transition's repack, adoption and
+   recapture time, the degraded steps' ITL beside the healthy ones' and
+   the peak printed. The continuous serve of step 3's 256 requests under
+   the same schedule: streams and admissions equal, the page tables clean.
+   Last, on a one-layer cut of DBRX at full width (16 experts, 8.3 GiB of
+   weights, the checkpoint's disk write sets the cut), the identity
+   placement: a kill without ``ckpt_dir`` warns ``DegradedRecovery`` and
+   raises; with a checkpoint of step 0 (in a temporary directory under
+   ``build/``, deleted at the end) it restores and serves the
+   uninterrupted tokens; SIGTERM before a ``pipeline_depth=2`` serve
+   drains, checkpoints and returns ``preempted=True`` at the first
+   boundary, its checkpoint restores bitwise with the placement's
+   fingerprint. The free space and each write's and read's GB/s printed.
 
 9. Serves DeepSeek-V3-671B at full width (``configs/deepseek_v3_671b.py``,
    ``decode_32k``: d_model 7168, MLA with 128 heads, 256 experts top-8 with
@@ -258,7 +280,17 @@
    migrated expert rows bitwise equal to its slots of rank 0's
    ``LocalComm`` adoption, the first-step logits under the last table
    within 2e-2 of ``LocalComm(4)``'s; each swap's migration bytes and
-   time printed.
+   time printed. Then ``dist_elastic_phase``: the same serve with 16
+   redundant slots (8 a card) under the floor of 2, rank 2 killed at step
+   20 and rejoined at 44: tokens bitwise equal to the serve without EPLB,
+   every rank's recovery events, alive sets and fingerprints equal
+   (all-gathered), no byte to card 2 in the shrink, the rows after the
+   rejoin bitwise equal to the ``LocalComm`` adoption; a whole-pod kill
+   (pods of two cards, pod 1 at step 20, back at 44): one shrink for
+   ranks 2 and 3, no restore, tokens bitwise equal; SIGTERM raised in
+   rank 1 alone: all four return ``preempted=True`` at one boundary with
+   the same tokens. The control all-reduce's time a call, each
+   migration's bytes and seconds and the degraded ITL printed.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. The last line is
@@ -274,9 +306,13 @@ import gc
 from collections import Counter
 import json
 import pathlib
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -315,7 +351,9 @@ from repro_torch.models.transformer import (_decode_splits, _index,  # noqa: E40
                                             lm_decode_step, lm_paged_decode_step)
 from repro_torch.runtime.decode import (decode_loop, naive_decode_step,  # noqa: E402
                                         pipelined_decode_step, rebalancing_decode_loop)
-from repro_torch.checkpoint import adopt_expert_params  # noqa: E402
+from repro_torch.checkpoint import (adopt_expert_params, latest_step,  # noqa: E402
+                                    restore_checkpoint, save_checkpoint)
+from repro_torch.runtime.fault import DegradedRecovery, FaultInjector  # noqa: E402
 from repro_torch.core import placement as PL  # noqa: E402
 from repro_torch.runtime.prefill import _handle, prefill_moe, sequential_prefill  # noqa: E402
 from repro_torch.models.kv_pages import PageAllocator  # noqa: E402
@@ -958,10 +996,13 @@ def serve_run(srv: DecodeServer, card: str, path: str, mode: str) -> tuple[dict,
     toks = srv.last_tokens
     check(toks.shape == (BATCH, GEN + 1) and toks.min() >= 0 and toks.max() < cfg.vocab,
           f"bad token stream {toks.shape}")
+    # the fault fields count recoveries, of which a serve without faults has none
+    faults = ("degraded_steps", "recovery_count", "checkpoint_restores", "preempted")
     m = {k: v for k, v in metrics.as_dict().items()
-         if v is not None and k != "stragglers_flagged"}
+         if v is not None and k != "stragglers_flagged" and k not in faults}
     check(all(np.isfinite(v) and v > 0 for v in m.values())
-          and metrics.stragglers_flagged >= 0, f"bad metrics {m}")
+          and metrics.stragglers_flagged >= 0
+          and not any(getattr(metrics, k) for k in faults), f"bad metrics {metrics.as_dict()}")
     graph = ""
     if mode == "captured":
         check(srv._serve_step.graph is not None, f"the {path} server captured no graph")
@@ -3553,7 +3594,7 @@ def gemm_slot_phase(cfg, params, card: str) -> None:
     print(f"grouped_gemm over the slot counts of EPLB ({card}): " + "; ".join(parts))
 
 
-def eplb_phase(cfg, params, card: str, reqs, want: dict, admissions) -> None:
+def eplb_phase(cfg, params, card: str, reqs, want: dict, admissions) -> np.ndarray:
     """EPLB through both servers on one card (the reference's serving example:
     track_expert_heat, rebalance_every=16, num_redundant_experts=8): the
     fixed batch without EPLB as the reference; with EPLB in logical mode
@@ -3561,7 +3602,7 @@ def eplb_phase(cfg, params, card: str, reqs, want: dict, admissions) -> None:
     physical mode (adopt-once: the weights rebound in place at each swap),
     each captured and eager; the continuous serve of the continuous phase's
     requests in both modes, captured; then the skewed EP layer. Leaves
-    ``params`` logical. Prints the ITL of the steps just after a swap apart
+    ``params`` logical; returns the reference's tokens. Prints the ITL of the steps just after a swap apart
     from the rest, each recapture's and adoption's time, the peaks and the
     heat's max/mean before and after the first swap."""
     t0 = time.perf_counter()
@@ -3605,6 +3646,365 @@ def eplb_phase(cfg, params, card: str, reqs, want: dict, admissions) -> None:
               f"{cs['launches']}")
     eplb_layer_phase(cfg, params, card)
     print(f"EPLB phase {time.perf_counter() - t0:.1f} s")
+    return base
+
+
+# ---------------------------------------------------------------------------
+# elastic EP: rank death, shrink and re-expand, checkpoints, preemption
+# ---------------------------------------------------------------------------
+
+# the elastic serves: R = E redundant slots (every expert on two ranks);
+# rank ELASTIC_DEAD dies at step ELASTIC_KILL and rejoins at ELASTIC_REJOIN,
+# and is declared dead after ELASTIC_MISS silent boundaries. On one card the
+# serves start from the redundant placement with no periodic rebalance and
+# no floor: a floor of 2 on 7 survivors needs 35 slots, 5 a rank (63 GB of
+# experts at 4 layers, beside the 51 GB of 4 a rank), where without it the
+# survivors hold 28, still 4 a rank. Four cards take the floor
+# (ELASTIC_MIN) and a rebalance every EPLB_EVERY steps
+ELASTIC_R, ELASTIC_MIN, ELASTIC_MISS = 16, 2, 2
+ELASTIC_KILL, ELASTIC_REJOIN, ELASTIC_DEAD = 20, 44, 2
+# the checkpoint cut: one of DBRX's layers at full width (16 experts,
+# 8.3 GiB), its disk write sets the size; a kill at CKPT_KILL, declared at
+# once, over CKPT_GEN steps
+CKPT_LAYERS, CKPT_GEN, CKPT_KILL = 1, 8, 2
+CKPT_MAX_LEN = PROMPT + CKPT_GEN + 2
+
+
+def elastic_injector(n: int, **kw) -> FaultInjector:
+    if kw:
+        return FaultInjector(n, **kw)
+    return FaultInjector(n, kill={ELASTIC_KILL: ELASTIC_DEAD},
+                         rejoin={ELASTIC_REJOIN: ELASTIC_DEAD})
+
+
+def elastic_degraded_steps() -> int:
+    """The reference's count for the schedule: a rank killed at step k last
+    heartbeats at k - 1 and is declared dead at boundary k + miss - 1; its
+    heartbeat at the rejoin step is seen there; every boundary in between
+    counts as served degraded."""
+    return ELASTIC_REJOIN - (ELASTIC_KILL + ELASTIC_MISS - 1)
+
+
+def transitions(srv) -> list:
+    """Wrap ``srv._recover`` to keep each transition's (table before, table
+    after)."""
+    out, recover = [], srv._recover
+
+    def rec(i, report):
+        before = srv.cfg.moe.placement
+        recover(i, report)
+        out.append((before, srv.cfg.moe.placement))
+    srv._recover = rec
+    return out
+
+
+def check_elastic(srv, trans, where: str, dead=(ELASTIC_DEAD,)) -> None:
+    """The recoveries of a kill at ELASTIC_KILL and a rejoin at
+    ELASTIC_REJOIN: a shrink at the boundary after the kill's, an expand,
+    nothing lost or restored, the dead rows all EMPTY, the degraded steps
+    the schedule's, three distinct tables, at most two cached steps."""
+    ev = srv.recoveries
+    check([e["kind"] for e in ev] == ["shrink", "expand"], f"{where}: recoveries "
+          f"{[(e['kind'], e['step']) for e in ev]}")
+    check(ev[0]["step"] == ELASTIC_KILL + ELASTIC_MISS - 1 and ev[0]["died"] == list(dead)
+          and ev[1]["step"] == ELASTIC_REJOIN and ev[1]["rejoined"] == list(dead),
+          f"{where}: the shrink or expand at the wrong step: {ev}")
+    check(all(e["lost_experts"] == [] and e["restored_from"] is None for e in ev)
+          and srv._ckpt_restores == 0, f"{where}: a recovery lost experts or restored")
+    deg = trans[0][1]
+    check(deg.dead_ranks() == tuple(dead)
+          and all(e == PL.EMPTY for r in dead for e in deg.slot_expert[r]),
+          f"{where}: the degraded table gives the dead ranks slots: {deg.slot_expert}")
+    check(srv._degraded_steps == elastic_degraded_steps(),
+          f"{where}: {srv._degraded_steps} degraded steps, the schedule's "
+          f"{elastic_degraded_steps()}")
+    fps = {p.fingerprint() for p in (trans[0][0], trans[0][1], trans[1][1])}
+    check(len(fps) == 3, f"{where}: the transitions' fingerprints repeat")
+    check(len(srv._step_cache) <= 2, f"{where}: {len(srv._step_cache)} cached steps")
+    check(srv._detector.alive == tuple(range(srv._detector.num_ranks)),
+          f"{where}: alive {srv._detector.alive} at the end")
+
+
+def elastic_itls(itls, ev, every: int) -> tuple[float, float, list]:
+    """(the degraded steps' ITL mean, the healthy steps', the ITL of the
+    step after each transition), the steps after a swap (every ``every``
+    steps; 0: none) or a transition (they warm up and capture a step)
+    apart."""
+    swaps = ({i for i in range(len(itls)) if (i + 1) % every == 0} if every else set()) \
+        | {e["step"] for e in ev}
+    after = {i + 1 for i in swaps}
+    lo, hi = ev[0]["step"] + 1, ev[1]["step"]
+    deg = [t for i, t in enumerate(itls) if lo <= i <= hi and i not in after]
+    ok = [t for i, t in enumerate(itls) if not lo <= i <= hi and i not in after]
+    return (float(np.mean(deg)), float(np.mean(ok)),
+            [float(itls[e["step"] + 1]) for e in ev if e["step"] + 1 < len(itls)])
+
+
+def elastic_cfg(cfg, params):
+    """``cfg`` physical from the redundant placement, and ``params`` (logical)
+    adopted into it in place."""
+    pl = PL.redundant_placement(cfg.moe.num_experts, RANKS, ELASTIC_R)
+    c = eplb_cfg(cfg, True)
+    adopt_expert_params(params, tf_mod.lm_spec(c), None, pl)
+    return dataclasses.replace(c, moe=dataclasses.replace(c.moe, placement=pl))
+
+
+def elastic_fixed_run(cfg, params, card: str, mode: str, want: np.ndarray) -> dict:
+    """DecodeServer over 8 hosted ranks, physical from the redundant
+    placement, the fault schedule, captured or eager. Leaves ``params``
+    logical."""
+    tr = Tracer()
+    cfg = elastic_cfg(cfg, params)
+    srv = DecodeServer(cfg, BATCH, EPLB_MAX_LEN, ep_size=RANKS, params=params,
+                       num_redundant_experts=ELASTIC_R, fault_injector=elastic_injector(RANKS),
+                       miss_threshold=ELASTIC_MISS, tracer=tr)
+    made = []
+    if mode == "eager":
+        srv._compiled_step = srv._step_factory
+        srv._serve_step = srv._step_factory()
+    else:
+        compiled = srv._compiled_step
+
+        def record_step():
+            step = compiled()
+            made.append((srv.cfg.moe.placement, step))
+            return step
+        srv._compiled_step = record_step
+        made.append((cfg.moe.placement, srv._serve_step))
+    trans = transitions(srv)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    m = srv.serve(serve_prompts(cfg.vocab), EPLB_GEN)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    check(np.array_equal(srv.last_tokens, want), f"the elastic serve ({mode}) differs "
+          f"from the serve without EPLB: first at (row, step) "
+          f"{np.argwhere(srv.last_tokens != want)[:1].tolist()}")
+    check_elastic(srv, trans, f"the elastic fixed serve ({mode})")
+    check(m.degraded_steps == elastic_degraded_steps() and m.recovery_count == 2
+          and m.checkpoint_restores == 0 and m.alive_ranks == list(range(RANKS))
+          and not m.preempted, f"the elastic serve's metrics {m.as_dict()}")
+    if mode == "eager":
+        steps = PROMPT + EPLB_GEN
+    else:
+        ran = [st for _, st in made if st.graph is not None]
+        steps = 2 * len(ran)
+        check(len(made) == 1 + len(srv.placements) and len(made) - len(ran) <= 1,
+              f"{len(ran)} captured of {len(made)} compiled steps for "
+              f"{len(srv.placements)} adoptions")
+    check_ep_counts(launches, cfg, steps, f"the elastic {mode} serve")
+    caps = {pl: st.capture_s for pl, st in made}
+    deg, ok, after = elastic_itls(srv.last_itls, srv.recoveries, 0)
+    summ = tr.summary()
+    out = dict(tokens=srv.last_tokens, deg_itl=deg, itl=ok, after=after, wall=wall,
+               events=[(e["kind"], e["step"], e["phases"].get("repack_s", 0.0),
+                        e["phases"].get("adopt_s", 0.0), caps.get(after_pl))
+                       for e, (_, after_pl) in zip(srv.recoveries, trans)],
+               fps=[p.fingerprint() for p in (trans[0][0], trans[0][1], trans[1][1])],
+               spans={k: summ[k]["count"] for k in ("fault_poll", "recover:shrink",
+                                                    "recover:expand", "recover:repack",
+                                                    "recover:adopt", "placement_swap")
+                      if k in summ},
+               slots=trans[0][1].slots_per_rank, latency=m.recovery_latency_s,
+               peak=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+    srv.close()
+    to_logical(params, srv.cfg)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_continuous_run(cfg, params, reqs, want: dict, admissions) -> dict:
+    """ContinuousDecodeServer, captured, physical from the redundant
+    placement, the fault schedule: streams and admissions equal to the
+    serve without EPLB, the page tables clean. Leaves ``params`` logical."""
+    cfg = elastic_cfg(cfg, params)
+    srv = ContinuousDecodeServer(cfg, BATCH, CMAX_LEN, ep_size=RANKS, params=params,
+                                 page_size=PAGE, num_redundant_experts=ELASTIC_R,
+                                 fault_injector=elastic_injector(RANKS),
+                                 miss_threshold=ELASTIC_MISS)
+    trans = transitions(srv)
+    torch.cuda.reset_peak_memory_stats()
+    m = srv.serve_requests(reqs)
+    toks = served_tokens(cfg, srv, m, reqs)
+    check(all(np.array_equal(t, want[r.rid]) for r, t in zip(reqs, toks)),
+          "the elastic continuous serve's streams differ from the serve without EPLB")
+    check(list(srv.reqsched.admissions) == list(admissions),
+          "the elastic continuous serve admitted otherwise than the serve without EPLB")
+    sched = srv.reqsched
+    check(bool(np.all(sched._tbl == sched.alloc.pad_page)) and not sched._active.any(),
+          "the elastic continuous serve left page-table rows or active slots")
+    check_elastic(srv, trans, "the elastic continuous serve")
+    out = dict(steps=m.serve_steps, itl=m.itl_mean_s, tok_s=m.output_tok_s,
+               degraded=m.degraded_steps, latency=m.recovery_latency_s,
+               events=[(e["kind"], e["step"]) for e in srv.recoveries],
+               peak=torch.cuda.max_memory_allocated() / 2**30)
+    srv.close()
+    to_logical(params, srv.cfg)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.nbytes for t in leaves(tree))
+
+
+def ckpt_phase(card: str) -> None:
+    """Checkpoints and preemption on CKPT_LAYERS of DBRX at full width, the
+    identity placement (no replica), fresh weights from seed 0: (a) a kill
+    without ``ckpt_dir`` warns DegradedRecovery and raises; (b) with step
+    0's checkpoint the kill restores (rebound to the degraded table) and
+    the tokens equal the uninterrupted serve's; (c) SIGTERM before a
+    pipelined serve drains, checkpoints and returns preempted at the first
+    boundary, and that checkpoint restores bitwise."""
+    t0 = time.perf_counter()
+    full = full_config("decode_32k")
+    base_cfg = eplb_cfg(dataclasses.replace(full, num_layers=CKPT_LAYERS), True)
+    pl = PL.identity_placement(base_cfg.moe.num_experts, RANKS)
+    cfg = dataclasses.replace(base_cfg, moe=dataclasses.replace(base_cfg.moe, placement=pl))
+    params = init_params(cfg, 0, DEV)
+    nbytes = tree_bytes(params)
+    work = _build.BUILD_DIR.parent
+    work.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(work).free
+    check(free > 3 * nbytes, f"{free / 2**30:.1f} GiB free under build/: the checkpoints "
+          f"need {3 * nbytes / 2**30:.1f} GiB")
+    prompts = serve_prompts(cfg.vocab)
+    srv = DecodeServer(cfg, BATCH, CKPT_MAX_LEN, ep_size=RANKS, params=params)
+    srv.serve(prompts, CKPT_GEN)
+    base = srv.last_tokens
+    srv.close()
+    # (a) no replica, no checkpoint: warned, raised
+    srv = DecodeServer(cfg, BATCH, CKPT_MAX_LEN, ep_size=RANKS, params=params,
+                       fault_injector=FaultInjector(RANKS, kill={CKPT_KILL: ELASTIC_DEAD}),
+                       miss_threshold=1)
+    raised = ""
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        try:
+            srv.serve(prompts, CKPT_GEN)
+        except RuntimeError as e:          # the raise this check expects
+            raised = str(e)
+    srv.close()
+    warned = [str(w.message) for w in got if issubclass(w.category, DegradedRecovery)]
+    check("unrecoverable" in raised and any("lost every replica" in w for w in warned),
+          f"the no-replica kill without a checkpoint: raised {raised!r}, warned {warned}")
+    check(srv.recoveries[-1]["lost_experts"] == [2 * ELASTIC_DEAD, 2 * ELASTIC_DEAD + 1],
+          f"lost experts {srv.recoveries[-1]['lost_experts']}")
+    del srv
+    d = pathlib.Path(tempfile.mkdtemp(prefix="ckpt_", dir=work))
+    try:
+        # (b) the same kill, restored from step 0's checkpoint
+        t = time.perf_counter()
+        save_checkpoint(d, 0, params, placement=pl)
+        write_s = time.perf_counter() - t
+        srv = DecodeServer(cfg, BATCH, CKPT_MAX_LEN, ep_size=RANKS, params=params,
+                           fault_injector=FaultInjector(RANKS, kill={CKPT_KILL: ELASTIC_DEAD}),
+                           miss_threshold=1, ckpt_dir=str(d))
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            srv.serve(prompts, CKPT_GEN)
+        warned = [str(w.message) for w in got if issubclass(w.category, DegradedRecovery)]
+        ev = srv.recoveries[0]
+        check(any("restoring from checkpoint step 0" in w for w in warned)
+              and ev["restored_from"] == 0 and srv._ckpt_restores == 1,
+              f"the restore: warned {warned}, event {ev}")
+        check(np.array_equal(srv.last_tokens, base), "the restored serve's tokens differ "
+              f"from the uninterrupted serve: first at (row, step) "
+              f"{np.argwhere(srv.last_tokens != base)[:1].tolist()}")
+        deg = srv.cfg.moe.placement
+        read_s = ev["phases"]["restore_s"]
+        restored_bytes = tree_bytes(srv.params)
+        srv.close()
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(d)
+        d.mkdir()
+        # (c) SIGTERM before a pipelined serve
+        srv = DecodeServer(cfg, BATCH, CKPT_MAX_LEN, ep_size=RANKS, params=params,
+                           pipeline_depth=2, ckpt_dir=str(d))
+        signal.raise_signal(signal.SIGTERM)
+        t = time.perf_counter()
+        m = srv.serve(prompts, CKPT_GEN)
+        serve_s = time.perf_counter() - t
+        srv.close()
+        step = latest_step(d)
+        check(m.preempted and srv.last_tokens.shape[1] == 2 and step == 1,
+              f"the preemption: preempted {m.preempted}, tokens {srv.last_tokens.shape}, "
+              f"checkpoint step {step}")
+        check(np.array_equal(srv.last_tokens, base[:, :2]),
+              "the preempted serve's tokens differ from the uninterrupted serve's")
+        t = time.perf_counter()
+        restored, idx = restore_checkpoint(d, step, tf_mod.lm_spec(cfg), placement=pl,
+                                           device=DEV)
+        torch.cuda.synchronize()
+        read2_s = time.perf_counter() - t
+        same = all(torch.equal(a, b) for a, b in zip(leaves(srv.params), leaves(restored)))
+        check(same and idx["expert_layout"]["fingerprint"] == pl.fingerprint()
+              and idx["extra"]["preempted"], "the preemption's checkpoint does not restore "
+              "the server's params bitwise under the placement's fingerprint")
+        del restored, srv
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    gb = nbytes / 1e9
+    print(f"elastic checkpoints ({card}): DBRX-132B at full width, {CKPT_LAYERS} of "
+          f"{full.num_layers} layers (the checkpoint's disk write sets the cut), "
+          f"{base_cfg.moe.num_experts} experts over {RANKS} ranks, identity placement, "
+          f"{nbytes / 2**30:.2f} GiB of weights, {BATCH} x ({PROMPT} + {CKPT_GEN}); "
+          f"{free / 2**30:.1f} GiB free under build/ before the writes; (a) a kill of rank "
+          f"{ELASTIC_DEAD} at step {CKPT_KILL} without ckpt_dir warned DegradedRecovery and "
+          f"raised RuntimeError; (b) with step 0's checkpoint (written in {write_s:.2f} s, "
+          f"{gb / write_s:.3f} GB/s) the kill restored it rebound to the degraded table "
+          f"({deg.slots_per_rank} slots a rank, {restored_bytes / 2**30:.2f} GiB; read and "
+          f"rebound in {read_s:.2f} s, {gb / read_s:.3f} GB/s, warm page cache) and the "
+          f"tokens equal the uninterrupted serve's; (c) SIGTERM before a pipeline_depth=2 "
+          f"serve: preempted at the first boundary, its checkpoint written within the "
+          f"serve's {serve_s:.2f} s, restored to the card in {read2_s:.2f} s "
+          f"({gb / read2_s:.3f} GB/s, warm) bitwise equal, its fingerprint the "
+          f"placement's; {time.perf_counter() - t0:.1f} s")
+
+
+def elastic_phase(cfg, params, card: str, reqs, want: dict, admissions,
+                  base: np.ndarray) -> None:
+    """Elastic EP through both servers on one card (LocalComm(8)): the fixed
+    batch captured and eager and the continuous serve under the fault
+    schedule, then the checkpoint cut. ``base`` is eplb_phase's serve
+    without EPLB. Leaves ``params`` logical."""
+    t0 = time.perf_counter()
+    runs = {m: elastic_fixed_run(cfg, params, card, m, base) for m in ("captured", "eager")}
+    check(runs["captured"]["fps"] == runs["eager"]["fps"],
+          "elastic: captured and eager adopted other tables")
+    for m, r in runs.items():
+        ev = "; ".join(f"{k} at step {st}: repack {rp:.4f} s, adopt {ad:.4f} s"
+                       + (f", recapture {cp:.4f} s" if cp is not None else "")
+                       for k, st, rp, ad, cp in r["events"])
+        after = ", ".join(f"{x:.5f}" for x in r["after"])
+        print(f"elastic fixed serve, {m} ({card}): {BATCH} x ({PROMPT} + {EPLB_GEN}), "
+              f"physical from the redundant placement ({ELASTIC_R} redundant slots), no "
+              f"periodic rebalance ({r['slots']} slots a rank degraded), rank {ELASTIC_DEAD} killed "
+              f"at step {ELASTIC_KILL} and rejoined at {ELASTIC_REJOIN} (miss threshold "
+              f"{ELASTIC_MISS}); tokens bitwise equal to the serve without EPLB; {ev}; "
+              f"{elastic_degraded_steps()} degraded steps, itl mean {r['deg_itl']:.5f} s "
+              f"degraded against {r['itl']:.5f} s healthy, the step after each transition "
+              f"{after} s; recovery {r['latency']:.4f} s in all; fingerprints {r['fps']}; "
+              f"spans {r['spans']}; peak {r['peak']:.2f} GiB; {r['wall']:.1f} s; launches "
+              f"{r['launches']}")
+    cs = elastic_continuous_run(cfg, params, reqs, want, admissions)
+    print(f"elastic continuous serve, captured ({card}): {len(reqs)} requests, "
+          f"{cs['steps']} steps, {cs['tok_s']:.1f} output tok/s, itl mean {cs['itl']:.5f} s; "
+          f"recoveries {cs['events']}, {cs['degraded']} degraded steps, recovery "
+          f"{cs['latency']:.4f} s; streams bitwise equal to the serve without EPLB, "
+          f"admissions equal, page tables clean; peak {cs['peak']:.2f} GiB")
+    ckpt_phase(card)
+    print(f"elastic phase {time.perf_counter() - t0:.1f} s")
 
 
 # the dist phase's continuous serve: DIST_REQUESTS requests of
@@ -4094,7 +4494,7 @@ def dist_eplb_phase(cfg, comm, dev, rank: int) -> dict:
     logits = step0_logits(srv.cfg, srv.params, comm, dev)
     pl, pcfg = srv.cfg.moe.placement, srv.cfg
     rows = {k: srv.params["moe_stack"]["moe"][k] for k in EXPERT_KEYS}
-    out = dict(ep=comm.size, itl=m.itl_mean_s, base_itl=base_itl, ttft=m.ttft_s,
+    out = dict(ep=comm.size, itl=m.itl_mean_s, base_itl=base_itl, ttft=m.ttft_s, base=base,
                placements=[(p.version, p.fingerprint()) for p in pls],
                migrations=srv.migrations, heat=m.heat_max_mean, rank_heat=m.rank_heat_max_mean,
                launches=launches, slots=pl.slots_per_rank, model=model_label(cfg))
@@ -4102,19 +4502,7 @@ def dist_eplb_phase(cfg, comm, dev, rank: int) -> dict:
     del srv
     gc.collect()
     torch.cuda.empty_cache()
-    full = None
-    if rank == 0:
-        full = init_params(cfg, 0, dev)
-        adopt_expert_params(full, tf_mod.lm_spec(cfg), None, pl)
-    me, S = comm.ranks[0], pl.slots_per_rank
-    same = True
-    for k in EXPERT_KEYS:
-        shape = (rows[k].shape[0], pl.num_slots) + tuple(rows[k].shape[2:])
-        buf = (full["moe_stack"]["moe"][k] if rank == 0 else
-               torch.empty(shape, dtype=rows[k].dtype, device=dev))
-        dist.broadcast(buf, src=0)
-        same &= torch.equal(rows[k], buf[:, me * S:(me + 1) * S])
-        del buf
+    same, full = rows_equal_local(cfg, pl, rows, comm, dev, rank)
     check(same, f"rank {rank}'s migrated expert rows differ from its slots of the "
           "LocalComm adoption")
     out["rows_equal"] = same
@@ -4131,6 +4519,175 @@ def dist_eplb_phase(cfg, comm, dev, rank: int) -> dict:
     dist.barrier()
     out["peak_gib"], out["seconds"] = dist_peak(), time.perf_counter() - t
     return out
+
+
+def rows_equal_local(cfg, pl, rows: dict, comm, dev, rank: int) -> tuple:
+    """Each card's expert rows against its slots of rank 0's LocalComm
+    adoption of ``pl`` (the full logical tree drawn from seed 0, each leaf
+    broadcast in turn). Returns (equal, rank 0's adopted tree or None)."""
+    full = None
+    if rank == 0:
+        full = init_params(cfg, 0, dev)
+        adopt_expert_params(full, tf_mod.lm_spec(cfg), None, pl)
+    me, S = comm.ranks[0], pl.slots_per_rank
+    same = True
+    for k in EXPERT_KEYS:
+        shape = (rows[k].shape[0], pl.num_slots) + tuple(rows[k].shape[2:])
+        buf = (full["moe_stack"]["moe"][k] if rank == 0 else
+               torch.empty(shape, dtype=rows[k].dtype, device=dev))
+        dist.broadcast(buf, src=0)
+        same &= torch.equal(rows[k], buf[:, me * S:(me + 1) * S])
+        del buf
+    return same, full
+
+
+# the four-card elastic serves: R = E, 8 slots a card, the floor of 2; the
+# whole-pod kill's pods of two cards; SIGTERM in DIST_SIGTERM_RANK at its
+# decode step DIST_SIGTERM_STEP; control all-reduces timed
+DIST_ELASTIC_R, DIST_POD = 16, 2
+DIST_SIGTERM_RANK, DIST_SIGTERM_STEP, CONTROL_CALLS = 1, 10, 200
+
+
+def dist_elastic_serve(c, comm, dev, base: np.ndarray, where: str, **kw) -> tuple:
+    """One DistComm serve with the EPLB hook, the floor and a fault
+    schedule; its tokens must equal ``base``. Returns (server, metrics)."""
+    params = init_params(c, 0, dev, comm=comm)
+    srv = DecodeServer(c, BATCH, EPLB_MAX_LEN, comm=comm, params=params, device=dev,
+                       rebalance_every=EPLB_EVERY, num_redundant_experts=DIST_ELASTIC_R,
+                       min_replicas=ELASTIC_MIN, miss_threshold=ELASTIC_MISS, **kw)
+    trans = transitions(srv)
+    m = srv.serve(serve_prompts(c.vocab), EPLB_GEN)
+    check(np.array_equal(srv.last_tokens, base), f"{where}: tokens differ from the serve "
+          f"without EPLB: first at (row, step) "
+          f"{np.argwhere(srv.last_tokens != base)[:1].tolist()}")
+    mine = dict(events=[{k: v for k, v in e.items() if k not in ("latency_s", "phases")}
+                        for e in srv.recoveries],
+                alive=list(srv._detector.alive),
+                fps=[p.fingerprint() for p in srv.placements])
+    every = [None] * comm.size
+    dist.all_gather_object(every, mine)
+    check(all(e == mine for e in every), f"{where}: the ranks' recovery events, alive sets "
+          f"or fingerprints differ")
+    return srv, m, trans
+
+
+def dist_elastic_phase(cfg, comm, dev, rank: int, base: np.ndarray) -> dict:
+    """DBRX's elastic serves at one EP rank a card over NCCL (physical,
+    rebalance every EPLB_EVERY, DIST_ELASTIC_R redundant slots, the floor
+    of 2, captured), each against ``base``, dist_eplb_phase's serve without
+    EPLB: rank ELASTIC_DEAD killed and rejoined (no byte to it in the
+    shrink, the rows after the rejoin bitwise equal to the LocalComm
+    adoption), a whole pod killed and rejoined, SIGTERM in one rank."""
+    dist.barrier()
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    c = eplb_cfg(cfg, True)
+    out = dict(ep=comm.size, model=model_label(cfg))
+    # the control all-reduce's time a call
+    comm.control_max([0] * (1 + comm.size))
+    t0 = time.perf_counter()
+    for _ in range(CONTROL_CALLS):
+        comm.control_max([0] * (1 + comm.size))
+    out["control_ms"] = (time.perf_counter() - t0) / CONTROL_CALLS * 1e3
+    # one rank killed and rejoined
+    srv, m, trans = dist_elastic_serve(c, comm, dev, base, "the four-card elastic serve",
+                                       fault_injector=elastic_injector(comm.size))
+    check_elastic(srv, trans, f"the four-card elastic serve (rank {rank})")
+    moves = [mv for mv in srv.migrations if mv["kind"] in ("shrink", "expand")]
+    got = [None] * comm.size
+    dist.all_gather_object(got, [mv["bytes_received"] for mv in moves])
+    check(got[ELASTIC_DEAD][0] == 0, f"the shrink moved {got[ELASTIC_DEAD][0]} bytes to "
+          f"card {ELASTIC_DEAD}")
+    out["dead_received"] = got[ELASTIC_DEAD]
+    out["moves"] = [(mv["kind"], mv["step"], mv["bytes_sent"], mv["bytes_received"],
+                     mv["seconds"]) for mv in srv.migrations]
+    deg, ok, after = elastic_itls(srv.last_itls, srv.recoveries, EPLB_EVERY)
+    out.update(deg_itl=deg, itl=ok, after=after, slots=trans[0][1].slots_per_rank,
+               latency=m.recovery_latency_s, degraded=m.degraded_steps,
+               events=[(e["kind"], e["step"]) for e in srv.recoveries])
+    pl = srv.cfg.moe.placement
+    rows = {k: srv.params["moe_stack"]["moe"][k] for k in EXPERT_KEYS}
+    srv.close()
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    same, full = rows_equal_local(cfg, pl, rows, comm, dev, rank)
+    check(same, f"rank {rank}'s expert rows after the rejoin differ from its slots of the "
+          "LocalComm adoption")
+    del full, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a whole pod killed and rejoined
+    dom = PL.domains_from_geometry(comm.size, DIST_POD)
+    pod = dom.domain_of[ELASTIC_DEAD]
+    srv, m, trans = dist_elastic_serve(
+        c, comm, dev, base, "the four-card whole-pod serve", fault_domains=dom,
+        fault_injector=elastic_injector(comm.size, domains=dom,
+                                        kill_domains={ELASTIC_KILL: pod},
+                                        rejoin_domains={ELASTIC_REJOIN: pod}))
+    check_elastic(srv, trans, f"the four-card whole-pod serve (rank {rank})",
+                  dead=dom.ranks_in(pod))
+    out["pod"] = dict(events=[(e["kind"], e["step"], e["died"] or e["rejoined"])
+                              for e in srv.recoveries],
+                      slots=trans[0][1].slots_per_rank,
+                      deg_itl=elastic_itls(srv.last_itls, srv.recoveries, EPLB_EVERY)[0],
+                      latency=m.recovery_latency_s)
+    srv.close()
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    # SIGTERM in one rank
+    params = init_params(c, 0, dev, comm=comm)
+    srv = DecodeServer(c, BATCH, EPLB_MAX_LEN, comm=comm, params=params, device=dev)
+    inner, calls = srv.step, []
+
+    def step(tok):
+        calls.append(1)
+        if rank == DIST_SIGTERM_RANK and len(calls) == PROMPT + DIST_SIGTERM_STEP:
+            signal.raise_signal(signal.SIGTERM)
+        return inner(tok)
+    srv.step = step
+    m = srv.serve(serve_prompts(c.vocab), EPLB_GEN)
+    srv.close()
+    got = [None] * comm.size
+    dist.all_gather_object(got, (m.preempted, srv.last_tokens.shape[1], len(calls)))
+    n = srv.last_tokens.shape[1]
+    check(all(g == got[0] for g in got) and got[0][0] and n < EPLB_GEN + 1,
+          f"the ranks stopped apart after SIGTERM in rank {DIST_SIGTERM_RANK}: {got}")
+    check(np.array_equal(srv.last_tokens, base[:, :n]),
+          "the preempted serve's tokens differ from the serve without EPLB")
+    out["sigterm"] = dict(tokens=n, steps=len(calls) - PROMPT)
+    del srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["peak_gib"], out["seconds"] = dist_peak(), time.perf_counter() - t
+    return out
+
+
+def elastic_dist_line(e: dict, who: str, label: str, card: str) -> None:
+    moves = "; ".join(f"{k} after step {st}: {sent / 2**30:.3f} GiB sent, {got / 2**30:.3f} "
+                      f"GiB received, {sec:.3f} s" for k, st, sent, got, sec in e["moves"])
+    after = ", ".join(f"{x:.5f}" for x in e["after"])
+    p = e["pod"]
+    print(f"dist ({label}) elastic DecodeServer(comm=DistComm), {who}, EP extent {e['ep']}, "
+          f"{e['model']}, physical, rebalance every {EPLB_EVERY}, {DIST_ELASTIC_R} redundant "
+          f"slots, floor {ELASTIC_MIN}, {BATCH} x ({PROMPT} + {EPLB_GEN}), captured ({card}): "
+          f"the control all-reduce (gloo, {1 + e['ep']} integers) {e['control_ms']:.4f} ms a "
+          f"call; rank {ELASTIC_DEAD} killed at step {ELASTIC_KILL}, rejoined at "
+          f"{ELASTIC_REJOIN}: recoveries {e['events']}, tokens bitwise equal to the serve "
+          f"without EPLB, every rank's events, alive sets and fingerprints equal, card "
+          f"{ELASTIC_DEAD} received {e['dead_received']} bytes in the (shrink, expand), the "
+          f"rows after the rejoin bitwise equal to the LocalComm adoption; migrations "
+          f"{moves}; {e['degraded']} degraded steps ({e['slots']} slots a card), itl mean "
+          f"{e['deg_itl']:.5f} s degraded against {e['itl']:.5f} s healthy, the step after "
+          f"each transition {after} s, recovery {e['latency']:.4f} s in all; whole pod "
+          f"killed and rejoined: {p['events']}, one shrink, no restore, tokens bitwise "
+          f"equal, {p['slots']} slots a card degraded, itl mean {p['deg_itl']:.5f} s "
+          f"degraded, recovery {p['latency']:.4f} s; SIGTERM in rank {DIST_SIGTERM_RANK} "
+          f"at its decode step {DIST_SIGTERM_STEP}: every rank preempted after "
+          f"{e['sigterm']['steps']} steps with {e['sigterm']['tokens']} tokens a row; peak "
+          f"{e['peak_gib']:.2f} GiB; {e['seconds']:.1f} s")
 
 
 def eplb_dist_line(e: dict, who: str, label: str, card: str) -> None:
@@ -4208,9 +4765,14 @@ def dist_child(rank: int, world: int, init_method: str, backend: str, card: str,
         out["eplb"] = dist_eplb_phase(cfg, comm, dev, rank)
         eplb_dist_line(out["eplb"], dist_who(out, world), label, card)
         progress(rank, "DBRX's EPLB serve", t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["elastic"] = dist_elastic_phase(cfg, comm, dev, rank, out["eplb"].pop("base"))
+        elastic_dist_line(out["elastic"], dist_who(out, world), label, card)
+        progress(rank, "DBRX's elastic serves", t0)
     else:
-        print(f"dist ({label}) EPLB serve, {dist_who(out, world)}: not run (it runs at EP "
-              "extent > 1 over NCCL, one card a rank)")
+        print(f"dist ({label}) EPLB and elastic serves, {dist_who(out, world)}: not run (they "
+              "run at EP extent > 1 over NCCL, one card a rank)")
     if world == DS_DIST_WORLD and backend == "nccl":
         out["ds"] = ds_dist_phase(comm, dev, rank, dist_who(out, world), label, card)
     faulthandler.cancel_dump_traceback_later()
@@ -4437,7 +4999,8 @@ def main(argv=None) -> int:
     check(sorted(records) == sorted(KERNELS)
           and all(r["launches"] is not None for r in records.values()),
           f"kernel records {sorted(records)}")
-    eplb_phase(cfg, params, card, reqs, want, cadmissions)
+    base = eplb_phase(cfg, params, card, reqs, want, cadmissions)
+    elastic_phase(cfg, params, card, reqs, want, cadmissions, base)
     # DeepSeek-V3 runs alone on the card: every DBRX tensor goes first
     del params, csrv, fixed, reqs, want
     gc.collect()

@@ -1,6 +1,6 @@
-"""Expert-weight rebinding between placements (port of the in-memory half
-of ``src/repro/checkpoint/store.py``). ``save_checkpoint`` /
-``restore_checkpoint`` are ROADMAP A10b."""
+"""Expert-weight rebinding between placements and placement-tagged
+checkpoints (port of ``src/repro/checkpoint/store.py``)."""
 from repro_torch.checkpoint.store import (  # noqa: F401
-    EXPERT_PARAM_KEYS, adopt_expert_params, rebind_expert_leaves,
+    EXPERT_PARAM_KEYS, adopt_expert_params, latest_step, rebind_expert_leaves,
+    restore_checkpoint, save_checkpoint,
 )

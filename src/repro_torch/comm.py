@@ -22,7 +22,10 @@ is ``rank // inner_size`` (``src/repro/core/plan.py rank_pod``).
 for CUDA tensors, gloo for CPU ones). ``axes`` is the whole process mesh;
 the EP axes are the ones the MoE layers exchange over, and a ``model`` axis
 that is not one of them carries expert tensor parallelism, as
-``src/repro/models/moe.py`` lays a JAX mesh out.
+``src/repro/models/moe.py`` lays a JAX mesh out. Beside its groups a
+``DistComm`` keeps a gloo group over the whole mesh for ``control_max``,
+the servers' host-side agreement at each step boundary (a stop flag and
+the dead ranks of elastic EP), which never waits on the card.
 """
 from __future__ import annotations
 
@@ -238,6 +241,9 @@ class DistComm:
         for key in [(a,) for a in names] + [ep, self.token_axes, self.batch_axes]:
             if key and key not in self._groups:
                 self._groups[key] = self._new_group(key, sizes, timeout)
+        # the host-side twin of the whole mesh for control_max: a gloo group,
+        # so that agreeing on a decision never queues behind steps in flight
+        self._control = dist.new_group(backend="gloo", timeout=timeout)
 
     def _new_group(self, key: tuple, sizes, timeout):
         """(this process's group over the axes in ``key``, its size): one
@@ -316,6 +322,18 @@ class DistComm:
         dist.all_to_all_single(out, src, output_split_sizes=list(recv_counts),
                                input_split_sizes=list(send_counts), group=group)
         return out.view(x.dtype)
+
+    def control_max(self, values) -> list[int]:
+        """The elementwise maximum of a few host integers over every process
+        of the mesh (the EP group and, under expert-TP, its twins along
+        ``model``): the servers' one decision a step boundary, each
+        process's stop flag and dead-rank mask folded into one all-reduce.
+        It runs on a gloo group beside the NCCL ones, on the host: over the
+        NCCL stream its result would wait for the steps in flight and undo
+        ``pipeline_depth > 1``."""
+        t = torch.tensor([int(v) for v in values], dtype=torch.int64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._control)
+        return t.tolist()
 
     def all_gather(self, xs: list[torch.Tensor], axis=None) -> list[torch.Tensor]:
         """xs[0]: [T, ...] -> [N, T, ...] in rank order over the EP axes

@@ -19,7 +19,8 @@ hashable so it can ride in the frozen ``EpGroupConfig``.
   the ranks, replicas of one expert on distinct ranks where it can.
 * fault domains, the replica floor and the degraded tables of elastic EP
   (``shrink_placement``, ``expand_placement``, ``mask_placement``) are pure
-  functions over the tables; the recovery that calls them is ROADMAP A10b.
+  functions over the tables; ``run_rebalancing``'s fault path and the
+  servers' recovery (``runtime/server.py``) call them.
 
 Everything here is host-side numpy except ``assign``, ``heat_from_topk``,
 ``device_tables`` and ``expand``/``collapse_expert_params``, which take or
@@ -1084,8 +1085,16 @@ def run_rebalancing(base_cfg, make_fn, items, *, advance_every: int,
     set plus one leaf), so the caller's tensors change; pass
     ``donate_params=False`` to keep the original tree.
 
-    Elastic EP (``fault_injector``) is not ported yet: passing one raises
-    ``NotImplementedError`` (ROADMAP A10b).
+    Elastic EP (``fault_injector``, docs/DESIGN.md §9): the injector's
+    kill/rejoin schedule is polled at every item boundary. A fault forces an
+    immediate placement advance (shrink to a degraded table, dead rows all
+    ``EMPTY``, on a kill; full-width re-expand on a rejoin) instead of
+    waiting for the next ``advance_every`` boundary. Across a shrink the
+    ``params`` rebind collapses through the masked old placement (reads
+    only surviving replicas); an expert whose every replica died makes
+    zero-data-loss impossible, so it warns ``DegradedRecovery`` and
+    raises: the servers (``runtime/server.py``) own the checkpoint-restore
+    fallback.
 
     Fault-domain floor (``min_replicas`` / ``fault_domains`` /
     ``max_slots_per_rank``, docs/DESIGN.md §9): forwarded to the scheduler —
@@ -1101,10 +1110,6 @@ def run_rebalancing(base_cfg, make_fn, items, *, advance_every: int,
     from repro_torch.checkpoint.store import rebind_expert_leaves
     from repro_torch.core.group import ep_create_group
 
-    if fault_injector is not None:
-        raise NotImplementedError("run_rebalancing's fault path (rank death, "
-                                  "shrink and expand) is not ported yet "
-                                  "(ROADMAP A10b)")
     if advance_every < 1:
         raise ValueError(f"rebalance_every={advance_every} must be >= 1")
     sched = RebalanceScheduler(
@@ -1129,7 +1134,16 @@ def run_rebalancing(base_cfg, make_fn, items, *, advance_every: int,
         placements.append(pl)
         window = host_heat(heat)
         sched.observe(window)
-        if (i + 1) % advance_every == 0 and i + 1 < len(items):
+        fault = (fault_injector.advance(i) if fault_injector is not None
+                 else None)
+        if fault:
+            if tracer is not None:
+                tracer.instant("fault_detected", step=i,
+                               died=list(fault.died),
+                               rejoined=list(fault.rejoined))
+            sched.set_alive(tuple(r for r in range(ep_size)
+                                  if fault_injector.is_alive(r)))
+        if (fault or (i + 1) % advance_every == 0) and i + 1 < len(items):
             with (tracer.span("rebalance", step=i) if tracer is not None
                   else contextlib.nullcontext()):
                 new_pl = sched.advance()
@@ -1144,10 +1158,34 @@ def run_rebalancing(base_cfg, make_fn, items, *, advance_every: int,
                             rank_loads(window, new_pl, ep_size)),
                         placement_changed=new_pl is not pl)
                 if new_pl is not pl and params is not None:
+                    src = pl
+                    if fault and fault.died:
+                        # shrink: collapse only through surviving replicas,
+                        # a dead rank's slot rows are gone on a real pod
+                        src_live = (pl if pl is not None else
+                                    identity_placement(base_cfg.num_experts,
+                                                       ep_size))
+                        lost = lost_experts(src_live, sched.alive)
+                        if lost:
+                            import warnings
+
+                            from repro_torch.runtime.fault import DegradedRecovery
+                            warnings.warn(DegradedRecovery(
+                                f"rank death {list(fault.died)} lost every "
+                                f"replica of experts {list(lost)[:8]} — "
+                                "zero-data-loss shrink impossible; restore "
+                                "from checkpoint"))
+                            raise ValueError(
+                                f"experts {list(lost)[:8]} unrecoverable "
+                                "from surviving ranks and run_rebalancing "
+                                "has no checkpoint fallback — use "
+                                "DecodeServer (ckpt_dir=...) or re-init the "
+                                "lost weights")
+                        src = mask_placement(src_live, sched.alive)
                     with (tracer.span("adopt", step=i) if tracer is not None
                           else contextlib.nullcontext()):
                         params = rebind_expert_leaves(
-                            params, expert_keys, src_placement=pl,
+                            params, expert_keys, src_placement=src,
                             dst_placement=new_pl, donate=donate_params)
                 pl = new_pl
     return outs, placements

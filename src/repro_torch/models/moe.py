@@ -169,7 +169,7 @@ def _expert_weights(p, m, comm, L: int) -> list:
         raise NotImplementedError(
             "logical-mode expert weights under a placement over a DistComm would "
             "fetch every remote expert each step: serve with params_physical=True "
-            "(ROADMAP A10b lists the logical mode over DistComm)")
+            "(ROADMAP A10c)")
     perm = PL.device_tables(pl, w1.device).slot_perm
     return [tuple(w.index_select(0, perm[r * L:(r + 1) * L]) for w in (w1, w3, w2))
             for r in comm.ranks]

@@ -141,7 +141,14 @@ def rebalancing_decode_loop(base_cfg: EpGroupConfig, make_window, xs, *,
     under ``expert_keys``, laid out for ``base_cfg.placement``),
     ``make_window(group, params)`` gets the leaves rebound once per adopted
     placement; the driver takes ownership unless ``donate_params=False``.
-    ``fault_injector`` raises ``NotImplementedError`` (ROADMAP A10b)."""
+
+    Elastic EP: ``fault_injector`` (a ``runtime/fault.py FaultInjector``,
+    step indices = window indices here) forces an immediate shrink to a
+    degraded placement on an injected kill and a full-width re-expand on a
+    rejoin (``run_rebalancing``'s fault path); ``min_replicas`` /
+    ``fault_domains`` / ``max_slots_per_rank`` turn on the fault-domain
+    floor, under which any single correlated kill recovers with zero data
+    loss."""
     if rebalance_every < 1:
         raise ValueError(f"rebalance_every={rebalance_every} must be >= 1")
     windows = [xs[s:s + rebalance_every] for s in range(0, len(xs), rebalance_every)]

@@ -60,18 +60,56 @@ and the previous one). The heat is read back only there, never inside a
 step. Spans: ``rebalance`` (with ``adopt`` inside it), the
 ``placement_swap`` instant, ``drain`` on the pipelined path before a
 swap; the ``rank_imbalance`` counter and a window row (``_record_window``).
-Fault detection, recovery, checkpoints and preemption are ROADMAP A10b.
+
+Elastic EP (``fault_injector``, ``fault_detector``, ``miss_threshold``,
+``ckpt_dir``; docs/DESIGN.md §9): a ``FaultDetector`` (fed by a
+deterministic ``FaultInjector`` in tests and benches) is polled at every
+decode-step boundary. On a detected rank death the server drains its steps
+in flight and shrinks: the scheduler narrows to the survivors and emits a
+degraded table (the dead rank's row all ``EMPTY``: zero slots, zero
+traffic), the physical expert weights are re-adopted by collapsing through
+the masked old table (surviving replicas only: in place on one card,
+migrated between processes over a ``DistComm``, no bytes to the dead
+card), the device tables are built and the step is captured anew. A rejoin
+re-expands to a full-width table at the next boundary. The greedy stream
+does not depend on the placement, so the tokens stay bitwise those of an
+uninterrupted run. When an expert lost its last replica the recovery warns
+``DegradedRecovery`` and restores the whole tree from ``ckpt_dir`` (rebound
+to the degraded table) or raises ``RuntimeError``. ``PreemptionGuard``
+(SIGTERM/SIGINT) is polled at the same boundaries: the server drains,
+writes a placement-tagged checkpoint to ``ckpt_dir`` and returns with
+``preempted=True``. ``ServeMetrics`` carries ``degraded_steps``,
+``recovery_count``, ``recovery_latency_s``, ``recovery_events``,
+``checkpoint_restores``, ``alive_ranks`` and ``preempted``. Spans:
+``fault_poll``, the ``fault_detected`` instant, ``recover:shrink`` /
+``recover:expand`` with ``recover:repack`` and ``recover:adopt`` inside,
+``checkpoint`` (the save on preemption, a restore) and ``placement_swap``.
+Only the recovery boundary reads the device (the heat), never a step. The
+poll is host work and runs while the card computes the step (inside the
+``serve_step`` span, before the read-back that ends it).
+
+Over a ``DistComm`` the reference's one controller becomes one decision a
+boundary: each process polls its own detector, then every process's stop
+flag and dead-rank mask are folded into one small integer all-reduce
+(MAX; ``DistComm.control_max``, on a host-side gloo group), so every
+process recovers, or stops, at the same step from the same report, whether
+a wall-clock ``timeout_s`` fired in one process only or a SIGTERM reached
+one process first. A ``DistComm`` process holds only its own slots, so
+``ckpt_dir`` over it is refused (ROADMAP A10d).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.store import adopt_expert_params, migrate_expert_params
+from repro_torch.checkpoint.store import (adopt_expert_params, latest_step,
+                                          migrate_expert_params, restore_checkpoint,
+                                          save_checkpoint)
 from repro_torch.comm import DistComm, LocalComm
 from repro_torch.core import placement as PL
 from repro_torch.device import disable_tf32, resolve_device, synchronize
@@ -79,7 +117,8 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.kv_pages import PageAllocator, pages_for_tokens
 from repro_torch.models.transformer import (check_supported, init_decode_state,
                                             init_paged_decode_state, lm_spec)
-from repro_torch.runtime.fault import StragglerWatchdog
+from repro_torch.runtime.fault import (DegradedRecovery, FaultDetector, FaultReport,
+                                      PreemptionGuard, StragglerWatchdog)
 from repro_torch.runtime.scheduler import ContinuousScheduler
 from repro_torch.runtime.steps import (CompiledStep, make_paged_serve_step,
                                       make_serve_step)
@@ -111,7 +150,15 @@ class ServeMetrics:
     expert_heat: list | None = None        # per-logical-expert routed tokens
     heat_max_mean: float | None = None     # max/mean per-expert load
     rank_heat_max_mean: float | None = None  # max/mean per-EP-rank load
+    # elastic fault tolerance (runtime/fault.py; docs/DESIGN.md §9)
+    degraded_steps: int = 0                # decode steps served with < N alive
+    recovery_count: int = 0                # shrink + expand transitions taken
+    recovery_latency_s: float | None = None  # total wall time inside recovery
+    recovery_events: list | None = None    # per-transition records (dicts)
+    checkpoint_restores: int = 0           # recoveries that needed a restore
+    alive_ranks: list | None = None        # EP ranks alive at the serve's end
     stragglers_flagged: int = 0            # watchdog outlier ITL steps
+    preempted: bool = False                # SIGTERM drain-and-checkpoint exit
     # telemetry (None when tracing is off): Tracer.summary(), per span name
     # its count and total seconds; the TimeSeries rows
     timeline: dict | None = None
@@ -122,10 +169,6 @@ class ServeMetrics:
         return json_safe(dataclasses.asdict(self))
 
 
-# the fault-tolerance arguments of the reference server, ROADMAP A10b
-_A10B = ("fault_injector", "fault_detector", "ckpt_dir", "miss_threshold")
-
-
 class DecodeServer:
     def __init__(self, cfg: ArchConfig, batch: int, max_len: int, *,
                  ep_size: int = 1, params=None, seed: int = 0, device=None,
@@ -133,13 +176,8 @@ class DecodeServer:
                  rebalance_every: int = 0, num_redundant_experts: int = 0,
                  heat_decay: float = 0.0, min_replicas: int = 1, fault_domains=None,
                  max_slots_per_rank: int | None = None, fault_injector=None,
-                 fault_detector=None, ckpt_dir=None, miss_threshold=None):
-        given = [n for n, v in zip(_A10B, (fault_injector, fault_detector, ckpt_dir,
-                                           miss_threshold)) if v is not None]
-        if given:
-            raise NotImplementedError(
-                f"{', '.join(given)}: fault detection, shrink/expand recovery and "
-                "checkpoints are not ported yet (ROADMAP A10b)")
+                 fault_detector: FaultDetector | None = None, miss_threshold: int = 2,
+                 ckpt_dir: str | None = None):
         check_supported(cfg)
         self.device = resolve_device(device)
         self.tracer = NULL_TRACER if tracer is None else tracer
@@ -154,7 +192,8 @@ class DecodeServer:
         if comm is None and ep_size > 1 and batch % ep_size:
             raise ValueError(f"batch {batch} must divide by ep_size {ep_size}")
         self._init_eplb(rebalance_every, num_redundant_experts, heat_decay,
-                        min_replicas, fault_domains, max_slots_per_rank)
+                        min_replicas, fault_domains, max_slots_per_rank,
+                        fault_injector, fault_detector, miss_threshold, ckpt_dir)
         # the rows of the global batch this process steps
         self.rows = self.comm.batch_rows(batch) if self.comm is not None else slice(0, batch)
         local = self.rows.stop - self.rows.start
@@ -178,11 +217,14 @@ class DecodeServer:
         self._serve_step = self._compiled_step()
         self.last_tokens: np.ndarray | None = None
         self.last_itls: np.ndarray | None = None
+        self.guard = PreemptionGuard()    # SIGTERM/SIGINT -> drain + checkpoint
 
     def _init_eplb(self, rebalance_every, num_redundant_experts, heat_decay,
-                   min_replicas, fault_domains, max_slots_per_rank) -> None:
-        """The EPLB hook's settings, validated as the reference server does,
-        and its scheduler (None when the hook is off or inert)."""
+                   min_replicas, fault_domains, max_slots_per_rank, fault_injector=None,
+                   fault_detector=None, miss_threshold=2, ckpt_dir=None) -> None:
+        """The EPLB hook's and the fault path's settings, validated as the
+        reference server does, and their scheduler (None when both are off
+        or inert)."""
         cfg = self.cfg
         self.heat_decay = float(heat_decay)
         self.rebalance_every = int(rebalance_every)
@@ -205,15 +247,41 @@ class DecodeServer:
         #                                     the placement it ran under
         self.watchdog = StragglerWatchdog(
             tracer=self.tracer if self.tracer.enabled else None)
+        # elastic EP: the injector is the deterministic fault source of
+        # tests and benches, the detector the boundary heartbeat monitor
+        self.ckpt_dir = ckpt_dir
+        self._injector = fault_injector
+        self._detector = fault_detector
+        self.recoveries: list[dict] = []    # shrink/expand transition records
+        self._degraded_steps = 0
+        self._recovery_wall_s = 0.0
+        self._ckpt_restores = 0
+        self._stop = False                  # the boundary's agreed stop flag
+        self.preempted = False
         n = self._ep_size()
-        if (isinstance(self.comm, DistComm) and cfg.moe is not None and n > 1
-                and not self.params_physical
-                and (self.rebalance_every or cfg.moe.placement is not None)):
+        dist_comm = isinstance(self.comm, DistComm)
+        if dist_comm and ckpt_dir is not None:
+            raise NotImplementedError(
+                "ckpt_dir over a DistComm: each process holds only its own expert "
+                "slots, and a sharded checkpoint format is not the reference's "
+                "(ROADMAP A10d)")
+        if fault_injector is not None or fault_detector is not None:
+            if not (cfg.moe and n > 1):
+                raise ValueError("fault tolerance requires an MoE config on an EP "
+                                 "mesh (ep extent > 1) — rank death is an "
+                                 "EP-placement event")
+            if self._detector is None:
+                self._detector = FaultDetector(n, miss_threshold=miss_threshold)
+            elif self._detector.num_ranks != n:
+                raise ValueError(f"fault_detector watches {self._detector.num_ranks} "
+                                 f"ranks but the EP extent is {n}")
+        if (dist_comm and cfg.moe is not None and n > 1 and not self.params_physical
+                and (self.rebalance_every or cfg.moe.placement is not None
+                     or self._detector is not None)):
             raise NotImplementedError(
                 "EPLB over a DistComm needs params_physical=True: logical-mode "
-                "weights would fetch every remote expert each step (ROADMAP A10b "
-                "lists the logical mode over DistComm)")
-        if not self.rebalance_every or n <= 1:
+                "weights would fetch every remote expert each step (ROADMAP A10c)")
+        if not (self.rebalance_every or self._detector is not None) or n <= 1:
             return                          # the hook is inert off the EP path
         E = cfg.moe.num_experts
         if (E + self.num_redundant_experts) % n:
@@ -353,7 +421,7 @@ class DecodeServer:
             imbalance=imb,
             rank_loads=None if rl is None else [float(x) for x in rl],
             itl_mean_s=float(np.mean(itls)) if itls else None,
-            alive=None,
+            alive=len(self._detector.alive) if self._detector is not None else None,
             stragglers_flagged=self.watchdog.flagged,
             watchdog_rebased=self.watchdog.rebased,
             placements_adopted=len(self.placements))
@@ -399,22 +467,211 @@ class DecodeServer:
             PL.device_tables(pl, self.device)
             if self.params_physical:
                 with self.tracer.span("adopt", step=step_idx):
-                    if isinstance(self.comm, DistComm):
-                        self.params, moved = migrate_expert_params(
-                            self.params, self._logical_spec(), old, pl, self.comm)
-                        self.migrations.append(dict(step=step_idx, **moved))
-                    else:
-                        self.params = adopt_expert_params(
-                            self.params, self._logical_spec(), old, pl)
-                    synchronize(self.device)    # the span holds the copies
+                    self._adopt(step_idx, old, pl, "rebalance")
             self._serve_step = self._compiled_step()
 
+    # ---- elastic fault tolerance: detect -> shrink/expand -> re-adopt ----
+
+    def _poll_faults(self, step_idx: int):
+        """Advance the injected fault schedule and poll the detector at a
+        step boundary; returns the FaultReport when a rank newly died or
+        rejoined, else None. Detection only: the caller drains the steps in
+        flight before ``_recover``. The detector is re-polled until a quiet
+        poll, and every report of the boundary merges into one
+        (``FaultReport.merge``), so however many ranks die at a boundary the
+        caller takes one transition. Over a ``DistComm`` the local report
+        and stop flag then become the agreed ones (``_agree``); the stop
+        flag of the boundary is left in ``self._stop``."""
+        dist_comm = isinstance(self.comm, DistComm)
+        merged = None
+        if self._detector is not None:
+            with self.tracer.span("fault_poll"):
+                before = set(self._detector.dead)
+                if self._injector is not None:
+                    self._injector.advance(step_idx)
+                    for r in range(self._detector.num_ranks):
+                        if self._injector.is_alive(r):
+                            self._detector.heartbeat(r, step_idx)
+                merged = self._detector.poll(step_idx)
+                while merged:
+                    more = self._detector.poll(step_idx)
+                    if not more:
+                        break
+                    merged = merged.merge(more)
+                if dist_comm:
+                    merged = self._agree(before)
+        elif dist_comm:
+            self._agree(set())
+        if not dist_comm:
+            self._stop = self.guard.should_stop
+        if not merged:
+            return None
+        self.tracer.instant("fault_detected", step=step_idx, died=list(merged.died),
+                            rejoined=list(merged.rejoined))
+        return merged
+
+    def _agree(self, before: set):
+        """One decision for every process of a ``DistComm``: this process's
+        stop flag and the dead ranks of its detector after the poll, folded
+        over every process by one MAX all-reduce on the host
+        (``control_max``). A rank dead in any process is dead in all, a stop
+        in any process stops all. Every detector then holds the agreed dead
+        set, and the report is that set against ``before``, the set agreed
+        at the last boundary."""
+        n = self._ep_size()
+        dead = set(self._detector.dead) if self._detector is not None else set()
+        got = self.comm.control_max([int(self.guard.should_stop)]
+                                    + [int(r in dead) for r in range(n)])
+        self._stop = bool(got[0])
+        if self._detector is None:
+            return None
+        agreed = {r for r in range(n) if got[1 + r]}
+        self._detector.set_dead(agreed)
+        return FaultReport(tuple(sorted(agreed - before)), tuple(sorted(before - agreed)))
+
+    def _recover(self, step_idx: int, report) -> None:
+        """One shrink or expand transition (docs/DESIGN.md §9): drain the
+        heat window, narrow or widen the scheduler to the detector's alive
+        set, build the new table and re-adopt the physical expert weights
+        through the masked old table (surviving replicas only). When an
+        expert lost its last replica, warn ``DegradedRecovery`` and restore
+        the whole tree from ``ckpt_dir`` (rebound to the new table) or
+        raise. Logical-mode weights keep the whole [E, ...] tree, so only
+        the placement changes. Then the device tables and a new step."""
+        t0 = time.perf_counter()
+        kind = "shrink" if report.died else "expand"
+        # each phase's seconds, each also a nested span: repack (scheduler
+        # and table), adopt (the masked rebind) or restore (the checkpoint)
+        phases: dict[str, float] = {}
+        with self.tracer.span(f"recover:{kind}", step=step_idx, died=list(report.died),
+                              rejoined=list(report.rejoined)):
+            dev = self._device_heat()
+            if dev is not None:
+                self._sched.observe(dev)
+                self._heat_drained = (dev if self._heat_drained is None
+                                      else self._heat_drained + dev)
+                rl = PL.rank_loads(dev, self.cfg.moe.placement, self._sched.num_ranks)
+                self._rank_loads = rl if self._rank_loads is None else self._rank_loads + rl
+                self._record_window(step_idx, f"recover:{kind}", dev, rl)
+                self.state["expert_heat"].zero_()    # in place: graphs keep it
+            tp = time.perf_counter()
+            with self.tracer.span("recover:repack"):
+                self._sched.set_alive(self._detector.alive)
+                old = self.cfg.moe.placement
+                pl = self._sched.advance()
+            phases["repack_s"] = time.perf_counter() - tp
+            event = dict(step=step_idx, kind=kind, died=list(report.died),
+                         rejoined=list(report.rejoined), alive=list(self._detector.alive),
+                         lost_experts=[], restored_from=None,
+                         placement_changed=pl is not old, phases=phases)
+            if pl is not old:
+                new_cfg = dataclasses.replace(self.cfg, moe=dataclasses.replace(
+                    self.cfg.moe, placement=pl))
+                if self.params_physical:
+                    src_live = (old if old is not None else PL.identity_placement(
+                        self.cfg.moe.num_experts, self._sched.num_ranks))
+                    lost = (PL.lost_experts(src_live, self._sched.alive)
+                            if report.died else ())
+                    if lost:
+                        self._restore_lost(step_idx, report, lost, event, new_cfg, t0)
+                    else:
+                        src = (PL.mask_placement(src_live, self._sched.alive)
+                               if report.died else old)
+                        tp = time.perf_counter()
+                        with self.tracer.span("recover:adopt"):
+                            self._adopt(step_idx, src, pl, kind)
+                        phases["adopt_s"] = time.perf_counter() - tp
+                self.cfg = new_cfg
+                self.placements.append(pl)
+                self.tracer.instant("placement_swap", step=step_idx,
+                                    version=len(self.placements))
+                PL.device_tables(pl, self.device)
+                self._serve_step = self._compiled_step()
+        dt = time.perf_counter() - t0
+        event["latency_s"] = dt
+        self._recovery_wall_s += dt
+        self.recoveries.append(event)
+
+    def _adopt(self, step_idx: int, src, dst, kind: str) -> None:
+        """Rebind the physical expert weights from ``src``'s slot order to
+        ``dst``'s: in place on one card, migrated between the processes of
+        a ``DistComm`` (its bytes and seconds kept in ``migrations``)."""
+        if isinstance(self.comm, DistComm):
+            self.params, moved = migrate_expert_params(
+                self.params, self._logical_spec(), src, dst, self.comm)
+            self.migrations.append(dict(step=step_idx, kind=kind, **moved))
+        else:
+            self.params = adopt_expert_params(self.params, self._logical_spec(), src, dst)
+        synchronize(self.device)             # the span holds the copies
+
+    def _restore_lost(self, step_idx: int, report, lost, event: dict, new_cfg,
+                      t0: float) -> None:
+        """The dead ranks held every replica of ``lost``: warn, then restore
+        the whole tree from the latest checkpoint, rebound to ``new_cfg``'s
+        table, or record the failed transition and raise."""
+        event["lost_experts"] = list(lost)
+        ck = latest_step(self.ckpt_dir) if self.ckpt_dir is not None else None
+        warnings.warn(DegradedRecovery(
+            f"rank death {list(report.died)} lost every replica of experts "
+            f"{list(lost)[:8]} — zero-data-loss shrink impossible; "
+            + (f"restoring from checkpoint step {ck}" if ck is not None else
+               f"no checkpoint available (ckpt_dir={self.ckpt_dir!r})")))
+        if ck is None:
+            event["latency_s"] = time.perf_counter() - t0
+            self.recoveries.append(event)
+            raise RuntimeError(
+                f"experts {list(lost)[:8]} unrecoverable from surviving ranks and no "
+                f"checkpoint to restore from (ckpt_dir={self.ckpt_dir!r}) — pass "
+                "ckpt_dir= with a saved checkpoint or add redundant replicas "
+                "(num_redundant_experts)")
+        tp = time.perf_counter()
+        with self.tracer.span("checkpoint", restore=True, ckpt_step=ck):
+            self.params = None               # the old tree goes before the new loads
+            self.params, _ = restore_checkpoint(
+                self.ckpt_dir, ck, lm_spec(new_cfg), placement=new_cfg.moe.placement,
+                device=self.device)
+        event["phases"]["restore_s"] = time.perf_counter() - tp
+        event["restored_from"] = ck
+        self._ckpt_restores += 1
+
+    def _preempt(self, step_idx: int) -> None:
+        """The SIGTERM/SIGINT exit, with the steps in flight drained by the
+        caller: write a placement-tagged checkpoint (``ckpt_dir``) and mark
+        the server preempted; the loop returns at this boundary."""
+        self.preempted = True
+        if self.ckpt_dir is None:
+            return
+        pl = self.cfg.moe.placement if self.cfg.moe else None
+        with self.tracer.span("checkpoint", step=step_idx, preempt=True):
+            save_checkpoint(
+                self.ckpt_dir, step_idx + 1, self.params,
+                placement=pl if self.params_physical else None,
+                extra=dict(preempted=True,
+                           alive_ranks=(list(self._detector.alive)
+                                        if self._detector is not None else None)))
+
+    def _fault_metrics(self) -> dict:
+        """ServeMetrics' fault fields at the end of a serve."""
+        return dict(
+            degraded_steps=self._degraded_steps, recovery_count=len(self.recoveries),
+            recovery_latency_s=self._recovery_wall_s or None,
+            recovery_events=list(self.recoveries) or None,
+            checkpoint_restores=self._ckpt_restores,
+            alive_ranks=list(self._detector.alive) if self._detector is not None else None,
+            preempted=self.preempted)
+
+    def _count_degraded(self) -> None:
+        if self._detector is not None and self._detector.dead:
+            self._degraded_steps += 1
+
     def close(self) -> None:
-        """Release the captured graphs and their memory pools; the next step
-        captures again. Call when retiring a server in a longer-lived
-        process."""
+        """Release the captured graphs and their memory pools (the next step
+        captures again) and uninstall the preemption handlers (whatever was
+        registered before this server comes back). Call when retiring a
+        server in a longer-lived process."""
         self._step_cache.clear()
         self._serve_step = self._compiled_step()
+        self.guard.restore()
 
     def step(self, tokens: torch.Tensor) -> torch.Tensor:
         """One greedy decode step over this process's rows: [b, 1] tokens
@@ -450,12 +707,23 @@ class DecodeServer:
             t0 = time.perf_counter()
             with self.tracer.span("serve_step"):
                 tok = self.step(tok)
+                # the boundary's poll is host work: it runs while the card steps
+                report = self._poll_faults(i)
                 synchronize(self.device)
             itls.append(time.perf_counter() - t0)
             if record_itls:
                 self._win_itls.append(itls[-1])
             outs.append(tok)
-            self._maybe_rebalance(i)
+            if report is not None:
+                # the recovery drains the heat window and advances the table
+                # itself: a periodic boundary at the same step would dedup
+                self._recover(i, report)
+            else:
+                self._maybe_rebalance(i)
+            self._count_degraded()
+            if self._stop:
+                self._preempt(i)
+                break
         return torch.cat(outs, dim=1).cpu().numpy(), np.asarray(itls)
 
     def _decode_pipelined(self, first_tok: torch.Tensor, steps: int):
@@ -484,17 +752,26 @@ class DecodeServer:
             if ev is not None:
                 ev.record()
             pending.append((tok, ev))
+            report = self._poll_faults(i)    # host work, before blocking on a step
             if len(pending) >= self.pipeline_depth:
                 retire_oldest()
-            if (self._sched is not None and self.rebalance_every
-                    and (i + 1) % self.rebalance_every == 0):
-                # a swap captures a new step: the steps in flight land under
-                # the placement that issued them first. The drain and the
-                # recapture are charged to the ITL stream on purpose
+            boundary = (self._sched is not None and self.rebalance_every
+                        and (i + 1) % self.rebalance_every == 0)
+            if boundary or report is not None or self._stop:
+                # a swap, a recovery or a preemption: the steps in flight
+                # land under the placement that issued them first. The drain
+                # and the recapture are charged to the ITL stream on purpose
                 with self.tracer.span("drain", pending=len(pending)):
                     while pending:
                         retire_oldest()
-                self._maybe_rebalance(i)
+                if report is not None:
+                    self._recover(i, report)
+                elif boundary:
+                    self._maybe_rebalance(i)
+                if self._stop:
+                    self._preempt(i)
+                    break
+            self._count_degraded()
         while pending:
             retire_oldest()
         if len(marks) > 1:
@@ -521,7 +798,7 @@ class DecodeServer:
             ttft_s=ttft, itl_mean_s=float(itls.mean()),
             itl_p99_s=float(np.percentile(itls, 99)),
             output_tok_s=total / (ttft + decode_wall), total_tokens=total,
-            **self._heat_metrics(),
+            **self._heat_metrics(), **self._fault_metrics(),
             stragglers_flagged=self.watchdog.flagged,
             timeline=self.tracer.summary() or None,
             series=list(self.series.rows) or None)
@@ -637,7 +914,10 @@ class ContinuousDecodeServer(DecodeServer):
     def serve_requests(self, requests, max_steps: int | None = None
                        ) -> ServeMetrics:
         """Run the continuous-batching loop until every request completes
-        (or ``max_steps``)."""
+        (or ``max_steps``, or a preemption). Fault recoveries, placement
+        swaps and preemption run at the boundaries admission and retirement
+        use: the page tables are host state, so no transition touches
+        them."""
         allocator = PageAllocator(self.num_pages, self.page_size)
         sched = ContinuousScheduler(requests, self.batch, self.max_pages,
                                     allocator,
@@ -658,6 +938,8 @@ class ContinuousDecodeServer(DecodeServer):
                     # every process observes the global tokens, so every
                     # scheduler makes the same decisions
                     tok = self.comm.gather_batch(tok)
+                # the boundary's poll is host work: it runs while the card steps
+                report = self._poll_faults(step_idx)
                 out = tok.cpu().numpy()              # waits for the step
             now = time.perf_counter()
             sched.observe(out, now)
@@ -671,7 +953,14 @@ class ContinuousDecodeServer(DecodeServer):
                     pages_peak=allocator.peak_live)
             marks.append(now)
             last = now
-            self._maybe_rebalance(step_idx)
+            if report is not None:
+                self._recover(step_idx, report)
+            else:
+                self._maybe_rebalance(step_idx)
+            self._count_degraded()
+            if self._stop:
+                self._preempt(step_idx)
+                break
             step_idx += 1
         wall = time.perf_counter() - t0
         step_itls = np.diff(np.asarray(marks)) if len(marks) > 1 else np.asarray([0.0])
@@ -701,7 +990,7 @@ class ContinuousDecodeServer(DecodeServer):
             pages_dense_equiv=self.batch * pages_for_tokens(self.max_len,
                                                             self.page_size),
             per_request=recs,
-            **self._heat_metrics(),
+            **self._heat_metrics(), **self._fault_metrics(),
             stragglers_flagged=self.watchdog.flagged,
             timeline=self.tracer.summary() or None,
             series=list(self.series.rows) or None)

@@ -7,8 +7,10 @@ contracts; plain Python, no torch).
   scheduler's ``admit`` and ``complete`` instants; the EPLB hook's
   ``rebalance``, ``adopt`` and ``drain`` spans, ``placement_swap`` instant
   and ``rank_imbalance`` counter; the watchdog's ``straggler`` and
-  ``watchdog_rebase`` instants) and exports Chrome-trace / Perfetto JSON.
-  The reference's fault spans come with those paths (ROADMAP A10b).
+  ``watchdog_rebase`` instants; the fault path's ``fault_poll``,
+  ``recover:shrink`` / ``recover:expand`` with ``recover:repack`` and
+  ``recover:adopt``, ``checkpoint`` spans and ``fault_detected`` instant)
+  and exports Chrome-trace / Perfetto JSON.
 * ``TimeSeries`` records rows (the continuous server: one per step, with
   ITL, queue depth, active slots, pages live and peak; both servers: one
   per heat window, with its heat, per-rank loads and imbalance) and

@@ -158,4 +158,4 @@ def test_migrated_rows_bitwise_equal_local_adoption(run, case):
 
 def test_logical_mode_refused_over_dist_comm(run):
     for r in run["ranks"]:
-        assert "params_physical=True" in r["refused"] and "A10b" in r["refused"]
+        assert "params_physical=True" in r["refused"] and "A10c" in r["refused"]

@@ -16,7 +16,8 @@ and the placement cases of ``tests/test_refresh.py`` are the reference's).
 * the drivers: ``rebalancing_decode_loop`` in adopt-once mode equal to the
   per-step expansion and to JAX's outputs and placement sequence;
   ``rebalancing_prefill`` equal to ``sequential_prefill``;
-* the refusals that remain name ROADMAP A10b.
+* the refusal that remains (logical-mode weights over a DistComm) names
+  ROADMAP A10c.
 """
 import dataclasses
 import warnings
@@ -546,28 +547,33 @@ def test_rebalancing_prefill_matches_sequential():
 
 
 # --------------------------------------------------------------------------
-# refusals that stay: ROADMAP A10b
+# refusals that stay: ROADMAP A10c (logical-mode weights over a DistComm);
+# the fault path of A10b is ported (tests/test_torch_elastic.py)
 # --------------------------------------------------------------------------
 
 def test_refusals_name_a10b():
+    """A10b's fault arguments are accepted (off the EP path they are
+    refused as the reference refuses them), ``run_rebalancing`` takes an
+    injector, and logical-mode weights over a DistComm name A10c."""
     from repro_torch.configs.dbrx_132b import smoke_config
     from repro_torch.models.moe import _expert_weights
+    from repro_torch.runtime.fault import FaultInjector
     from repro_torch.runtime.server import ContinuousDecodeServer, DecodeServer
     cfg = smoke_config()
-    for kw in (dict(fault_injector=object()), dict(fault_detector=object()),
-               dict(ckpt_dir="x"), dict(miss_threshold=2)):
-        for cls in (DecodeServer, ContinuousDecodeServer):
-            with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
-                cls(cfg, 8, 8, device="cpu", **kw)
+    for cls in (DecodeServer, ContinuousDecodeServer):
+        with pytest.raises(ValueError, match="requires an MoE config on an EP mesh"):
+            cls(cfg, 8, 8, device="cpu", fault_injector=FaultInjector(8))
+        srv = cls(cfg, 8, 8, device="cpu", ckpt_dir="x", miss_threshold=2)
+        srv.close()
     base = EpGroupConfig(num_experts=E, max_tokens_per_rank=T, hidden=H, top_k=K)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
-        TPL.run_rebalancing(base, None, [1], advance_every=1, ep_size=N,
-                            fault_injector=object())
+    with pytest.raises(ValueError, match="must be >= 1"):
+        TPL.run_rebalancing(base, None, [1], advance_every=0, ep_size=N,
+                            fault_injector=FaultInjector(N))
 
     class OneRank:       # a process of a four-rank mesh, as DistComm is
         ranks, size = (1,), 4
     pl = TPL.redundant_placement(8, 4, 4)
     m = dataclasses.replace(cfg.moe, placement=pl)
     w = torch.zeros(8, 2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
         _expert_weights(dict(w_gate=w, w_up=w, w_down=w), m, OneRank(), 3)

@@ -67,14 +67,13 @@ def test_entry_points_need_cuda_unless_given_cpu(no_cuda):
 def test_unported_options_raise():
     import dataclasses
     cfg = smoke_config()
-    # expert heat and EPLB serve since their slice landed; fault tolerance
-    # is refused until its own (ROADMAP A10b)
+    # expert heat, EPLB serve and the fault path since their slices landed;
+    # off the EP path a fault source is refused, as the reference refuses it
     heat = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, track_expert_heat=True))
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(ValueError, match="EP mesh"):
         DecodeServer(heat, batch=8, max_len=8, device="cpu", fault_injector=object())
-    with pytest.raises(NotImplementedError, match="A10b"):
-        ContinuousDecodeServer(heat, batch=8, max_len=8, device="cpu", page_size=4,
-                               ckpt_dir="ckpt")
+    ContinuousDecodeServer(heat, batch=8, max_len=8, device="cpu", page_size=4,
+                           ckpt_dir="ckpt").close()
     assert "expert_heat" in DecodeServer(heat, batch=8, max_len=8, device="cpu").state
     # the baseline dispatcher was refused until its backend landed; both
     # servers now run it

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the eight hand-written kernel sources of ``src/repro_torch/csrc``
+1. Builds the eleven hand-written kernel sources of ``src/repro_torch/csrc``
    with nvcc for sm_90a (at first use, into ``build/repro_torch/``), one
    nvcc per source, all started together.
 2. Serves DBRX-132B at full width, its 40 layers cut to 4 to fit one card,
@@ -292,6 +292,30 @@
    the same tokens. The control all-reduce's time a call, each
    migration's bytes and seconds and the degraded ITL printed.
 
+12. Training (``train_phase``), last, once every other tensor is freed:
+   ``Trainer`` on DBRX-132B at full width under ``train_4k`` (HT flat, fp8
+   dispatch, capacities 1.25, remat), 1 of its 40 layers, a global batch
+   of 16 x 2048 in 2 micro-batches over ``LocalComm(8)``, AdamW moments in
+   bf16. First the backward kernels at the slice's shapes (rank 0 of the
+   layer at 2048 tokens a rank) against their plain versions, timed beside
+   them, their bounds and a library call: ``grouped_gemm_dw`` at the gate
+   and down projections (2e-2 per element, 5e-3 relative, two calls
+   bitwise), B3 as dX on the [L, F, H] copy of the weights (the copy
+   timed), ``combine_gather_reduce_bwd`` (d_recv bitwise, d_w 1e-5
+   relative), flash attention's LSE (1e-3) and its dQ / dK-dV pair at [8,
+   2048, 48/8, 128] (``FLASH_BWD_REL`` over each gradient, two calls
+   bitwise) beside SDPA's backward; the EP transposes bitwise against
+   plain gathers and k-order sums on every rank; MoE layer 0's gradients
+   (tokens, router, the three expert weights) through the kernels against
+   the same layer with every ``kernels/ops.py`` entry on its plain version
+   (``MOE_GRAD_REL``). Then ``Trainer.run`` for 4 steps on a repeated
+   batch: every gradient of step 1 finite and nonzero, step 1's loss
+   within ``PF_LOSS_REL`` of the ``train_4k`` forward's on the same
+   parameters and batch, the loss falling, each step's launches exact
+   (``train_launches``), no plain version reached; step, micro-batch and
+   optimizer times, train tok/s and the peak printed; one micro-batch's
+   forward and backward traced (busy share, time by kernel).
+
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -329,7 +353,9 @@ from repro_torch.configs.dbrx_132b import full_config  # noqa: E402
 from repro_torch.configs.deepseek_v3_671b import full_config as ds_full_config  # noqa: E402
 from repro_torch.core import (ep_combine, ep_complete, ep_create_handle, ep_dispatch,  # noqa: E402
                               ep_handle_refresh, route, slots)
+from repro_torch.core import ll as LL  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import ops as ops_mod  # noqa: E402
 from repro_torch.kernels import combine_gather_reduce as cg_mod  # noqa: E402
 from repro_torch.kernels import combine_reduce as cr_mod  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
@@ -360,7 +386,10 @@ from repro_torch.models.kv_pages import PageAllocator  # noqa: E402
 from repro_torch.runtime.scheduler import ContinuousScheduler, Request  # noqa: E402
 from repro_torch.runtime.server import (ContinuousDecodeServer,  # noqa: E402
                                         DecodeServer)
+from repro_torch.runtime import steps as steps_mod  # noqa: E402
 from repro_torch.runtime.steps import CompiledStep, capture_stream  # noqa: E402
+from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime.telemetry import (TimeSeries, Tracer, load_chrome_trace,  # noqa: E402
                                            validate_chrome_trace)
 from repro_torch.configs import get_config  # noqa: E402
@@ -453,6 +482,10 @@ COUNTERS = {
     FLASH: (fa_mod, "launches"), "quantize_fp8": (fp8_mod, "quantize_launches"),
     "dequantize_fp8": (fp8_mod, "dequantize_launches"),
     "combine_reduce": (cr_mod, "launches"),
+    # the training backward
+    "grouped_gemm_dw": (gg_mod, "dw_launches"),
+    "combine_gather_reduce_bwd": (cg_mod, "bwd_launches"),
+    "flash_attention_bwd": (fa_mod, "bwd_launches"),
 }
 # EP launches per MoE layer, per hosted rank, per decode step (or forward),
 # by path; HT flat runs the nccl_ep phases over its own maps. No path calls
@@ -556,8 +589,9 @@ def check_ep_counts(launches: dict, cfg, steps: int, where: str,
 
 def record(name: str, err: float, ms: float, plain_ms: float, bnd, library_ms) -> dict:
     """A kernel's line of the JSON; ``launches`` is filled from a main path."""
-    return dict(name=name, route="cuda", source=KERNELS[name][0],
-                replaces=KERNELS[name][1], launches=None, max_abs_err=err, ms=ms,
+    source, replaces = KERNELS[name] if name in KERNELS else TRAIN_KERNELS[name]
+    return dict(name=name, route="cuda", source=source,
+                replaces=replaces, launches=None, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
                 library_ms=library_ms)
 
@@ -2995,6 +3029,501 @@ def dense_phase(card: str) -> list:
 
 
 # ---------------------------------------------------------------------------
+# training (A11) on one card
+# ---------------------------------------------------------------------------
+
+# DBRX-132B's train_4k preset (HT flat, fp8 dispatch, capacities 1.25, remat)
+# with 1 of its 40 layers, 2 micro-batches of 8 x 2048 tokens (S >= 2048 keeps
+# flash attention on the path) over 8 EP ranks hosted on the card, bf16 AdamW
+# moments: f32 moments do not fit beside the f32 gradient sums
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 1, 16, 2048, 2, 4
+TRAIN_LR = 3e-4
+# the backward kernels on the training path, as the kernels line names them
+TRAIN_KERNELS = {
+    "grouped_gemm_dw": ("src/repro_torch/csrc/grouped_gemm_dw.cu",
+                        "src/repro/kernels/grouped_gemm.py:53"),
+    "combine_gather_reduce_bwd": ("src/repro_torch/csrc/combine_gather_reduce_bwd.cu",
+                                  "src/repro/kernels/combine_gather_reduce.py:44"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:86"),
+}
+# flash attention's backward pair in bf16 against its plain version: relative
+# error over each gradient. Both sum in f32 from the same bf16 inputs, output
+# and LSE, in another order, and round once to bf16; the forward's limit,
+# doubled for the longer sums of dK and dV over the G query heads and every
+# query row
+FLASH_BWD_REL = 1e-2
+# one MoE layer's gradients at full width through the kernels against the
+# same layer through the plain versions: relative error over each gradient.
+# Both round every product to bf16 where the layer does; a last-bit
+# difference of an f32 sum flips a rounding now and then and carries on
+MOE_GRAD_REL = 2e-2
+# the plain versions the training path must not reach on the card
+PLAIN_FNS = ("dispatch_pack", "recv_unpack", "grouped_gemm", "grouped_gemm_dw",
+             "combine_gather_reduce", "combine_gather_reduce_bwd", "flash_attention",
+             "flash_attention_fwd", "flash_attention_bwd", "quantize_fp8",
+             "dequantize_fp8", "combine_reduce")
+
+
+def tracked(tree):
+    """A nested dict of detached copies (the same storage) of ``tree``'s
+    tensors, the floating ones requiring grad: gradients without marking
+    the caller's tensors."""
+    if isinstance(tree, dict):
+        return {k: tracked(v) for k, v in tree.items()}
+    return tree.detach().requires_grad_(tree.is_floating_point())
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The path of each tensor of a nested dict, in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def train_config():
+    full = full_config("train_4k")
+    return full, dataclasses.replace(full, num_layers=TRAIN_LAYERS, microbatch=TRAIN_MICRO)
+
+
+def train_launches(cfg, ranks: int = RANKS) -> dict:
+    """Kernel launches of one train step of ``cfg`` (every layer an HT flat
+    MoE layer, remat on): each micro-batch runs the forward twice (once
+    more in the backward, per layer) and the backward once. A forward: the
+    EP launches of ``ep_launches`` per rank and flash attention once per
+    layer. The backward per rank: combine's B4 backward and B2 gather, B3
+    as dX and ``grouped_gemm_dw`` for each of the three projections, and
+    dispatch's B1 copy pack and B4 sum; per layer flash attention's pair,
+    two launches (its dQ and its dK/dV kernel)."""
+    g, layers = cfg.microbatch, cfg.num_layers
+    fwd = (2 if cfg.remat else 1) * g
+    out = {k: v * layers * ranks * fwd for k, v in ep_launches(cfg, "nccl_ep").items()}
+    out[FLASH] = layers * fwd
+    out["grouped_gemm"] += 3 * layers * ranks * g
+    out["grouped_gemm_dw"] = 3 * layers * ranks * g
+    out["combine_gather_reduce_bwd"] = layers * ranks * g
+    out["recv_unpack"] += layers * ranks * g
+    out["dispatch_pack"] += layers * ranks * g
+    out["combine_gather_reduce"] += layers * ranks * g
+    out["flash_attention_bwd"] = 2 * layers * g
+    return out
+
+
+@contextlib.contextmanager
+def plain_calls(sink: Counter):
+    """While open, every call of a plain version in ``kernels/ref.py`` that
+    the kernel entries route to is counted in ``sink``."""
+    orig = {n: getattr(ref, n) for n in PLAIN_FNS}
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            sink[name] += 1
+            return fn(*a, **kw)
+        return run
+    for n, fn in orig.items():
+        setattr(ref, n, counted(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(ref, n, fn)
+
+
+@contextlib.contextmanager
+def plain_route():
+    """While open, every kernel entry of ``kernels/ops.py`` takes its plain
+    version, on the card too: the reference side of the layer checks."""
+    orig = ops_mod._plain
+    ops_mod._plain = lambda t: True
+    try:
+        yield
+    finally:
+        ops_mod._plain = orig
+
+
+def ksum_plain(recv: torch.Tensor, rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """combine_gather_reduce's sum written out in k order, one f32 add per
+    k (the kernel's FMA order): with unit weights the same bits."""
+    pad = torch.zeros((1, recv.shape[1]), dtype=recv.dtype, device=recv.device)
+    y = torch.cat([recv, pad])[rows.long()].float()
+    acc = torch.zeros(y[:, 0].shape, device=recv.device)
+    for k in range(rows.shape[1]):
+        acc = acc + y[:, k] * w[:, k:k + 1]
+    return acc.to(recv.dtype)
+
+
+def autograd_ms(fn, inputs, cot, iters: int) -> float:
+    """Device time of autograd's backward of ``fn`` (a plain version): the
+    graph of one call ``fn(*inputs)`` on detached copies that require grad,
+    walked with the cotangent ``cot`` ``iters`` times."""
+    ins = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*ins)
+    ms = device_ms(lambda: torch.autograd.grad(out, ins, cot, retain_graph=True), iters)
+    del out, ins
+    return ms
+
+
+def train_kernel_phase(cfg, p) -> dict:
+    """The backward kernels at the slice's shapes, on rank 0 of MoE layer 0
+    (``p``) over 8 ranks at 2048 tokens a rank, each against its plain
+    version and timed beside it, its bound and a library call; then the EP
+    transposes bitwise against plain gathers and k-order sums."""
+    dev, dt, d = DEV, cfg.dtype, cfg.d_model
+    comm = LocalComm(RANKS)
+    T = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ // RANKS
+    group = ep_group(cfg, comm, T)
+    L, F_ = group.local_experts, cfg.moe.d_ff_expert
+    gen = torch.Generator(device=dev).manual_seed(31)
+    xs = [torch.randn((T, d), generator=gen, device=dev).to(dt) for _ in range(RANKS)]
+    rs = [route(x.float() @ p["router"], router_config(cfg.moe)) for x in xs]
+    hs = ep_create_handle(group, [r.topk_idx for r in rs], [r.topk_weights for r in rs])
+    recv = ep_complete(group, hs, ep_dispatch(group, hs, xs, send_only=True))
+    y3d, counts_ = recv[0]
+    rows = int(counts_.clamp(max=y3d.shape[1]).sum())
+    records = {}
+    # grouped_gemm_dw at the gate (and the down) projection's shapes
+    for label, x_, fo in (("gate", y3d, F_), ("down", None, d)):
+        if x_ is None:
+            x_ = torch.randn((L, y3d.shape[1], F_), generator=gen, device=dev).to(dt)
+        dy = (torch.randn((L, y3d.shape[1], fo), generator=gen, device=dev) * 0.1).to(dt)
+        got = gg_mod.grouped_gemm_dw(x_, dy, counts_)
+        want = ref.grouped_gemm_dw(x_, dy, counts_)
+        err, rel = flash_errors(got, want)
+        check(torch.allclose(got.float(), want.float(), rtol=TOL, atol=TOL) and rel <= GEMM_REL,
+              f"grouped_gemm_dw ({label}) off its plain version: {err}, relative {rel}")
+        check(torch.equal(got, gg_mod.grouped_gemm_dw(x_, dy, counts_)),
+              f"grouped_gemm_dw ({label}): two calls differ")
+        del got, want
+        H_ = x_.shape[2]
+        bnd = bound(nbytes(x_[0], rows) + nbytes(dy[0], rows) + L * H_ * fo * 2 + nbytes(counts_),
+                    2 * rows * H_ * fo, BF16_OPS_S)
+        ms = device_ms(lambda: gg_mod.grouped_gemm_dw(x_, dy, counts_), 3)
+        plain_ms = device_ms(lambda: ref.grouped_gemm_dw(x_, dy, counts_), 2)
+        # autograd of the plain grouped GEMM: dX and dW together
+        w_ = p["w_gate" if label == "gate" else "w_down"][:L]
+        ag_ms = autograd_ms(lambda a, b: ref.grouped_gemm(a, b, counts_), (x_, w_), dy, 2)
+        xt = x_.transpose(1, 2)
+        lib_ms = device_ms(lambda: torch.bmm(xt, dy), 3)
+        print(f"grouped_gemm_dw {label} (dW): x {list(x_.shape)}, dy {list(dy.shape)}, counts "
+              f"{counts_.tolist()} ({rows} live rows): max_abs_err {err:.3g}, relative "
+              f"{rel:.3g} (limits {TOL} per element, {GEMM_REL} relative), two calls bitwise "
+              f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, autograd of the plain "
+              f"grouped_gemm {ag_ms:.4f} ms (dX and dW together), library {lib_ms:.4f} ms "
+              f"(torch.bmm over every row), bound {bnd[0]:.4f} ms ({bnd[1]}); "
+              f"{2 * rows * H_ * fo / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {ms / bnd[0]:.2f}x the "
+              f"bound, {ms / lib_ms:.2f}x torch.bmm")
+        if label == "gate":
+            records["grouped_gemm_dw"] = record("grouped_gemm_dw", err, ms, plain_ms, bnd,
+                                                lib_ms)
+            # B3 as dX: the gradient of the gate output through Wᵀ, a
+            # contiguous [L, F, H] copy of the weights made in the backward
+            w1 = p["w_gate"][:L]
+            wt = w1.transpose(1, 2).contiguous()
+            copy_ms = device_ms(lambda: w1.transpose(1, 2).contiguous(), 3)
+            print(f"B3 as dX: the [L, F, H] copy of the gate weights {list(wt.shape)} "
+                  f"{copy_ms:.4f} ms, bound "
+                  f"{bound(2 * nbytes(wt), 0, BF16_OPS_S)[0]:.4f} ms (bytes)")
+            gemm_case("HT gate dX (B3 on dY, Wᵀ)", dy, wt, counts_, 3, 2)
+            del wt
+        del dy, x_
+    # combine_gather_reduce_bwd at the combine's recv
+    pl, w0 = hs[0].plan, hs[0].topk_weights
+    crecv = torch.randn((RANKS * group.ht_pair_cap, d), generator=gen, device=dev).to(dt)
+    dout = torch.randn((T, d), generator=gen, device=dev).to(dt)
+    crows = pl.comb_recv_rows
+    d_recv, d_w = cg_mod.combine_gather_reduce_bwd(crecv, crows, w0, dout)
+    w_recv, w_w = ref.combine_gather_reduce_bwd(crecv, crows, w0, dout)
+    check(torch.equal(d_recv, w_recv), "combine_gather_reduce_bwd: d_recv differs from its "
+          "plain version")
+    err, rel = flash_errors(d_w, w_w)
+    check(rel <= 1e-5, f"combine_gather_reduce_bwd: d_w off its plain version by {rel}")
+    valid = int((crows < crecv.shape[0]).sum())
+    bnd = bound(nbytes(crecv, valid) + nbytes(dout) + nbytes(crows) + nbytes(w0)
+                + nbytes(d_recv) + nbytes(d_w), 3 * valid * d, F32_OPS_S)
+    ms = device_ms(lambda: cg_mod.combine_gather_reduce_bwd(crecv, crows, w0, dout), 20)
+    plain_ms = device_ms(lambda: ref.combine_gather_reduce_bwd(crecv, crows, w0, dout), 5)
+    ag_ms = autograd_ms(lambda a, b: ref.combine_gather_reduce(a, crows, b), (crecv, w0), dout, 5)
+    print(f"combine_gather_reduce_bwd: recv {list(crecv.shape)}, rows {list(crows.shape)} "
+          f"({valid} valid), dout {list(dout.shape)}: d_recv bitwise equal, d_w relative "
+          f"{rel:.3g} (limit 1e-5, f32 sums in another order); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, autograd of the plain combine_gather_reduce {ag_ms:.4f} ms, "
+          f"library none (no one call), bound {bnd[0]:.4f} ms ({bnd[1]})")
+    records["combine_gather_reduce_bwd"] = record("combine_gather_reduce_bwd", err, ms,
+                                                  plain_ms, bnd, None)
+    del d_recv, d_w, w_recv, w_w, crecv, dout
+    # the EP transposes on the card against plain gathers and k-order sums
+    d_y3ds = [torch.randn(y.shape, generator=gen, device=dev).to(dt) for y, _ in recv]
+    d_x = LL.dispatch_transpose(group, hs, d_y3ds)
+    sends = [ref.dispatch_pack(slots.flat_rows(d), h.plan.comb_send_gmap)[0]
+             for d, h in zip(d_y3ds, hs)]
+    backs = comm.all_to_all(sends)
+    for r, (got, b, h) in enumerate(zip(d_x, backs, hs)):
+        rr = h.plan.comb_recv_rows
+        check(torch.equal(got, ksum_plain(slots.flat_rows(b), rr, torch.ones(rr.shape, device=dev))),
+              f"the dispatch's backward (d_x) of rank {r} differs from the plain gather and sum")
+    couts = [torch.randn((T, d), generator=gen, device=dev).to(dt) for _ in range(RANKS)]
+    crecvs = [torch.randn((RANKS, group.ht_pair_cap, d), generator=gen, device=dev).to(dt)
+              for _ in range(RANKS)]
+    d_y3d_k, d_w_k = LL.combine_transpose(group, hs, crecvs, couts)
+    with plain_route():
+        d_y3d_p, d_w_p = LL.combine_transpose(group, hs, crecvs, couts)
+    check(all(torch.equal(a, b) for a, b in zip(d_y3d_k, d_y3d_p)),
+          "the combine's backward (d_y3d) differs from the plain scatter and gather")
+    dw_rel = max(flash_errors(a, b)[1] for a, b in zip(d_w_k, d_w_p))
+    check(dw_rel <= 1e-5, f"the combine's backward (d_w) off the plain version by {dw_rel}")
+    print(f"EP transposes over {RANKS} ranks at {T} tokens a rank: the dispatch's backward "
+          f"(B1 copy pack through comb_send_gmap, the exchange, B4 with unit weights) "
+          f"bitwise equal to the plain gather and k-order sum on every rank; the combine's "
+          f"(combine_gather_reduce_bwd, the exchange, B2 through the inverse of "
+          f"comb_send_gmap) d_y3d bitwise equal to the plain version's, d_w within "
+          f"{dw_rel:.3g} relative")
+    del d_y3ds, d_x, sends, backs, couts, crecvs, d_y3d_k, d_w_k, d_y3d_p, d_w_p, recv, y3d
+    return records
+
+
+def train_flash_phase(cfg) -> dict:
+    """Flash attention's LSE and backward pair at the slice's shapes ([8,
+    2048, 48, 128] queries, 8 kv heads), against their plain versions,
+    timed beside the plain backward, SDPA's backward and the bound; the
+    forward re-timed with its LSE output."""
+    a = cfg.attn
+    B, S, Hq, Hkv, dh = TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, cfg.padded_heads(), a.n_kv, a.head_dim
+    gen = torch.Generator(device=DEV).manual_seed(33)
+    q, k, v, do = (torch.randn((B, S, h, dh), generator=gen, device=DEV).to(torch.bfloat16)
+                   for h in (Hq, Hkv, Hkv, Hq))
+    kw = dict(scale=dh ** -0.5)
+    out, lse = fa_mod.flash_attention_bshd(q, k, v, with_lse=True, **kw)
+    t = [x.transpose(1, 2) for x in (q, k, v)]
+    _, want_lse = ref.flash_attention_fwd(*t, **kw)
+    lse_err = max_err(lse, want_lse)
+    check(lse_err <= 1e-3, f"flash attention's LSE off its plain version by {lse_err}")
+    got = fa_mod.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    want = ref.flash_attention_bwd(*t, out.transpose(1, 2), do.transpose(1, 2), lse, **kw)
+    errs = [flash_errors(g_, w_.transpose(1, 2)) for g_, w_ in zip(got, want)]
+    del want
+    check(all(r <= FLASH_BWD_REL for _, r in errs),
+          f"flash attention's backward off its plain version: {errs}")
+    again = fa_mod.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    check(all(torch.equal(x, y) for x, y in zip(again, got)),
+          "flash attention's backward: two calls differ")
+    del again, got
+    fwd_ms = device_ms(lambda: fa_mod.flash_attention_bshd(q, k, v, **kw), 5)
+    fwd_lse_ms = device_ms(lambda: fa_mod.flash_attention_bshd(q, k, v, with_lse=True, **kw), 5)
+    ms = device_ms(lambda: fa_mod.flash_attention_bwd(q, k, v, out, do, lse, **kw), 2)
+    plain_ms = device_ms(lambda: ref.flash_attention_bwd(
+        *t, out.transpose(1, 2), do.transpose(1, 2), lse, **kw), 1)
+    ag_ms = autograd_ms(lambda a, b, c: ref.flash_attention(a, b, c, **kw), t,
+                        do.transpose(1, 2), 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True, **kw)
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms = device_ms(lambda: torch.autograd.grad(lo, (qt, kt, vt), dot, retain_graph=True), 3)
+    del lo, qt, kt, vt
+    pairs = B * Hq * S * (S + 1) // 2
+    ops = 10 * dh * pairs          # five products of 2 d operations per live pair
+    nb = (nbytes(q) * 3 + nbytes(k) * 4 + nbytes(lse) + nbytes(out) + nbytes(do))
+    bnd = bound(nb, ops, BF16_OPS_S)
+    print(f"flash attention backward at [{B}, {S}, {Hq}/{Hkv}, {dh}] bf16: LSE within "
+          f"{lse_err:.3g} of the plain forward's; dq, dk, dv relative "
+          f"{[round(r, 6) for _, r in errs]} (limit {FLASH_BWD_REL}), two calls bitwise "
+          f"equal; the pair {ms:.4f} ms, plain {plain_ms:.4f} ms (the plain backward), "
+          f"autograd of the plain flash_attention {ag_ms:.4f} ms, "
+          f"library {lib_ms:.4f} ms (scaled_dot_product_attention's backward), bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}: {ops / 1e12:.3f} TFLOP); "
+          f"{ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {ms / lib_ms:.2f}x the library; the "
+          f"forward {fwd_ms:.4f} ms, with its LSE {fwd_lse_ms:.4f} ms")
+    return {"flash_attention_bwd": record("flash_attention_bwd", max(e for e, _ in errs),
+                                          ms, plain_ms, bnd, lib_ms)}
+
+
+def moe_grad_phase(cfg, p) -> None:
+    """MoE layer 0 at full width over 8 ranks, 8 x 2048 tokens (one
+    micro-batch): the gradients of the tokens, the router and the three
+    expert weights through the kernels against the same layer with every
+    kernel entry on its plain version, within MOE_GRAD_REL."""
+    gen = torch.Generator(device=DEV).manual_seed(35)
+    p = tracked(p)
+    shape = (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, cfg.d_model)
+    x0 = torch.randn(shape, generator=gen, device=DEV).to(cfg.dtype)
+    gy = torch.randn(shape, generator=gen, device=DEV).to(cfg.dtype)
+    names = ("router", "w_gate", "w_up", "w_down")
+
+    def grads():
+        x = x0.clone().requires_grad_()
+        y, aux = moe_block(p, x, cfg, LocalComm(RANKS))
+        out = torch.autograd.grad((y.float() * gy.float()).sum() + aux,
+                                  [x] + [p[n] for n in names])
+        torch.cuda.synchronize()
+        return out
+    t0 = time.perf_counter()
+    got = grads()
+    k_s = time.perf_counter() - t0
+    with plain_route():
+        want = grads()
+    rels = {n: flash_errors(g_, w_)[1] for n, g_, w_ in zip(("x",) + names, got, want)}
+    check(all(bool(torch.isfinite(g_).all()) and bool(g_.abs().amax() > 0) for g_ in got),
+          "an MoE gradient is not finite or all zero")
+    check(all(r <= MOE_GRAD_REL for r in rels.values()),
+          f"the MoE layer's gradients off the plain layer's: {rels}")
+    print(f"MoE layer 0 at full width, {shape[0]} x {shape[1]} tokens over {RANKS} ranks: "
+          f"gradients through the kernels against the plain versions, relative "
+          f"{ {n: round(r, 6) for n, r in rels.items()} } (limit {MOE_GRAD_REL}); forward and "
+          f"backward through the kernels {k_s:.3f} s")
+
+
+def train_trace(cfg, params, batch) -> None:
+    """One micro-batch's forward and backward (micro-batch 0, the trained
+    parameters) traced with the profiler: the card's busy share of the
+    wall time and the kernels that took most of it."""
+    fwd = get_model(cfg).forward
+    micro = {k: v[0] for k, v in batch.items()}
+    params = tracked(params)
+    inputs = [t for t in leaves(params) if t.is_floating_point()]
+
+    def run():
+        loss, _ = fwd(params, micro, cfg, LocalComm(RANKS))
+        torch.autograd.grad(loss, inputs)
+        torch.cuda.synchronize()
+    run()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    iv = [e for e in device_intervals(prof) if "spin_kernel" not in e[2]]
+    check(bool(iv), "the traced micro-batch recorded no device event")
+    busy = busy_us(iv)
+    by: Counter = Counter()
+    for s_, e_, name in iv:
+        by[short_name(name)] += e_ - s_
+    top = ", ".join(f"{n} {us / 1e3:.1f} ms ({us / busy:.3f})" for n, us in by.most_common(8))
+    print(f"  one traced micro-batch (forward + backward): wall {wall_us / 1e6:.3f} s, card "
+          f"busy {busy / 1e6:.3f} s ({busy / wall_us:.3f} of the wall; idle "
+          f"{1 - busy / wall_us:.3f}), {len(iv)} device events; by kernel: {top}")
+
+
+def train_phase(card: str) -> list:
+    """The Trainer on DBRX-132B at full width (``train_4k``, 1 layer, 2
+    micro-batches of 8 x 2048, bf16 moments) over 8 EP ranks on the card,
+    after the backward kernels' checks and one MoE layer's gradients."""
+    t_start = time.perf_counter()
+    print(f"training phase: {memory_line()} before")
+    full, cfg = train_config()
+    m = cfg.moe
+    print(f"training: DBRX-132B train_4k at full width ({cfg.d_model} wide, "
+          f"{m.num_experts} experts top-{m.top_k}, HT flat, fp8 dispatch "
+          f"{m.quantize_dispatch}, capacity {m.capacity_factor}, remat {cfg.remat}); "
+          f"{TRAIN_LAYERS} of {full.num_layers} layers, global batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} in {TRAIN_MICRO} micro-batches (the preset's {full.microbatch}), "
+          f"{RANKS} EP ranks on one card, AdamW moments in bf16")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=1,
+                          state_dtype=torch.bfloat16)
+    tr = Trainer(cfg, TrainerConfig(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                                    seq_len=TRAIN_SEQ, log_every=1), comm=LocalComm(RANKS),
+                 opt_cfg=opt_cfg, device=DEV)
+    params, opt = tr.init_state()
+    torch.cuda.synchronize()
+    print(f"  parameters {tree_bytes(params) / 2**30:.2f} GiB, moments "
+          f"{tree_bytes(opt) / 2**30:.2f} GiB")
+    p0 = _index(params["moe_stack"]["moe"], 0)
+    records = train_kernel_phase(cfg, p0)
+    records.update(train_flash_phase(cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_grad_phase(cfg, _index(params["moe_stack"]["moe"], 0))
+    del p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = tr.data.batch_at(0)
+    fwd = get_model(cfg).forward
+    with torch.no_grad():
+        ref_loss = sum(fwd(params, {k: v[i] for k, v in batch.items()}, cfg, LocalComm(RANKS))[0]
+                       for i in range(TRAIN_MICRO)) / TRAIN_MICRO
+    ref_loss = float(ref_loss)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the Trainer's own loop, over the repeated batch 0 and the state above
+    tr.init_state = lambda: (params, opt)
+    tr.data.batch_at = lambda step: batch
+    opt_times, step_info = [], []
+    orig_update = steps_mod.adamw_update
+
+    def timed_update(prm, grads, state, oc):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not opt_times:          # step 1: every gradient finite and not all zero
+            bad = [n for n, g_ in zip(leaf_names(grads), leaves(grads))
+                   if not bool(torch.isfinite(g_).all()) or not bool(g_.abs().amax() > 0)]
+            check(not bad, f"step 1: gradients not finite or all zero: {bad}")
+            t0 = time.perf_counter()
+        out = orig_update(prm, grads, state, oc)
+        torch.cuda.synchronize()
+        opt_times.append(time.perf_counter() - t0)
+        return out
+    inner = tr.step_fn
+
+    def step(prm, state, b):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(prm, state, b)
+        torch.cuda.synchronize()
+        step_info.append((time.perf_counter() - t0, counts()))
+        return out
+    tr.step_fn = step
+    calls: Counter = Counter()
+    steps_mod.adamw_update = timed_update
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with plain_calls(calls):
+            params, opt = tr.run()
+    finally:
+        steps_mod.adamw_update = orig_update
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in tr.metrics_log]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    check(rel <= PF_LOSS_REL, f"step 1's loss {losses[0]} differs from the train_4k "
+          f"forward's {ref_loss} by {rel:.3g} (limit {PF_LOSS_REL})")
+    check(losses[-1] < losses[0], f"the loss did not fall over {TRAIN_STEPS} steps on a "
+          f"repeated batch: {losses}")
+    check(not calls, f"the training path reached plain versions: {dict(calls)}")
+    check(not any(t_.requires_grad for t_ in leaves(params)),
+          "the trained parameters came back requiring grad")
+    want = train_launches(cfg)
+    for i, (_, got) in enumerate(step_info):
+        bad = {k: (got.get(k, 0), want.get(k, 0)) for k in set(want) | set(got)
+               if got.get(k, 0) != want.get(k, 0)}
+        check(not bad, f"train step {i + 1}: launches (got, expected) {bad}")
+    total = Counter()
+    for _, got in step_info:
+        total.update(got)
+    step_s = [s for s, _ in step_info]
+    micro_s = [(s - o) / TRAIN_MICRO for s, o in zip(step_s, opt_times)]
+    print(f"Trainer ({card}): losses {[round(x, 6) for x in losses]} over {TRAIN_STEPS} steps "
+          f"on a repeated batch (falling); step 1's loss within {rel:.3g} of the train_4k "
+          f"forward's {ref_loss:.6f} (limit {PF_LOSS_REL}); grad norms "
+          f"{[round(r['gnorm'], 4) for r in tr.metrics_log]}; every gradient of step 1 "
+          f"finite and nonzero; no plain version reached")
+    print(f"  step {[round(s, 4) for s in step_s]} s, per micro-batch (forward + backward) "
+          f"{[round(s, 4) for s in micro_s]} s, optimizer {[round(s, 4) for s in opt_times]} "
+          f"s; {TRAIN_BATCH * TRAIN_SEQ / np.median(step_s):.1f} train tok/s (median step); "
+          f"peak device memory {peak:.2f} GiB; launches per step {step_info[0][1]}")
+    for name in TRAIN_KERNELS:
+        records[name]["launches"] = total[name]
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_trace(cfg, params, batch)
+    del params, batch, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"training phase {time.perf_counter() - t_start:.1f} s; {memory_line()} after")
+    return list(records.values())
+
+
+# ---------------------------------------------------------------------------
 # the serving telemetry on the card
 # ---------------------------------------------------------------------------
 
@@ -5015,8 +5544,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     dense_rows = dense_phase(card)
     dist_phase(card)
+    # training last: what its allocator keeps cached cannot crowd the
+    # spawned processes that share the card in dist_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_rows = train_phase(card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": list(records.values()) + ds_rows + dense_rows}))
+    print(json.dumps({"kernels": list(records.values()) + ds_rows + dense_rows + train_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

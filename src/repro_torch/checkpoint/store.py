@@ -345,6 +345,8 @@ def _to_tensor(arr: np.ndarray, name: str, dtype, device) -> torch.Tensor:
             np.int16 if bits is np.uint16 else np.uint8)).view(dt)
     else:
         t = torch.from_numpy(np.ascontiguousarray(arr))
+    # ascontiguousarray makes a 0-d array 1-d (an optimizer's step)
+    t = t.reshape(arr.shape)
     return t.to(device=device, dtype=dtype)
 
 

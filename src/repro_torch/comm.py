@@ -121,10 +121,15 @@ class LocalComm:
         that differ only in that coordinate, block j going to the rank
         whose coordinate is j. One device copy: the stacked buffers
         [s_0, ..., s_m, N_axis, C, ...] with the axis's dim and the block
-        dim swapped."""
+        dim swapped. Differentiable: the swap is its own inverse, so the
+        backward is the same exchange of the cotangents."""
         if len(sends) != self.size:
             raise ValueError(f"all_to_all got {len(sends)} buffers for "
                              f"{self.size} ranks")
+        return list(_LocalAllToAll.apply(self, axis, *sends))
+
+    def _exchange(self, sends: list[torch.Tensor], axis: str | None) -> list[torch.Tensor]:
+        """The body of ``all_to_all``, outside autograd."""
         if axis is None:
             sizes, k = [self.size], 0
         elif axis in self.axis_names:
@@ -194,6 +199,21 @@ class LocalComm:
         """A per-process sum over its batch rows, summed over the processes
         that hold other rows: this process holds them all."""
         return t
+
+
+class _LocalAllToAll(torch.autograd.Function):
+    """``LocalComm.all_to_all`` as a Function: the exchange goes through a
+    byte view, which has no ``grad_fn``, so autograd could not follow it."""
+
+    @staticmethod
+    def forward(ctx, comm, axis, *sends):
+        ctx.comm, ctx.axis = comm, axis
+        return tuple(comm._exchange(list(sends), axis))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(ctx.comm._exchange([g.contiguous() for g in grads],
+                                                       ctx.axis))
 
 
 class DistComm:

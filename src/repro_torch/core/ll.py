@@ -17,12 +17,30 @@ dispatch recv is a transpose ([N, L·B] -> [L, N·B]) plus the standalone
 back. Every function takes one value per hosted rank and tags its pendings
 with the group's mode: the flat HT path (``core/ht.py``) and the baseline
 (``core/baseline.py``) run these functions over their own maps.
+
+The MoE layer runs the EP dispatch and combine as the Functions
+``EpDispatch`` and ``EpCombine`` (``ep_dispatch_autograd``,
+``ep_combine_autograd``), whose forward runs the backend's staged send and
+complete (recording nothing where no input requires grad) and whose
+backward runs the transposes through the same handle's maps: the backward of dispatch is the combine path applied to the
+cotangent with unit weights (B1 copy pack through ``comb_send_gmap``, the
+exchange, B4 over ``comb_recv_rows``), and the backward of combine is
+``combine_gather_reduce_bwd`` (the received rows' and the weights'
+gradients), the exchange, and a B2 gather through the inverse of
+``comb_send_gmap`` into [L, A, H]. An fp8 dispatch takes the same bf16
+backward (straight-through): the reference's AD casts the cotangent to
+e4m3 without a scale (ROADMAP Queue C). Both transposes need an
+entry-level combine that names each y3d row once, as HT flat's and LL
+``nccl_ep``'s do; the positional layouts and the hierarchical HT path raise
+from their backward (ROADMAP A11c).
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import plan as P
 from repro_torch.core import slots as S
-from repro_torch.core.backend import BaseBackend, EpPending, register_backend
+from repro_torch.core.backend import BaseBackend, EpPending, get_backend, register_backend
 from repro_torch.core.group import EpGroup, EpHandle
 from repro_torch.core.recv import dequant_rows, unpack_recv
 from repro_torch.kernels import ops as K
@@ -112,6 +130,135 @@ def ll_complete_combine(group: EpGroup, handles: list, pendings: list):
                                     P.ensure_plan(group, h).comb_recv_rows,
                                     h.topk_weights)
             for h, p in zip(handles, pendings)]
+
+
+# --------------------------------------------------------------------------
+# training: the dispatch and combine under autograd
+# --------------------------------------------------------------------------
+
+def refuse_backward(group: EpGroup) -> None:
+    """Raise for a group whose dispatch and combine have no backward yet."""
+    if group.hierarchical:
+        what = "hierarchical HT"
+    elif P.positional_layout(group):
+        what = "the baseline layout" if group.mode == "baseline" else "the LL deepep layout"
+    else:
+        return
+    raise NotImplementedError(
+        f"no backward for the EP dispatch and combine on {what} yet (ROADMAP A11c): "
+        "train in HT flat or the LL nccl_ep layout")
+
+
+def _unit(rows: torch.Tensor) -> torch.Tensor:
+    return torch.ones(rows.shape, dtype=torch.float32, device=rows.device)
+
+
+def dispatch_transpose(group: EpGroup, handles: list, d_y3ds: list) -> list:
+    """The backward of dispatch for cotangents [L, A, H]: each rank's d_x
+    [T, H] in the payload dtype, d_x[t] the f32 sum over k of the cotangent
+    of entry (t, k)'s expert row, in k order (0 for a dropped entry). The
+    combine path with unit weights, so the fp8 dispatch's backward is the
+    bf16 one (straight-through)."""
+    refuse_backward(group)
+    dt = group.cfg.payload_dtype
+    plans = [P.ensure_plan(group, h) for h in handles]
+    sends = [K.dispatch_pack(S.flat_rows(d.to(dt)).contiguous(), pl.comb_send_gmap,
+                             out_dtype=dt)[0] for d, pl in zip(d_y3ds, plans)]
+    return [K.combine_gather_reduce(S.flat_rows(r), pl.comb_recv_rows, _unit(pl.comb_recv_rows))
+            for r, pl in zip(group.comm.all_to_all(sends), plans)]
+
+
+def comb_send_inverse(group: EpGroup, plan) -> torch.Tensor:
+    """[L, A] int32: the combine send row (of [N * C_c]) that each expert
+    row goes to, or the sentinel N * C_c for a row the combine never sends
+    (empty, past the count, dropped). The inverse of ``comb_send_gmap``,
+    which names each y3d row at most once. For HT flat it is
+    ``disp_recv_gmap`` (combine mirrors dispatch slot for slot)."""
+    L = group.local_experts
+    g = plan.comb_send_gmap.reshape(-1)
+    A = plan.disp_recv_gmap.shape[1]
+    inv = torch.full((L * A + 1,), g.numel(), dtype=torch.int32, device=g.device)
+    inv.scatter_(0, torch.where(g < L * A, g, L * A).long(),
+                 torch.arange(g.numel(), dtype=torch.int32, device=g.device))
+    return inv[:L * A].view(L, A)
+
+
+def combine_transpose(group: EpGroup, handles: list, recvs: list, d_outs: list):
+    """The backward of combine for cotangents [T, H], from the rows each rank
+    received (``recvs``): (d_y3d [L, A, H] per rank in the payload dtype,
+    rows the combine never read zero; d_w [T, K] f32 per rank)."""
+    refuse_backward(group)
+    plans = [P.ensure_plan(group, h) for h in handles]
+    parts = [K.combine_gather_reduce_bwd(S.flat_rows(r), pl.comb_recv_rows,
+                                         h.topk_weights.detach().float(),
+                                         d.to(r.dtype).contiguous())
+             for r, pl, h, d in zip(recvs, plans, handles, d_outs)]
+    back = group.comm.all_to_all([dr.view(r.shape) for (dr, _), r in zip(parts, recvs)])
+    d_y3ds = [K.recv_unpack(S.flat_rows(b), comb_send_inverse(group, pl))
+              for b, pl in zip(back, plans)]
+    return d_y3ds, [dw for _, dw in parts]
+
+
+class EpDispatch(torch.autograd.Function):
+    """The staged dispatch of every hosted rank: inputs (group, handles,
+    x_0, ..., x_n), outputs (y3d_0, ..., y3d_n, counts_0, ..., counts_n)."""
+
+    @staticmethod
+    def forward(ctx, group, handles, *xs):
+        be = get_backend(group.mode)
+        outs = be.complete(group, handles, be.dispatch(group, handles, list(xs),
+                                                       send_only=True))
+        ctx.group, ctx.handles = group, handles
+        ctx.x_dtypes = [x.dtype for x in xs]
+        counts = [c for _, c in outs]
+        ctx.mark_non_differentiable(*counts)
+        return tuple(y for y, _ in outs) + tuple(counts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = len(ctx.handles)
+        d_x = dispatch_transpose(ctx.group, ctx.handles, list(grads[:n]))
+        return (None, None) + tuple(d.to(dt) for d, dt in zip(d_x, ctx.x_dtypes))
+
+
+class EpCombine(torch.autograd.Function):
+    """The staged combine of every hosted rank: inputs (group, handles,
+    y3d_0, ..., y3d_n, w_0, ..., w_n) with w_r rank r's combine weights
+    (its handle's ``topk_weights``), outputs the combined [T, H] per rank."""
+
+    @staticmethod
+    def forward(ctx, group, handles, *args):
+        n = len(handles)
+        y3ds = list(args[:n])
+        be = get_backend(group.mode)
+        pendings = be.combine(group, handles, y3ds, send_only=True)
+        outs = be.complete(group, handles, pendings)
+        ctx.group, ctx.handles = group, handles
+        ctx.y_meta = [(y.dtype, y.shape) for y in y3ds]
+        ctx.save_for_backward(*(p.recv for p in pendings))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *d_outs):
+        d_y3ds, d_ws = combine_transpose(ctx.group, ctx.handles, list(ctx.saved_tensors),
+                                         list(d_outs))
+        return (None, None) + tuple(d.to(dt).view(shape) for d, (dt, shape)
+                                    in zip(d_y3ds, ctx.y_meta)) + tuple(d_ws)
+
+
+def ep_dispatch_autograd(group: EpGroup, handles: list, xs: list) -> list:
+    """``ep_complete(ep_dispatch(..., send_only=True))`` as a Function:
+    [(y3d, counts)] per rank, y3d differentiable in its rank's tokens."""
+    out = EpDispatch.apply(group, handles, *xs)
+    n = len(xs)
+    return list(zip(out[:n], out[n:]))
+
+
+def ep_combine_autograd(group: EpGroup, handles: list, y3ds: list) -> list:
+    """``ep_complete(ep_combine(..., send_only=True))`` as a Function: the
+    combined [T, H] per rank, differentiable in the expert outputs and in
+    the handles' combine weights."""
+    return list(EpCombine.apply(group, handles, *y3ds, *(h.topk_weights for h in handles)))
 
 
 class LLBackend(BaseBackend):

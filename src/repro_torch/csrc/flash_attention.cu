@@ -36,7 +36,9 @@
 //     into one multiply ahead of ex2.
 //   * Epilogue: O / max(l, 1e-30) in bf16 into a swizzled staging buffer,
 //     then one TMA store per 64-column box of each warpgroup's 64 rows (rows
-//     past Sq are not written).
+//     past Sq are not written). When asked (training), each row's natural
+//     log-sum-exp of its scaled scores, m + log(max(l, 1e-30)), in f32
+//     [B, Hq, Sq], which the backward (flash_attention_bwd.cu) reads.
 //   kernels/flash_attention.py mirrors the walk (tile_coords, kv_tiles,
 //   lane_tiles) for the CPU tests.
 // f32: a plain shared-memory kernel on the CUDA cores, exact f32.
@@ -49,6 +51,7 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Geometry {
   int Sq, Sk, G, Hq;
@@ -59,6 +62,7 @@ struct Geometry {
   bool causal;
   // bf16 walk: B * Hq, 128-row query tiles per sequence, work tiles
   int bh, m_tiles, tiles;
+  float* lse;             // [B, Hq, Sq] f32 row log-sum-exp, or null: not written
 };
 
 __device__ inline bool live(int r, int c, const Geometry& g) {
@@ -367,6 +371,13 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         l1 += __shfl_xor_sync(0xffffffffu, l1, x);
       }
       const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+      if (g.lse != nullptr && lane % 4 == 0) {
+        // the natural log-sum-exp of the scaled scores: m is in the log2
+        // domain, so sum_k exp(s_k) = 2^m * l
+        float* lr = g.lse + static_cast<int64_t>(b * g.Hq + h) * g.Sq;
+        if (r0 < g.Sq) lr[r0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * LN2;
+        if (r0 + 8 < g.Sq) lr[r0 + 8] = (m1 + log2f(fmaxf(l1, 1e-30f))) * LN2;
+      }
       if (tw == 0) bulk_wait_read<0>();  // the last tile's store has left the buffer
       bar_sync(EPI + wg, 128);
 #pragma unroll
@@ -464,6 +475,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float lm = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < D / 4; ++i) op[qd + 4 * i] = acc[i] / lm;
+    if (geo.lse != nullptr && qd == 0)
+      geo.lse[static_cast<int64_t>(bh) * geo.Sq + row] = m + logf(lm);
   }
 }
 
@@ -534,11 +547,11 @@ extern "C" int ep_flash_attention(const void* q, const void* k, const void* v, v
                                   int B, int Hq, int Hkv, int Sq, int Sk, int D,
                                   int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb,
                                   int64_t ksh, int64_t kss, float scale, int window,
-                                  int causal, int dt, void* stream) {
+                                  int causal, int dt, void* lse, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return static_cast<int>(cudaGetLastError());
   if (Hkv <= 0 || Hq % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   const Geometry geo{Sq, Sk, Hq / Hkv, Hq, qsb, qsh, qss, ksb, ksh, kss, scale, window,
-                     causal != 0, 0, 0, 0};
+                     causal != 0, 0, 0, 0, static_cast<float*>(lse)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 128) return launch<128>(q, k, v, o, B, Hkv, geo, dt, s);
   if (D == 64) return launch<64>(q, k, v, o, B, Hkv, geo, dt, s);

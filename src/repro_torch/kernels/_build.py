@@ -24,7 +24,11 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("dispatch_pack.cu", "recv_unpack.cu", "grouped_gemm.cu",
            "combine_gather_reduce.cu", "paged_decode_attention.cu",
-           "flash_attention.cu", "fp8.cu", "combine_reduce.cu")
+           "flash_attention.cu", "fp8.cu", "combine_reduce.cu",
+           # the training backward (grouped_gemm's weight gradient, the
+           # combine's backward, flash attention's dQ and dK/dV pair)
+           "grouped_gemm_dw.cu", "combine_gather_reduce_bwd.cu",
+           "flash_attention_bwd.cu")
 HEADERS = ("common.cuh", "gather.cuh", "hopper.cuh", "quant.cuh", "reduce.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,10 +50,13 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _F, _I, _I, _I, _P),
     "ep_paged_decode_stage2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ep_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L,
-                           _L, _L, _L, _F, _I, _I, _I, _P),
+                           _L, _L, _L, _F, _I, _I, _I, _P, _P),
     "ep_quantize_fp8": (_P, _P, _P, _L, _L, _I, _I, _I, _P),
     "ep_dequantize_fp8": (_P, _P, _P, _L, _L, _I, _I, _I, _P),
     "ep_combine_reduce": (_P, _P, _P, _I, _L, _I, _I, _I, _I, _P),
+    "ep_grouped_gemm_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ep_combine_gather_reduce_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
+    "ep_flash_attention_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

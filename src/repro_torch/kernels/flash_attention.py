@@ -81,14 +81,9 @@ def kv_tiles(q0: int, Sq: int, Sk: int, causal: bool = True,
     return tiles
 
 
-def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         scale: float, window: int | None = None,
-                         causal: bool = True) -> torch.Tensor:
-    """q [B, Sq, Hq, d], k/v [B, Sk, Hkv, d] on the card, bf16 or f32, d in
-    (64, 128); returns [B, Sq, Hq, d]. The function of
-    ``ref.flash_attention`` on the [B, H, S, d] transposes."""
-    global launches
-    name = "flash_attention"
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int | None) -> int:
+    """The shapes, dtype and alignment both kernels take; the dtype code."""
     _build.check_cuda(name, q, k, v)
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"{name}: want 4-d q and k/v of one shape, got "
@@ -107,12 +102,64 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
     if window is not None and window < 1:
         raise ValueError(f"{name}: window must be positive, got {window}")
+    return dt
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         scale: float, window: int | None = None,
+                         causal: bool = True, with_lse: bool = False):
+    """q [B, Sq, Hq, d], k/v [B, Sk, Hkv, d] on the card, bf16 or f32, d in
+    (64, 128); returns [B, Sq, Hq, d], and with ``with_lse`` also each
+    row's log-sum-exp [B, Hq, Sq] f32 (what the backward reads). The
+    function of ``ref.flash_attention`` (``ref.flash_attention_fwd``) on the
+    [B, H, S, d] transposes."""
+    global launches
+    dt = _check("flash_attention", q, k, v, window)
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     qs, ks = q.stride(), k.stride()
     # strides by (batch, head, seq), as the C entry takes them
     _build.launch("ep_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), B, Hq, Hkv, Sq, Sk, d, qs[0], qs[2], qs[1],
                   ks[0], ks[2], ks[1], float(scale), int(window or 0),
-                  int(causal), dt)
+                  int(causal), dt, None if lse is None else lse.data_ptr())
     launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+bwd_launches = 0   # launches of the backward's dQ and dK/dV kernels, two a call
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
+                        scale: float, window: int | None = None, causal: bool = True):
+    """The backward pair on the card (``csrc/flash_attention_bwd.cu``): q, o,
+    do [B, Sq, Hq, d] and k, v [B, Sk, Hkv, d], contiguous, bf16 or f32,
+    lse [B, Hq, Sq] f32 from the forward -> (dq, dk, dv) of the inputs'
+    shapes and dtype. One kernel per 64 query rows computes rowsum(do * o)
+    and dq; one per 64 keys of a kv head walks its G query heads for dk and
+    dv. Same contract as ``ref.flash_attention_bwd`` on the transposes."""
+    global bwd_launches
+    name = "flash_attention_bwd"
+    dt = _check(name, q, k, v, window)
+    _build.check_cuda(name, o, do, lse)
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"{name}: o and do must be {q.dtype} {tuple(q.shape)}, got "
+                         f"{o.dtype} {tuple(o.shape)} and {do.dtype} {tuple(do.shape)}")
+    if lse.dtype != torch.float32 or lse.shape != (B, Hq, Sq):
+        raise ValueError(f"{name}: lse must be f32 {(B, Hq, Sq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _build.launch("ep_flash_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Sq, Sk, d,
+                  float(scale), int(window or 0), int(causal), dt)
+    bwd_launches += 2
+    return dq, dk, dv

@@ -277,3 +277,38 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
                   None if sems is None else sems.data_ptr())
     launches += 1
     return out
+
+
+dw_launches = 0   # launches of grouped_gemm_dw (chip_smoke reads it)
+
+
+def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
+                    counts: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of ``grouped_gemm`` on the card
+    (``csrc/grouped_gemm_dw.cu``): x [L, A, H], dy [L, A, F] (same dtype,
+    bf16 or f32), counts [L] int32 -> dW [L, H, F] in x's dtype, f32 sums
+    over each expert's live rows. Same contract as ``ref.grouped_gemm_dw``.
+    bf16 multiplies on mma.sync (WMMA) tiles of 128 x 128 in 32-row steps;
+    f32 on the CUDA cores."""
+    global dw_launches
+    name = "grouped_gemm_dw"
+    _build.check_cuda(name, x, dy, counts)
+    if x.dim() != 3 or dy.dim() != 3 or x.shape[:2] != dy.shape[:2]:
+        raise ValueError(f"{name}: want x [L, A, H] and dy [L, A, F], got "
+                         f"{tuple(x.shape)} and {tuple(dy.shape)}")
+    if counts.dtype != torch.int32 or counts.shape != (x.shape[0],):
+        raise ValueError(f"{name}: counts must be int32 [L], got {counts.dtype} "
+                         f"{tuple(counts.shape)}")
+    if dy.dtype != x.dtype:
+        raise TypeError(f"{name}: x is {x.dtype} but dy is {dy.dtype}")
+    dt = _build.dtype_code(name, x.dtype, _DT)
+    L, A, H = x.shape
+    F = dy.shape[2]
+    if H % 8 or F % 8 or not _build.aligned16(x, dy):
+        raise ValueError(f"{name}: H={H} and F={F} must be multiples of 8 with "
+                         "16-byte aligned operands")
+    out = torch.empty((L, H, F), dtype=x.dtype, device=x.device)
+    _build.launch("ep_grouped_gemm_dw", x.data_ptr(), dy.data_ptr(), counts.data_ptr(),
+                  out.data_ptr(), L, A, H, F, dt)
+    dw_launches += 1
+    return out

@@ -121,6 +121,36 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     return out.to(torch.bfloat16 if x.dtype == torch.float8_e4m3fn else x.dtype)
 
 
+def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
+                    counts: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of ``grouped_gemm``: x [L, A, H], dy [L, A, F] ->
+    dW [L, H, F] = sum over the live rows a < counts[l] of x[l, a]ᵀ dy[l, a],
+    in f32, cast to x's dtype."""
+    A = x.shape[1]
+    live = (torch.arange(A, device=x.device)[None, :] < counts[:, None])[..., None]
+    xm = torch.where(live, x.float(), 0.0)
+    return torch.einsum("lah,laf->lhf", xm, dy.float()).to(x.dtype)
+
+
+def combine_gather_reduce_bwd(recv: torch.Tensor, rows: torch.Tensor,
+                              w: torch.Tensor, dout: torch.Tensor):
+    """The backward of ``combine_gather_reduce`` for the cotangent dout [T,
+    H], where the valid rows name each recv row at most once (the EP
+    combine's maps): (d_recv [R, H] in recv's dtype, d_w [T, K] f32) with
+    d_recv[rows[t, k]] = w[t, k] dout[t] and every other row 0, d_w[t, k] =
+    recv[rows[t, k]]·dout[t] in f32 and 0 at the sentinel R."""
+    R, H = recv.shape
+    valid = rows < R
+    idx = torch.where(valid, rows, R).long().reshape(-1)
+    contrib = (w.float()[..., None] * dout.float()[:, None, :]).to(recv.dtype)
+    d_recv = torch.zeros((R + 1, H), dtype=recv.dtype, device=recv.device)
+    d_recv = d_recv.index_copy(0, idx, contrib.reshape(-1, H))[:R]
+    pad = torch.zeros((1, H), dtype=recv.dtype, device=recv.device)
+    y = torch.cat([recv, pad])[idx].reshape(rows.shape + (H,))
+    d_w = torch.einsum("tkh,th->tk", y.float(), dout.float())
+    return d_recv, torch.where(valid, d_w, 0.0)
+
+
 NEG_INF = -1e30
 
 
@@ -203,19 +233,18 @@ def paged_decode_attention(q, k_pages, v_pages, kv_indices, kv_lens, *,
 FLASH_BK = 128    # KV tile of the plain flash_attention, the Pallas kernel's bk
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float, window: int | None = None,
-                    causal: bool = True) -> torch.Tensor:
-    """Causal (optionally sliding-window) GQA attention: q [B, Hq, Sq, d],
-    k/v [B, Hkv, Sk, d] -> [B, Hq, Sq, d] in q's dtype; query head h reads
-    kv head h // G. Positions start at 0 on both sides.
+def _put_rows(t: torch.Tensor, lo: int, hi: int, rows: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` with its rows [lo, hi) along ``dim`` replaced by ``rows``, as a
+    new tensor: autograd can differentiate it, where a slice assignment
+    would modify a tensor it saved."""
+    n = t.shape[dim]
+    parts = [t.narrow(dim, 0, lo), rows, t.narrow(dim, hi, n - hi)]
+    return torch.cat([p for p in parts if p.shape[dim]], dim=dim)
 
-    The Pallas kernel's online softmax in f32 over KV tiles of ``FLASH_BK``:
-    masked scores are the finite NEG_INF, and the output divides by
-    max(l, 1e-30). Each tile updates only the query rows it can reach (a
-    fully masked tile leaves a row's m, l and acc exactly as they were once
-    the row has seen a live key, and a row that has not is wiped by the
-    first live one), so memory stays at [B, Hq, Sq, FLASH_BK]."""
+
+def _flash(q, k, v, scale, window, causal):
+    """The online softmax of ``flash_attention`` -> (out [B, Hkv, G, Sq, d]
+    f32, m, l [B, Hkv, G, Sq] f32)."""
     B, Hq, Sq, d = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -245,12 +274,80 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m_new = torch.maximum(m_prev, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m_prev - m_new)
-        l[..., rows] = l[..., rows] * corr + p.sum(-1)
-        acc[..., rows, :] = acc[..., rows, :] * corr[..., None] + torch.einsum(
-            "bhgqk,bhkd->bhgqd", p, vt)
-        m[..., rows] = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        l = _put_rows(l, lo, hi, l[..., rows] * corr + p.sum(-1), -1)
+        acc = _put_rows(acc, lo, hi, acc[..., rows, :] * corr[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p, vt), -2)
+        m = _put_rows(m, lo, hi, m_new, -1)
+    return acc / torch.clamp_min(l, 1e-30)[..., None], m, l
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, window: int | None = None,
+                    causal: bool = True) -> torch.Tensor:
+    """Causal (optionally sliding-window) GQA attention: q [B, Hq, Sq, d],
+    k/v [B, Hkv, Sk, d] -> [B, Hq, Sq, d] in q's dtype; query head h reads
+    kv head h // G. Positions start at 0 on both sides.
+
+    The Pallas kernel's online softmax in f32 over KV tiles of ``FLASH_BK``:
+    masked scores are the finite NEG_INF, and the output divides by
+    max(l, 1e-30). Each tile updates only the query rows it can reach (a
+    fully masked tile leaves a row's m, l and acc exactly as they were once
+    the row has seen a live key, and a row that has not is wiped by the
+    first live one), so memory stays at [B, Hq, Sq, FLASH_BK]. The updates
+    build new tensors, so autograd can differentiate the function."""
+    out, _, _ = _flash(q, k, v, scale, window, causal)
+    B, Hq, Sq, d = q.shape
     return out.reshape(B, Hq, Sq, d).to(q.dtype)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        scale: float, window: int | None = None,
+                        causal: bool = True):
+    """``flash_attention`` and each row's natural log-sum-exp of its scaled,
+    masked scores, m + log(max(l, 1e-30)): (out [B, Hq, Sq, d], lse [B, Hq,
+    Sq] f32), what the training forward saves for the backward."""
+    out, m, l = _flash(q, k, v, scale, window, causal)
+    B, Hq, Sq, d = q.shape
+    lse = (m + torch.log(torch.clamp_min(l, 1e-30))).reshape(B, Hq, Sq)
+    return out.reshape(B, Hq, Sq, d).to(q.dtype), lse
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, scale: float,
+                        window: int | None = None, causal: bool = True):
+    """The backward of ``flash_attention`` from its output ``o`` and row
+    log-sum-exp ``lse`` (``flash_attention_fwd``), for the cotangent ``do``:
+    (dq, dk, dv) in the inputs' dtypes, [B, H, S, d] as the inputs. In f32,
+    one KV tile of ``FLASH_BK`` keys at a time: p = exp(scale q·k - lse) on
+    the live pairs, dv = pᵀ do, ds = p (do·v - rowsum(do * o)), dk = scale
+    dsᵀ q summed over the G query heads of each kv head, dq = scale ds k."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, Sq, d).float()
+    dog = do.reshape(B, Hkv, G, Sq, d).float()
+    delta = (dog * o.reshape(B, Hkv, G, Sq, d).float()).sum(-1)
+    lg = lse.reshape(B, Hkv, G, Sq).float()
+    q_pos = torch.arange(Sq, device=q.device)
+    dq = torch.zeros_like(qg)
+    dks, dvs = [], []
+    for k0 in range(0, Sk, FLASH_BK):
+        k1 = min(k0 + FLASH_BK, Sk)
+        kt, vt = k[:, :, k0:k1].float(), v[:, :, k0:k1].float()
+        k_pos = torch.arange(k0, k1, device=q.device)
+        mask = torch.ones((Sq, k1 - k0), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kt) * scale
+        p = torch.where(mask, torch.exp(s - lg[..., None]), 0.0)
+        dvs.append(torch.einsum("bhgqk,bhgqd->bhkd", p, dog))
+        ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", dog, vt) - delta[..., None])
+        dks.append(torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale)
+        dq = dq + torch.einsum("bhgqk,bhkd->bhgqd", ds, kt) * scale
+    dk = torch.cat(dks, dim=2) if dks else torch.zeros_like(k, dtype=torch.float32)
+    dv = torch.cat(dvs, dim=2) if dvs else torch.zeros_like(v, dtype=torch.float32)
+    return (dq.reshape(B, Hq, Sq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
 def hbm_bytes(B, Hq, Hkv, Sq, Sk, d, dtype_bytes=2) -> int:

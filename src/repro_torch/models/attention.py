@@ -5,8 +5,9 @@ branch and ``paged_attention``.
 Without a cache, causal attention at ``S >= CHUNKED_ATTN_THRESHOLD`` with
 no softcap and ``S % 128 == 0`` goes through
 ``kernels.ops.flash_attention_bshd`` on every device (the JAX package takes
-that route only on the TPU); softcap or a ragged S takes ``_sdpa_chunked``,
-shorter or non-causal sequences ``_sdpa``. There was no kernel for the dense
+that route only on the TPU), through the Function of
+``kernels/autograd.py``, whose backward is the kernel pair; softcap or a
+ragged S takes ``_sdpa_chunked``, shorter or non-causal sequences ``_sdpa``. There was no kernel for the dense
 cache on the TPU either: decode attention over it is plain ``_sdpa``. The
 cache is updated in place (the JAX step returns a new cache instead); the
 filled length is a 0-dim int32 tensor on the cache's device, as in JAX, so
@@ -20,6 +21,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import autograd as KA
 from repro_torch.kernels import ops as K
 from repro_torch.models.config import ArchConfig, AttnSpec, ParamSpec
 from repro_torch.models.kv_pages import write_token
@@ -140,7 +142,7 @@ def attention(p, x: torch.Tensor, cfg: ArchConfig, *, positions=None,
         scale = a.head_dim ** -0.5
         if causal and S >= CHUNKED_ATTN_THRESHOLD:
             if a.logit_softcap is None and S % 128 == 0:
-                out = K.flash_attention_bshd(q, k, v, scale=scale, window=window)
+                out = KA.flash_attention_bshd(q, k, v, scale=scale, window=window)
             else:
                 out = _sdpa_chunked(q, k, v, a.logit_softcap, scale, window,
                                     chunk=a.kv_chunk)

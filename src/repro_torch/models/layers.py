@@ -7,6 +7,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ParamSpec
 
@@ -101,11 +102,41 @@ def cross_entropy_sum(logits: torch.Tensor, targets: torch.Tensor,
     lse = torch.cat([torch.logsumexp(flat[i:i + CE_ROWS], dim=-1)
                      for i in range(0, flat.shape[0], CE_ROWS)])
     ll = torch.take_along_dim(flat, targets.reshape(-1, 1).long(), dim=-1)[:, 0]
-    nll = (lse - ll).reshape(targets.shape)
+    return _masked_sum((lse - ll).reshape(targets.shape), mask)
+
+
+def _masked_sum(nll: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """[sum of nll under mask, the mask's sum] as one [2] tensor."""
     if mask is None:
         mask = torch.ones_like(nll)
     mask = mask.to(nll.dtype)
     return torch.stack([(nll * mask).sum(), mask.sum()])
+
+
+def _block_nll(xb: torch.Tensor, table_f: torch.Tensor, tg: torch.Tensor) -> torch.Tensor:
+    """The token NLL of rows xb [n, D] through the f32 head ``table_f``."""
+    logits = xb.float() @ table_f.t()
+    ll = torch.take_along_dim(logits, tg[:, None].long(), dim=-1)[:, 0]
+    return torch.logsumexp(logits, dim=-1) - ll
+
+
+def head_cross_entropy_sum(x: torch.Tensor, table: torch.Tensor, targets: torch.Tensor,
+                           mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``cross_entropy_sum(logits_out(x, table), targets, mask)`` for
+    training: the f32 head and the loss in blocks of ``CE_ROWS`` rows, each
+    block recomputed in the backward (``torch.utils.checkpoint``), so
+    neither the [B, S, V] f32 logits nor their gradient (6.6 GB each at 16k
+    tokens over a 100k vocabulary) is ever whole. The same rows' values,
+    summed in the same row order. The f32 copy of the table is made once
+    and its gradient accumulates over the blocks."""
+    D = x.shape[-1]
+    xf = x.reshape(-1, D)
+    tg = targets.reshape(-1)
+    table_f = table.float()
+    nll = torch.cat([checkpoint(_block_nll, xf[i:i + CE_ROWS], table_f, tg[i:i + CE_ROWS],
+                                use_reentrant=False)
+                     for i in range(0, xf.shape[0], CE_ROWS)]).reshape(targets.shape)
+    return _masked_sum(nll, mask)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

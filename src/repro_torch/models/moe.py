@@ -25,6 +25,12 @@ also returns the routed-token histogram [E] f32 of the tokens routed here
 ``DistComm`` this process's rows, which the server sums over the token
 axes at a window boundary (the reference ``psum``s it every step; the
 counts are integers in f32, exact below 2**24, so the sums agree).
+
+The dispatch and combine run as ``core/ll.py``'s ``EpDispatch`` and
+``EpCombine`` and the grouped GEMMs as ``kernels/autograd.py``'s: with no
+input that requires grad they record nothing, and under autograd every
+parameter gets its gradient through the EP path (HT flat and LL
+``nccl_ep``; the other layouts raise from their backward, ROADMAP A11c).
 """
 from __future__ import annotations
 
@@ -34,12 +40,12 @@ import warnings
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import (EpGroupConfig, ep_combine, ep_complete,
-                              ep_create_group, ep_create_handle, ep_dispatch)
+from repro_torch.core import EpGroupConfig, ep_create_group, ep_create_handle
+from repro_torch.core import ll as LL
 from repro_torch.core import placement as PL
 from repro_torch.core import plan as P
 from repro_torch.core.routing import RouterConfig, route
-from repro_torch.kernels import ops as K
+from repro_torch.kernels import autograd as A
 from repro_torch.models.config import ArchConfig, ParamSpec
 from repro_torch.models.layers import ffn_apply, ffn_spec
 
@@ -97,10 +103,10 @@ def _expert_ffn(group, y3d, counts, w1, w3, w2):
         # never reads them. The reference passes the counts for deepep and
         # zeroes valid rows (ROADMAP Queue C, tests/test_torch_layouts.py)
         counts = torch.full_like(counts, y3d.shape[1])
-    g = K.grouped_gemm(y3d, w1, counts)
-    u = K.grouped_gemm(y3d, w3, counts)
+    g = A.grouped_gemm(y3d, w1, counts)
+    u = A.grouped_gemm(y3d, w3, counts)
     h = (F.silu(g.float()) * u.float()).to(y3d.dtype)
-    return K.grouped_gemm(h, w2, counts)
+    return A.grouped_gemm(h, w2, counts)
 
 
 def _resolve_chunks(nc: int, tokens_per_rank: int) -> int:
@@ -163,8 +169,10 @@ def _expert_weights(p, m, comm, L: int) -> list:
                 f"params_physical=True: the expert weights have {w1.shape[0]} rows "
                 f"but the placement gives the {len(comm.ranks)} ranks held here "
                 f"{held} slots: rebind at adoption (checkpoint.adopt_expert_params)")
-        return [tuple(w[i * L:(i + 1) * L] for w in (w1, w3, w2))
-                for i in range(len(comm.ranks))]
+        # one split per weight: under autograd its backward concatenates the
+        # ranks' gradients once, where a slice each would build the whole
+        # weight's gradient once per rank
+        return list(zip(*(w.split(L) for w in (w1, w3, w2))))
     if len(comm.ranks) != comm.size:
         raise NotImplementedError(
             "logical-mode expert weights under a placement over a DistComm would "
@@ -195,16 +203,18 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig, comm, *, with_heat: bool = Fa
     rs = [route(xt.float() @ p["router"], rcfg, p.get("sel_bias")) for xt in xs]
     handles = ep_create_handle(group, [r.topk_idx for r in rs],
                                [r.topk_weights for r in rs])
-    # staged send/complete is every backend's primitive (as in JAX); the
-    # seam is where a micro-batching scheduler would overlap expert compute
-    recv = ep_complete(group, handles, ep_dispatch(group, handles, xs, send_only=True))
+    # the dispatch and combine are Functions whose forward is every backend's
+    # staged send/complete (as in JAX; the seam is where a micro-batching
+    # scheduler would overlap expert compute) and whose backward runs the
+    # transposes through the same handles (core/ll.py)
+    recv = LL.ep_dispatch_autograd(group, handles, xs)
     # hosted rank i's experts are rows [i*L, (i+1)*L) of the weights held here
     ws = _expert_weights(p, m, comm, L)
     y3ds = [_expert_ffn(group, y3d, counts, *w) for (y3d, counts), w in zip(recv, ws)]
     del ws
     if comm.tp_axis is not None:
         y3ds = comm.all_reduce(y3ds, axis=comm.tp_axis)     # expert-TP partials
-    outs = ep_complete(group, handles, ep_combine(group, handles, y3ds, send_only=True))
+    outs = LL.ep_combine_autograd(group, handles, y3ds)
     y = comm.unshard_tokens([o.to(x.dtype).reshape(Bl, Sl, D) for o in outs])
     # the mean over the ranks that carry tokens (JAX: pmean over the batch
     # and sequence axes; the value is the same along an expert-TP axis)

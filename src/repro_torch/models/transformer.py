@@ -8,14 +8,20 @@ Parameters keep the JAX layout: per-layer trees stacked along a leading
 [n_layers] axis in ``dense_stack`` and ``moe_stack`` (the expert-stacked
 MoE weights [n_moe, rows, ...], rows logical E or, under
 ``MoESpec.params_physical``, the placement's slots). The layer stack is a
-Python loop over those slices (JAX scans it, with remat for training; the
-port's forward has no backward yet, so it keeps nothing to recompute).
+Python loop over those slices (JAX scans it). The forward is
+differentiable (training, ``runtime/steps.py make_train_step``): with
+``cfg.remat`` and gradients on, each layer runs under
+``torch.utils.checkpoint`` and is recomputed in the backward, as JAX's
+``_scan_stack`` wraps each layer in ``jax.checkpoint(nothing_saveable)``;
+the head and the loss then run in recomputed blocks of rows
+(``layers.head_cross_entropy_sum``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as ATT
 from repro_torch.models import kv_pages as KVP
@@ -23,8 +29,8 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import ArchConfig, ParamSpec
 from repro_torch.models.layers import (cross_entropy_sum, embed_lookup, embed_spec,
-                                       ffn_apply, ffn_spec, logits_out, mean_of_sum,
-                                       rmsnorm, rmsnorm_spec)
+                                       ffn_apply, ffn_spec, head_cross_entropy_sum,
+                                       logits_out, mean_of_sum, rmsnorm, rmsnorm_spec)
 
 
 def _stack_sizes(cfg: ArchConfig) -> tuple[int, int]:
@@ -180,12 +186,39 @@ def paged_layer_apply(p, x, cfg: ArchConfig, comm, pool, page_tbl, kv_lens,
     return x, pool, aux
 
 
+def _tracks(x: torch.Tensor, tree) -> bool:
+    """Whether autograd follows this forward: grad mode on and x or a
+    parameter of ``tree`` requiring grad."""
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for t in _tensors(tree)))
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _remat_layer(p, x, cfg: ArchConfig, comm):
+    x, _, a = layer_apply(p, x, cfg, comm)
+    return x, a
+
+
 def _stack_apply(x, stack, cfg: ArchConfig, comm):
     """Every layer of a stacked parameter tree in order, without caches
-    (JAX: ``_scan_stack``) -> (x, the layers' summed aux)."""
+    (JAX: ``_scan_stack``) -> (x, the layers' summed aux). With
+    ``cfg.remat`` under autograd each layer keeps only its input and is
+    recomputed in the backward."""
     aux = torch.zeros((), device=x.device)
+    remat = cfg.remat and _tracks(x, stack)
     for i in range(stack["ln1"].shape[0]):
-        x, _, a = layer_apply(_index(stack, i), x, cfg, comm)
+        p = _index(stack, i)
+        if remat:
+            x, a = checkpoint(_remat_layer, p, x, cfg, comm, use_reentrant=False)
+        else:
+            x, _, a = layer_apply(p, x, cfg, comm)
         aux = aux + a
     return x, aux
 
@@ -218,11 +251,14 @@ def lm_forward(params, batch, cfg: ArchConfig, comm):
         targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = batch.get("loss_mask")
 
-    def ce(logits, tg):
-        sc = cross_entropy_sum(logits, tg, mask)
+    def ce(h, tg):
+        if _tracks(h, head):
+            sc = head_cross_entropy_sum(h, head, tg, mask)
+        else:
+            sc = cross_entropy_sum(logits_out(h, head), tg, mask)
         return mean_of_sum(sc if comm is None else comm.sum_over_batch(sc))
 
-    loss = ce(logits_out(x, head), targets)
+    loss = ce(x, targets)
     if cfg.mtp:
         # depth-1 MTP: predict t+2 from [h_t ; emb(t+1)]
         nxt = embed_lookup(params["embed"], targets)
@@ -231,7 +267,7 @@ def lm_forward(params, batch, cfg: ArchConfig, comm):
         h2, _, a2 = layer_apply(params["mtp_layer"], h2, cfg, comm)
         aux = aux + a2
         t2 = torch.cat([targets[:, 1:], targets[:, :1]], dim=1)
-        loss = loss + 0.3 * ce(logits_out(h2, head), t2)
+        loss = loss + 0.3 * ce(h2, t2)
     return loss + aux, dict(aux=aux)
 
 

@@ -1,6 +1,9 @@
-"""Serve-step factories (port of ``make_serve_step`` and
+"""Step factories (port of ``make_train_step``, ``make_serve_step`` and
 ``make_paged_serve_step`` in ``src/repro/runtime/steps.py``) and the
-compiled step that the servers run them through.
+compiled step that the servers run their serve steps through.
+
+``make_train_step``: micro-batched gradient accumulation and AdamW, an eager
+Python loop where JAX scans (no CUDA graph yet).
 
 Both steps share one signature, (params, state, batch) -> (next tokens
 [B, 1] int32, state), so the servers treat the dense and the paged engine
@@ -15,8 +18,71 @@ import time
 
 import torch
 
+from repro_torch.comm import DistComm
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.registry import get_model
 from repro_torch.models.transformer import lm_decode_step, lm_paged_decode_step
+from repro_torch.optim import AdamWConfig, adamw_update
+
+
+def _float_leaves(tree) -> list:
+    """The floating tensors of a parameter tree, in sorted-key order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _float_leaves(tree[k])]
+    return [tree] if tree.is_floating_point() else []
+
+
+def _like(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _like(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def make_train_step(cfg: ArchConfig, comm, opt_cfg: AdamWConfig | None = None):
+    """(params, opt_state, batch) -> (params, opt_state, metrics), batch
+    leaves [g, B/g, S]: for each of the g micro-batches the loss of
+    ``get_model(cfg).forward`` and its gradients (in each parameter's
+    dtype, as JAX's ``value_and_grad``), added to f32 sums; the sums
+    divided by g; then ``adamw_update``, which updates the parameters and
+    the moments in place. Metrics: ``loss`` (the mean over the
+    micro-batches), ``grad_norm``, ``lr``. The forward runs on detached
+    leaves that require grad and share the parameters' storage, so the
+    caller's tensors keep their ``requires_grad`` and what the step returns
+    can be served as it is. Over a ``LocalComm`` or none: training over a
+    ``DistComm`` also needs the gradient all-reduce of the replicated
+    parameters (ROADMAP A11b)."""
+    if isinstance(comm, DistComm):
+        raise NotImplementedError("training over a DistComm (one EP rank per process) "
+                                  "is not ported yet (ROADMAP A11b): use a LocalComm")
+    opt_cfg = opt_cfg or AdamWConfig()
+    model = get_model(cfg)
+
+    def train_step(params, opt_state, batch):
+        g = batch["tokens"].shape[0]
+        tracked = _like(params, lambda t: t.detach().requires_grad_()
+                        if t.is_floating_point() else t)
+        leaves = _float_leaves(tracked)
+        sums = _like(params, lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                                    device=t.device))
+        flat_sums = _float_leaves(sums)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for i in range(g):
+            loss, _ = model.forward(tracked, {k: v[i] for k, v in batch.items()}, cfg, comm)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with torch.no_grad():
+                for acc, gr in zip(flat_sums, grads):
+                    if gr is not None:
+                        acc.add_(gr)
+                loss_sum = loss_sum + loss.detach().float()
+            del loss, grads
+        del tracked, leaves
+        with torch.no_grad():
+            for acc in flat_sums:
+                acc.div_(g)
+        params, opt_state, om = adamw_update(params, sums, opt_state, opt_cfg)
+        return params, opt_state, dict(loss=loss_sum / g, **om)
+
+    return train_step
 
 
 def _greedy(decode_step, cfg: ArchConfig, comm):

@@ -22,6 +22,14 @@ the same tokens bit for bit as the uncompiled step, in both engines and all
 three EP layouts; the two-stream ``decode_loop`` must equal the naive step
 bit for bit, eager and captured; B3 on two streams at once must give each
 stream's single-stream result (its split-tile counters are per stream).
+The training backward: ``grouped_gemm_dw`` within the GEMM's limits,
+``combine_gather_reduce_bwd``'s row gradient bitwise and its weight
+gradient within 1e-5, flash attention's LSE within 1e-4 and its dQ / dK-dV
+pair within 1e-4 (f32) or 5e-3 (bf16) relative, each deterministic; a
+kernel entry refuses a CUDA input that requires grad outside
+``kernels/autograd.py``; ``moe_block``'s gradients through the kernels
+within 1e-4 of the same layer on the plain versions; the parameters a
+``Trainer`` returns on the card served by the captured server as they are.
 Over NCCL, in a spawned process per card: ``DistComm``'s primitives
 against ``LocalComm``'s, one EP layer captured, and the continuous server
 captured, every rank admitting alike (at world 1 its streams bitwise equal
@@ -1179,3 +1187,168 @@ def test_cuda_nccl_continuous_server_captured(nccl_ranks):
                    zip(c["tokens"], nccl_ranks[0]["continuous"]["tokens"]))
     if len(nccl_ranks) == 1:
         assert nccl_ranks[0]["continuous"]["dense_equal"]
+
+
+# ---- the training backward (grouped_gemm_dw, combine_gather_reduce_bwd,
+# flash attention's LSE and its dQ / dK-dV pair, the autograd Functions)
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,A,H,F,counts", [(3, 136, 264, 200, (0, 65, 500)),
+                                            (2, 1024, 1024, 768, (1000, 1024))],
+                         ids=["ragged", "tiles"])
+def test_cuda_grouped_gemm_dw(hopper, dt, L, A, H, F, counts):
+    """dW = Xᵀ·dY over each expert's live rows: f32 within 1e-5, bf16 within
+    2e-2 per element and 5e-3 relative over the output (f32 sums in another
+    order, one rounding); an expert with no live row gets zeros; two calls
+    give the same bits."""
+    x = _rand((L, A, H), dt, hopper, 0.5, 11)
+    dy = _rand((L, A, F), dt, hopper, 0.5, 12)
+    c = torch.tensor(counts, device=hopper, dtype=torch.int32)
+    got = gg.grouped_gemm_dw(x, dy, c)
+    want = ref.grouped_gemm_dw(x, dy, c)
+    assert got.dtype == dt and got.shape == (L, H, F)
+    torch.testing.assert_close(got, want, **tol(dt))
+    assert _rel(got, want) < (5e-3 if dt == torch.bfloat16 else 1e-6)
+    if counts[0] == 0:
+        assert not got[0].any()
+    assert torch.equal(gg.grouped_gemm_dw(x, dy, c), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [1, 4, 8])
+def test_cuda_combine_gather_reduce_bwd(hopper, dt, K):
+    """d_recv bitwise (one f32 product, one rounding), d_w within 1e-5
+    relative (f32 sums in another order), the sentinel's d_w exactly 0 and
+    unnamed rows exactly 0."""
+    T, H = 37, 6144 // 4
+    R = T * K + 5
+    recv = _rand((R, H), dt, hopper, 1.0, 13)
+    perm = torch.randperm(R, device=hopper)[:T * K].to(torch.int32).view(T, K)
+    rows = torch.where(torch.rand((T, K), device=hopper) < 0.2, R, perm).to(torch.int32)
+    w = torch.rand((T, K), device=hopper)
+    dout = _rand((T, H), dt, hopper, 1.0, 14)
+    d_recv, d_w = cg.combine_gather_reduce_bwd(recv, rows, w, dout)
+    w_recv, w_w = ref.combine_gather_reduce_bwd(recv, rows, w, dout)
+    assert torch.equal(d_recv, w_recv)
+    torch.testing.assert_close(d_w, w_w, rtol=1e-5, atol=1e-3)
+    assert not d_w[rows == R].any()
+    named = torch.zeros(R, dtype=torch.bool, device=hopper)
+    named[rows[rows < R].long()] = True
+    assert not d_recv[~named].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,d", [(1, 128), (6, 128), (2, 64)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (False, None)])
+def test_cuda_flash_attention_backward(hopper, dt, G, d, causal, window):
+    """The forward's LSE within 1e-4 of the plain version's; the backward
+    pair on the kernel's own output and LSE against the plain backward on
+    the same: f32 within 1e-4 relative over each gradient, bf16 within 5e-3
+    (the pair sums in f32 and rounds once, in another order); two calls
+    bitwise equal."""
+    B, S, Hkv = 2, 320, 2
+    Hq = Hkv * G
+    q = _rand((B, S, Hq, d), dt, hopper, 1.0, 15)
+    k = _rand((B, S, Hkv, d), dt, hopper, 1.0, 16)
+    v = _rand((B, S, Hkv, d), dt, hopper, 1.0, 17)
+    do = _rand((B, S, Hq, d), dt, hopper, 1.0, 18)
+    kw = dict(scale=d ** -0.5, window=window, causal=causal)
+    out, lse = fa.flash_attention_bshd(q, k, v, with_lse=True, **kw)
+    t = [a.transpose(1, 2) for a in (q, k, v)]
+    _, want_lse = ref.flash_attention_fwd(*t, **kw)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    want = ref.flash_attention_bwd(*t, out.transpose(1, 2), do.transpose(1, 2), lse, **kw)
+    limit = 5e-3 if dt == torch.bfloat16 else 1e-4
+    for g, w in zip(got, want):
+        assert _rel(g, w.transpose(1, 2)) < limit
+    again = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_entries_refuse_grad_outside_the_functions(hopper):
+    """A kernel entry given a CUDA tensor that requires grad, with grad mode
+    on, raises; under no_grad it runs; through kernels.autograd it runs and
+    its backward matches the plain version's autograd."""
+    from repro_torch.kernels import autograd as KA
+    from repro_torch.kernels import ops
+    L, A, H, F = 2, 64, 128, 96
+    x = _rand((L, A, H), torch.float32, hopper, 0.5, 19).requires_grad_()
+    w = _rand((L, H, F), torch.float32, hopper, 0.5, 20).requires_grad_()
+    c = torch.tensor([40, 64], device=hopper, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.grouped_gemm(x, w, c)
+    with torch.no_grad():
+        ops.grouped_gemm(x, w, c)
+    g = _rand((L, A, F), torch.float32, hopper, 1.0, 21)
+    (KA.grouped_gemm(x, w, c) * g).sum().backward()
+    x2, w2 = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+    (ref.grouped_gemm(x2, w2, c) * g).sum().backward()
+    torch.testing.assert_close(x.grad, x2.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w.grad, w2.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["ht", "ll"])
+def test_cuda_moe_block_gradients_match_plain(hopper, mode, monkeypatch):
+    """moe_block over LocalComm(4) in f32 on the card: every gradient (x,
+    router, the three expert weights) within 1e-4 relative of the same
+    layer with every kernel entry routed to its plain version."""
+    from repro_torch.kernels import ops
+    cfg = smoke_config()
+    cfg = dataclasses.replace(cfg, d_model=128, dtype=torch.float32,
+                              moe=dataclasses.replace(cfg.moe, ep_mode=mode))
+    p0 = init_params(cfg, 0, hopper)["moe_stack"]["moe"]
+    p0 = {k: v[0] for k, v in p0.items()}
+    x0 = _rand((8, 16, cfg.d_model), torch.float32, hopper, 1.0, 22)
+    gy = _rand((8, 16, cfg.d_model), torch.float32, hopper, 1.0, 23)
+
+    def grads():
+        p = {k: v.clone().requires_grad_() for k, v in p0.items()}
+        x = x0.clone().requires_grad_()
+        y, aux = moe_block(p, x, cfg, LocalComm(4))
+        ((y * gy).sum() + aux).backward()
+        return [x.grad] + [p[k].grad for k in ("router", "w_gate", "w_up", "w_down")]
+
+    got = grads()
+    monkeypatch.setattr(ops, "_plain", lambda t: True)
+    want = grads()
+    for g, w in zip(got, want):
+        assert g is not None and _rel(g, w) < 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_trained_parameters_serve(hopper):
+    """The parameters ``Trainer.run`` returns on the card, served by the
+    captured server as they are: none requires grad (the train step
+    differentiates detached copies), and the tokens equal those served from
+    fresh copies of their values."""
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = _serve_cfg("nccl_ep")
+    params, _ = Trainer(cfg, TrainerConfig(steps=2, global_batch=8, seq_len=32),
+                        comm=LocalComm(8), device=hopper).run()
+
+    def tensors(tree):
+        return [t for v in tree.values() for t in tensors(v)] if isinstance(tree, dict) \
+            else [tree]
+
+    def clone(tree):
+        return {k: clone(v) for k, v in tree.items()} if isinstance(tree, dict) \
+            else tree.detach().clone()
+    assert not any(t.requires_grad for t in tensors(params))
+    prompts = torch.randint(0, cfg.vocab, (16, 4), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1))
+    toks = []
+    for p in (params, clone(params)):
+        srv = DecodeServer(cfg, 16, 16, ep_size=8, params=p, device=hopper)
+        toks.append(srv.decode(srv.prefill(prompts)[0], 4)[0])
+        assert srv._serve_step.graph is not None
+    assert np.array_equal(*toks)

@@ -300,8 +300,9 @@
    layer at 2048 tokens a rank) against their plain versions, timed beside
    them, their bounds and a library call: ``grouped_gemm_dw`` at the gate
    and down projections (2e-2 per element, 5e-3 relative, two calls
-   bitwise), B3 as dX on the [L, F, H] copy of the weights (the copy
-   timed), ``combine_gather_reduce_bwd`` (d_recv bitwise, d_w 1e-5
+   bitwise, NaNs in the rows past the counts changing no bit), B3 as dX
+   on the [L, F, H] copy of the weights (the copy timed),
+   ``combine_gather_reduce_bwd`` (d_recv bitwise, d_w 1e-5
    relative), flash attention's LSE (1e-3) and its dQ / dK-dV pair at [8,
    2048, 48/8, 128] (``FLASH_BWD_REL`` over each gradient, two calls
    bitwise) beside SDPA's backward; the EP transposes bitwise against
@@ -3193,7 +3194,14 @@ def train_kernel_phase(cfg, p) -> dict:
               f"grouped_gemm_dw ({label}) off its plain version: {err}, relative {rel}")
         check(torch.equal(got, gg_mod.grouped_gemm_dw(x_, dy, counts_)),
               f"grouped_gemm_dw ({label}): two calls differ")
-        del got, want
+        # the rows past the counts may hold anything: NaNs there in both
+        # operands change no bit (the kernel zeroes them in its last stage)
+        dead = (torch.arange(x_.shape[1], device=dev)[None, :] >= counts_[:, None])[..., None]
+        nan_equal = torch.equal(got, gg_mod.grouped_gemm_dw(
+            x_.masked_fill(dead, float("nan")), dy.masked_fill(dead, float("nan")), counts_))
+        check(nan_equal, f"grouped_gemm_dw ({label}): NaN rows past the counts "
+              f"{counts_.tolist()} change the result")
+        del got, want, dead
         H_ = x_.shape[2]
         bnd = bound(nbytes(x_[0], rows) + nbytes(dy[0], rows) + L * H_ * fo * 2 + nbytes(counts_),
                     2 * rows * H_ * fo, BF16_OPS_S)
@@ -3207,7 +3215,8 @@ def train_kernel_phase(cfg, p) -> dict:
         print(f"grouped_gemm_dw {label} (dW): x {list(x_.shape)}, dy {list(dy.shape)}, counts "
               f"{counts_.tolist()} ({rows} live rows): max_abs_err {err:.3g}, relative "
               f"{rel:.3g} (limits {TOL} per element, {GEMM_REL} relative), two calls bitwise "
-              f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, autograd of the plain "
+              f"equal, NaN rows past the counts change no bit; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, autograd of the plain "
               f"grouped_gemm {ag_ms:.4f} ms (dX and dW together), library {lib_ms:.4f} ms "
               f"(torch.bmm over every row), bound {bnd[0]:.4f} ms ({bnd[1]}); "
               f"{2 * rows * H_ * fo / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {ms / bnd[0]:.2f}x the "

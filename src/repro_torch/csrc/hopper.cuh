@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels
-// (grouped_gemm.cu, flash_attention.cu, paged_decode_attention.cu): mbarriers, TMA loads and stores,
+// (grouped_gemm.cu, grouped_gemm_dw.cu, flash_attention.cu, flash_attention_bwd.cu,
+// paged_decode_attention.cu): mbarriers, TMA loads and stores,
 // wgmma shared-memory descriptors and products, the fences and waits around
 // them, named barriers, and the host-side tensor-map encoder.
 #pragma once
@@ -158,9 +159,10 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 // One m64n64k16 product, bf16 in, f32 accumulate, A and B read through
-// shared-memory descriptors; A K-major, B K-major (TB = 0) or MN-major
-// (TB = 1, wgmma's transpose-B). scale_d = 0 ignores what d holds.
-template <int TB>
+// shared-memory descriptors; A K-major (TA = 0, the default) or MN-major
+// (TA = 1, wgmma's transpose-A), B K-major (TB = 0) or MN-major (TB = 1,
+// transpose-B). scale_d = 0 ignores what d holds.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n"
@@ -169,20 +171,21 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n"
       "}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // One m64n128k16 product, bf16 in, f32 accumulate, A and B read through
-// shared-memory descriptors; A K-major, B K-major (TB = 0) or MN-major
-// (TB = 1, wgmma's transpose-B). scale_d = 0 ignores what d holds.
-template <int TB>
+// shared-memory descriptors; A K-major (TA = 0, the default) or MN-major
+// (TA = 1, wgmma's transpose-A), B K-major (TB = 0) or MN-major (TB = 1,
+// transpose-B). scale_d = 0 ignores what d holds.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n"
@@ -193,7 +196,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n"
       "}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -204,13 +207,14 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // One m64n256k16 product, bf16 in, f32 accumulate, A and B read through
-// shared-memory descriptors; A K-major, B K-major (TB = 0) or MN-major
-// (TB = 1, wgmma's transpose-B). scale_d = 0 ignores what d holds.
-template <int TB>
+// shared-memory descriptors; A K-major (TA = 0, the default) or MN-major
+// (TA = 1, wgmma's transpose-A), B K-major (TB = 0) or MN-major (TB = 1,
+// transpose-B). scale_d = 0 ignores what d holds.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n"
@@ -225,7 +229,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t da, uint64_t db
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n"
       "}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -244,7 +248,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t da, uint64_t db
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // One m64n64k16 product with A from registers (four bf16x2 per thread in

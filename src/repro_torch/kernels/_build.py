@@ -54,7 +54,7 @@ _SIGNATURES = {
     "ep_quantize_fp8": (_P, _P, _P, _L, _L, _I, _I, _I, _P),
     "ep_dequantize_fp8": (_P, _P, _P, _L, _L, _I, _I, _I, _P),
     "ep_combine_reduce": (_P, _P, _P, _I, _L, _I, _I, _I, _I, _P),
-    "ep_grouped_gemm_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ep_grouped_gemm_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "ep_combine_gather_reduce_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P),
     "ep_flash_attention_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _I, _I, _I, _P),
 }

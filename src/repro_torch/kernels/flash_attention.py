@@ -17,7 +17,9 @@ a CUDA-core path in exact f32. It reads q, k and v through their strides,
 so it needs no transposes.
 
 ``tile_coords``, ``kv_tiles`` and ``lane_tiles`` mirror the bf16 kernel's
-walk, so that the CPU tests can hold it against the reference's masks.
+walk, so that the CPU tests can hold it against the reference's masks;
+the backward's dQ kernel walks the same tiles, and ``dkv_tile_coords``,
+``dkv_lane_tiles`` and ``q_tiles`` mirror its dK/dV kernel's walk.
 """
 from __future__ import annotations
 
@@ -132,6 +134,59 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 bwd_launches = 0   # launches of the backward's dQ and dK/dV kernels, two a call
 
+# The backward's dQ kernel walks the forward's tiles (``tile_coords``,
+# ``kv_tiles``: 128 query rows against KV tiles of 128 keys). Its dK/dV
+# kernel takes work tiles of BKEY keys of one (batch, kv head) and walks,
+# for each of the G query heads, the query tiles of BQT rows that reach them.
+BKEY = 128    # keys per dK/dV work tile: two consumer warpgroups of 64
+BQT = 64      # query rows per dK/dV step
+
+
+def dkv_work_tiles(B: int, Hkv: int, Sk: int) -> int:
+    return B * Hkv * -(-Sk // BKEY)
+
+
+def dkv_tile_coords(B: int, Hkv: int, Sk: int, t: int,
+                    causal: bool = True) -> tuple[int, int, int]:
+    """dK/dV work tile t -> (batch, kv head, first key), heaviest first:
+    under a causal mask the first keys are reached by the most query rows,
+    without one the last (a window cuts the rows after a key tile, never
+    before it). Heads run fastest."""
+    n_tiles = -(-Sk // BKEY)
+    nt, bk = t // (B * Hkv), t % (B * Hkv)
+    if not causal:
+        nt = n_tiles - 1 - nt
+    return bk // Hkv, bk % Hkv, nt * BKEY
+
+
+def dkv_lane_tiles(B: int, Hkv: int, Sk: int, lanes: int = SMS) -> list[list[int]]:
+    """The dK/dV work tiles of each lane of its persistent grid, in order."""
+    n = dkv_work_tiles(B, Hkv, Sk)
+    return [list(range(lane, n, lanes)) for lane in range(min(n, lanes))]
+
+
+def q_tiles(k0: int, Sq: int, Sk: int, causal: bool = True,
+            window: int | None = None) -> list[tuple[int, bool]]:
+    """The query tiles of BQT rows that keys [k0, min(k0 + BKEY, Sk)) meet,
+    in the dK/dV kernel's order (first first), each with whether it takes
+    the per-element mask: the tile pair crosses Sq's or Sk's tail, the
+    causal diagonal or the window's far edge. The same for every query
+    head of the kv head; tiles with no live pair are left out."""
+    k_last = min(k0 + BKEY, Sk) - 1
+    nq = -(-Sq // BQT)
+    lo = k0 // BQT if causal else 0
+    hi = nq - 1
+    if window:
+        hi = min(hi, (k_last + window - 1) // BQT)
+    tiles = []
+    for i in range(lo, hi + 1):
+        q0, q_end = i * BQT, i * BQT + BQT - 1
+        masked = (q_end >= Sq or k0 + BKEY - 1 >= Sk
+                  or (causal and k0 + BKEY - 1 > q0)
+                  or (bool(window) and q_end - k0 >= window))
+        tiles.append((i, masked))
+    return tiles
+
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
@@ -139,9 +194,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The backward pair on the card (``csrc/flash_attention_bwd.cu``): q, o,
     do [B, Sq, Hq, d] and k, v [B, Sk, Hkv, d], contiguous, bf16 or f32,
     lse [B, Hq, Sq] f32 from the forward -> (dq, dk, dv) of the inputs'
-    shapes and dtype. One kernel per 64 query rows computes rowsum(do * o)
-    and dq; one per 64 keys of a kv head walks its G query heads for dk and
-    dv. Same contract as ``ref.flash_attention_bwd`` on the transposes."""
+    shapes and dtype. Same contract as ``ref.flash_attention_bwd`` on the
+    transposes. Two launches: the dQ kernel computes rowsum(do * o) (delta)
+    and dq, then the dK/dV kernel reads delta.
+
+    It replaces no TPU kernel: the reference differentiates the plain form
+    by AD. At training lengths the pair is bound by the tensor cores (five
+    products of 2·d operations per live pair), so the bf16 kernels have the
+    forward's shape: persistent grids walking their tiles heaviest first, a
+    producer's TMA loads into mbarrier rings, two consumer warpgroups on
+    ``wgmma``. dQ takes the forward's tiles (``tile_coords``, ``kv_tiles``):
+    S = Q·Kᵀ and dP = dO·Vᵀ from shared memory, dQ += dS·K with dS in
+    registers. dK/dV takes 128 keys of a (batch, kv head)
+    (``dkv_tile_coords``) and walks the G query heads' tiles of 64 rows
+    that reach them (``q_tiles``), on the transposed products Sᵀ = K·Qᵀ,
+    dPᵀ = V·dOᵀ, dV += Pᵀ·dO, dK += dSᵀ·Q, so GQA's sum stays in one block
+    with no atomics: two calls give the same bits. P and dS are rounded to
+    bf16 before their products, where the plain version keeps f32. f32
+    inputs take two CUDA-core kernels in exact f32."""
     global bwd_launches
     name = "flash_attention_bwd"
     dt = _check(name, q, k, v, window)
@@ -152,6 +222,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or do.dtype != q.dtype:
         raise ValueError(f"{name}: o and do must be {q.dtype} {tuple(q.shape)}, got "
                          f"{o.dtype} {tuple(o.shape)} and {do.dtype} {tuple(do.shape)}")
+    if not _build.aligned16(o, do):
+        raise ValueError(f"{name}: o and do must be 16-byte aligned")
     if lse.dtype != torch.float32 or lse.shape != (B, Hq, Sq):
         raise ValueError(f"{name}: lse must be f32 {(B, Hq, Sq)}, got {lse.dtype} "
                          f"{tuple(lse.shape)}")

@@ -37,6 +37,10 @@ static shape (A, H, F) alone, never from ``counts``:
 A tile whose rows all lie past ``counts[l]`` loads nothing and writes
 zeros. f32 operands take a CUDA-core tiled path with exact f32.
 
+The weight gradient ``grouped_gemm_dw`` (``csrc/grouped_gemm_dw.cu``) runs
+the compute schedule's structure with the depth in each expert's live rows:
+``dw_plan`` holds its walk, mirrored here like ``plan``.
+
 Everything here but the launch runs on the CPU too, so the tests hold the
 plan (coverage, pieces, TMA boxes and strides) without a card.
 """
@@ -146,6 +150,46 @@ def plan(L: int, A: int, H: int, F: int) -> Plan:
                 max_pieces, grid, x_map, w_map, seg)
 
 
+DW_BM, DW_BN = 128, 256    # H rows and F columns of a grouped_gemm_dw tile
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """How one bf16 ``grouped_gemm_dw`` call is cut into work: tiles of
+    DW_BM rows of H by DW_BN columns of F of one expert, walked by a
+    persistent grid in bands of ``group_m`` row tiles, each summed whole
+    over its expert's live rows (the depth comes from ``counts`` on the
+    card, never from here)."""
+    m_tiles: int
+    n_tiles: int
+    group_m: int
+    tiles: int             # L * m_tiles * n_tiles
+    grid: int              # lanes: blocks of the persistent grid
+    x_map: tuple           # TMA map of x: dims (H, A, L), strides (bytes), box
+    dy_map: tuple          # TMA map of dy: dims (F, A, L), strides (bytes), box
+
+    @functools.cached_property
+    def c_args(self) -> ctypes.Array:
+        a = self.args()
+        return (ctypes.c_int64 * len(a))(*a)
+
+    def args(self) -> list[int]:
+        """The int64 plan the C entry reads."""
+        return [self.m_tiles, self.n_tiles, self.group_m, self.tiles, self.grid,
+                *self.x_map, *self.dy_map]
+
+
+@functools.lru_cache(maxsize=64)
+def dw_plan(L: int, A: int, H: int, F: int) -> DwPlan:
+    """The walk of a bf16 ``grouped_gemm_dw`` call, from its static shape
+    alone: lane i takes tiles i, i + grid, ... (``tile_coords`` order)."""
+    m_tiles, n_tiles = -(-H // DW_BM), -(-F // DW_BN)
+    tiles = L * m_tiles * n_tiles
+    x_map = (H, A, L, H * 2, A * H * 2, BOX, BOX)
+    dy_map = (F, A, L, F * 2, A * F * 2, BOX, BOX)
+    return DwPlan(m_tiles, n_tiles, GROUP_M, tiles, min(SMS, tiles), x_map, dy_map)
+
+
 def segment(K: int) -> int:
     """The stream schedule's segment, in k blocks: the largest divisor of K
     up to SEG_MAX. It depends on H alone, never on L, so that a tile's fold
@@ -154,10 +198,10 @@ def segment(K: int) -> int:
     return max((d for d in range(1, min(K, SEG_MAX) + 1) if K % d == 0), default=1)
 
 
-def tile_coords(p: Plan, t: int) -> tuple[int, int, int]:
-    """Tile t -> (expert, row tile, column tile), as the kernel's
-    ``tile_coords`` maps it: row tiles in bands of ``group_m``, column-major
-    inside a band."""
+def tile_coords(p: Plan | DwPlan, t: int) -> tuple[int, int, int]:
+    """Tile t -> (expert, row tile, column tile), as the kernels'
+    ``tile_coords`` map it (``grouped_gemm.cu`` and ``grouped_gemm_dw.cu``):
+    row tiles in bands of ``group_m``, column-major inside a band."""
     per_l = p.m_tiles * p.n_tiles
     l, r = divmod(t, per_l)
     band = p.group_m * p.n_tiles
@@ -288,8 +332,18 @@ def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
     (``csrc/grouped_gemm_dw.cu``): x [L, A, H], dy [L, A, F] (same dtype,
     bf16 or f32), counts [L] int32 -> dW [L, H, F] in x's dtype, f32 sums
     over each expert's live rows. Same contract as ``ref.grouped_gemm_dw``.
-    bf16 multiplies on mma.sync (WMMA) tiles of 128 x 128 in 32-row steps;
-    f32 on the CUDA cores."""
+
+    It replaces no TPU kernel: the reference differentiates the grouped
+    GEMM's plain form by AD. At the training shapes it is bound by the
+    tensor cores, so the bf16 kernel has B3's compute schedule: a producer
+    thread's TMA loads into a four-stage ring, two consumer warpgroups on
+    ``wgmma`` m64n256k16 with both operands read as stored (x through the
+    transpose-A flag, dy through transpose-B), tiles of 128 x 256 of dW
+    walked by a persistent grid in bands of ``GROUP_M`` row tiles
+    (``dw_plan``), each summed whole over its expert's live rows, so the
+    bits are fixed. The rows past a count in a tile's last stage are zeroed
+    in shared memory before its products (they may hold anything). f32
+    runs on the CUDA cores."""
     global dw_launches
     name = "grouped_gemm_dw"
     _build.check_cuda(name, x, dy, counts)
@@ -308,7 +362,9 @@ def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"{name}: H={H} and F={F} must be multiples of 8 with "
                          "16-byte aligned operands")
     out = torch.empty((L, H, F), dtype=x.dtype, device=x.device)
+    args = dw_plan(L, A, H, F).c_args if x.dtype == torch.bfloat16 and L * H * F > 0 else None
     _build.launch("ep_grouped_gemm_dw", x.data_ptr(), dy.data_ptr(), counts.data_ptr(),
-                  out.data_ptr(), L, A, H, F, dt)
+                  out.data_ptr(), L, A, H, F, dt,
+                  None if args is None else ctypes.addressof(args))
     dw_launches += 1
     return out

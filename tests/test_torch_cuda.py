@@ -1198,17 +1198,26 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("L,A,H,F,counts", [(3, 136, 264, 200, (0, 65, 500)),
-                                            (2, 1024, 1024, 768, (1000, 1024))],
-                         ids=["ragged", "tiles"])
-def test_cuda_grouped_gemm_dw(hopper, dt, L, A, H, F, counts):
+@pytest.mark.parametrize("L,A,H,F,counts,nan", [
+    (3, 136, 264, 200, (0, 65, 500), False),
+    (2, 1024, 1024, 768, (1000, 1024), False),
+    (4, 5120, 384, 520, (0, 63, 65, 4999), True),
+    (2, 5120, 6144, 10752, (4100, 4235), False)],
+    ids=["ragged", "tiles", "nan-past-counts", "dbrx"])
+def test_cuda_grouped_gemm_dw(hopper, dt, L, A, H, F, counts, nan):
     """dW = Xᵀ·dY over each expert's live rows: f32 within 1e-5, bf16 within
     2e-2 per element and 5e-3 relative over the output (f32 sums in another
     order, one rounding); an expert with no live row gets zeros; two calls
-    give the same bits."""
+    give the same bits. With ``nan``, x's rows past the counts (counts not
+    multiples of 64, so the bf16 kernel's last stage of a tile holds them)
+    are NaN and change nothing; NaN rows of dy past the counts change no
+    bit either."""
     x = _rand((L, A, H), dt, hopper, 0.5, 11)
     dy = _rand((L, A, F), dt, hopper, 0.5, 12)
     c = torch.tensor(counts, device=hopper, dtype=torch.int32)
+    dead = torch.arange(A, device=hopper)[None, :] >= c[:, None]
+    if nan:
+        x[dead] = float("nan")
     got = gg.grouped_gemm_dw(x, dy, c)
     want = ref.grouped_gemm_dw(x, dy, c)
     assert got.dtype == dt and got.shape == (L, H, F)
@@ -1217,6 +1226,9 @@ def test_cuda_grouped_gemm_dw(hopper, dt, L, A, H, F, counts):
     if counts[0] == 0:
         assert not got[0].any()
     assert torch.equal(gg.grouped_gemm_dw(x, dy, c), got)
+    if nan:
+        dy[dead] = float("nan")
+        assert torch.equal(gg.grouped_gemm_dw(x, dy, c), got)
 
 
 @pytest.mark.gpu
@@ -1245,15 +1257,32 @@ def test_cuda_combine_gather_reduce_bwd(hopper, dt, K):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,d", [(1, 128), (6, 128), (2, 64)])
+@pytest.mark.parametrize("G,d", [(1, 128), (6, 128), (2, 64), (6, 64)])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (False, None)])
 def test_cuda_flash_attention_backward(hopper, dt, G, d, causal, window):
     """The forward's LSE within 1e-4 of the plain version's; the backward
     pair on the kernel's own output and LSE against the plain backward on
     the same: f32 within 1e-4 relative over each gradient, bf16 within 5e-3
-    (the pair sums in f32 and rounds once, in another order); two calls
-    bitwise equal."""
-    B, S, Hkv = 2, 320, 2
+    (the pair sums in f32 in another order and rounds P and dS to bf16
+    before their products, then the output once); two calls bitwise
+    equal."""
+    _flash_backward_case(hopper, dt, 320, G, d, causal, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [200, 1000])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (False, None),
+                                           (False, 100)])
+def test_cuda_flash_attention_backward_ragged(hopper, dt, S, d, causal, window):
+    """The same limits at lengths that end inside a tile of either kernel
+    (128 query rows and keys, 64-row steps), G 6."""
+    _flash_backward_case(hopper, dt, S, 6, d, causal, window)
+
+
+def _flash_backward_case(hopper, dt, S, G, d, causal, window):
+    B, Hkv = 2, 2
     Hq = Hkv * G
     q = _rand((B, S, Hq, d), dt, hopper, 1.0, 15)
     k = _rand((B, S, Hkv, d), dt, hopper, 1.0, 16)

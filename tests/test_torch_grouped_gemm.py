@@ -11,16 +11,25 @@ a partial handed on where a share ends inside a segment, segments folded
 in k order, rows past the count zeroed), is held against the JAX package's
 ``grouped_gemm`` within 1e-5 in f32, at counts on every tile edge, and
 bitwise against itself at other slot counts.
+
+The weight gradient's kernel (``csrc/grouped_gemm_dw.cu``) walks the plan
+of ``dw_plan``: every (expert, H tile, F tile) once, in bands of row
+tiles, its TMA maps inside the encoder's limits, the same plan whatever the
+counts. A numpy emulation of its stages (64 rows a stage, the rows past a
+count zeroed in the last one) is held against ``jax.vjp`` of the JAX
+package's ``grouped_gemm`` and against NaNs in the dead rows.
 """
 import ctypes
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels import grouped_gemm as gg
 
@@ -429,3 +438,120 @@ def test_short_segments_keep_the_shares_and_the_bits(seg_max, monkeypatch):
         assert simulate_waits(p) is not None
     finally:
         gg.plan.cache_clear()
+
+
+# grouped_gemm_dw's shapes: DBRX-132B's training slice per hosted rank
+# (2 local experts, 5120 rows; the gate's and the down projection's
+# weight gradients) and the card tests'
+DW = {"train gate": (2, 5120, 6144, 10752), "train down": (2, 5120, 10752, 6144),
+      "ragged": (3, 136, 264, 200), "nan": (4, 5120, 384, 520), "tiny": (1, 64, 8, 8)}
+
+
+@pytest.mark.parametrize("name", DW)
+def test_dw_walk_covers_every_tile_once_in_bands(name):
+    """Every (expert, H tile, F tile) once over the lanes; each band of
+    ``group_m`` row tiles of one expert is walked column by column, and at
+    the training shapes the first wave (one tile a lane) lies in one band."""
+    L, A, H, F = DW[name]
+    p = gg.dw_plan(L, A, H, F)
+    assert (p.m_tiles, p.n_tiles) == (-(-H // gg.DW_BM), -(-F // gg.DW_BN))
+    assert p.tiles == L * p.m_tiles * p.n_tiles and p.grid == min(gg.SMS, p.tiles)
+    coords = [gg.tile_coords(p, t) for t in range(p.tiles)]
+    assert sorted(coords) == [(l, m, n) for l in range(L) for m in range(p.m_tiles)
+                              for n in range(p.n_tiles)]
+    lanes = [range(lane, p.tiles, p.grid) for lane in range(p.grid)]
+    assert sorted(t for lane in lanes for t in lane) == list(range(p.tiles))
+    band = p.group_m * p.n_tiles
+    for l in range(L):
+        mine = coords[l * p.m_tiles * p.n_tiles:(l + 1) * p.m_tiles * p.n_tiles]
+        for b0 in range(0, len(mine), band):
+            rows = {m for _, m, _ in mine[b0:b0 + band]}
+            assert len(rows) <= p.group_m and max(rows) - min(rows) < p.group_m
+            cols = [n for _, _, n in mine[b0:b0 + band]]
+            assert cols == sorted(cols)
+    if name.startswith("train"):
+        first = {gg.tile_coords(p, t)[:2] for t in range(p.grid)}
+        assert {l for l, _ in first} == {0} and len({m for _, m in first}) <= p.group_m
+
+
+@pytest.mark.parametrize("name", DW)
+def test_dw_tma_maps_hold_the_encoder_limits(name):
+    L, A, H, F = DW[name]
+    p = gg.dw_plan(L, A, H, F)
+    assert p.x_map == (H, A, L, 2 * H, 2 * A * H, 64, 64)
+    assert p.dy_map == (F, A, L, 2 * F, 2 * A * F, 64, 64)
+    assert tma_limits_hold(p.x_map) and tma_limits_hold(p.dy_map)
+    assert p.args() == [p.m_tiles, p.n_tiles, p.group_m, p.tiles, p.grid, *p.x_map,
+                        *p.dy_map]
+
+
+def test_the_dw_wrapper_plans_without_reading_counts(monkeypatch):
+    """The plan is a function of (L, A, H, F) alone: the wrapper hands the
+    C entry the same plan whatever the counts, and launches once a call."""
+    assert list(inspect.signature(gg.dw_plan).parameters) == ["L", "A", "H", "F"]
+    calls = []
+
+    def fake_launch(name, x, dy, c, o, L, A, H, F, dt, plan):
+        n = len(gg.dw_plan(L, A, H, F).args())
+        calls.append((name, list((ctypes.c_int64 * n).from_address(plan))))
+
+    monkeypatch.setattr(_build, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(_build, "launch", fake_launch)
+    L, A, H, F = DW["ragged"]
+    x = torch.zeros((L, A, H), dtype=torch.bfloat16)
+    dy = torch.zeros((L, A, F), dtype=torch.bfloat16)
+    before = gg.dw_launches
+    for c in ([0, 0, 0], [1, 64, 136], [500, 128, 65]):
+        gg.grouped_gemm_dw(x, dy, torch.tensor(c, dtype=torch.int32))
+    assert gg.dw_launches == before + 3
+    assert calls == [("ep_grouped_gemm_dw", gg.dw_plan(L, A, H, F).args())] * 3
+
+
+def emulate_dw(p, x, dy, counts):
+    """The dW kernel's arithmetic in f32 over its plan: each tile sums its
+    expert's stages of 64 rows (TMA boxes, zero past A and the edges) in
+    order, with the rows past the count zeroed in both operands first."""
+    L, A, H = x.shape
+    F = dy.shape[2]
+    out = np.zeros((L, H, F), np.float32)
+    for t in range(p.tiles):
+        l, mt, nt = gg.tile_coords(p, t)
+        n = min(max(int(counts[l]), 0), A)
+        h0, f0 = mt * gg.DW_BM, nt * gg.DW_BN
+        acc = np.zeros((gg.DW_BM, gg.DW_BN), np.float32)
+        for k in range(-(-n // 64)):
+            xa = np.zeros((64, gg.DW_BM), np.float32)
+            yb = np.zeros((64, gg.DW_BN), np.float32)
+            part = x[l, k * 64:(k + 1) * 64, h0:h0 + gg.DW_BM]
+            xa[:part.shape[0], :part.shape[1]] = part
+            part = dy[l, k * 64:(k + 1) * 64, f0:f0 + gg.DW_BN]
+            yb[:part.shape[0], :part.shape[1]] = part
+            xa[n - k * 64:] = 0.0
+            yb[n - k * 64:] = 0.0
+            acc += xa.T @ yb
+        out[l, h0:h0 + gg.DW_BM, f0:f0 + gg.DW_BN] = acc[:H - h0, :F - f0]
+    return out
+
+
+def test_dw_emulation_matches_the_jax_vjp():
+    """Counts of 0, on no edge, on a stage edge and past A: the emulated
+    kernel within 1e-5 of jax.vjp of the reference's grouped_gemm in its
+    weights; NaNs in x's and dy's rows past the counts change no bit."""
+    rng = np.random.default_rng(6)
+    L, A, H, F = 4, 200, 264, 280
+    x = rng.standard_normal((L, A, H)).astype(np.float32)
+    w = rng.standard_normal((L, H, F)).astype(np.float32)
+    dy = rng.standard_normal((L, A, F)).astype(np.float32)
+    counts = np.array([0, 65, 128, 300], np.int32)
+    _, vjp = jax.vjp(lambda ww: jref.grouped_gemm(jnp.asarray(x), ww, jnp.asarray(counts)),
+                     jnp.asarray(w))
+    (want,) = vjp(jnp.asarray(dy))
+    p = gg.dw_plan(L, A, H, F)
+    got = emulate_dw(p, x, dy, counts)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-4)
+    assert not got[0].any()
+    dead = np.arange(A)[None, :] >= counts[:, None]
+    xn, dyn = x.copy(), dy.copy()
+    xn[dead] = np.nan
+    dyn[dead] = np.nan
+    np.testing.assert_array_equal(emulate_dw(p, xn, dyn, counts), got)

@@ -290,7 +290,28 @@
    ranks 2 and 3, no restore, tokens bitwise equal; SIGTERM raised in
    rank 1 alone: all four return ``preempted=True`` at one boundary with
    the same tokens. The control all-reduce's time a call, each
-   migration's bytes and seconds and the degraded ITL printed.
+   migration's bytes and seconds and the degraded ITL printed. Last in
+   each child at EP extent > 1, training over ``DistComm``
+   (``dist_train_check``): DBRX-132B ``train_4k`` at full width, 1 layer,
+   one row of 2048 tokens a process, one step of the ``Trainer`` with bf16
+   moments, after rank 0 ran the same step over ``LocalComm`` of the EP
+   extent on card 0 while the others waited: the loss within 1e-3
+   relative, the gradient norm within 1e-2, every replicated leaf bitwise
+   equal on every process after the step (broadcast from rank 0), the
+   launches exact for one hosted rank (``train_launches``), no plain
+   version reached; the step, gradient-reduce (with its bytes) and
+   optimizer seconds and the peak printed (on the gloo pair the two
+   processes' peaks summed: the card's). At world 1 a line says training
+   does not run (EP extent 1 takes the dense MoE path). At world 4 over
+   NCCL then ``dist_train_full``: the ``Trainer`` at EP 4 (4 experts a
+   card), the preset's seq 4096, 16 rows in 2 micro-batches, 4 steps on
+   the repeated batch, 4 layers unless a 1-layer step's peak plus the
+   reckoned state of 3 more layers passes 72 GiB on some card (then 3):
+   the losses finite and falling, the launches exact, no plain version
+   reached; the step, micro-batch, gradient-reduce and optimizer seconds,
+   train tok/s over the mesh and a card, the peak; then one micro-batch
+   traced on rank 0 (the card's busy share, NCCL's share of it, the top
+   kernels).
 
 12. Training (``train_phase``), last, once every other tensor is freed:
    ``Trainer`` on DBRX-132B at full width under ``train_4k`` (HT flat, fp8
@@ -394,7 +415,7 @@ from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.runtime.telemetry import (TimeSeries, Tracer, load_chrome_trace,  # noqa: E402
                                            validate_chrome_trace)
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.weights import init_params  # noqa: E402
+from repro_torch.weights import init_params, is_cut  # noqa: E402
 from repro_torch.device import disable_tf32  # noqa: E402
 from repro_torch.launch.mesh import init_process, spawn  # noqa: E402
 
@@ -3382,20 +3403,28 @@ def moe_grad_phase(cfg, p) -> None:
           f"backward through the kernels {k_s:.3f} s")
 
 
-def train_trace(cfg, params, batch) -> None:
+def train_trace(cfg, params, batch, comm=None, traced: bool = True) -> dict:
     """One micro-batch's forward and backward (micro-batch 0, the trained
-    parameters) traced with the profiler: the card's busy share of the
-    wall time and the kernels that took most of it."""
+    parameters) over ``comm`` (``LocalComm(RANKS)`` by default) traced
+    with the profiler: the card's busy share of the wall time, NCCL's
+    share of the busy time and the kernels that took most of it, and a
+    line saying so. Over a ``DistComm`` every process runs it (its
+    collectives need all of them) and the one with ``traced`` traces it;
+    the others get an empty dict."""
+    comm = LocalComm(RANKS) if comm is None else comm
     fwd = get_model(cfg).forward
     micro = {k: v[0] for k, v in batch.items()}
     params = tracked(params)
     inputs = [t for t in leaves(params) if t.is_floating_point()]
 
     def run():
-        loss, _ = fwd(params, micro, cfg, LocalComm(RANKS))
+        loss, _ = fwd(params, micro, cfg, comm)
         torch.autograd.grad(loss, inputs)
         torch.cuda.synchronize()
     run()
+    if not traced:
+        run()
+        return {}
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
@@ -3406,10 +3435,86 @@ def train_trace(cfg, params, batch) -> None:
     by: Counter = Counter()
     for s_, e_, name in iv:
         by[short_name(name)] += e_ - s_
+    nccl = busy_us([e for e in iv if "nccl" in e[2].lower()])
     top = ", ".join(f"{n} {us / 1e3:.1f} ms ({us / busy:.3f})" for n, us in by.most_common(8))
-    print(f"  one traced micro-batch (forward + backward): wall {wall_us / 1e6:.3f} s, card "
-          f"busy {busy / 1e6:.3f} s ({busy / wall_us:.3f} of the wall; idle "
-          f"{1 - busy / wall_us:.3f}), {len(iv)} device events; by kernel: {top}")
+    line = (f"one traced micro-batch (forward + backward) over {type(comm).__name__}"
+            f"({comm.size}): wall {wall_us / 1e6:.3f} s, card busy {busy / 1e6:.3f} s "
+            f"({busy / wall_us:.3f} of the wall; idle {1 - busy / wall_us:.3f}), NCCL "
+            f"{nccl / 1e6:.3f} s ({nccl / busy:.3f} of the busy time), {len(iv)} device "
+            f"events; by kernel: {top}")
+    return dict(wall_s=wall_us / 1e6, busy=busy / wall_us, nccl=nccl / busy, line=line)
+
+
+def run_trainer(tr: Trainer, params, opt, batch) -> dict:
+    """``tr``'s own loop from (params, opt) over the repeated global
+    ``batch``: each step timed with the card synchronised and its launches
+    counted; the optimizer, and over a ``DistComm`` the gradient reduce,
+    timed on their own (``runtime/steps.py``'s, looked up by name);
+    step 1's gradients finite and not all zero; no plain version reached.
+    Returns the trained params and state, the losses and gradient norms,
+    the step, optimizer and reduce seconds, the reduce's bytes, each
+    step's launches and the peak device memory (GiB)."""
+    tr.init_state = lambda: (params, opt)
+    tr.data.batch_at = lambda step: batch
+    opt_s, reduce_s, reduce_bytes, step_info = [], [], [], []
+    update, reduce = steps_mod.adamw_update, steps_mod.reduce_grads
+
+    def timed_update(prm, grads, state, oc, **kw):
+        torch.cuda.synchronize()
+        if not opt_s:              # step 1: every gradient finite and not all zero
+            bad = [n for n, g_ in zip(leaf_names(grads), leaves(grads))
+                   if not bool(torch.isfinite(g_).all()) or not bool(g_.abs().amax() > 0)]
+            check(not bad, f"step 1: gradients not finite or all zero: {bad}")
+        t0 = time.perf_counter()
+        out = update(prm, grads, state, oc, **kw)
+        torch.cuda.synchronize()
+        opt_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_reduce(sums, cfg, comm):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = reduce(sums, cfg, comm)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+        reduce_bytes.append(n)
+        return n
+    inner = tr.step_fn
+
+    def step(prm, state, b):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(prm, state, b)
+        torch.cuda.synchronize()
+        step_info.append((time.perf_counter() - t0, counts()))
+        return out
+    tr.step_fn = step
+    calls: Counter = Counter()
+    steps_mod.adamw_update, steps_mod.reduce_grads = timed_update, timed_reduce
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with plain_calls(calls):
+            params, opt = tr.run()
+    finally:
+        steps_mod.adamw_update, steps_mod.reduce_grads = update, reduce
+        tr.step_fn = inner
+    check(not calls, f"the training path reached plain versions: {dict(calls)}")
+    check(not any(t_.requires_grad for t_ in leaves(params)),
+          "the trained parameters came back requiring grad")
+    return dict(params=params, opt=opt, losses=[r["loss"] for r in tr.metrics_log],
+                gnorms=[r["gnorm"] for r in tr.metrics_log],
+                step_s=[t_ for t_, _ in step_info], opt_s=opt_s, reduce_s=reduce_s,
+                reduce_bytes=reduce_bytes, launches=[c for _, c in step_info],
+                peak=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def check_train_launches(launches: list, want: dict, where: str) -> None:
+    """Each step's launches (``run_trainer``) must be ``want``."""
+    for i, got in enumerate(launches):
+        bad = {k: (got.get(k, 0), want.get(k, 0)) for k in set(want) | set(got)
+               if got.get(k, 0) != want.get(k, 0)}
+        check(not bad, f"{where} {i + 1}: launches (got, expected) {bad}")
 
 
 def train_phase(card: str) -> list:
@@ -3453,78 +3558,35 @@ def train_phase(card: str) -> list:
     gc.collect()
     torch.cuda.empty_cache()
     # the Trainer's own loop, over the repeated batch 0 and the state above
-    tr.init_state = lambda: (params, opt)
-    tr.data.batch_at = lambda step: batch
-    opt_times, step_info = [], []
-    orig_update = steps_mod.adamw_update
-
-    def timed_update(prm, grads, state, oc):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if not opt_times:          # step 1: every gradient finite and not all zero
-            bad = [n for n, g_ in zip(leaf_names(grads), leaves(grads))
-                   if not bool(torch.isfinite(g_).all()) or not bool(g_.abs().amax() > 0)]
-            check(not bad, f"step 1: gradients not finite or all zero: {bad}")
-            t0 = time.perf_counter()
-        out = orig_update(prm, grads, state, oc)
-        torch.cuda.synchronize()
-        opt_times.append(time.perf_counter() - t0)
-        return out
-    inner = tr.step_fn
-
-    def step(prm, state, b):
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = inner(prm, state, b)
-        torch.cuda.synchronize()
-        step_info.append((time.perf_counter() - t0, counts()))
-        return out
-    tr.step_fn = step
-    calls: Counter = Counter()
-    steps_mod.adamw_update = timed_update
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        with plain_calls(calls):
-            params, opt = tr.run()
-    finally:
-        steps_mod.adamw_update = orig_update
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    losses = [r["loss"] for r in tr.metrics_log]
+    run = run_trainer(tr, params, opt, batch)
+    params, opt, losses = run.pop("params"), run.pop("opt"), run["losses"]
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
     rel = abs(losses[0] - ref_loss) / abs(ref_loss)
     check(rel <= PF_LOSS_REL, f"step 1's loss {losses[0]} differs from the train_4k "
           f"forward's {ref_loss} by {rel:.3g} (limit {PF_LOSS_REL})")
     check(losses[-1] < losses[0], f"the loss did not fall over {TRAIN_STEPS} steps on a "
           f"repeated batch: {losses}")
-    check(not calls, f"the training path reached plain versions: {dict(calls)}")
-    check(not any(t_.requires_grad for t_ in leaves(params)),
-          "the trained parameters came back requiring grad")
-    want = train_launches(cfg)
-    for i, (_, got) in enumerate(step_info):
-        bad = {k: (got.get(k, 0), want.get(k, 0)) for k in set(want) | set(got)
-               if got.get(k, 0) != want.get(k, 0)}
-        check(not bad, f"train step {i + 1}: launches (got, expected) {bad}")
+    check_train_launches(run["launches"], train_launches(cfg), "train step")
     total = Counter()
-    for _, got in step_info:
+    for got in run["launches"]:
         total.update(got)
-    step_s = [s for s, _ in step_info]
-    micro_s = [(s - o) / TRAIN_MICRO for s, o in zip(step_s, opt_times)]
+    step_s, opt_times = run["step_s"], run["opt_s"]
+    micro_s = [(s_ - o) / TRAIN_MICRO for s_, o in zip(step_s, opt_times)]
     print(f"Trainer ({card}): losses {[round(x, 6) for x in losses]} over {TRAIN_STEPS} steps "
           f"on a repeated batch (falling); step 1's loss within {rel:.3g} of the train_4k "
           f"forward's {ref_loss:.6f} (limit {PF_LOSS_REL}); grad norms "
-          f"{[round(r['gnorm'], 4) for r in tr.metrics_log]}; every gradient of step 1 "
+          f"{[round(g, 4) for g in run['gnorms']]}; every gradient of step 1 "
           f"finite and nonzero; no plain version reached")
-    print(f"  step {[round(s, 4) for s in step_s]} s, per micro-batch (forward + backward) "
-          f"{[round(s, 4) for s in micro_s]} s, optimizer {[round(s, 4) for s in opt_times]} "
+    print(f"  step {[round(s_, 4) for s_ in step_s]} s, per micro-batch (forward + backward) "
+          f"{[round(s_, 4) for s_ in micro_s]} s, optimizer {[round(s_, 4) for s_ in opt_times]} "
           f"s; {TRAIN_BATCH * TRAIN_SEQ / np.median(step_s):.1f} train tok/s (median step); "
-          f"peak device memory {peak:.2f} GiB; launches per step {step_info[0][1]}")
+          f"peak device memory {run['peak']:.2f} GiB; launches per step {run['launches'][0]}")
     for name in TRAIN_KERNELS:
         records[name]["launches"] = total[name]
     del opt
     gc.collect()
     torch.cuda.empty_cache()
-    train_trace(cfg, params, batch)
+    print(f"  {train_trace(cfg, params, batch)['line']}")
     del params, batch, tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -4903,6 +4965,229 @@ def dist_prefill_phase(cfg, comm, hcomm, dev, rank: int, rows: int = PF_BATCH) -
     return dict(runs=runs, seconds=time.perf_counter() - t)
 
 
+# ---------------------------------------------------------------------------
+# training with one EP rank per process
+# ---------------------------------------------------------------------------
+
+# the check: DBRX-132B train_4k at full width, 1 layer, one row of 2048
+# tokens a process, one micro-batch, one step, against the same step over
+# LocalComm(EP extent) on card 0 (the loss within PF_LOSS_REL). The grad
+# norm's limit: it sums 1.1e10 squares in another order, of gradients whose
+# bf16 products ran at other row counts
+DT_CHECK_LAYERS, DT_CHECK_SEQ, DT_NORM_REL = 1, 2048, 1e-2
+# the four-card run: the preset's seq 4096, a global batch of 16 in 2
+# micro-batches (2 rows a card each), 4 steps on the repeated batch, 4
+# layers unless the peak reckoned from a 1-layer step passes DT_MAX_GIB
+# (then 3). A layer's state on a card is 6 times its parameters: the
+# parameters, their f32 sums (2), the bf16 moments (2) and one
+# micro-batch's bf16 gradients
+DT_SEQ, DT_BATCH, DT_MICRO, DT_STEPS, DT_LAYERS, DT_MAX_GIB = 4096, 16, 2, 4, 4, 72.0
+DT_STATE_PER_PARAM = 6
+
+
+def dist_train_config(layers: int, micro: int):
+    return dataclasses.replace(full_config("train_4k"), num_layers=layers, microbatch=micro)
+
+
+def dist_trainer(cfg, comm, dev, steps: int, batch: int, seq: int) -> Trainer:
+    """A Trainer of ``cfg`` over ``comm`` with bf16 AdamW moments, logging
+    every step."""
+    return Trainer(cfg, TrainerConfig(steps=steps, global_batch=batch, seq_len=seq,
+                                      log_every=1), comm=comm,
+                   opt_cfg=AdamWConfig(lr=TRAIN_LR, total_steps=steps, warmup_steps=1,
+                                       state_dtype=torch.bfloat16), device=dev)
+
+
+def replicated_equal(params, cfg, comm) -> int:
+    """Every leaf this process holds whole, bit for bit against rank 0's
+    (broadcast as bytes over the mesh, one leaf at a time); returns the
+    number of leaves compared."""
+    n = 0
+    for name, t in zip(leaf_names(params), leaves(params)):
+        if is_cut(tuple(name.split("/")), cfg, comm):
+            continue
+        mine = t.contiguous().view(-1).view(torch.uint8)
+        theirs = mine.clone()
+        dist.broadcast(theirs, src=0)
+        check(torch.equal(mine, theirs), f"the replicated leaf {name} differs from rank 0's")
+        n += 1
+    return n
+
+
+def pair_peaks(dev, peak: float, world: int) -> tuple[float, float]:
+    """The sums over the processes of each one's peak allocated and peak
+    reserved device memory (GiB): the card's when they share it."""
+    t = torch.tensor([peak, torch.cuda.max_memory_reserved() / 2**30], dtype=torch.float64,
+                     device=dev)
+    dist.all_reduce(t)
+    return float(t[0]), float(t[1])
+
+
+def dist_train_check(comm, dev, rank: int, world: int) -> dict:
+    """One train step over ``comm`` held against the same step over
+    ``LocalComm``: DBRX-132B train_4k at full width, DT_CHECK_LAYERS layer,
+    one row of DT_CHECK_SEQ tokens a process, one micro-batch. Rank 0
+    first runs the step over LocalComm(EP extent) on its card while the
+    others wait, and frees it; then every process steps its shard
+    (``init_params(..., comm=)``) and its row through ``run_trainer``: the
+    loss within PF_LOSS_REL of LocalComm's, the gradient norm within
+    DT_NORM_REL, every replicated leaf bitwise equal on every process after
+    the step, the launches exact for one hosted rank (``train_launches``),
+    no plain version reached."""
+    t = time.perf_counter()
+    cfg = dist_train_config(DT_CHECK_LAYERS, 1)
+    out = dict(ep=comm.size, batch=world, model=model_label(cfg))
+    dist.barrier()
+    if rank == 0:
+        tr = dist_trainer(cfg, LocalComm(comm.size), dev, 1, world, DT_CHECK_SEQ)
+        params, opt = tr.init_state()
+        r = run_trainer(tr, params, opt, tr.data.batch_at(0))
+        check_train_launches(r["launches"], train_launches(cfg, comm.size),
+                             f"the LocalComm({comm.size}) check step")
+        out.update(ref_loss=r["losses"][0], ref_gnorm=r["gnorms"][0], ref_step_s=r["step_s"][0],
+                   ref_peak=r["peak"])
+        del tr, params, opt, r
+        gc.collect()
+        torch.cuda.empty_cache()
+        progress(rank, f"the LocalComm({comm.size}) train step ({memory_line()})", t)
+    dist.barrier()
+    tr = dist_trainer(cfg, comm, dev, 1, world, DT_CHECK_SEQ)
+    params, opt = tr.init_state()
+    weights = tree_bytes(params) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    r = run_trainer(tr, params, opt, tr.data.batch_at(0))
+    check_train_launches(r["launches"], train_launches(cfg, 1), "the DistComm check step")
+    loss, gnorm = r["losses"][0], r["gnorms"][0]
+    check(bool(np.isfinite(loss) and np.isfinite(gnorm)), f"the DistComm check step: loss "
+          f"{loss}, grad norm {gnorm}")
+    out.update(loss=loss, gnorm=gnorm, step_s=r["step_s"][0], opt_s=r["opt_s"][0],
+               reduce_s=r["reduce_s"][0], reduce_bytes=r["reduce_bytes"][0],
+               launches=r["launches"][0], peak=r["peak"], weights_gib=weights)
+    out["pair_peak"] = pair_peaks(dev, r["peak"], world)
+    params = r["params"]
+    del opt, r, tr
+    gc.collect()
+    out["replicated"] = replicated_equal(params, cfg, comm)
+    if rank == 0:
+        out["loss_err"] = abs(loss - out["ref_loss"]) / abs(out["ref_loss"])
+        out["gnorm_err"] = abs(gnorm - out["ref_gnorm"]) / abs(out["ref_gnorm"])
+        check(out["loss_err"] <= PF_LOSS_REL, f"the DistComm check step's loss {loss!r} is "
+              f"{out['loss_err']:.3g} off LocalComm({comm.size})'s {out['ref_loss']!r}")
+        check(out["gnorm_err"] <= DT_NORM_REL, f"the DistComm check step's grad norm "
+              f"{gnorm!r} is {out['gnorm_err']:.3g} off LocalComm({comm.size})'s "
+              f"{out['ref_gnorm']!r}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def dist_train_full(comm, dev, rank: int, world: int) -> dict:
+    """DBRX-132B train_4k at full width with one EP rank a card: the
+    preset's seq DT_SEQ, global batch DT_BATCH in DT_MICRO micro-batches,
+    DT_STEPS steps of the Trainer on the repeated batch, DT_LAYERS layers
+    unless the peak that a 1-layer step measures, plus the reckoned state
+    of each further layer, passes DT_MAX_GIB on some card (then one
+    fewer). The losses finite and falling, each step's launches exact for
+    one hosted rank, no plain version reached; then one micro-batch traced
+    on rank 0."""
+    t = time.perf_counter()
+    probe = dist_train_config(1, DT_MICRO)
+    tr = dist_trainer(probe, comm, dev, 1, DT_BATCH, DT_SEQ)
+    params, opt = tr.init_state()
+    layer_gib = DT_STATE_PER_PARAM * tree_bytes(params["moe_stack"]) / 2**30
+    r = run_trainer(tr, params, opt, tr.data.batch_at(0))
+    probe_peak = r["peak"]
+    del tr, params, opt, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    reckoned = probe_peak + (DT_LAYERS - 1) * layer_gib
+    worst = comm.control_max([int(reckoned * 1024)])[0] / 1024
+    layers = DT_LAYERS if worst <= DT_MAX_GIB else DT_LAYERS - 1
+    progress(rank, f"the 1-layer probe step (peak {probe_peak:.2f} GiB; {DT_LAYERS} layers "
+             f"reckoned at {reckoned:.2f}, at most {worst:.2f} on a card): {layers} layers", t)
+    cfg = dist_train_config(layers, DT_MICRO)
+    tr = dist_trainer(cfg, comm, dev, DT_STEPS, DT_BATCH, DT_SEQ)
+    params, opt = tr.init_state()
+    weights = tree_bytes(params) / 2**30
+    batch = tr.data.batch_at(0)
+    r = run_trainer(tr, params, opt, batch)
+    losses = r["losses"]
+    check(len(losses) == DT_STEPS and all(np.isfinite(losses)), f"four-card losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall over {DT_STEPS} steps on a "
+          f"repeated batch: {losses}")
+    check_train_launches(r["launches"], train_launches(cfg, 1), "four-card train step")
+    out = dict(layers=layers, probe_peak=probe_peak, reckoned=reckoned, worst=worst,
+               weights_gib=weights, model=model_label(cfg), ep=comm.size,
+               experts=cfg.moe.num_experts // comm.size,
+               **{k: r[k] for k in ("losses", "gnorms", "step_s", "opt_s", "reduce_s",
+                                    "reduce_bytes", "peak")}, launches=r["launches"][0],
+               want=train_launches(cfg, 1))
+    params = r["params"]
+    del opt, r, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = comm.batch_rows(DT_BATCH // DT_MICRO)
+    out["trace"] = train_trace(cfg, params, {k: v[:, rows] for k, v in batch.items()}, comm,
+                               traced=rank == 0)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def dist_train_lines(out: dict, who: str, label: str, card: str, gloo: bool) -> None:
+    """The training sub-phases' lines of one rank."""
+    c = out.get("train")
+    if c is None:
+        print(f"dist ({label}) training, {who}: not run, EP extent 1 takes the dense MoE "
+              "path, so no EP dispatch or combine trains")
+        return
+    ref = ""
+    if "ref_loss" in c:
+        ref = (f"; LocalComm({c['ep']}) on card 0: loss {c['ref_loss']:.6f}, grad norm "
+               f"{c['ref_gnorm']:.6f}, step {c['ref_step_s']:.3f} s, peak "
+               f"{c['ref_peak']:.2f} GiB; off by {c['loss_err']:.3g} (limit {PF_LOSS_REL}) "
+               f"and {c['gnorm_err']:.3g} (limit {DT_NORM_REL})")
+    pair = (f"; the processes' peaks sum to {c['pair_peak'][0]:.2f} GiB allocated, "
+            f"{c['pair_peak'][1]:.2f} GiB reserved on the shared card" if gloo else "")
+    print(f"dist ({label}) train step check, {who}, EP extent {c['ep']}, {c['model']} train_4k, "
+          f"{c['batch']} x {DT_CHECK_SEQ} global, one row a process, one micro-batch, bf16 "
+          f"moments ({card}): loss {c['loss']:.6f}, grad norm {c['gnorm']:.6f}{ref}; "
+          f"{c['replicated']} replicated leaves bitwise equal on every process; step "
+          f"{c['step_s']:.3f} s{' (gloo via host)' if gloo else ''}, gradient reduce "
+          f"{c['reduce_s']:.3f} s ({c['reduce_bytes'] / 2**30:.3f} GiB), optimizer "
+          f"{c['opt_s']:.3f} s; weights {c['weights_gib']:.2f} GiB, peak {c['peak']:.2f} GiB"
+          f"{pair}; launches {c['launches']}; {c['seconds']:.1f} s")
+    f = out.get("train_full")
+    if f is None:
+        return
+    micro = [(s_ - o - rd) / DT_MICRO for s_, o, rd in zip(f["step_s"], f["opt_s"],
+                                                          f["reduce_s"])]
+    med = float(np.median(f["step_s"]))
+    print(f"dist ({label}) Trainer(comm=DistComm), {who}, {f['model']} train_4k at full "
+          f"width, EP extent {f['ep']} ({f['experts']} experts a card), HT flat, "
+          f"fp8 dispatch, capacity 1.25, remat, {DT_BATCH} x {DT_SEQ} global in {DT_MICRO} "
+          f"micro-batches ({DT_BATCH // DT_MICRO // f['ep']} rows a card each), bf16 moments "
+          f"({card}): losses {[round(x, 6) for x in f['losses']]} over {DT_STEPS} steps on a "
+          f"repeated batch (falling); grad norms {[round(g, 4) for g in f['gnorms']]}; step "
+          f"{[round(x, 4) for x in f['step_s']]} s, per micro-batch (forward + backward, the "
+          f"norm) {[round(x, 4) for x in micro]} s, gradient reduce "
+          f"{[round(x, 4) for x in f['reduce_s']]} s of {f['reduce_bytes'][0] / 2**30:.3f} "
+          f"GiB, optimizer {[round(x, 4) for x in f['opt_s']]} s; "
+          f"{DT_BATCH * DT_SEQ / med:.1f} train tok/s over the mesh, "
+          f"{DT_BATCH * DT_SEQ / med / f['ep']:.1f} a card (median step); weights "
+          f"{f['weights_gib']:.2f} GiB, peak {f['peak']:.2f} GiB a card (the 1-layer probe "
+          f"{f['probe_peak']:.2f}; {DT_LAYERS} layers reckoned at {f['reckoned']:.2f}, at most "
+          f"{f['worst']:.2f} on a card, limit {DT_MAX_GIB}); launches per step "
+          f"{f['launches']} = train_launches for one hosted rank; {f['seconds']:.1f} s")
+    if f["trace"]:
+        print(f"dist ({label}) Trainer(comm=DistComm), {who} ({card}): {f['trace']['line']}")
+
+
 # DeepSeek-V3 at one EP rank a card: the world it runs at; its continuous
 # serve's requests (make_requests' arrivals of RATE a step and lives of 11 to
 # 63 steps keep about 150 live, so every batch rank steps live rows); the
@@ -5313,6 +5598,16 @@ def dist_child(rank: int, world: int, init_method: str, backend: str, card: str,
               "run at EP extent > 1 over NCCL, one card a rank)")
     if world == DS_DIST_WORLD and backend == "nccl":
         out["ds"] = ds_dist_phase(comm, dev, rank, dist_who(out, world), label, card)
+    # training last, every serving tensor freed first
+    gc.collect()
+    torch.cuda.empty_cache()
+    if comm.size > 1:
+        out["train"] = dist_train_check(comm, dev, rank, world)
+        progress(rank, "DBRX's train step check", t0)
+        if world == DS_DIST_WORLD and backend == "nccl":
+            out["train_full"] = dist_train_full(comm, dev, rank, world)
+            progress(rank, "DBRX's four-card Trainer", t0)
+    dist_train_lines(out, dist_who(out, world), label, card, backend == "gloo")
     faulthandler.cancel_dump_traceback_later()
     out["seconds"] = time.perf_counter() - t0
     return out

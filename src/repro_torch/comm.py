@@ -26,6 +26,20 @@ that is not one of them carries expert tensor parallelism, as
 ``DistComm`` keeps a gloo group over the whole mesh for ``control_max``,
 the servers' host-side agreement at each step boundary (a stop flag and
 the dead ranks of elastic EP), which never waits on the card.
+
+Under autograd a ``DistComm`` process differentiates its own copy of the
+global loss, and each process's copy of a replicated value counts once
+(JAX's gradients under ``shard_map``, where a replicated value is
+invariant): the backward of an all-reduce whose result is used replicated
+is the identity, of an all-gather the process's own block, of an
+equal-block all-to-all the same exchange of the cotangents, of the slice of
+a replicated tensor the all-gather of the slices' cotangents, and of a
+replicated value entering a computation that differs along an axis
+(``vary``, JAX's implicit ``pvary``) the sum of its cotangents over that
+axis. Each is a ``torch.autograd.Function`` here, so no backward rests on
+an in-place collective that autograd never saw. (The reduce of the
+replicated parameters' gradients over the batch axes, the last such sum,
+is the train step's: ``runtime/steps.py``.)
 """
 from __future__ import annotations
 
@@ -82,8 +96,10 @@ class LocalComm:
     on a mesh of ``axes`` ((name, size) pairs, outermost first; one axis
     ``"data"`` of n by default)."""
 
-    # every axis is an EP axis: no expert tensor parallelism
+    # every axis is an EP axis: no expert tensor parallelism, and the tokens
+    # split by batch rows only
     tp_axis = None
+    seq_axis = None
     # its exchanges are device copies, which a CUDA graph captures
     capturable = True
 
@@ -255,6 +271,9 @@ class DistComm:
         self.ranks = (_row_major([self.coords[a] for a in ep],
                                  [s for _, s in self.axes]),)
         self.tp_axis = "model" if "model" in names and "model" not in ep else None
+        # the axis that splits the sequence inside the MoE layer
+        self.seq_axis = "model" if dict(self.axes).get("model", 1) > 1 else None
+        self.rank = dist.get_rank()
         self.token_axes = tuple(a for a in names if a != self.tp_axis)
         self.batch_axes = tuple(a for a in names if a in ("pod", "data"))
         self._groups: dict[tuple, tuple] = {}
@@ -292,10 +311,20 @@ class DistComm:
                              f"{tuple(a for a, _ in self.mesh)}")
         if not key:
             return _SELF, 1
+        if len(key) == len(self.mesh):
+            return None, math.prod(s for _, s in self.mesh)
         if key not in self._groups:
             raise ValueError(f"no sub-group over {key}: DistComm makes them over "
                              f"each axis, the EP, token and batch axes")
         return self._groups[key]
+
+    def _group_rank(self, axis) -> int:
+        """This process's rank in its group over ``axis`` (as ``_group``
+        takes it): row-major over the group's axes, in mesh order."""
+        want = (tuple(a for a, _ in self.axes) if axis is None
+                else (axis,) if isinstance(axis, str) else tuple(axis))
+        key = [(a, s) for a, s in self.mesh if a in want]
+        return _row_major([self.coords[a] for a, _ in key], [s for _, s in key])
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -321,10 +350,7 @@ class DistComm:
         if x.shape[0] != n:
             raise ValueError(f"all_to_all over {axis or 'the group'} wants {n} "
                              f"blocks per rank, got {x.shape[0]}")
-        src = _bytes_view(x).contiguous()
-        out = torch.empty_like(src)
-        dist.all_to_all_single(out, src, group=group)
-        return [out.view(x.dtype)]
+        return [_DistAllToAll.apply(group, x)]
 
     def all_to_all_rows(self, x: torch.Tensor, send_counts: list[int],
                         recv_counts: list[int]) -> torch.Tensor:
@@ -362,44 +388,64 @@ class DistComm:
         input's)."""
         x = self._one("all_gather", xs)
         group, n = self._group(axis)
-        src = _bytes_view(x).contiguous().reshape((1,) + tuple(x.shape))
         if group is _SELF:
             return [x[None]]
-        out = src.new_empty((n,) + tuple(x.shape))
-        _ALL_GATHER(out, src, group=group)
-        return [out.view(x.dtype)]
+        return [_DistAllGather.apply(group, n, self._group_rank(axis), x)]
 
     def all_reduce(self, xs: list[torch.Tensor], axis=None) -> list[torch.Tensor]:
         """The sum of xs[0] over the processes that differ from this one
         only in ``axis`` (a mesh axis name, a tuple of them, or None for
-        the EP axes), in a new tensor."""
+        the EP axes), in a new tensor. Its backward is the identity: the
+        sum is used replicated over those processes, and each one's copy
+        counts once."""
         x = self._one("all_reduce", xs)
         group, n = self._group(axis)
-        out = x.clone()
+        if group is _SELF:
+            return [x.clone()]
+        return [_DistAllReduce.apply(group, x)]
+
+    def sum_(self, t: torch.Tensor, axis) -> None:
+        """Sum ``t`` in place over ``axis``, outside autograd: the train
+        step's gradient reduce (``runtime/steps.py reduce_grads``)."""
+        group, n = self._group(axis)
         if group is not _SELF:
-            dist.all_reduce(out, group=group)
-        return [out]
+            dist.all_reduce(t, group=group)
+
+    def vary(self, xs: list[torch.Tensor], axis) -> list[torch.Tensor]:
+        """A value replicated over ``axis`` (a mesh axis name or a tuple of
+        them) as it enters a computation that differs along it: the value
+        itself, whose backward sums the cotangents over ``axis``, since
+        each process's part of the computation gives only its share of the
+        replicated value's gradient (JAX: the ``pvary`` that ``shard_map``
+        inserts, whose transpose is ``psum``). The expert FFN's input under
+        expert-TP and the router under a sequence split enter so."""
+        x = self._one("vary", xs)
+        group, n = self._group(axis)
+        if group is _SELF:
+            return [x]
+        return [_DistVary.apply(group, x)]
 
     # ---- the tokens' layout over the mesh ----
 
     def shard_tokens(self, x: torch.Tensor) -> list[torch.Tensor]:
         """The MoE layer's tokens of this rank: the process's own [B, S, D]
         rows, and of them the S-slice at its ``model`` coordinate when
-        ``model`` is an EP axis (``_token_specs``: S splits over model)."""
-        m = dict(self.axes).get("model", 1)
-        if m == 1:
+        ``model`` is an EP axis (``_token_specs``: S splits over model).
+        The slice's backward gathers the slices' cotangents over model: x
+        is replicated there, and its gradient is theirs together."""
+        if self.seq_axis is None:
             return [x]
+        m = dict(self.axes)[self.seq_axis]
         if x.shape[1] % m:
             raise ValueError(f"sequence {x.shape[1]} must split evenly over "
                              f"model={m}")
-        return [x.chunk(m, dim=1)[self.coords["model"]]]
+        return [_SeqSlice.apply(self, x)]
 
     def unshard_tokens(self, parts: list[torch.Tensor]) -> torch.Tensor:
         y = self._one("unshard_tokens", parts)
-        if dict(self.axes).get("model", 1) == 1:
+        if self.seq_axis is None:
             return y
-        g = self.all_gather([y], axis="model")[0]             # [M, B, S/M, D]
-        return g.transpose(0, 1).reshape(y.shape[0], -1, *y.shape[2:])
+        return _join_seq(self.all_gather([y], axis=self.seq_axis)[0])
 
     def batch_rows(self, batch: int) -> slice:
         """The rows of a global batch this process steps: its block at the
@@ -423,3 +469,96 @@ class DistComm:
     def sum_over_batch(self, t: torch.Tensor) -> torch.Tensor:
         """A sum over this process's rows -> the sum over the whole batch."""
         return self.all_reduce([t], axis=self.batch_axes)[0]
+
+
+def _join_seq(g: torch.Tensor) -> torch.Tensor:
+    """[M, B, S/M, ...] S-slices in model order -> [B, S, ...]."""
+    return g.transpose(0, 1).reshape(g.shape[1], -1, *g.shape[3:])
+
+
+class _DistAllToAll(torch.autograd.Function):
+    """``DistComm.all_to_all``'s exchange, ``all_to_all_single`` on a byte
+    view; backward: the same exchange of the cotangents (block j of each
+    went to the process at coordinate j, and comes back from it)."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return _a2a(group, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _a2a(ctx.group, g)
+
+
+def _a2a(group, x: torch.Tensor) -> torch.Tensor:
+    src = _bytes_view(x).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.view(x.dtype)
+
+
+class _DistAllGather(torch.autograd.Function):
+    """``DistComm.all_gather``: x [T, ...] -> [N, T, ...], gathered as the
+    concatenation of [1, T, ...] blocks (gloo refuses an output of another
+    rank than its input's); backward: this process's block of the
+    cotangent, the gathered value being used replicated."""
+
+    @staticmethod
+    def forward(ctx, group, n, me, x):
+        ctx.me = me
+        src = _bytes_view(x).contiguous().reshape((1,) + tuple(x.shape))
+        out = src.new_empty((n,) + tuple(x.shape))
+        _ALL_GATHER(out, src, group=group)
+        return out.view(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None, g[ctx.me]
+
+
+class _DistAllReduce(torch.autograd.Function):
+    """``DistComm.all_reduce``'s sum in a new tensor; backward: the
+    identity."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _DistVary(torch.autograd.Function):
+    """``DistComm.vary``: the identity; backward: the sum of the
+    cotangents over the group."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.clone()
+        dist.all_reduce(out, group=ctx.group)
+        return None, out
+
+
+class _SeqSlice(torch.autograd.Function):
+    """``DistComm.shard_tokens``' S-slice of a replicated [B, S, ...];
+    backward: the slices' cotangents gathered over the sequence axis."""
+
+    @staticmethod
+    def forward(ctx, comm, x):
+        ctx.comm = comm
+        m = dict(comm.axes)[comm.seq_axis]
+        return x.chunk(m, dim=1)[comm.coords[comm.seq_axis]].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        comm = ctx.comm
+        return None, _join_seq(comm.all_gather([g.contiguous()], axis=comm.seq_axis)[0])

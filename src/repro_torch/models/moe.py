@@ -11,7 +11,11 @@ hold the experts of the hosted ranks in rank order, L each (all E for
 ``LocalComm``, a ``DistComm`` process's shard from ``weights.shard_params``);
 with expert tensor parallelism (a ``model`` axis that is not an EP axis)
 they hold an F-slice and the FFN's output is summed over ``model``. The aux
-loss is the mean over the ranks that carry tokens. With no communicator, or
+loss is the mean over the ranks that carry tokens. Under autograd over a
+``DistComm`` the collectives follow ``comm.py``'s convention (each
+process's copy of a replicated value counts once), and a replicated value
+that meets a per-process part (the FFN's input under expert-TP, the router
+under a sequence split) enters through ``comm.vary``. With no communicator, or
 an EP extent of 1, it takes the dense reference path exactly as JAX does.
 
 EPLB (``MoESpec.placement``): L is the placement's slots per rank. In
@@ -200,7 +204,12 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig, comm, *, with_heat: bool = Fa
     L = group.local_experts
     xs = [xp.reshape(T, D) for xp in parts]
     rcfg = router_config(m)
-    rs = [route(xt.float() @ p["router"], rcfg, p.get("sel_bias")) for xt in xs]
+    router = p["router"]
+    if comm.seq_axis is not None:
+        # replicated, but each process routes only its S-slice: the backward
+        # sums the router's gradient over the sequence axis
+        router = comm.vary([router], comm.seq_axis)[0]
+    rs = [route(xt.float() @ router, rcfg, p.get("sel_bias")) for xt in xs]
     handles = ep_create_handle(group, [r.topk_idx for r in rs],
                                [r.topk_weights for r in rs])
     # the dispatch and combine are Functions whose forward is every backend's
@@ -210,6 +219,11 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig, comm, *, with_heat: bool = Fa
     recv = LL.ep_dispatch_autograd(group, handles, xs)
     # hosted rank i's experts are rows [i*L, (i+1)*L) of the weights held here
     ws = _expert_weights(p, m, comm, L)
+    if comm.tp_axis is not None:
+        # replicated over model, multiplied by this process's F-slice: the
+        # backward sums the F-slices' shares of its gradient
+        recv = list(zip(comm.vary([y for y, _ in recv], comm.tp_axis),
+                        [c for _, c in recv]))
     y3ds = [_expert_ffn(group, y3d, counts, *w) for (y3d, counts), w in zip(recv, ws)]
     del ws
     if comm.tp_axis is not None:

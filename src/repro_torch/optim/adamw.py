@@ -86,18 +86,29 @@ def _slices(t: torch.Tensor):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def sq_sum(leaves, device) -> torch.Tensor:
+    """The f32 sum of the squares of ``leaves``' elements, slice by slice,
+    in order."""
+    gsq = torch.zeros((), dtype=torch.float32, device=device)
+    for g in leaves:
+        for gs in _slices(g):
+            gsq = gsq + gs.float().square().sum()
+    return gsq
+
+
+@torch.no_grad()
+def adamw_update(params, grads, state, cfg: AdamWConfig, gsq: torch.Tensor | None = None):
     """One AdamW step -> (params, state, {"grad_norm", "lr"}). Parameters
     and moments are updated in place, a slice of each leaf at a time, and
     returned (the reference's jitted step donates both); the step is a new
     tensor. Every element's arithmetic is the reference's, so the slicing
-    changes no value."""
+    changes no value. ``gsq`` is the global sum of the gradients' squares
+    where ``grads`` holds only this process's part of the gradients (the
+    train step over a ``DistComm``); by default ``sq_sum`` of ``grads``."""
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
-    gsq = torch.zeros((), dtype=torch.float32, device=step.device)
-    for g in _leaves(grads):
-        for gs in _slices(g):
-            gsq = gsq + gs.float().square().sum()
+    if gsq is None:
+        gsq = sq_sum(_leaves(grads), step.device)
     gnorm = torch.sqrt(gsq)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     sf = step.float()

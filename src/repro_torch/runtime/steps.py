@@ -3,7 +3,13 @@
 compiled step that the servers run their serve steps through.
 
 ``make_train_step``: micro-batched gradient accumulation and AdamW, an eager
-Python loop where JAX scans (no CUDA graph yet).
+Python loop where JAX scans (no CUDA graph yet). Over a ``DistComm`` (one EP
+rank per process) each process differentiates its own rows' part of the
+global loss (``comm.py``'s convention), so the gradient of a parameter it
+holds whole is its share, summed over the batch axes (``reduce_grads``),
+while its experts' gradients are whole already: their tokens come to it
+from the whole EP group. The clip norm is global (``grad_sq``). What JAX's
+GSPMD does for ``make_train_step(cfg, mesh)``.
 
 Both steps share one signature, (params, state, batch) -> (next tokens
 [B, 1] int32, state), so the servers treat the dense and the paged engine
@@ -14,6 +20,7 @@ the step eagerly.
 """
 from __future__ import annotations
 
+import math
 import time
 
 import torch
@@ -23,6 +30,13 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.registry import get_model
 from repro_torch.models.transformer import lm_decode_step, lm_paged_decode_step
 from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim.adamw import sq_sum
+from repro_torch.weights import _leaves, is_cut
+
+# the gradient reduce's largest all-reduce: the replicated leaves' f32 sums
+# go in buckets of at most this many bytes (a flat copy of the four-card
+# DBRX-132B cell's would take 5.3 GB)
+BUCKET_BYTES = 256 << 20
 
 
 def _float_leaves(tree) -> list:
@@ -38,26 +52,95 @@ def _like(tree, fn):
     return fn(tree)
 
 
-def make_train_step(cfg: ArchConfig, comm, opt_cfg: AdamWConfig | None = None):
-    """(params, opt_state, batch) -> (params, opt_state, metrics), batch
-    leaves [g, B/g, S]: for each of the g micro-batches the loss of
-    ``get_model(cfg).forward`` and its gradients (in each parameter's
-    dtype, as JAX's ``value_and_grad``), added to f32 sums; the sums
-    divided by g; then ``adamw_update``, which updates the parameters and
-    the moments in place. Metrics: ``loss`` (the mean over the
-    micro-batches), ``grad_norm``, ``lr``. The forward runs on detached
-    leaves that require grad and share the parameters' storage, so the
-    caller's tensors keep their ``requires_grad`` and what the step returns
-    can be served as it is. Over a ``LocalComm`` or none: training over a
-    ``DistComm`` also needs the gradient all-reduce of the replicated
-    parameters (ROADMAP A11b)."""
-    if isinstance(comm, DistComm):
-        raise NotImplementedError("training over a DistComm (one EP rank per process) "
-                                  "is not ported yet (ROADMAP A11b): use a LocalComm")
-    opt_cfg = opt_cfg or AdamWConfig()
-    model = get_model(cfg)
+def reduce_axes(path, cfg: ArchConfig, comm) -> tuple[str, ...]:
+    """The mesh axes over which the gradient of leaf ``path`` sums over a
+    ``DistComm``'s processes: the batch axes, less the EP axes for a leaf
+    the process holds only its part of (``weights.is_cut``: its experts,
+    whose tokens come to it from every EP rank)."""
+    if is_cut(path, cfg, comm):
+        return tuple(a for a in comm.batch_axes if a not in comm.axis_names)
+    return comm.batch_axes
 
-    def train_step(params, opt_state, batch):
+
+def reduce_buckets(sums, cfg: ArchConfig, comm, cap_bytes: int = BUCKET_BYTES) -> list:
+    """The gradient reduce's plan: [(axes, pieces)], each piece a flat view
+    of an f32 sum. The leaves in sorted-key order, each cut into pieces of
+    at most ``cap_bytes``, the pieces of leaves with the same axes packed in
+    order into buckets of at most ``cap_bytes``; leaves whose axes hold one
+    process are left out. It depends on the shapes alone, so every process
+    makes the same plan and runs its collectives in the same order."""
+    sizes = dict(comm.mesh)
+    cap = cap_bytes // 4
+    done, open_ = [], {}
+    for path, t in _leaves(sums):
+        axes = reduce_axes(path, cfg, comm)
+        if math.prod(sizes[a] for a in axes) == 1:
+            continue
+        flat = t.view(-1)
+        for i in range(0, flat.numel(), cap):
+            piece = flat[i:i + cap]
+            cur = open_.setdefault(axes, [])
+            if cur and sum(p.numel() for p in cur) + piece.numel() > cap:
+                done.append((axes, cur))
+                cur = open_[axes] = []
+            cur.append(piece)
+    return done + [(axes, cur) for axes, cur in open_.items() if cur]
+
+
+@torch.no_grad()
+def reduce_grads(sums, cfg: ArchConfig, comm) -> int:
+    """Sum each process's f32 gradient sums over the processes that hold
+    other rows, in place, bucket by bucket (``reduce_buckets``); returns
+    the bytes reduced. A bucket of one piece is summed where it lies, more
+    go through one packed buffer."""
+    total = 0
+    for axes, pieces in reduce_buckets(sums, cfg, comm):
+        if len(pieces) == 1:
+            comm.sum_(pieces[0], axes)
+        else:
+            buf = torch.cat(pieces)
+            comm.sum_(buf, axes)
+            for piece, part in zip(pieces, buf.split([p.numel() for p in pieces])):
+                piece.copy_(part)
+            del buf
+        total += sum(p.numel() for p in pieces) * 4
+    return total
+
+
+@torch.no_grad()
+def grad_sq(sums, cfg: ArchConfig, comm) -> torch.Tensor:
+    """The global sum of the squares of the gradients ``sums``: over a
+    ``DistComm`` the whole leaves' squares once, as every process holds the
+    same (reduced) values, and the cut leaves' squares summed over the axes
+    they are cut along (the EP axes and expert-TP's), so that every process
+    gets the same value."""
+    leaves = list(_leaves(sums))
+    dev = leaves[0][1].device
+    if not isinstance(comm, DistComm):
+        return sq_sum([t for _, t in leaves], dev)
+    cut = [is_cut(path, cfg, comm) for path, _ in leaves]
+    gsq = sq_sum([t for (_, t), c in zip(leaves, cut) if not c], dev)
+    if any(cut):
+        axes = comm.axis_names + ((comm.tp_axis,) if comm.tp_axis else ())
+        part = sq_sum([t for (_, t), c in zip(leaves, cut) if c], dev)
+        gsq = gsq + comm.all_reduce([part], axis=axes)[0]
+    return gsq
+
+
+def make_grad_step(cfg: ArchConfig, comm):
+    """(params, batch) -> (loss, sums): the train step up to its update.
+    Batch leaves [g, B/g, S] (over a ``DistComm`` this process's rows of
+    each micro-batch, ``comm.batch_rows``): for each of the g micro-batches
+    the loss of ``get_model(cfg).forward`` and its gradients (in each
+    parameter's dtype, as JAX's ``value_and_grad``), added to f32 sums; the
+    sums divided by g and, over a ``DistComm``, reduced (``reduce_grads``).
+    ``loss`` is the mean over the micro-batches. The forward runs on
+    detached leaves that require grad and share the parameters' storage,
+    so the caller's tensors keep their ``requires_grad``."""
+    model = get_model(cfg)
+    dist_comm = isinstance(comm, DistComm)
+
+    def grad_step(params, batch):
         g = batch["tokens"].shape[0]
         tracked = _like(params, lambda t: t.detach().requires_grad_()
                         if t.is_floating_point() else t)
@@ -79,8 +162,28 @@ def make_train_step(cfg: ArchConfig, comm, opt_cfg: AdamWConfig | None = None):
         with torch.no_grad():
             for acc in flat_sums:
                 acc.div_(g)
-        params, opt_state, om = adamw_update(params, sums, opt_state, opt_cfg)
-        return params, opt_state, dict(loss=loss_sum / g, **om)
+        if dist_comm:
+            reduce_grads(sums, cfg, comm)
+        return loss_sum / g, sums
+
+    return grad_step
+
+
+def make_train_step(cfg: ArchConfig, comm, opt_cfg: AdamWConfig | None = None):
+    """(params, opt_state, batch) -> (params, opt_state, metrics):
+    ``make_grad_step``, then ``adamw_update`` with the global norm
+    (``grad_sq``), which updates the parameters and the moments in place.
+    Metrics: ``loss``, ``grad_norm``, ``lr``. What the step returns can be
+    served as it is. Over no communicator, a ``LocalComm`` or a
+    ``DistComm``."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    grad_step = make_grad_step(cfg, comm)
+
+    def train_step(params, opt_state, batch):
+        loss, sums = grad_step(params, batch)
+        params, opt_state, om = adamw_update(params, sums, opt_state, opt_cfg,
+                                             gsq=grad_sq(sums, cfg, comm))
+        return params, opt_state, dict(loss=loss, **om)
 
     return train_step
 

@@ -1,7 +1,15 @@
 """Training loop (port of ``src/repro/runtime/trainer.py``): the
 micro-batched train step, checkpointing in the reference's format, the
 preemption guard and the straggler watchdog, for any ported architecture
-over a ``LocalComm`` (one process hosting every EP rank) or none.
+over a ``LocalComm`` (one process hosting every EP rank), a ``DistComm``
+(one EP rank per process) or none.
+
+Over a ``DistComm`` each process holds its shard of the parameters
+(``init_params(..., comm=)``), draws the same global batch (the pipeline
+is a function of (seed, step)) and steps its rows of each micro-batch
+(``comm.batch_rows``); the loss and the gradient norm it logs are the
+global ones, equal on every process, and only the process of rank 0
+prints them. A checkpoint over a ``DistComm`` is refused (ROADMAP A10d).
 
 The state is (params, AdamW state), the pipeline's (step, seed) beside it
 in each checkpoint, a tree ``(params, opt, {step, seed})`` that the
@@ -14,6 +22,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.comm import DistComm
 from repro_torch.checkpoint.store import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.data import DataConfig, DataPipeline
 from repro_torch.device import resolve_device, synchronize
@@ -45,7 +54,12 @@ class Trainer:
             raise ValueError(
                 "MoESpec.params_physical=True is a serving-only layout; "
                 "train with params_physical=False (logical expert weights)")
+        if isinstance(comm, DistComm) and tcfg.ckpt_dir is not None:
+            raise NotImplementedError(
+                "ckpt_dir over a DistComm: each process holds only its own experts, "
+                "and a sharded checkpoint format is not the reference's (ROADMAP A10d)")
         self.cfg, self.tcfg, self.comm = cfg, tcfg, comm
+        self._dist = isinstance(comm, DistComm)
         self.device = resolve_device(device)
         self.opt_cfg = opt_cfg or AdamWConfig(
             total_steps=tcfg.steps, warmup_steps=max(tcfg.steps // 20, 1))
@@ -60,8 +74,18 @@ class Trainer:
 
     # ---- state management ----
     def init_state(self):
-        params = init_params(self.cfg, self.tcfg.seed, self.device)
+        params = init_params(self.cfg, self.tcfg.seed, self.device,
+                             comm=self.comm if self._dist else None)
         return params, adamw_init(params, self.opt_cfg)
+
+    def next_batch(self) -> dict:
+        """The pipeline's next global batch, or over a ``DistComm`` this
+        process's rows of each of its micro-batches."""
+        batch = next(self.data)
+        if not self._dist:
+            return batch
+        rows = self.comm.batch_rows(batch["tokens"].shape[1])
+        return {k: v[:, rows] for k, v in batch.items()}
 
     def maybe_restore(self):
         if not self.tcfg.ckpt_dir:
@@ -95,7 +119,7 @@ class Trainer:
             params, opt = self.init_state()
         preempted = False
         while self.data.step < self.tcfg.steps:
-            batch = next(self.data)
+            batch = self.next_batch()
             t = StepTimer()
             with t:
                 params, opt, m = self.step_fn(params, opt, batch)
@@ -109,13 +133,19 @@ class Trainer:
                            stragglers_flagged=self.watchdog.flagged,
                            watchdog_rebased=self.watchdog.rebased)
                 self.metrics_log.append(rec)
-                print(f"[train] step={rec['step']} loss={rec['loss']:.4f} "
-                      f"gnorm={rec['gnorm']:.3f} {rec['t'] * 1e3:.0f}ms"
-                      + (f" stragglers={rec['stragglers_flagged']}"
-                         if rec['stragglers_flagged'] else ""))
+                if not self._dist or self.comm.rank == 0:
+                    print(f"[train] step={rec['step']} loss={rec['loss']:.4f} "
+                          f"gnorm={rec['gnorm']:.3f} {rec['t'] * 1e3:.0f}ms"
+                          + (f" stragglers={rec['stragglers_flagged']}"
+                             if rec['stragglers_flagged'] else ""))
             if self.tcfg.ckpt_dir and self.data.step % self.tcfg.ckpt_every == 0:
                 self.save(params, opt)
-            if self.guard.should_stop:
+            stop = self.guard.should_stop
+            if self._dist:
+                # every process leaves at the same step, or the others would
+                # wait in the next step's collectives
+                stop = bool(self.comm.control_max([stop])[0])
+            if stop:
                 print("[trainer] preemption signal — checkpoint + exit")
                 self.save(params, opt)
                 preempted = True

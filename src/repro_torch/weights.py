@@ -63,13 +63,21 @@ def _set(tree: dict, path, value) -> None:
 _EXPERT_F_DIM = {"w_gate": -1, "w_up": -1, "w_down": -2}
 
 
-def _shard_leaf(path, t: torch.Tensor, cfg: ArchConfig, comm) -> torch.Tensor:
-    """The part of leaf ``path`` that this process of ``comm`` holds."""
+def is_cut(path, cfg: ArchConfig, comm) -> bool:
+    """Whether this process of ``comm`` holds only a part of leaf ``path``
+    (its EP rank's experts, and under expert-TP their F-slice), else the
+    whole leaf, replicated over the mesh."""
     if len(path) < 2 or path[-2] != "moe" or path[-1] not in _EXPERT_F_DIM \
             or not ep_active(cfg, comm):
+        return False
+    # a LocalComm hosts every rank: its part is the whole leaf
+    return len(comm.ranks) < comm.size or comm.tp_axis is not None
+
+
+def _shard_leaf(path, t: torch.Tensor, cfg: ArchConfig, comm) -> torch.Tensor:
+    """The part of leaf ``path`` that this process of ``comm`` holds."""
+    if not is_cut(path, cfg, comm):
         return t
-    if len(comm.ranks) == comm.size and comm.tp_axis is None:
-        return t                             # every rank is hosted here
     m = cfg.moe
     L = (m.placement.num_slots if m.params_physical and m.placement is not None
          else m.num_experts) // comm.size

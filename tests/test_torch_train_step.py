@@ -6,7 +6,8 @@ with f32 and with bf16 moments, against ``repro.optim.adamw_update``
 cosine schedule on its own); one ``make_train_step`` step of 2 micro-batches
 on DBRX's smoke config in f32 over ``LocalComm(4)`` against JAX's on 4 fake
 devices, fed the reference pipeline's batch: loss, gradient norm, learning
-rate and every updated parameter.
+rate and every updated parameter; the checkpoint refusal over a
+``DistComm`` (A10d).
 """
 import dataclasses
 
@@ -137,7 +138,12 @@ def test_train_step_two_microbatches_matches_jax():
 
 
 def test_train_step_refuses_dist_comm():
+    """What training over a DistComm still refuses: a checkpoint directory
+    (each process holds only its own experts; ROADMAP A10d). The train
+    step itself takes a DistComm (tests/test_torch_dist_train.py)."""
     from repro_torch.comm import DistComm
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
     comm = DistComm.__new__(DistComm)
-    with pytest.raises(NotImplementedError, match="A11b"):
-        make_train_step(smoke_config(), comm)
+    make_train_step(smoke_config(), comm)
+    with pytest.raises(NotImplementedError, match="ckpt_dir over a DistComm.*A10d"):
+        Trainer(smoke_config(), TrainerConfig(ckpt_dir="unused"), comm=comm, device="cpu")

@@ -311,7 +311,12 @@
    reached; the step, micro-batch, gradient-reduce and optimizer seconds,
    train tok/s over the mesh and a card, the peak; then one micro-batch
    traced on rank 0 (the card's busy share, NCCL's share of it, the top
-   kernels).
+   kernels). Then, the flat runs freed, the one-step check in hierarchical
+   HT over ``DistComm`` on two pods of two (against ``LocalComm(4)`` on the
+   same axes), in ``deepep`` and in the baseline at EP 4, each held as the
+   flat check is; and the four-card Trainer on the hierarchical path (2
+   chunks), with the same layer rule, lines and trace, its median step
+   printed against the flat one's (``dist_train_phase``).
 
 12. Training (``train_phase``), last, once every other tensor is freed:
    ``Trainer`` on DBRX-132B at full width under ``train_4k`` (HT flat, fp8
@@ -336,7 +341,18 @@
    parameters and batch, the loss falling, each step's launches exact
    (``train_launches``), no plain version reached; step, micro-batch and
    optimizer times, train tok/s and the peak printed; one micro-batch's
-   forward and backward traced (busy share, time by kernel).
+   forward and backward traced (busy share, time by kernel). Before it,
+   ``train_layout_phase``: the EP round trip's backward at DBRX train_4k
+   widths (8 ranks of 2048 tokens, H 6144, zero drop; expert e scaling its
+   rows by 1 + e) in HT flat, ``deepep`` (bf16 and fp8), the baseline and
+   hierarchical HT over two pods of four (1 and 2 chunks, bf16 and fp8):
+   d_x and d_w within 2e-2 of the analytic gradient and of HT flat's of
+   the same precision, 2 chunks bitwise equal to 1, each transpose's
+   launches exact and its device time printed. After it, the Trainer for
+   2 steps with its MoE layer on the hierarchical path over two pods of
+   four (2 chunks, fp8, capacities 1.25): the losses finite and falling,
+   the launches exact, the step, tok/s and peak printed, the first loss
+   and the step beside HT flat's.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. The last line is
@@ -373,8 +389,10 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 from repro_torch.comm import DistComm, LocalComm  # noqa: E402
 from repro_torch.configs.dbrx_132b import full_config  # noqa: E402
 from repro_torch.configs.deepseek_v3_671b import full_config as ds_full_config  # noqa: E402
-from repro_torch.core import (ep_combine, ep_complete, ep_create_handle, ep_dispatch,  # noqa: E402
+from repro_torch.core import (EpGroupConfig, ep_combine, ep_complete,  # noqa: E402
+                              ep_create_group, ep_create_handle, ep_dispatch,
                               ep_handle_refresh, route, slots)
+from repro_torch.core import ht as HT  # noqa: E402
 from repro_torch.core import ll as LL  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import ops as ops_mod  # noqa: E402
@@ -534,6 +552,27 @@ def hier_launches(nc: int, fp8: bool) -> dict:
 
 
 EP_LAUNCHES["hier"] = hier_launches(HIER_CHUNKS, True)
+# the layouts that land rows by position: their transposes are swaps
+POSITIONAL_PATHS = ("deepep", "deepep_fp8", "baseline")
+
+
+def ep_transpose_launches(path: str, chunks: int = HIER_CHUNKS) -> tuple[dict, dict]:
+    """EP launches of one backward per MoE layer and hosted rank on
+    ``path``, as (the dispatch's transpose, the combine's): on ``nccl_ep``
+    (and HT flat) B1 packs the cotangent through ``comb_send_gmap`` and B4
+    sums it with unit weights, then ``combine_gather_reduce_bwd`` and B2
+    through the inverse of ``comb_send_gmap``; the positional layouts swap
+    instead of packing and gathering; the hierarchical path sums with B4 at
+    the slot domain, at each chunk's rail and at the source, and packs (B1)
+    and fans (B2) each chunk of the combine's cotangent, in copy mode,
+    before ``combine_gather_reduce_bwd``."""
+    if path == "hier":
+        return (dict(combine_gather_reduce=chunks + 2),
+                dict(dispatch_pack=chunks, recv_unpack=chunks, combine_gather_reduce_bwd=1))
+    if path in POSITIONAL_PATHS:
+        return dict(combine_gather_reduce=1), dict(combine_gather_reduce_bwd=1)
+    return (dict(dispatch_pack=1, combine_gather_reduce=1),
+            dict(combine_gather_reduce_bwd=1, recv_unpack=1))
 # the MoE options of each served layout over the decode_32k preset
 LAYOUTS = {"deepep_fp8": dict(ll_layout="deepep", quantize_dispatch=True),
            "baseline": dict(ep_mode="baseline")}
@@ -3108,25 +3147,25 @@ def train_config():
     return full, dataclasses.replace(full, num_layers=TRAIN_LAYERS, microbatch=TRAIN_MICRO)
 
 
-def train_launches(cfg, ranks: int = RANKS) -> dict:
-    """Kernel launches of one train step of ``cfg`` (every layer an HT flat
-    MoE layer, remat on): each micro-batch runs the forward twice (once
-    more in the backward, per layer) and the backward once. A forward: the
-    EP launches of ``ep_launches`` per rank and flash attention once per
-    layer. The backward per rank: combine's B4 backward and B2 gather, B3
-    as dX and ``grouped_gemm_dw`` for each of the three projections, and
-    dispatch's B1 copy pack and B4 sum; per layer flash attention's pair,
-    two launches (its dQ and its dK/dV kernel)."""
+def train_launches(cfg, ranks: int = RANKS, path: str = "nccl_ep",
+                   chunks: int = HIER_CHUNKS) -> dict:
+    """Kernel launches of one train step of ``cfg`` (every layer a MoE layer
+    on ``path``, HT flat's being ``nccl_ep``'s, remat on): each micro-batch
+    runs the forward twice (once more in the backward, per layer) and the
+    backward once. A forward: the EP launches of ``ep_launches`` per rank
+    and flash attention once per layer. The backward per rank: the EP
+    transposes (``ep_transpose_launches``), B3 as dX and
+    ``grouped_gemm_dw`` for each of the three projections; per layer flash
+    attention's pair, two launches (its dQ and its dK/dV kernel)."""
     g, layers = cfg.microbatch, cfg.num_layers
     fwd = (2 if cfg.remat else 1) * g
-    out = {k: v * layers * ranks * fwd for k, v in ep_launches(cfg, "nccl_ep").items()}
+    out = {k: v * layers * ranks * fwd for k, v in ep_launches(cfg, path, chunks).items()}
     out[FLASH] = layers * fwd
     out["grouped_gemm"] += 3 * layers * ranks * g
     out["grouped_gemm_dw"] = 3 * layers * ranks * g
-    out["combine_gather_reduce_bwd"] = layers * ranks * g
-    out["recv_unpack"] += layers * ranks * g
-    out["dispatch_pack"] += layers * ranks * g
-    out["combine_gather_reduce"] += layers * ranks * g
+    for part in ep_transpose_launches(path, chunks):
+        for k, v in part.items():
+            out[k] = out.get(k, 0) + v * layers * ranks * g
     out["flash_attention_bwd"] = 2 * layers * g
     return out
 
@@ -3403,6 +3442,130 @@ def moe_grad_phase(cfg, p) -> None:
           f"backward through the kernels {k_s:.3f} s")
 
 
+# the EP transposes at DBRX train_4k widths (train_layout_phase): tokens a
+# rank, the relative limit against the analytic gradient and against HT
+# flat's on the same routing (bf16 rows and cotangents, f32 sums in other
+# orders), and the layouts: name -> (group options, launch path, chunks,
+# the HT flat reference of the same dispatch precision)
+TL_T, TL_REL = 2048, 2e-2
+_TL_HIER = dict(mode="ht", ep_axis=tuple(a for a, _ in HIER_AXES), ht_hierarchical=True)
+TL_LAYOUTS = {
+    "HT flat": (dict(mode="ht"), "nccl_ep", 1, None),
+    "HT flat, fp8": (dict(mode="ht", quantize_dispatch=True), "nccl_ep", 1, None),
+    "deepep": (dict(mode="ll", ll_layout="deepep"), "deepep", 1, "HT flat"),
+    "deepep, fp8": (dict(mode="ll", ll_layout="deepep", quantize_dispatch=True), "deepep_fp8",
+                    1, "HT flat, fp8"),
+    "baseline": (dict(mode="baseline"), "baseline", 1, "HT flat"),
+    "hierarchical, 1 chunk": (dict(_TL_HIER, ht_num_chunks=1), "hier", 1, "HT flat"),
+    "hierarchical, 2 chunks": (dict(_TL_HIER, ht_num_chunks=2), "hier", 2, "HT flat"),
+    "hierarchical, 1 chunk, fp8": (dict(_TL_HIER, ht_num_chunks=1, quantize_dispatch=True),
+                                   "hier", 1, "HT flat, fp8"),
+    "hierarchical, 2 chunks, fp8": (dict(_TL_HIER, ht_num_chunks=2, quantize_dispatch=True),
+                                    "hier", 2, "HT flat, fp8"),
+}
+
+
+def check_launches(got: dict, want: dict, where: str) -> None:
+    """Every counter of ``got`` and ``want`` equal (a missing one is 0)."""
+    bad = {k: (got.get(k, 0), want.get(k, 0)) for k in set(want) | set(got)
+           if got.get(k, 0) != want.get(k, 0)}
+    check(not bad, f"{where}: launches (got, expected) {bad}")
+
+
+def train_layout_phase(card: str) -> None:
+    """The EP round trip's backward in every layout at DBRX train_4k widths
+    (H 6144, 16 experts top-4, LocalComm(8), TL_T tokens a rank, bf16
+    payload, zero-drop capacities): dispatch, expert e scaling its rows by
+    1 + e, combine, under autograd on a seeded cotangent. d_x and d_w held
+    within TL_REL against the analytic gradient in f32 (d_x[t] = Σ_k
+    w·(1+e_k)·c[t], d_w[t, k] = (1+e_k)·x[t]·c[t], x the dequantized tokens
+    under fp8) and against HT flat's of the same precision on the same
+    routing; the hierarchical path's at 2 chunks bitwise equal to 1's. Each
+    transpose's launches per rank exact (``ep_transpose_launches``) and its
+    device time printed."""
+    t_start = time.perf_counter()
+    full = full_config("train_4k")
+    d, m, dt = full.d_model, full.moe, full.dtype
+    E, Kk, T = m.num_experts, m.top_k, TL_T
+    gen = torch.Generator(device=DEV).manual_seed(37)
+    xs0 = [torch.randn((T, d), generator=gen, device=DEV).to(dt) for _ in range(RANKS)]
+    topk = [torch.rand((T, E), generator=gen, device=DEV).argsort(-1)[:, :Kk].to(torch.int32)
+            for _ in range(RANKS)]
+    ws0 = [torch.softmax(torch.randn((T, Kk), generator=gen, device=DEV), -1)
+           for _ in range(RANKS)]
+    cots = [torch.randn((T, d), generator=gen, device=DEV).to(dt) for _ in range(RANKS)]
+    x_q = [ref.dequantize_fp8(*ref.quantize_fp8(x, 128), torch.float32) for x in xs0]
+    res = {}
+    print(f"EP transposes at DBRX-132B train_4k widths ({card}): H {d}, {E} experts top-{Kk}, "
+          f"{RANKS} ranks of {T} tokens, bf16 payload, zero-drop capacities; the round trip "
+          f"scales expert e's rows by 1 + e")
+    for name, (opts, path, nc, flat) in TL_LAYOUTS.items():
+        hier = opts.get("ht_hierarchical", False)
+        comm = hier_comm() if hier else LocalComm(RANKS)
+        group = ep_create_group(EpGroupConfig(num_experts=E, max_tokens_per_rank=T, hidden=d,
+                                              top_k=Kk, payload_dtype=dt, **opts), comm)
+        check(group.hierarchical == hier, f"{name}: the group resolved another path")
+        L = group.local_experts
+        xs = [x.clone().requires_grad_() for x in xs0]
+        ws = [w.clone().requires_grad_() for w in ws0]
+        hs = ep_create_handle(group, topk, ws)
+        recv = LL.ep_dispatch_autograd(group, hs, xs)
+        ys = [y * (1.0 + torch.arange(r * L, (r + 1) * L, device=DEV)).to(y.dtype)[:, None, None]
+              for r, (y, _) in zip(comm.ranks, recv)]
+        torch.autograd.backward(LL.ep_combine_autograd(group, hs, ys), cots)
+        d_x = torch.stack([x.grad for x in xs]).float()
+        d_w = torch.stack([w.grad for w in ws]).float()
+        scale = 1.0 + torch.stack(topk).float()
+        wx = (torch.stack(ws0) * scale).sum(-1, keepdim=True) * torch.stack(cots).float()
+        xe = torch.stack(x_q if opts.get("quantize_dispatch") else xs0).float()
+        ww = scale * (xe * torch.stack(cots).float()).sum(-1, keepdim=True)
+        errs = {"d_x": flash_errors(d_x, wx)[1], "d_w": flash_errors(d_w, ww)[1]}
+        if flat is not None:
+            errs["d_x vs flat"] = flash_errors(d_x, res[flat]["d_x"])[1]
+            errs["d_w vs flat"] = flash_errors(d_w, res[flat]["d_w"])[1]
+        check(all(e <= TL_REL for e in errs.values()),
+              f"the {name} round trip's gradients off (limit {TL_REL}): {errs}")
+        del recv, ys, xs, ws
+        # each transpose alone: its launches and its card time
+        want_d, want_c = ep_transpose_launches(path, nc)
+        g2 = torch.Generator(device=DEV).manual_seed(38)
+        fwd = ep_complete(group, hs, ep_dispatch(group, hs, xs0, send_only=True))
+        d_y3ds = [torch.randn(y.shape, generator=g2, device=DEV).to(y.dtype) for y, _ in fwd]
+        y3ds = [y for y, _ in fwd]
+        # what EpCombine keeps for its backward: the expert rows the
+        # hierarchical slot-domain sum reads, else the rows each rank received
+        saved = ([HT.combine_rows(group, y) for y in y3ds] if hier else
+                 [p_.recv for p_ in ep_combine(group, hs, y3ds, send_only=True)])
+        reset_counts()
+        LL.dispatch_transpose(group, hs, d_y3ds)
+        torch.cuda.synchronize()
+        check_launches(counts(), {k: v * RANKS for k, v in want_d.items()},
+                       f"{name}: the dispatch's backward")
+        reset_counts()
+        LL.combine_transpose(group, hs, saved, cots)
+        torch.cuda.synchronize()
+        check_launches(counts(), {k: v * RANKS for k, v in want_c.items()},
+                       f"{name}: the combine's backward")
+        disp_ms = device_ms(lambda: LL.dispatch_transpose(group, hs, d_y3ds), 3)
+        comb_ms = device_ms(lambda: LL.combine_transpose(group, hs, saved, cots), 3)
+        res[name] = dict(d_x=d_x, d_w=d_w)
+        print(f"  {name}: d_x {errs['d_x']:.3g}, d_w {errs['d_w']:.3g} off the analytic "
+              f"gradient" + (f", {errs['d_x vs flat']:.3g} / {errs['d_w vs flat']:.3g} off "
+                             f"{flat}'s" if flat else "")
+              + f" (limit {TL_REL}); the dispatch's backward {disp_ms:.4f} ms ({RANKS} ranks, "
+              f"launches a rank {want_d}), the combine's {comb_ms:.4f} ms (launches a rank "
+              f"{want_c})")
+        del fwd, d_y3ds, y3ds, saved, hs, group
+        gc.collect()
+        torch.cuda.empty_cache()
+    for fp8 in ("", ", fp8"):
+        one, two = res[f"hierarchical, 1 chunk{fp8}"], res[f"hierarchical, 2 chunks{fp8}"]
+        check(torch.equal(one["d_x"], two["d_x"]) and torch.equal(one["d_w"], two["d_w"]),
+              f"the hierarchical gradients{fp8} at 2 chunks differ from 1 chunk's")
+    print(f"  hierarchical: 2 chunks' d_x and d_w bitwise equal to 1 chunk's, bf16 and fp8; "
+          f"train_layout_phase {time.perf_counter() - t_start:.1f} s")
+
+
 def train_trace(cfg, params, batch, comm=None, traced: bool = True) -> dict:
     """One micro-batch's forward and backward (micro-batch 0, the trained
     parameters) over ``comm`` (``LocalComm(RANKS)`` by default) traced
@@ -3512,9 +3675,7 @@ def run_trainer(tr: Trainer, params, opt, batch) -> dict:
 def check_train_launches(launches: list, want: dict, where: str) -> None:
     """Each step's launches (``run_trainer``) must be ``want``."""
     for i, got in enumerate(launches):
-        bad = {k: (got.get(k, 0), want.get(k, 0)) for k in set(want) | set(got)
-               if got.get(k, 0) != want.get(k, 0)}
-        check(not bad, f"{where} {i + 1}: launches (got, expected) {bad}")
+        check_launches(got, want, f"{where} {i + 1}")
 
 
 def train_phase(card: str) -> list:
@@ -3590,8 +3751,62 @@ def train_phase(card: str) -> list:
     del params, batch, tr
     gc.collect()
     torch.cuda.empty_cache()
+    hier_train_run(card, losses[0], float(np.median(step_s)))
     print(f"training phase {time.perf_counter() - t_start:.1f} s; {memory_line()} after")
     return list(records.values())
+
+
+# the hierarchical training step: the Trainer's steps on the repeated batch
+# (its seq: TRAIN_SEQ, or 1024 had the card's peak passed 74 GiB)
+HIER_TRAIN_STEPS, HIER_TRAIN_SEQ = 2, TRAIN_SEQ
+
+
+def hier_train_run(card: str, flat_loss: float, flat_step_s: float) -> None:
+    """The Trainer on DBRX-132B train_4k (1 layer, TRAIN_BATCH x
+    HIER_TRAIN_SEQ in TRAIN_MICRO micro-batches, bf16 moments) with its MoE
+    layer on the hierarchical HT path over LocalComm(8) on two pods of four
+    (HIER_CHUNKS chunks, the preset's fp8 dispatch and capacities 1.25),
+    HIER_TRAIN_STEPS steps on the repeated batch: the losses finite and
+    falling, each step's launches exact (``train_launches`` on the
+    hierarchical path), no plain version reached; the step seconds, tok/s
+    and the peak printed, and the first loss beside HT flat's on the same
+    parameters and batch (their drops differ, so it is not held)."""
+    t0 = time.perf_counter()
+    _, flat = train_config()
+    cfg = hier_config(flat)
+    tr = Trainer(cfg, TrainerConfig(steps=HIER_TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                                    seq_len=HIER_TRAIN_SEQ, log_every=1), comm=hier_comm(),
+                 opt_cfg=AdamWConfig(lr=TRAIN_LR, total_steps=HIER_TRAIN_STEPS, warmup_steps=1,
+                                     state_dtype=torch.bfloat16), device=DEV)
+    params, opt = tr.init_state()
+    run = run_trainer(tr, params, opt, tr.data.batch_at(0))
+    del params, opt
+    losses, step_s = run["losses"], run["step_s"]
+    check(len(losses) == HIER_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"hierarchical losses {losses}")
+    check(losses[-1] < losses[0], f"the hierarchical loss did not fall over "
+          f"{HIER_TRAIN_STEPS} steps on a repeated batch: {losses}")
+    check_train_launches(run["launches"], train_launches(cfg, RANKS, "hier", HIER_CHUNKS),
+                         "hierarchical train step")
+    micro_s = [(s_ - o) / TRAIN_MICRO for s_, o in zip(step_s, run["opt_s"])]
+    med = float(np.median(step_s))
+    print(f"Trainer, hierarchical HT ({card}): DBRX-132B train_4k at full width, "
+          f"{cfg.num_layers} layer, {TRAIN_BATCH} x {HIER_TRAIN_SEQ} in {TRAIN_MICRO} "
+          f"micro-batches over LocalComm({RANKS}) on {HIER_AXES}, {HIER_CHUNKS} chunks, fp8 "
+          f"dispatch {cfg.moe.quantize_dispatch}, capacity {cfg.moe.capacity_factor}, bf16 "
+          f"moments: losses {[round(x, 6) for x in losses]} (falling; HT flat's first "
+          f"{flat_loss:.6f} on the same parameters and batch, not held: the drops differ); "
+          f"grad norms {[round(g, 4) for g in run['gnorms']]}; step "
+          f"{[round(x, 4) for x in step_s]} s, per micro-batch {[round(x, 4) for x in micro_s]} "
+          f"s, optimizer {[round(x, 4) for x in run['opt_s']]} s; "
+          f"{TRAIN_BATCH * HIER_TRAIN_SEQ / med:.1f} train tok/s (median step; HT flat's step "
+          f"{flat_step_s:.4f} s, hierarchical / flat {med / flat_step_s:.3f}); peak device "
+          f"memory {run['peak']:.2f} GiB; launches per step {run['launches'][0]} = "
+          f"train_launches on the hierarchical path; no plain version reached; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del run, tr
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -5023,9 +5238,30 @@ def pair_peaks(dev, peak: float, world: int) -> tuple[float, float]:
     return float(t[0]), float(t[1])
 
 
-def dist_train_check(comm, dev, rank: int, world: int) -> dict:
+# the layouts the four-card checks train beside HT flat: name -> (the
+# train_4k preset's MoE options, launch path; the hierarchical one runs over
+# DIST_HIER_AXES). The baseline never quantizes, so its fp8 flag is off
+DT_LAYOUTS = {
+    "hierarchical HT": (dict(ep_axis=tuple(a for a, _ in DIST_HIER_AXES), ht_hierarchical=True,
+                             ht_num_chunks=HIER_CHUNKS), "hier"),
+    "deepep": (dict(ep_mode="ll", ll_layout="deepep"), "deepep_fp8"),
+    "baseline": (dict(ep_mode="baseline", quantize_dispatch=False), "baseline"),
+}
+
+
+def dist_layout(cfg, layout: str | None) -> tuple:
+    """(``cfg`` with the MoE options of DT_LAYOUTS[layout], its launch
+    path); None: ``cfg`` as it is, HT flat."""
+    if layout is None:
+        return cfg, "nccl_ep"
+    moe, path = DT_LAYOUTS[layout]
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe)), path
+
+
+def dist_train_check(comm, dev, rank: int, world: int, layout: str | None = None) -> dict:
     """One train step over ``comm`` held against the same step over
-    ``LocalComm``: DBRX-132B train_4k at full width, DT_CHECK_LAYERS layer,
+    ``LocalComm`` on the same mesh: DBRX-132B train_4k at full width (in
+    the ``layout`` of DT_LAYOUTS, or HT flat), DT_CHECK_LAYERS layer,
     one row of DT_CHECK_SEQ tokens a process, one micro-batch. Rank 0
     first runs the step over LocalComm(EP extent) on its card while the
     others wait, and frees it; then every process steps its shard
@@ -5035,15 +5271,16 @@ def dist_train_check(comm, dev, rank: int, world: int) -> dict:
     the step, the launches exact for one hosted rank (``train_launches``),
     no plain version reached."""
     t = time.perf_counter()
-    cfg = dist_train_config(DT_CHECK_LAYERS, 1)
-    out = dict(ep=comm.size, batch=world, model=model_label(cfg))
+    cfg, path = dist_layout(dist_train_config(DT_CHECK_LAYERS, 1), layout)
+    out = dict(ep=comm.size, batch=world, model=model_label(cfg), layout=layout or "HT flat",
+               axes=comm.axes)
     dist.barrier()
     if rank == 0:
-        tr = dist_trainer(cfg, LocalComm(comm.size), dev, 1, world, DT_CHECK_SEQ)
+        tr = dist_trainer(cfg, LocalComm(comm.size, axes=comm.axes), dev, 1, world, DT_CHECK_SEQ)
         params, opt = tr.init_state()
         r = run_trainer(tr, params, opt, tr.data.batch_at(0))
-        check_train_launches(r["launches"], train_launches(cfg, comm.size),
-                             f"the LocalComm({comm.size}) check step")
+        check_train_launches(r["launches"], train_launches(cfg, comm.size, path),
+                             f"the LocalComm({comm.size}) {out['layout']} check step")
         out.update(ref_loss=r["losses"][0], ref_gnorm=r["gnorms"][0], ref_step_s=r["step_s"][0],
                    ref_peak=r["peak"])
         del tr, params, opt, r
@@ -5056,7 +5293,8 @@ def dist_train_check(comm, dev, rank: int, world: int) -> dict:
     weights = tree_bytes(params) / 2**30
     torch.cuda.reset_peak_memory_stats()
     r = run_trainer(tr, params, opt, tr.data.batch_at(0))
-    check_train_launches(r["launches"], train_launches(cfg, 1), "the DistComm check step")
+    check_train_launches(r["launches"], train_launches(cfg, 1, path),
+                         f"the DistComm {out['layout']} check step")
     loss, gnorm = r["losses"][0], r["gnorms"][0]
     check(bool(np.isfinite(loss) and np.isfinite(gnorm)), f"the DistComm check step: loss "
           f"{loss}, grad norm {gnorm}")
@@ -5084,17 +5322,17 @@ def dist_train_check(comm, dev, rank: int, world: int) -> dict:
     return out
 
 
-def dist_train_full(comm, dev, rank: int, world: int) -> dict:
-    """DBRX-132B train_4k at full width with one EP rank a card: the
-    preset's seq DT_SEQ, global batch DT_BATCH in DT_MICRO micro-batches,
-    DT_STEPS steps of the Trainer on the repeated batch, DT_LAYERS layers
-    unless the peak that a 1-layer step measures, plus the reckoned state
-    of each further layer, passes DT_MAX_GIB on some card (then one
-    fewer). The losses finite and falling, each step's launches exact for
-    one hosted rank, no plain version reached; then one micro-batch traced
-    on rank 0."""
+def dist_train_full(comm, dev, rank: int, world: int, layout: str | None = None) -> dict:
+    """DBRX-132B train_4k at full width with one EP rank a card (in the
+    ``layout`` of DT_LAYOUTS, or HT flat): the preset's seq DT_SEQ, global
+    batch DT_BATCH in DT_MICRO micro-batches, DT_STEPS steps of the Trainer
+    on the repeated batch, DT_LAYERS layers unless the peak that a 1-layer
+    step measures, plus the reckoned state of each further layer, passes
+    DT_MAX_GIB on some card (then one fewer). The losses finite and
+    falling, each step's launches exact for one hosted rank, no plain
+    version reached; then one micro-batch traced on rank 0."""
     t = time.perf_counter()
-    probe = dist_train_config(1, DT_MICRO)
+    probe, path = dist_layout(dist_train_config(1, DT_MICRO), layout)
     tr = dist_trainer(probe, comm, dev, 1, DT_BATCH, DT_SEQ)
     params, opt = tr.init_state()
     layer_gib = DT_STATE_PER_PARAM * tree_bytes(params["moe_stack"]) / 2**30
@@ -5108,7 +5346,7 @@ def dist_train_full(comm, dev, rank: int, world: int) -> dict:
     layers = DT_LAYERS if worst <= DT_MAX_GIB else DT_LAYERS - 1
     progress(rank, f"the 1-layer probe step (peak {probe_peak:.2f} GiB; {DT_LAYERS} layers "
              f"reckoned at {reckoned:.2f}, at most {worst:.2f} on a card): {layers} layers", t)
-    cfg = dist_train_config(layers, DT_MICRO)
+    cfg, _ = dist_layout(dist_train_config(layers, DT_MICRO), layout)
     tr = dist_trainer(cfg, comm, dev, DT_STEPS, DT_BATCH, DT_SEQ)
     params, opt = tr.init_state()
     weights = tree_bytes(params) / 2**30
@@ -5118,13 +5356,15 @@ def dist_train_full(comm, dev, rank: int, world: int) -> dict:
     check(len(losses) == DT_STEPS and all(np.isfinite(losses)), f"four-card losses {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall over {DT_STEPS} steps on a "
           f"repeated batch: {losses}")
-    check_train_launches(r["launches"], train_launches(cfg, 1), "four-card train step")
+    want = train_launches(cfg, 1, path)
+    check_train_launches(r["launches"], want, "four-card train step")
     out = dict(layers=layers, probe_peak=probe_peak, reckoned=reckoned, worst=worst,
                weights_gib=weights, model=model_label(cfg), ep=comm.size,
-               experts=cfg.moe.num_experts // comm.size,
+               experts=cfg.moe.num_experts // comm.size, layout=layout or "HT flat",
+               axes=comm.axes,
                **{k: r[k] for k in ("losses", "gnorms", "step_s", "opt_s", "reduce_s",
                                     "reduce_bytes", "peak")}, launches=r["launches"][0],
-               want=train_launches(cfg, 1))
+               want=want)
     params = r["params"]
     del opt, r, tr
     gc.collect()
@@ -5139,6 +5379,35 @@ def dist_train_full(comm, dev, rank: int, world: int) -> dict:
     return out
 
 
+def dist_train_phase(out: dict, comm, hcomm, dev, rank: int, world: int, backend: str,
+                     t0: float) -> None:
+    """The training sub-phases of one rank, into ``out``: at EP extent > 1
+    the HT flat check (``dist_train_check``); at world DS_DIST_WORLD over
+    NCCL then the four-card Trainer in HT flat (``dist_train_full``), and,
+    every tensor of the flat runs freed, the check in each of DT_LAYOUTS
+    (the hierarchical one over ``hcomm``, a DistComm of DIST_HIER_AXES) and
+    the four-card Trainer on the hierarchical path."""
+    if comm.size == 1:
+        return
+    out["train"] = dist_train_check(comm, dev, rank, world)
+    progress(rank, "DBRX's train step check", t0)
+    if world != DS_DIST_WORLD or backend != "nccl":
+        return
+    out["train_full"] = dist_train_full(comm, dev, rank, world)
+    progress(rank, "DBRX's four-card Trainer", t0)
+    out["train_layouts"] = {}
+    for name in DT_LAYOUTS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cm = hcomm if name == "hierarchical HT" else comm
+        out["train_layouts"][name] = dist_train_check(cm, dev, rank, world, name)
+        progress(rank, f"DBRX's {name} train step check", t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train_hier_full"] = dist_train_full(hcomm, dev, rank, world, "hierarchical HT")
+    progress(rank, "DBRX's four-card hierarchical Trainer", t0)
+
+
 def dist_train_lines(out: dict, who: str, label: str, card: str, gloo: bool) -> None:
     """The training sub-phases' lines of one rank."""
     c = out.get("train")
@@ -5146,6 +5415,23 @@ def dist_train_lines(out: dict, who: str, label: str, card: str, gloo: bool) -> 
         print(f"dist ({label}) training, {who}: not run, EP extent 1 takes the dense MoE "
               "path, so no EP dispatch or combine trains")
         return
+    for c in [c] + list(out.get("train_layouts", {}).values()):
+        dist_check_line(c, who, label, card, gloo)
+    f = out.get("train_full")
+    if f is None:
+        return
+    dist_full_line(f, who, label, card)
+    h = out.get("train_hier_full")
+    if h is not None:
+        dist_full_line(h, who, label, card)
+        ratio = float(np.median(h["step_s"])) / float(np.median(f["step_s"]))
+        print(f"dist ({label}) Trainer(comm=DistComm), {who} ({card}): hierarchical / flat "
+              f"median step {ratio:.3f} ({h['layers']} and {f['layers']} layers; one NVLink "
+              f"node, where the reference expects flat to win)")
+
+
+def dist_check_line(c: dict, who: str, label: str, card: str, gloo: bool) -> None:
+    """One train step check's line (``dist_train_check``)."""
     ref = ""
     if "ref_loss" in c:
         ref = (f"; LocalComm({c['ep']}) on card 0: loss {c['ref_loss']:.6f}, grad norm "
@@ -5154,7 +5440,8 @@ def dist_train_lines(out: dict, who: str, label: str, card: str, gloo: bool) -> 
                f"and {c['gnorm_err']:.3g} (limit {DT_NORM_REL})")
     pair = (f"; the processes' peaks sum to {c['pair_peak'][0]:.2f} GiB allocated, "
             f"{c['pair_peak'][1]:.2f} GiB reserved on the shared card" if gloo else "")
-    print(f"dist ({label}) train step check, {who}, EP extent {c['ep']}, {c['model']} train_4k, "
+    print(f"dist ({label}) train step check, {who}, {c['layout']} over {c['axes']}, EP extent "
+          f"{c['ep']}, {c['model']} train_4k, "
           f"{c['batch']} x {DT_CHECK_SEQ} global, one row a process, one micro-batch, bf16 "
           f"moments ({card}): loss {c['loss']:.6f}, grad norm {c['gnorm']:.6f}{ref}; "
           f"{c['replicated']} replicated leaves bitwise equal on every process; step "
@@ -5162,18 +5449,19 @@ def dist_train_lines(out: dict, who: str, label: str, card: str, gloo: bool) -> 
           f"{c['reduce_s']:.3f} s ({c['reduce_bytes'] / 2**30:.3f} GiB), optimizer "
           f"{c['opt_s']:.3f} s; weights {c['weights_gib']:.2f} GiB, peak {c['peak']:.2f} GiB"
           f"{pair}; launches {c['launches']}; {c['seconds']:.1f} s")
-    f = out.get("train_full")
-    if f is None:
-        return
+
+
+def dist_full_line(f: dict, who: str, label: str, card: str) -> None:
+    """The four-card Trainer's lines (``dist_train_full``)."""
     micro = [(s_ - o - rd) / DT_MICRO for s_, o, rd in zip(f["step_s"], f["opt_s"],
                                                           f["reduce_s"])]
     med = float(np.median(f["step_s"]))
     print(f"dist ({label}) Trainer(comm=DistComm), {who}, {f['model']} train_4k at full "
-          f"width, EP extent {f['ep']} ({f['experts']} experts a card), HT flat, "
-          f"fp8 dispatch, capacity 1.25, remat, {DT_BATCH} x {DT_SEQ} global in {DT_MICRO} "
-          f"micro-batches ({DT_BATCH // DT_MICRO // f['ep']} rows a card each), bf16 moments "
-          f"({card}): losses {[round(x, 6) for x in f['losses']]} over {DT_STEPS} steps on a "
-          f"repeated batch (falling); grad norms {[round(g, 4) for g in f['gnorms']]}; step "
+          f"width, EP extent {f['ep']} ({f['experts']} experts a card), {f['layout']} over "
+          f"{f['axes']}, fp8 dispatch, capacity 1.25, remat, {DT_BATCH} x {DT_SEQ} global in "
+          f"{DT_MICRO} micro-batches ({DT_BATCH // DT_MICRO // f['ep']} rows a card each), bf16 "
+          f"moments ({card}): losses {[round(x, 6) for x in f['losses']]} over {DT_STEPS} steps "
+          f"on a repeated batch (falling); grad norms {[round(g, 4) for g in f['gnorms']]}; step "
           f"{[round(x, 4) for x in f['step_s']]} s, per micro-batch (forward + backward, the "
           f"norm) {[round(x, 4) for x in micro]} s, gradient reduce "
           f"{[round(x, 4) for x in f['reduce_s']]} s of {f['reduce_bytes'][0] / 2**30:.3f} "
@@ -5185,7 +5473,8 @@ def dist_train_lines(out: dict, who: str, label: str, card: str, gloo: bool) -> 
           f"{f['worst']:.2f} on a card, limit {DT_MAX_GIB}); launches per step "
           f"{f['launches']} = train_launches for one hosted rank; {f['seconds']:.1f} s")
     if f["trace"]:
-        print(f"dist ({label}) Trainer(comm=DistComm), {who} ({card}): {f['trace']['line']}")
+        print(f"dist ({label}) Trainer(comm=DistComm), {who}, {f['layout']} ({card}): "
+              f"{f['trace']['line']}")
 
 
 # DeepSeek-V3 at one EP rank a card: the world it runs at; its continuous
@@ -5601,12 +5890,7 @@ def dist_child(rank: int, world: int, init_method: str, backend: str, card: str,
     # training last, every serving tensor freed first
     gc.collect()
     torch.cuda.empty_cache()
-    if comm.size > 1:
-        out["train"] = dist_train_check(comm, dev, rank, world)
-        progress(rank, "DBRX's train step check", t0)
-        if world == DS_DIST_WORLD and backend == "nccl":
-            out["train_full"] = dist_train_full(comm, dev, rank, world)
-            progress(rank, "DBRX's four-card Trainer", t0)
+    dist_train_phase(out, comm, hcomm, dev, rank, world, backend, t0)
     dist_train_lines(out, dist_who(out, world), label, card, backend == "gloo")
     faulthandler.cancel_dump_traceback_later()
     out["seconds"] = time.perf_counter() - t0
@@ -5850,6 +6134,9 @@ def main(argv=None) -> int:
     dist_phase(card)
     # training last: what its allocator keeps cached cannot crowd the
     # spawned processes that share the card in dist_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_layout_phase(card)
     gc.collect()
     torch.cuda.empty_cache()
     train_rows = train_phase(card)

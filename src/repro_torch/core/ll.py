@@ -22,17 +22,22 @@ The MoE layer runs the EP dispatch and combine as the Functions
 ``EpDispatch`` and ``EpCombine`` (``ep_dispatch_autograd``,
 ``ep_combine_autograd``), whose forward runs the backend's staged send and
 complete (recording nothing where no input requires grad) and whose
-backward runs the transposes through the same handle's maps: the backward of dispatch is the combine path applied to the
-cotangent with unit weights (B1 copy pack through ``comb_send_gmap``, the
-exchange, B4 over ``comb_recv_rows``), and the backward of combine is
+backward runs the transposes through the same handle's maps, in every
+mode and layout. The backward of dispatch is the combine path applied to
+the cotangent with unit weights (B1 copy pack through ``comb_send_gmap``,
+or the positional layouts' swap back, the exchange, B4 over
+``comb_recv_rows``), and the backward of combine is
 ``combine_gather_reduce_bwd`` (the received rows' and the weights'
 gradients), the exchange, and a B2 gather through the inverse of
-``comb_send_gmap`` into [L, A, H]. An fp8 dispatch takes the same bf16
-backward (straight-through): the reference's AD casts the cotangent to
-e4m3 without a scale (ROADMAP Queue C). Both transposes need an
-entry-level combine that names each y3d row once, as HT flat's and LL
-``nccl_ep``'s do; the positional layouts and the hierarchical HT path raise
-from their backward (ROADMAP A11c).
+``comb_send_gmap`` into [L, A, H], or the positional layouts' swap. The
+hierarchical HT path has its mirror transposes in ``core/ht.py``. An fp8
+dispatch takes the same bf16 backward (straight-through): the reference's
+AD casts the cotangent to e4m3 without a scale (ROADMAP Queue C).
+``combine_gather_reduce_bwd`` stores each received row's gradient rather
+than summing: the transpose because no valid entry of ``comb_recv_rows``
+(nor of the hierarchical ``h_slot_rows``, ``h_rail_rows``, ``h_src_rows``)
+names a row twice, in any layout, drop or placement
+(``tests/test_torch_train_layouts.py``).
 """
 from __future__ import annotations
 
@@ -60,8 +65,10 @@ def ll_create_handle(group: EpGroup, topk_idx: list, topk_weights: list,
             for rank, (tk, nt), tg, w, wg in zip(ranks, masked, topk_gs, topk_weights, w_gs)]
 
 
-def _pack_send(group: EpGroup, x, gmap):
-    if group.cfg.quantize_dispatch:
+def _pack_send(group: EpGroup, x, gmap, quant: bool | None = None):
+    """B1 into the payload: fp8 when ``quant`` (default: the group's fp8
+    dispatch), else a copy at the payload dtype."""
+    if group.cfg.quantize_dispatch if quant is None else quant:
         return K.dispatch_pack(x, gmap, quant_block=group.cfg.quant_block)
     return K.dispatch_pack(x, gmap, out_dtype=group.cfg.payload_dtype)
 
@@ -136,19 +143,6 @@ def ll_complete_combine(group: EpGroup, handles: list, pendings: list):
 # training: the dispatch and combine under autograd
 # --------------------------------------------------------------------------
 
-def refuse_backward(group: EpGroup) -> None:
-    """Raise for a group whose dispatch and combine have no backward yet."""
-    if group.hierarchical:
-        what = "hierarchical HT"
-    elif P.positional_layout(group):
-        what = "the baseline layout" if group.mode == "baseline" else "the LL deepep layout"
-    else:
-        return
-    raise NotImplementedError(
-        f"no backward for the EP dispatch and combine on {what} yet (ROADMAP A11c): "
-        "train in HT flat or the LL nccl_ep layout")
-
-
 def _unit(rows: torch.Tensor) -> torch.Tensor:
     return torch.ones(rows.shape, dtype=torch.float32, device=rows.device)
 
@@ -158,12 +152,20 @@ def dispatch_transpose(group: EpGroup, handles: list, d_y3ds: list) -> list:
     [T, H] in the payload dtype, d_x[t] the f32 sum over k of the cotangent
     of entry (t, k)'s expert row, in k order (0 for a dropped entry). The
     combine path with unit weights, so the fp8 dispatch's backward is the
-    bf16 one (straight-through)."""
-    refuse_backward(group)
+    bf16 one (straight-through): B1 copy pack through ``comb_send_gmap``
+    (the positional layouts: the swap back), the exchange, B4 over
+    ``comb_recv_rows``; the hierarchical path's in ``core/ht.py``."""
+    if group.hierarchical:
+        from repro_torch.core import ht as _ht  # ht imports this module
+        return _ht.hier_dispatch_transpose(group, handles, d_y3ds)
     dt = group.cfg.payload_dtype
     plans = [P.ensure_plan(group, h) for h in handles]
-    sends = [K.dispatch_pack(S.flat_rows(d.to(dt)).contiguous(), pl.comb_send_gmap,
-                             out_dtype=dt)[0] for d, pl in zip(d_y3ds, plans)]
+    if P.positional_layout(group):
+        N, L = group.ep_size, group.local_experts
+        sends = [S.swap_blocks(d.to(dt), L, N) for d in d_y3ds]
+    else:
+        sends = [K.dispatch_pack(S.flat_rows(d.to(dt)).contiguous(), pl.comb_send_gmap,
+                                 out_dtype=dt)[0] for d, pl in zip(d_y3ds, plans)]
     return [K.combine_gather_reduce(S.flat_rows(r), pl.comb_recv_rows, _unit(pl.comb_recv_rows))
             for r, pl in zip(group.comm.all_to_all(sends), plans)]
 
@@ -183,19 +185,29 @@ def comb_send_inverse(group: EpGroup, plan) -> torch.Tensor:
     return inv[:L * A].view(L, A)
 
 
-def combine_transpose(group: EpGroup, handles: list, recvs: list, d_outs: list):
-    """The backward of combine for cotangents [T, H], from the rows each rank
-    received (``recvs``): (d_y3d [L, A, H] per rank in the payload dtype,
-    rows the combine never read zero; d_w [T, K] f32 per rank)."""
-    refuse_backward(group)
+def combine_transpose(group: EpGroup, handles: list, saved: list, d_outs: list):
+    """The backward of combine for cotangents [T, H], from what the forward
+    kept (``saved``: the rows each rank received; on the hierarchical path
+    the expert rows its slot-domain sum read): (d_y3d per rank, [L, A, H]
+    or its flat rows, rows the combine never read zero; d_w [T, K] f32 per
+    rank). ``combine_gather_reduce_bwd`` over ``comb_recv_rows``, the
+    exchange, then into [L, A, H]: a B2 gather through the inverse of
+    ``comb_send_gmap``, or the positional layouts' swap."""
+    if group.hierarchical:
+        from repro_torch.core import ht as _ht  # ht imports this module
+        return _ht.hier_combine_transpose(group, handles, saved, d_outs)
     plans = [P.ensure_plan(group, h) for h in handles]
     parts = [K.combine_gather_reduce_bwd(S.flat_rows(r), pl.comb_recv_rows,
                                          h.topk_weights.detach().float(),
                                          d.to(r.dtype).contiguous())
-             for r, pl, h, d in zip(recvs, plans, handles, d_outs)]
-    back = group.comm.all_to_all([dr.view(r.shape) for (dr, _), r in zip(parts, recvs)])
-    d_y3ds = [K.recv_unpack(S.flat_rows(b), comb_send_inverse(group, pl))
-              for b, pl in zip(back, plans)]
+             for r, pl, h, d in zip(saved, plans, handles, d_outs)]
+    back = group.comm.all_to_all([dr.view(r.shape) for (dr, _), r in zip(parts, saved)])
+    if P.positional_layout(group):
+        N, L = group.ep_size, group.local_experts
+        d_y3ds = [S.swap_blocks(b, N, L) for b in back]
+    else:
+        d_y3ds = [K.recv_unpack(S.flat_rows(b), comb_send_inverse(group, pl))
+                  for b, pl in zip(back, plans)]
     return d_y3ds, [dw for _, dw in parts]
 
 
@@ -230,12 +242,17 @@ class EpCombine(torch.autograd.Function):
     def forward(ctx, group, handles, *args):
         n = len(handles)
         y3ds = list(args[:n])
+        ctx.y_meta = [(y.dtype, y.shape) for y in y3ds]
+        if group.hierarchical:
+            # the expert-side backward reads the rows the slot-domain sum
+            # read, and not the stage-1 combine buffers
+            from repro_torch.core import ht as _ht  # ht imports this module
+            y3ds = [_ht.combine_rows(group, y) for y in y3ds]
         be = get_backend(group.mode)
         pendings = be.combine(group, handles, y3ds, send_only=True)
         outs = be.complete(group, handles, pendings)
         ctx.group, ctx.handles = group, handles
-        ctx.y_meta = [(y.dtype, y.shape) for y in y3ds]
-        ctx.save_for_backward(*(p.recv for p in pendings))
+        ctx.save_for_backward(*(y3ds if group.hierarchical else (p.recv for p in pendings)))
         return tuple(outs)
 
     @staticmethod

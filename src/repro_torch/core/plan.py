@@ -229,10 +229,13 @@ def gather_routing(group: EpGroup, topk_idx: list) -> list:
 def gather_weights(group: EpGroup, topk_weights: list) -> list:
     """Every hosted rank's [N, T, K] gathered combine weights where the
     group's plan embeds them (the hierarchical ``h_w_slot``), else None per
-    rank: no other plan reads weights, so nothing is exchanged."""
+    rank: no other plan reads weights, so nothing is exchanged. Gathered
+    detached: under autograd the weights' gradient has one route, the EP
+    combine's explicit inputs (``core/ll.py EpCombine``), whose backward
+    returns it to each source rank."""
     if not group.hierarchical:
         return [None] * len(topk_weights)
-    return group.comm.all_gather(list(topk_weights))
+    return group.comm.all_gather([w.detach() for w in topk_weights])
 
 
 def recv_counts(group: EpGroup, rank: int, topk_g: torch.Tensor) -> torch.Tensor:

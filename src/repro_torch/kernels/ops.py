@@ -158,8 +158,12 @@ def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
 def combine_gather_reduce_bwd(recv: torch.Tensor, rows: torch.Tensor,
                               w: torch.Tensor, dout: torch.Tensor):
     """combine_gather_reduce's backward -> (d_recv [R, H], d_w [T, K] f32),
-    where the valid rows name each received row at most once, as the EP
-    combine's maps do: d_recv is stored, not summed, once per (t, k)."""
+    where the valid rows name each received row at most once: d_recv is
+    stored, not summed, once per (t, k). The EP maps it runs over hold
+    that in every layout, drop and placement (``comb_recv_rows``, the
+    hierarchical ``h_slot_rows``; ``tests/test_torch_train_layouts.py``
+    checks them and ``h_rail_rows`` and ``h_src_rows``, whose transposes
+    are B2 and B1 copies)."""
     if _plain(recv):
         return _ref.combine_gather_reduce_bwd(recv, rows, w, dout)
     _guard("combine_gather_reduce_bwd", recv, w, dout)

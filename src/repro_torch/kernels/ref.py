@@ -135,8 +135,10 @@ def grouped_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
 def combine_gather_reduce_bwd(recv: torch.Tensor, rows: torch.Tensor,
                               w: torch.Tensor, dout: torch.Tensor):
     """The backward of ``combine_gather_reduce`` for the cotangent dout [T,
-    H], where the valid rows name each recv row at most once (the EP
-    combine's maps): (d_recv [R, H] in recv's dtype, d_w [T, K] f32) with
+    H], where the valid rows name each recv row at most once (the EP maps
+    it runs over: ``comb_recv_rows`` in every layout and the hierarchical
+    ``h_slot_rows``, in every drop and placement case; see
+    ``tests/test_torch_train_layouts.py``): (d_recv [R, H] in recv's dtype, d_w [T, K] f32) with
     d_recv[rows[t, k]] = w[t, k] dout[t] and every other row 0, d_w[t, k] =
     recv[rows[t, k]]·dout[t] in f32 and 0 at the sentinel R."""
     R, H = recv.shape

@@ -28,7 +28,10 @@ gradient within 1e-5, flash attention's LSE within 1e-4 and its dQ / dK-dV
 pair within 1e-4 (f32) or 5e-3 (bf16) relative, each deterministic; a
 kernel entry refuses a CUDA input that requires grad outside
 ``kernels/autograd.py``; ``moe_block``'s gradients through the kernels
-within 1e-4 of the same layer on the plain versions; the parameters a
+within 1e-4 of the same layer on the plain versions; the EP round trip's
+gradients in every layout (HT flat, ``deepep`` with and without fp8, the
+baseline, hierarchical HT with and without fp8) within 1e-5 of the same
+round trip on the CPU; the parameters a
 ``Trainer`` returns on the card served by the captured server as they are.
 Over NCCL, in a spawned process per card: ``DistComm``'s primitives
 against ``LocalComm``'s, one EP layer captured, and the continuous server
@@ -1381,3 +1384,63 @@ def test_cuda_trained_parameters_serve(hopper):
         toks.append(srv.decode(srv.prefill(prompts)[0], 4)[0])
         assert srv._serve_step.graph is not None
     assert np.array_equal(*toks)
+
+
+# the EP layouts whose backward the card runs: name -> group options (HT
+# flat and LL nccl_ep share one backward)
+EP_BWD_LAYOUTS = {
+    "ht_flat": dict(mode="ht"),
+    "deepep": dict(mode="ll", ll_layout="deepep"),
+    "deepep_fp8": dict(mode="ll", ll_layout="deepep", quantize_dispatch=True),
+    "baseline": dict(mode="baseline"),
+    "hier": dict(mode="ht", ep_axis=("pod", "data"), ht_hierarchical=True, ht_num_chunks=2),
+    "hier_fp8": dict(mode="ht", ep_axis=("pod", "data"), ht_hierarchical=True,
+                     ht_num_chunks=2, quantize_dispatch=True),
+}
+
+
+def _ep_roundtrip_grads(opts, dev, x, topk, w, cot):
+    """The EP round trip (dispatch, expert e scaling its rows by 1 + e,
+    combine) under autograd over LocalComm(8) on ``dev``: the tokens' and
+    the combine weights' gradients, stacked."""
+    from repro_torch.core import EpGroupConfig, ep_create_group
+    from repro_torch.core import ll as LL
+    hier = opts.get("ht_hierarchical", False)
+    comm = LocalComm(8, axes=(("pod", 2), ("data", 4)) if hier else None)
+    cfg = EpGroupConfig(num_experts=16, max_tokens_per_rank=x.shape[1], hidden=x.shape[2],
+                        top_k=4, payload_dtype=torch.float32, quant_block=128, **opts)
+    group = ep_create_group(cfg, comm)
+    assert group.hierarchical == hier
+    xs = [a.to(dev).requires_grad_() for a in x]
+    ws = [a.to(dev).requires_grad_() for a in w]
+    hs = ep_create_handle(group, [a.to(dev) for a in topk], ws)
+    recv = LL.ep_dispatch_autograd(group, hs, xs)
+    L = group.local_experts
+    ys = [y * (1.0 + torch.arange(r * L, (r + 1) * L, device=dev)).to(y.dtype)[:, None, None]
+          for r, (y, _) in zip(comm.ranks, recv)]
+    torch.autograd.backward(LL.ep_combine_autograd(group, hs, ys), [c.to(dev) for c in cot])
+    return torch.stack([a.grad for a in xs]).cpu(), torch.stack([a.grad for a in ws]).cpu()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(EP_BWD_LAYOUTS))
+def test_cuda_ep_roundtrip_backward_matches_cpu(hopper, layout):
+    """The EP round trip's backward in every layout on the card (B1, B2,
+    B4 and combine_gather_reduce_bwd over the plan's maps) against the same
+    round trip on the CPU's plain versions, f32 payload, 8 ranks of 64
+    tokens, H 256: the tokens' and the combine weights' gradients within
+    1e-5 relative, and the combine's backward kernel launched once a rank."""
+    g = torch.Generator().manual_seed(40)
+    N, T, H, E, K = 8, 64, 256, 16, 4
+    x = torch.randn((N, T, H), generator=g)
+    topk = torch.stack([torch.stack([torch.randperm(E, generator=g)[:K] for _ in range(T)])
+                        for _ in range(N)]).to(torch.int32)
+    w = torch.softmax(torch.randn((N, T, K), generator=g), -1)
+    cot = torch.randn((N, T, H), generator=g)
+    opts = EP_BWD_LAYOUTS[layout]
+    before = cg.bwd_launches
+    got = _ep_roundtrip_grads(opts, hopper, x, topk, w, cot)
+    assert cg.bwd_launches - before == N
+    want = _ep_roundtrip_grads(opts, torch.device("cpu"), x, topk, w, cot)
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 1e-5

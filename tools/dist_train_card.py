@@ -6,11 +6,13 @@ alone, on the card.
     python3 tools/dist_train_card.py nccl   # one NCCL process a card
 
 Builds the kernels and spawns the children, each of which runs
-``chip_smoke.dist_train_check`` (one DBRX-132B ``train_4k`` train step over
-``DistComm`` against the same step over ``LocalComm`` on card 0) and, at
-four cards over NCCL, ``chip_smoke.dist_train_full`` (the ``Trainer`` at
-EP 4, seq 4096, its peak probed at 1 layer first, one micro-batch
-traced), printing the same lines as ``chip_smoke.py``. Exits non-zero
+``chip_smoke.dist_train_phase``: ``dist_train_check`` (one DBRX-132B
+``train_4k`` train step over ``DistComm`` against the same step over
+``LocalComm`` on card 0) and, at four cards over NCCL,
+``dist_train_full`` (the ``Trainer`` at EP 4, seq 4096, its peak probed at
+1 layer first, one micro-batch traced), then the check in the
+hierarchical (two pods of two), ``deepep`` and baseline layouts and the
+hierarchical ``Trainer``, printing the same lines as ``chip_smoke.py``. Exits non-zero
 without a card or when a child fails.
 """
 import datetime
@@ -37,10 +39,9 @@ def child(rank: int, world: int, init_method: str, backend: str, card: str) -> d
                        world=world, backend=backend, timeout=tmo)
     disable_tf32()
     comm = DistComm(axes, timeout=tmo)
+    hcomm = DistComm(C.DIST_HIER_AXES, timeout=tmo) if world == 4 else None
     out = dict(rank=rank, device=str(dev), backend=comm.backend)
-    out["train"] = C.dist_train_check(comm, dev, rank, world)
-    if world == C.DS_DIST_WORLD and backend == "nccl":
-        out["train_full"] = C.dist_train_full(comm, dev, rank, world)
+    C.dist_train_phase(out, comm, hcomm, dev, rank, world, backend, time.perf_counter())
     C.dist_train_lines(out, C.dist_who(out, world), backend, card, backend == "gloo")
     return {}
 

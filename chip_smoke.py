@@ -194,11 +194,11 @@
    The loss finite and bitwise equal on a repeat, the MTP term present (the
    loss without it, on the same parameters less the ``mtp_*`` leaves,
    differs), the EP launches exact for both MoE layers and every hosted
-   rank, no flash or paged launches (MLA's prefill takes ``_mla_chunked``,
+   rank, no flash or paged launches (MLA's prefill takes ``MlaChunked``,
    plain torch, one batch row at a time). Reports its wall time after a
    warm-up, tok/s, peak memory, dropped shares and the plan's host time,
    and traces one forward: the device time by kernel, and the shares of
-   the f32 head products, of ``_mla_chunked`` (and of its GEMMs) and of B3
+   the f32 head products, of ``MlaChunked``'s loop (and of its GEMMs) and of B3
    (each range must be recorded). Last, B1 to B4 at this forward's HT
    shapes (rank 0 of MoE layer 0 over ``LocalComm(4)``, 4096 tokens a rank:
    64 local experts, fp8 blocks over H 7168, top-8 combine) against their
@@ -216,7 +216,7 @@
    MiniCPM3's shared pool at dk 288 / dv 256 on the CUDA-core path), each
    server's replayed step traced, and the ``train_4k`` forward at the
    preset's microbatch of 4096-token rows (B7 once a GQA layer; MiniCPM3's
-   MLA takes ``_mla_chunked``), finite and bitwise on a repeat. Then B6 at
+   MLA takes ``MlaChunked``), finite and bitwise on a repeat. Then B6 at
    the serve's shapes and B7 at the forward's against their plain versions
    (within 1e-4; 5e-3 relative and 2e-2), timed beside SDPA for B7; their
    rows join the kernels JSON.
@@ -316,7 +316,19 @@
    same axes), in ``deepep`` and in the baseline at EP 4, each held as the
    flat check is; and the four-card Trainer on the hierarchical path (2
    chunks), with the same layer rule, lines and trace, its median step
-   printed against the flat one's (``dist_train_phase``).
+   printed against the flat one's (``dist_train_phase``). Last, DBRX
+   freed, DeepSeek-V3-671B ``train_4k`` at full width with one EP rank a
+   card (``ds_train_full``: EP 4, 64 experts a card, HT flat, fp8 dispatch,
+   capacities 1.25, remat, MTP off, 8 x 4096 in 2 micro-batches, one row a
+   card in each, bf16 moments, 3 Trainer steps on the repeated batch): one
+   MoE layer probed with a step, then a dense layer before it if the
+   probe's peak plus its reckoned state stays within 72 GiB on every card;
+   the losses finite and falling, the gradient norms finite, every
+   replicated leaf bitwise equal on every process, the launches exact for
+   one hosted rank, ``MlaChunked``'s calls exact, no plain version
+   reached; the cuts, the step, micro-batch, reduce and optimizer seconds,
+   tok/s over the mesh and a card, the peak and one traced micro-batch on
+   rank 0 printed.
 
 12. Training (``train_phase``), last, once every other tensor is freed:
    ``Trainer`` on DBRX-132B at full width under ``train_4k`` (HT flat, fp8
@@ -352,7 +364,17 @@
    2 steps with its MoE layer on the hierarchical path over two pods of
    four (2 chunks, fp8, capacities 1.25): the losses finite and falling,
    the launches exact, the step, tok/s and peak printed, the first loss
-   and the step beside HT flat's.
+   and the step beside HT flat's. Before ``train_layout_phase``,
+   ``mla_phase``: MLA's chunked attention with its recomputing backward
+   (``MlaChunked``) against autograd through the plain loop at DeepSeek-V3's
+   and MiniCPM3-4B's ``train_4k`` widths (one row of 4096 tokens, bf16):
+   the forward bitwise, each gradient within 2e-2 of its largest value,
+   each one's seconds and peak memory, the Function's peak at most a third
+   of the loop's. After ``train_phase``, ``minicpm_train_phase``: the
+   ``Trainer`` on MiniCPM3-4B ``train_4k`` (its 62 layers whole unless the
+   reckoned state does not fit, 4 x 4096 in 2 micro-batches, 2 steps, bf16
+   moments): the losses falling, no kernel launched, ``MlaChunked``'s calls
+   exact; the step seconds, tok/s and the peak printed.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. The last line is
@@ -478,7 +500,7 @@ KV_PAGES = 2048              # page-table width of the paged kernel phase
 DS_KV_PAGES = 2048           # likewise, DeepSeek-V3's shared pool (32k tokens)
 DEV = torch.device("cuda")
 # profiler ranges of one forward's parts (``forward_ranges``)
-HEAD_RANGE, MLA_RANGE = "f32 head product (logits_out)", "MLA chunked attention (_mla_chunked)"
+HEAD_RANGE, MLA_RANGE = "f32 head product (logits_out)", "MLA chunked attention (MlaChunked)"
 RANGES = (HEAD_RANGE, MLA_RANGE)
 # the prefill forward: batch rows x tokens (one row of 4096 per hosted rank,
 # the paper's HT regime); tokens per rank of the HT oracle
@@ -595,6 +617,14 @@ def check(ok: bool, msg: str) -> None:
 def reset_counts() -> None:
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
+    mla_mod.mla_chunked_calls = mla_mod.mla_chunked_bwd_calls = 0
+
+
+def mla_calls() -> tuple[int, int]:
+    """Calls of MLA's chunked attention Function (``MlaChunked``) since the
+    last ``reset_counts``: (forwards, backwards). Plain torch, so kept apart
+    from the kernels' launch counters."""
+    return mla_mod.mla_chunked_calls, mla_mod.mla_chunked_bwd_calls
 
 
 def counts() -> dict:
@@ -620,7 +650,7 @@ def forward_moe_layers(cfg) -> int:
 
 def flash_layers(cfg) -> int:
     """Flash attention launches of one forward: one per GQA layer (and the
-    MTP layer's); MLA's prefill takes ``_mla_chunked``, plain torch."""
+    MTP layer's); MLA's prefill takes ``MlaChunked``, plain torch."""
     return 0 if cfg.attn.kind == "mla" else cfg.num_layers + int(cfg.mtp)
 
 
@@ -1896,21 +1926,21 @@ def hier_prefill_phase(params, card: str, flat: dict) -> None:
 @contextlib.contextmanager
 def forward_ranges():
     """While open, each f32 head product (``logits_out``) and each call of
-    MLA's chunked attention (``_mla_chunked``) runs inside a profiler range
-    named HEAD_RANGE or MLA_RANGE."""
-    orig = tf_mod.logits_out, mla_mod._mla_chunked
+    MLA's chunked attention (the loop that ``MlaChunked`` runs) runs inside
+    a profiler range named HEAD_RANGE or MLA_RANGE."""
+    orig = tf_mod.logits_out, mla_mod._mla_loop
 
     def ranged(name, fn):
         def run(*args, **kw):
             with torch.profiler.record_function(name):
                 return fn(*args, **kw)
         return run
-    tf_mod.logits_out, mla_mod._mla_chunked = ranged(HEAD_RANGE, orig[0]), ranged(MLA_RANGE,
-                                                                               orig[1])
+    tf_mod.logits_out, mla_mod._mla_loop = ranged(HEAD_RANGE, orig[0]), ranged(MLA_RANGE,
+                                                                            orig[1])
     try:
         yield
     finally:
-        tf_mod.logits_out, mla_mod._mla_chunked = orig
+        tf_mod.logits_out, mla_mod._mla_loop = orig
 
 
 def range_device_us(prof, name: str) -> tuple[int, float, float]:
@@ -2130,8 +2160,8 @@ def flash_kernel_phase(cfg) -> dict:
     gives it): causal, a window of 1024 and non-causal, G = 1 at a smaller
     shape, each within FLASH_REL relative and TOL per element of the plain
     version; f32 within 1e-4; two calls bitwise equal. Times the kernel,
-    its plain version and SDPA on the main case, and the kernel on the
-    window and non-causal ones."""
+    its plain version and SDPA on the main case, and the kernel, its plain
+    version and SDPA on the window and non-causal ones."""
     q, k, v, scale = flash_main_inputs(cfg)
     B, S, Hq, d = q.shape
     Hkv = k.shape[2]
@@ -2190,6 +2220,9 @@ def flash_kernel_phase(cfg) -> dict:
               f"scaled_dot_product_attention ({label}) disagrees with the kernel")
         del want
     nc_lib_ms, win_lib_ms = device_ms(nc_library, 10), device_ms(win_library, 10)
+    win_plain_ms, nc_plain_ms = (device_ms(lambda: ref.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw, **extra), 2)
+        for extra in (dict(window=W), dict(causal=False)))
     del kr, vr, band
     print(f"flash_attention at main-path shapes: kernel {ms:.4f} ms on the card "
           f"({call_ms(kernel, 10):.4f} ms per call from the host), plain {plain_ms:.4f} ms, "
@@ -2198,9 +2231,11 @@ def flash_kernel_phase(cfg) -> dict:
           f"{ref.hbm_bytes(B, Hq, Hkv, S, S, d, 2) / 1e9:.3f} GB), "
           f"{ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {ms / library_ms:.3f}x the library; "
           f"window {W} {win_ms:.4f} ms ({win_ops / (win_ms * 1e-3) / 1e12:.1f} TFLOP/s), "
+          f"plain {win_plain_ms:.4f} ms, "
           f"library {win_lib_ms:.4f} ms (SDPA with a boolean band mask, memory-efficient "
           f"backend), bound {bound(ref.hbm_bytes(B, Hq, Hkv, S, S, d, 2), win_ops, BF16_OPS_S)[0]:.4f} ms; "
           f"non-causal {nc_ms:.4f} ms ({nc_ops / (nc_ms * 1e-3) / 1e12:.1f} TFLOP/s), "
+          f"plain {nc_plain_ms:.4f} ms, "
           f"library {nc_lib_ms:.4f} ms (SDPA, is_causal=False, enable_gqa), bound "
           f"{bound(ref.hbm_bytes(B, Hq, Hkv, S, S, d, 2), nc_ops, BF16_OPS_S)[0]:.4f} ms")
     return record(FLASH, err, ms, plain_ms, bnd, library_ms)
@@ -2637,7 +2672,7 @@ DS_REQUESTS, DS_SEED = 64, 14
 # the train_4k forward (HT flat, fp8 dispatch, capacity 1.25, MTP on): the 3
 # dense layers and 1 MoE layer, plus the MTP layer, a second MoE layer of 256
 # experts (about 53 GB); a global batch of 4 x 4096 tokens over 4 hosted EP
-# ranks, one row each (S >= 2048: MLA takes _mla_chunked)
+# ranks, one row each (S >= 2048: MLA takes MlaChunked)
 DS_PF_LAYERS, DS_PF_RANKS, DS_PF_BATCH, DS_PF_SEQ = 4, 4, 4, 4096
 
 
@@ -2896,7 +2931,7 @@ def deepseek_forward_phase(card: str) -> None:
     layers plus the MTP layer over LocalComm(DS_PF_RANKS), DS_PF_BATCH x
     DS_PF_SEQ tokens. The loss finite and bitwise equal on a repeat, the EP
     launches exact for every MoE layer (the MTP layer's too) and hosted
-    rank, no flash or paged attention (MLA's prefill takes _mla_chunked),
+    rank, no flash or paged attention (MLA's prefill takes MlaChunked),
     and the MTP term present: the forward with mtp off, on the same
     parameters less the mtp_* leaves, gives another loss. Then one traced
     forward."""
@@ -3038,7 +3073,7 @@ def dense_config_phase(arch: str, card: str) -> list:
     captured and eager (B6 once a layer and step, streams bitwise equal);
     each traced on one replayed step; the train_4k forward at the preset's
     microbatch of PF_SEQ tokens (B7 once a GQA layer, none under MLA: S >=
-    2048 takes _mla_chunked), bitwise on a repeat. Then, the weights
+    2048 takes MlaChunked), bitwise on a repeat. Then, the weights
     freed, B6 at the serve's shapes and B7 at the forward's against their
     plain versions, timed. Returns the kernels JSON rows."""
     model = DENSE_ARCHS[arch]
@@ -3149,25 +3184,44 @@ def train_config():
 
 def train_launches(cfg, ranks: int = RANKS, path: str = "nccl_ep",
                    chunks: int = HIER_CHUNKS) -> dict:
-    """Kernel launches of one train step of ``cfg`` (every layer a MoE layer
-    on ``path``, HT flat's being ``nccl_ep``'s, remat on): each micro-batch
-    runs the forward twice (once more in the backward, per layer) and the
-    backward once. A forward: the EP launches of ``ep_launches`` per rank
-    and flash attention once per layer. The backward per rank: the EP
-    transposes (``ep_transpose_launches``), B3 as dX and
-    ``grouped_gemm_dw`` for each of the three projections; per layer flash
-    attention's pair, two launches (its dQ and its dK/dV kernel)."""
-    g, layers = cfg.microbatch, cfg.num_layers
-    fwd = (2 if cfg.remat else 1) * g
-    out = {k: v * layers * ranks * fwd for k, v in ep_launches(cfg, path, chunks).items()}
-    out[FLASH] = layers * fwd
-    out["grouped_gemm"] += 3 * layers * ranks * g
-    out["grouped_gemm_dw"] = 3 * layers * ranks * g
+    """Kernel launches of one train step of ``cfg`` (its MoE layers on
+    ``path``, HT flat's being ``nccl_ep``'s): with remat each micro-batch
+    runs a stack layer's forward twice (once more in the backward), the
+    MTP layer's once, and the backward once. A MoE layer's forward: the EP
+    launches of ``ep_launches`` per rank (B1 in quant mode under fp8); its
+    backward per rank: the EP transposes (``ep_transpose_launches``), B3 as
+    dX and ``grouped_gemm_dw`` for each of the three projections. A GQA
+    layer: flash attention once a forward, and its pair, two launches (its
+    dQ and its dK/dV kernel), a backward; an MLA layer (and a dense FFN, a
+    shared expert, the router) launches no kernel."""
+    g = cfg.microbatch
+    stack_fwd = (2 if cfg.remat else 1) * g
+
+    def fwd(stack_layers: int) -> int:        # forwards a step, the MTP layer's among them
+        return stack_layers * stack_fwd + int(cfg.mtp) * g
+    moe_fwd, moe_bwd = fwd(moe_layers(cfg)), forward_moe_layers(cfg) * g
+    out = {k: v * moe_fwd * ranks for k, v in ep_launches(cfg, path, chunks).items()}
+    gqa = cfg.attn.kind != "mla"
+    out[FLASH] = fwd(cfg.num_layers) if gqa else 0
+    out["grouped_gemm"] += 3 * moe_bwd * ranks
+    out["grouped_gemm_dw"] = 3 * moe_bwd * ranks
     for part in ep_transpose_launches(path, chunks):
         for k, v in part.items():
-            out[k] = out.get(k, 0) + v * layers * ranks * g
-    out["flash_attention_bwd"] = 2 * layers * g
+            out[k] = out.get(k, 0) + v * moe_bwd * ranks
+    out["flash_attention_bwd"] = 2 * (cfg.num_layers + int(cfg.mtp)) * g if gqa else 0
     return out
+
+
+def mla_train_calls(cfg, rows: int) -> tuple[int, int]:
+    """``MlaChunked``'s calls in one train step of an MLA config whose
+    micro-batches give a process ``rows`` rows of at least
+    CHUNKED_ATTN_THRESHOLD tokens: (forwards, backwards), one a row and a
+    layer each, with remat a stack layer's forward twice."""
+    if cfg.attn.kind != "mla":
+        return 0, 0
+    g = cfg.microbatch * rows
+    return (cfg.num_layers * (2 if cfg.remat else 1) + int(cfg.mtp)) * g, \
+        (cfg.num_layers + int(cfg.mtp)) * g
 
 
 @contextlib.contextmanager
@@ -3224,6 +3278,67 @@ def autograd_ms(fn, inputs, cot, iters: int) -> float:
     return ms
 
 
+def dw_case(label: str, x_: torch.Tensor, dy: torch.Tensor, counts_: torch.Tensor,
+            w_: torch.Tensor | None = None) -> dict:
+    """grouped_gemm_dw at one projection's shapes against its plain version
+    (TOL per element, GEMM_REL relative, two calls bitwise, NaNs in the
+    rows past the counts changing no bit), timed beside the plain version,
+    autograd's backward of the plain grouped GEMM over the weights ``w_``
+    (dX and dW together; skipped without ``w_``), ``torch.bmm`` and its
+    bound; returns its record."""
+    dev, L, H_, fo = x_.device, x_.shape[0], x_.shape[2], dy.shape[2]
+    rows = int(counts_.clamp(max=x_.shape[1]).sum())
+    got = gg_mod.grouped_gemm_dw(x_, dy, counts_)
+    want = ref.grouped_gemm_dw(x_, dy, counts_)
+    err, rel = flash_errors(got, want)
+    check(torch.allclose(got.float(), want.float(), rtol=TOL, atol=TOL) and rel <= GEMM_REL,
+          f"grouped_gemm_dw ({label}) off its plain version: {err}, relative {rel}")
+    check(torch.equal(got, gg_mod.grouped_gemm_dw(x_, dy, counts_)),
+          f"grouped_gemm_dw ({label}): two calls differ")
+    # the rows past the counts may hold anything: NaNs there in both
+    # operands change no bit (the kernel zeroes them in its last stage)
+    dead = (torch.arange(x_.shape[1], device=dev)[None, :] >= counts_[:, None])[..., None]
+    nan_equal = torch.equal(got, gg_mod.grouped_gemm_dw(
+        x_.masked_fill(dead, float("nan")), dy.masked_fill(dead, float("nan")), counts_))
+    check(nan_equal, f"grouped_gemm_dw ({label}): NaN rows past the counts change the result")
+    del got, want, dead
+    bnd = bound(nbytes(x_[0], rows) + nbytes(dy[0], rows) + L * H_ * fo * 2 + nbytes(counts_),
+                2 * rows * H_ * fo, BF16_OPS_S)
+    ms = device_ms(lambda: gg_mod.grouped_gemm_dw(x_, dy, counts_), 3)
+    plain_ms = device_ms(lambda: ref.grouped_gemm_dw(x_, dy, counts_), 2)
+    ag = ""
+    if w_ is not None:
+        ag_ms = autograd_ms(lambda a, b: ref.grouped_gemm(a, b, counts_), (x_, w_), dy, 2)
+        ag = f"autograd of the plain grouped_gemm {ag_ms:.4f} ms (dX and dW together), "
+    xt = x_.transpose(1, 2)
+    lib_ms = device_ms(lambda: torch.bmm(xt, dy), 3)
+    counts_line = (counts_.tolist() if L <= 16 else
+                   f"{L} experts of {int(counts_.min())} to {int(counts_.max())}")
+    print(f"grouped_gemm_dw {label} (dW): x {list(x_.shape)}, dy {list(dy.shape)}, counts "
+          f"{counts_line} ({rows} live rows): max_abs_err {err:.3g}, relative "
+          f"{rel:.3g} (limits {TOL} per element, {GEMM_REL} relative), two calls bitwise "
+          f"equal, NaN rows past the counts change no bit; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, {ag}library {lib_ms:.4f} ms "
+          f"(torch.bmm over every row), bound {bnd[0]:.4f} ms ({bnd[1]}); "
+          f"{2 * rows * H_ * fo / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {ms / bnd[0]:.2f}x the "
+          f"bound, {ms / lib_ms:.2f}x torch.bmm")
+    return record("grouped_gemm_dw", err, ms, plain_ms, bnd, lib_ms)
+
+
+def dx_case(label: str, dy: torch.Tensor, w: torch.Tensor, counts_: torch.Tensor) -> tuple:
+    """B3 as dX: dY through a contiguous [L, F, H] copy of the weights ``w``
+    [L, H, F] made in the backward, the copy timed beside its byte bound,
+    then ``gemm_case``; returns gemm_case's tuple and the copy's ms."""
+    wt = w.transpose(1, 2).contiguous()
+    copy_ms = device_ms(lambda: w.transpose(1, 2).contiguous(), 3)
+    print(f"B3 as dX: the [L, F, H] copy of the weights {list(wt.shape)} "
+          f"{copy_ms:.4f} ms, bound "
+          f"{bound(2 * nbytes(wt), 0, BF16_OPS_S)[0]:.4f} ms (bytes)")
+    out = gemm_case(label, dy, wt, counts_, 3, 2)
+    del wt
+    return out, copy_ms
+
+
 def train_kernel_phase(cfg, p) -> dict:
     """The backward kernels at the slice's shapes, on rank 0 of MoE layer 0
     (``p``) over 8 ranks at 2048 tokens a rank, each against its plain
@@ -3240,60 +3355,18 @@ def train_kernel_phase(cfg, p) -> dict:
     hs = ep_create_handle(group, [r.topk_idx for r in rs], [r.topk_weights for r in rs])
     recv = ep_complete(group, hs, ep_dispatch(group, hs, xs, send_only=True))
     y3d, counts_ = recv[0]
-    rows = int(counts_.clamp(max=y3d.shape[1]).sum())
     records = {}
     # grouped_gemm_dw at the gate (and the down) projection's shapes
     for label, x_, fo in (("gate", y3d, F_), ("down", None, d)):
         if x_ is None:
             x_ = torch.randn((L, y3d.shape[1], F_), generator=gen, device=dev).to(dt)
         dy = (torch.randn((L, y3d.shape[1], fo), generator=gen, device=dev) * 0.1).to(dt)
-        got = gg_mod.grouped_gemm_dw(x_, dy, counts_)
-        want = ref.grouped_gemm_dw(x_, dy, counts_)
-        err, rel = flash_errors(got, want)
-        check(torch.allclose(got.float(), want.float(), rtol=TOL, atol=TOL) and rel <= GEMM_REL,
-              f"grouped_gemm_dw ({label}) off its plain version: {err}, relative {rel}")
-        check(torch.equal(got, gg_mod.grouped_gemm_dw(x_, dy, counts_)),
-              f"grouped_gemm_dw ({label}): two calls differ")
-        # the rows past the counts may hold anything: NaNs there in both
-        # operands change no bit (the kernel zeroes them in its last stage)
-        dead = (torch.arange(x_.shape[1], device=dev)[None, :] >= counts_[:, None])[..., None]
-        nan_equal = torch.equal(got, gg_mod.grouped_gemm_dw(
-            x_.masked_fill(dead, float("nan")), dy.masked_fill(dead, float("nan")), counts_))
-        check(nan_equal, f"grouped_gemm_dw ({label}): NaN rows past the counts "
-              f"{counts_.tolist()} change the result")
-        del got, want, dead
-        H_ = x_.shape[2]
-        bnd = bound(nbytes(x_[0], rows) + nbytes(dy[0], rows) + L * H_ * fo * 2 + nbytes(counts_),
-                    2 * rows * H_ * fo, BF16_OPS_S)
-        ms = device_ms(lambda: gg_mod.grouped_gemm_dw(x_, dy, counts_), 3)
-        plain_ms = device_ms(lambda: ref.grouped_gemm_dw(x_, dy, counts_), 2)
-        # autograd of the plain grouped GEMM: dX and dW together
-        w_ = p["w_gate" if label == "gate" else "w_down"][:L]
-        ag_ms = autograd_ms(lambda a, b: ref.grouped_gemm(a, b, counts_), (x_, w_), dy, 2)
-        xt = x_.transpose(1, 2)
-        lib_ms = device_ms(lambda: torch.bmm(xt, dy), 3)
-        print(f"grouped_gemm_dw {label} (dW): x {list(x_.shape)}, dy {list(dy.shape)}, counts "
-              f"{counts_.tolist()} ({rows} live rows): max_abs_err {err:.3g}, relative "
-              f"{rel:.3g} (limits {TOL} per element, {GEMM_REL} relative), two calls bitwise "
-              f"equal, NaN rows past the counts change no bit; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, autograd of the plain "
-              f"grouped_gemm {ag_ms:.4f} ms (dX and dW together), library {lib_ms:.4f} ms "
-              f"(torch.bmm over every row), bound {bnd[0]:.4f} ms ({bnd[1]}); "
-              f"{2 * rows * H_ * fo / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {ms / bnd[0]:.2f}x the "
-              f"bound, {ms / lib_ms:.2f}x torch.bmm")
+        rec = dw_case(label, x_, dy, counts_, p["w_gate" if label == "gate" else "w_down"][:L])
         if label == "gate":
-            records["grouped_gemm_dw"] = record("grouped_gemm_dw", err, ms, plain_ms, bnd,
-                                                lib_ms)
+            records["grouped_gemm_dw"] = rec
             # B3 as dX: the gradient of the gate output through Wᵀ, a
             # contiguous [L, F, H] copy of the weights made in the backward
-            w1 = p["w_gate"][:L]
-            wt = w1.transpose(1, 2).contiguous()
-            copy_ms = device_ms(lambda: w1.transpose(1, 2).contiguous(), 3)
-            print(f"B3 as dX: the [L, F, H] copy of the gate weights {list(wt.shape)} "
-                  f"{copy_ms:.4f} ms, bound "
-                  f"{bound(2 * nbytes(wt), 0, BF16_OPS_S)[0]:.4f} ms (bytes)")
-            gemm_case("HT gate dX (B3 on dY, Wᵀ)", dy, wt, counts_, 3, 2)
-            del wt
+            dx_case("HT gate dX (B3 on dY, Wᵀ)", dy, p["w_gate"][:L], counts_)
         del dy, x_
     # combine_gather_reduce_bwd at the combine's recv
     pl, w0 = hs[0].plan, hs[0].topk_weights
@@ -3472,6 +3545,56 @@ def check_launches(got: dict, want: dict, where: str) -> None:
     check(not bad, f"{where}: launches (got, expected) {bad}")
 
 
+@contextlib.contextmanager
+def pass_bytes(comm, sink: list):
+    """While open, each data pass of an EP transpose adds to ``sink[0]`` the
+    bytes it must move, its inputs read once (a gather's source row once,
+    however many slots name it) and its outputs written once: B1, B2, B4 and
+    ``combine_gather_reduce_bwd`` through the kernels' entries, each block
+    of ``comm``'s exchange read and written, the positional layouts' swap
+    read and written. The sum over a transpose's passes, over the memory
+    rate, is its byte bound."""
+    from repro_torch.core import slots as slots_mod
+    orig = {n: getattr(ops_mod, n) for n in ("dispatch_pack", "recv_unpack",
+                                             "combine_gather_reduce",
+                                             "combine_gather_reduce_bwd")}
+    swap, a2a = slots_mod.swap_blocks, comm.all_to_all
+
+    def outs(r) -> int:
+        return sum(nbytes(t) for t in (r if isinstance(r, tuple) else (r,)) if t is not None)
+
+    def gather(name):            # (source, map, ...): the named rows, the map, the rest
+        def run(src, idx, *a, **kw):
+            r = orig[name](src, idx, *a, **kw)
+            rest = [t for t in list(a) + list(kw.values()) if isinstance(t, torch.Tensor)]
+            if name == "recv_unpack" and rest:          # the scales: the named rows only
+                rest = [nbytes(rest[0], read_rows(idx, src.shape[0]))]
+            else:
+                rest = [nbytes(t) for t in rest]
+            sink[0] += (nbytes(src, read_rows(idx, src.shape[0])) + nbytes(idx) + sum(rest)
+                        + outs(r))
+            return r
+        return run
+
+    def swapped(x, a, b):
+        sink[0] += 2 * nbytes(x)
+        return swap(x, a, b)
+
+    def exchanged(xs, axis=None):
+        sink[0] += 2 * sum(nbytes(x) for x in xs)
+        return a2a(xs, axis)
+    for n in orig:
+        setattr(ops_mod, n, gather(n))
+    slots_mod.swap_blocks, comm.all_to_all = swapped, exchanged
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(ops_mod, n, fn)
+        slots_mod.swap_blocks = swap
+        del comm.all_to_all
+
+
 def train_layout_phase(card: str) -> None:
     """The EP round trip's backward in every layout at DBRX train_4k widths
     (H 6144, 16 experts top-4, LocalComm(8), TL_T tokens a rank, bf16
@@ -3482,7 +3605,8 @@ def train_layout_phase(card: str) -> None:
     under fp8) and against HT flat's of the same precision on the same
     routing; the hierarchical path's at 2 chunks bitwise equal to 1's. Each
     transpose's launches per rank exact (``ep_transpose_launches``) and its
-    device time printed."""
+    device time printed beside its byte bound (``pass_bytes``) and the
+    same transpose on the plain versions (``plain_route``)."""
     t_start = time.perf_counter()
     full = full_config("train_4k")
     d, m, dt = full.d_model, full.moe, full.dtype
@@ -3536,25 +3660,34 @@ def train_layout_phase(card: str) -> None:
         # hierarchical slot-domain sum reads, else the rows each rank received
         saved = ([HT.combine_rows(group, y) for y in y3ds] if hier else
                  [p_.recv for p_ in ep_combine(group, hs, y3ds, send_only=True)])
+        moved = [0], [0]          # bytes of the dispatch's and the combine's passes
         reset_counts()
-        LL.dispatch_transpose(group, hs, d_y3ds)
+        with pass_bytes(comm, moved[0]):
+            LL.dispatch_transpose(group, hs, d_y3ds)
         torch.cuda.synchronize()
         check_launches(counts(), {k: v * RANKS for k, v in want_d.items()},
                        f"{name}: the dispatch's backward")
         reset_counts()
-        LL.combine_transpose(group, hs, saved, cots)
+        with pass_bytes(comm, moved[1]):
+            LL.combine_transpose(group, hs, saved, cots)
         torch.cuda.synchronize()
         check_launches(counts(), {k: v * RANKS for k, v in want_c.items()},
                        f"{name}: the combine's backward")
         disp_ms = device_ms(lambda: LL.dispatch_transpose(group, hs, d_y3ds), 3)
         comb_ms = device_ms(lambda: LL.combine_transpose(group, hs, saved, cots), 3)
+        with plain_route():       # the same passes on the plain versions
+            plain = [device_ms(lambda: LL.dispatch_transpose(group, hs, d_y3ds), 2),
+                     device_ms(lambda: LL.combine_transpose(group, hs, saved, cots), 2)]
+        bnd = [bound(b[0], 0, 1.0)[0] for b in moved]
         res[name] = dict(d_x=d_x, d_w=d_w)
         print(f"  {name}: d_x {errs['d_x']:.3g}, d_w {errs['d_w']:.3g} off the analytic "
               f"gradient" + (f", {errs['d_x vs flat']:.3g} / {errs['d_w vs flat']:.3g} off "
                              f"{flat}'s" if flat else "")
               + f" (limit {TL_REL}); the dispatch's backward {disp_ms:.4f} ms ({RANKS} ranks, "
-              f"launches a rank {want_d}), the combine's {comb_ms:.4f} ms (launches a rank "
-              f"{want_c})")
+              f"launches a rank {want_d}; its passes move {moved[0][0] / 1e9:.4f} GB, bound "
+              f"{bnd[0]:.4f} ms; on the plain versions {plain[0]:.4f} ms), the combine's "
+              f"{comb_ms:.4f} ms (launches a rank {want_c}; {moved[1][0] / 1e9:.4f} GB, bound "
+              f"{bnd[1]:.4f} ms; plain {plain[1]:.4f} ms)")
         del fwd, d_y3ds, y3ds, saved, hs, group
         gc.collect()
         torch.cuda.empty_cache()
@@ -3582,7 +3715,8 @@ def train_trace(cfg, params, batch, comm=None, traced: bool = True) -> dict:
 
     def run():
         loss, _ = fwd(params, micro, cfg, comm)
-        torch.autograd.grad(loss, inputs)
+        # a selection bias picks experts and weighs none: no gradient
+        torch.autograd.grad(loss, inputs, allow_unused=True)
         torch.cuda.synchronize()
     run()
     if not traced:
@@ -3613,10 +3747,12 @@ def run_trainer(tr: Trainer, params, opt, batch) -> dict:
     ``batch``: each step timed with the card synchronised and its launches
     counted; the optimizer, and over a ``DistComm`` the gradient reduce,
     timed on their own (``runtime/steps.py``'s, looked up by name);
-    step 1's gradients finite and not all zero; no plain version reached.
+    step 1's gradients finite and not all zero (a selection bias's all
+    zero: no loss term reaches it); no plain version reached.
     Returns the trained params and state, the losses and gradient norms,
     the step, optimizer and reduce seconds, the reduce's bytes, each
-    step's launches and the peak device memory (GiB)."""
+    step's launches and ``MlaChunked`` calls (``mla_calls``) and the peak
+    device memory allocated and reserved (GiB)."""
     tr.init_state = lambda: (params, opt)
     tr.data.batch_at = lambda step: batch
     opt_s, reduce_s, reduce_bytes, step_info = [], [], [], []
@@ -3625,9 +3761,12 @@ def run_trainer(tr: Trainer, params, opt, batch) -> dict:
     def timed_update(prm, grads, state, oc, **kw):
         torch.cuda.synchronize()
         if not opt_s:              # step 1: every gradient finite and not all zero
+            # but a selection bias's, which no loss term reaches: all zero
             bad = [n for n, g_ in zip(leaf_names(grads), leaves(grads))
-                   if not bool(torch.isfinite(g_).all()) or not bool(g_.abs().amax() > 0)]
-            check(not bad, f"step 1: gradients not finite or all zero: {bad}")
+                   if not bool(torch.isfinite(g_).all())
+                   or bool(g_.abs().amax() > 0) == n.endswith("sel_bias")]
+            check(not bad, f"step 1: gradients not finite, all zero, or (a selection "
+                  f"bias's) not zero: {bad}")
         t0 = time.perf_counter()
         out = update(prm, grads, state, oc, **kw)
         torch.cuda.synchronize()
@@ -3650,7 +3789,7 @@ def run_trainer(tr: Trainer, params, opt, batch) -> dict:
         t0 = time.perf_counter()
         out = inner(prm, state, b)
         torch.cuda.synchronize()
-        step_info.append((time.perf_counter() - t0, counts()))
+        step_info.append((time.perf_counter() - t0, counts(), mla_calls()))
         return out
     tr.step_fn = step
     calls: Counter = Counter()
@@ -3667,9 +3806,11 @@ def run_trainer(tr: Trainer, params, opt, batch) -> dict:
           "the trained parameters came back requiring grad")
     return dict(params=params, opt=opt, losses=[r["loss"] for r in tr.metrics_log],
                 gnorms=[r["gnorm"] for r in tr.metrics_log],
-                step_s=[t_ for t_, _ in step_info], opt_s=opt_s, reduce_s=reduce_s,
-                reduce_bytes=reduce_bytes, launches=[c for _, c in step_info],
-                peak=torch.cuda.max_memory_allocated() / 2**30)
+                step_s=[t_ for t_, _, _ in step_info], opt_s=opt_s, reduce_s=reduce_s,
+                reduce_bytes=reduce_bytes, launches=[c for _, c, _ in step_info],
+                mla=[m_ for _, _, m_ in step_info],
+                peak=torch.cuda.max_memory_allocated() / 2**30,
+                peak_reserved=torch.cuda.max_memory_reserved() / 2**30)
 
 
 def check_train_launches(launches: list, want: dict, where: str) -> None:
@@ -3804,6 +3945,175 @@ def hier_train_run(card: str, flat_loss: float, flat_step_s: float) -> None:
           f"memory {run['peak']:.2f} GiB; launches per step {run['launches'][0]} = "
           f"train_launches on the hierarchical path; no plain version reached; "
           f"{time.perf_counter() - t0:.1f} s")
+    del run, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# MLA's recomputing backward, and training an MLA config on one card
+# ---------------------------------------------------------------------------
+
+# the chunked MLA attention at full width: one row of MLA_SEQ tokens, bf16,
+# the train_4k preset's kv_chunk. Each gradient of MlaChunked within
+# MLA_GRAD_REL of autograd through the plain loop (relative to its largest
+# value: both sum in f32 from the same bf16 inputs in another order, and
+# round once), the forward bitwise, and the Function's peak above its
+# inputs at most MLA_PEAK_SHARE of the loop's
+MLA_SEQ, MLA_GRAD_REL, MLA_PEAK_SHARE = 4096, 2e-2, 1 / 3
+MLA_ARCHS = {"deepseek-v3-671b": "DeepSeek-V3", "minicpm3-4b": "MiniCPM3-4B"}
+
+
+def mla_inputs(cfg, seq: int, seed: int) -> tuple[list, torch.Tensor, float]:
+    """(q_nope, q_rope, ckv, k_rope, wk_b, wv_b) of one row of ``seq``
+    tokens at ``cfg``'s MLA widths in its dtype (unit queries, keys and
+    latents; the up-projections at init scale, so the scores have unit
+    spread), an f32 output cotangent rounded through the dtype, and the
+    softmax scale."""
+    m, h = cfg.mla, cfg.padded_heads()
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def rnd(shape, scale=1.0, dt=cfg.dtype):
+        return (torch.randn(shape, generator=g, device=DEV) * scale).to(dt)
+    r = m.kv_lora_rank
+    ins = [rnd((1, seq, h, m.qk_nope_dim)), rnd((1, seq, h, m.qk_rope_dim)), rnd((1, seq, r)),
+           rnd((1, seq, m.qk_rope_dim)), rnd((r, h, m.qk_nope_dim), r ** -0.5),
+           rnd((r, h, m.v_head_dim), r ** -0.5)]
+    cot = rnd((1, seq, h, m.v_head_dim)).float()
+    return ins, cot, (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+
+
+def mla_grad_run(fn, ins: list, cot: torch.Tensor) -> tuple:
+    """``fn``'s forward and backward on copies of ``ins`` that require
+    grad, the card synchronised: (the input gradients, seconds, the peak
+    device memory above what was allocated before, GiB)."""
+    xs = [t.detach().clone().requires_grad_() for t in ins]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fn(*xs).backward(cot)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return [t.grad for t in xs], sec, peak
+
+
+def mla_phase(card: str) -> None:
+    """MLA's chunked attention with its recomputing backward (``MlaChunked``)
+    against the plain loop at each MLA config's train_4k widths (one row of
+    MLA_SEQ tokens, bf16): the forward bitwise, with and without grad;
+    each gradient within MLA_GRAD_REL of autograd through the loop; the
+    backward run once a call; each one's forward + backward seconds (the
+    second of two runs) and its peak above its inputs, the Function's at
+    most MLA_PEAK_SHARE of the loop's."""
+    t_start = time.perf_counter()
+    for i, (arch, model) in enumerate(MLA_ARCHS.items()):
+        cfg = get_config(arch, "train_4k")
+        m, chunk = cfg.mla, cfg.attn.kv_chunk
+        ins, cot, scale = mla_inputs(cfg, MLA_SEQ, 60 + i)
+
+        def loop(qn, qr, ck, kr, wk, wv):
+            return mla_mod._mla_chunked({"wk_b": wk, "wv_b": wv}, qn, qr, ck, kr, scale,
+                                        cfg.dtype, chunk=chunk)
+
+        def fn(*a):
+            return mla_mod.MlaChunked.apply(*a, scale, cfg.dtype, chunk)
+        with torch.no_grad():
+            want = loop(*ins)
+            check(torch.equal(fn(*ins), want), f"{model}: MlaChunked's forward differs from "
+                  "the plain loop's")
+        xs = [t.detach().clone().requires_grad_() for t in ins]
+        check(torch.equal(fn(*xs).detach(), want), f"{model}: MlaChunked's forward under "
+              "grad differs from the plain loop's")
+        del want, xs
+        runs = {}
+        for name, f in (("loop", loop), ("MlaChunked", fn)):
+            for _ in range(2):
+                reset_counts()
+                runs[name] = mla_grad_run(f, ins, cot)
+            check(mla_calls() == ((1, 1) if name == "MlaChunked" else (0, 0)),
+                  f"{model}: {name}'s run called MlaChunked {mla_calls()} times")
+        (lg, ls, lp), (fg, fs, fp) = runs["loop"], runs["MlaChunked"]
+        names = ("q_nope", "q_rope", "ckv", "k_rope", "wk_b", "wv_b")
+        errs = {n: max_err(a, b) / float(b.float().abs().max()) for n, a, b in zip(names, fg, lg)}
+        bad = {n: e for n, e in errs.items() if not e <= MLA_GRAD_REL}
+        check(not bad, f"{model}: MlaChunked's gradients off autograd of the loop by {bad} "
+              f"(limit {MLA_GRAD_REL})")
+        check(fp <= MLA_PEAK_SHARE * lp, f"{model}: MlaChunked's peak {fp:.3f} GiB is over "
+              f"{MLA_PEAK_SHARE:.3f} of the loop's {lp:.3f} GiB")
+        err_line = ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+        print(f"MLA backward, {model} train_4k widths ({card}): one row of {MLA_SEQ} tokens, "
+              f"{cfg.padded_heads()} heads (of {cfg.attn.n_heads}), nope {m.qk_nope_dim}, rope "
+              f"{m.qk_rope_dim}, kv_lora {m.kv_lora_rank}, v {m.v_head_dim}, chunk {chunk}, "
+              f"{cfg.dtype}: MlaChunked's forward bitwise equal to the plain loop's (with and "
+              f"without grad); its gradients off autograd of the loop by {err_line} relative "
+              f"to each one's largest (limit {MLA_GRAD_REL}); forward + backward "
+              f"{fs * 1e3:.1f} ms against the loop's {ls * 1e3:.1f} ms; peak above the inputs "
+              f"{fp:.3f} GiB against the loop's {lp:.3f} GiB ({fp / lp:.3f}, limit "
+              f"{MLA_PEAK_SHARE:.3f})")
+        del ins, cot, runs, lg, fg
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"MLA phase {time.perf_counter() - t_start:.1f} s")
+
+
+# MiniCPM3-4B train_4k on one card: its LAYERS layers whole unless the
+# reckoned state (DT_STATE_PER_PARAM bf16 copies of each parameter) plus
+# MC_ACT_GIB of activations passes DT_MAX_GIB, then cut to fit; a global
+# batch of MC_BATCH x 4096 in MC_MICRO micro-batches, MC_STEPS steps on the
+# repeated batch, bf16 moments
+MC_BATCH, MC_MICRO, MC_STEPS, MC_ACT_GIB = 4, 2, 2, 12.0
+
+
+def minicpm_train_phase(card: str) -> None:
+    """The Trainer on MiniCPM3-4B at full width (train_4k: MLA over 40 heads
+    padded to 48, tied embeddings, remat), the one-card path through
+    ``MlaChunked`` at its widths: the losses finite and falling, no kernel
+    launched (MLA and the dense FFN are plain torch), ``MlaChunked``'s
+    calls exact (``mla_train_calls``), no plain version reached; the step
+    and optimizer seconds, train tok/s and the peak printed."""
+    t0 = time.perf_counter()
+    full = get_config("minicpm3-4b", "train_4k")
+    spec = tf_mod.lm_spec(full)
+    per_layer = sum(np.prod(s.shape) for s in leaves(spec["dense_stack"])) / full.num_layers
+    rest = sum(np.prod(s.shape) for s in leaves(spec)) - per_layer * full.num_layers
+    state = lambda n: DT_STATE_PER_PARAM * 2 * (rest + per_layer * n) / 2**30  # noqa: E731
+    layers = full.num_layers
+    while state(layers) + MC_ACT_GIB > DT_MAX_GIB:
+        layers -= 1
+    cfg = dataclasses.replace(full, num_layers=layers, microbatch=MC_MICRO)
+    tr = Trainer(cfg, TrainerConfig(steps=MC_STEPS, global_batch=MC_BATCH, seq_len=DT_SEQ,
+                                    log_every=1), opt_cfg=AdamWConfig(
+                     lr=TRAIN_LR, total_steps=MC_STEPS, warmup_steps=1,
+                     state_dtype=torch.bfloat16), device=DEV)
+    params, opt = tr.init_state()
+    weights = tree_bytes(params) / 2**30
+    run = run_trainer(tr, params, opt, tr.data.batch_at(0))
+    del params, opt
+    losses, step_s = run["losses"], run["step_s"]
+    check(len(losses) == MC_STEPS and all(np.isfinite(losses)), f"MiniCPM3 losses {losses}")
+    check(losses[-1] < losses[0], f"the MiniCPM3 loss did not fall over {MC_STEPS} steps on "
+          f"a repeated batch: {losses}")
+    check_train_launches(run["launches"], {}, "MiniCPM3 train step")
+    want = mla_train_calls(cfg, MC_BATCH // MC_MICRO)
+    check(all(c == want for c in run["mla"]), f"MiniCPM3 train steps called MlaChunked "
+          f"{run['mla']} times (forwards, backwards), expected {want} a step")
+    med = float(np.median(step_s))
+    print(f"Trainer, MiniCPM3-4B train_4k at full width ({card}): {layers} of "
+          f"{full.num_layers} layers ({'whole' if layers == full.num_layers else 'cut: the '
+          f'reckoned state of more passes {DT_MAX_GIB} GiB'}; {state(layers):.2f} GiB of "
+          f"state reckoned), {cfg.padded_heads()} heads (of {cfg.attn.n_heads}), tied "
+          f"embeddings, remat {cfg.remat}, {MC_BATCH} x {DT_SEQ} in {MC_MICRO} micro-batches "
+          f"(the preset's {full.microbatch}), bf16 moments: losses "
+          f"{[round(x, 6) for x in losses]} (falling); grad norms "
+          f"{[round(g_, 4) for g_ in run['gnorms']]}; step {[round(x, 4) for x in step_s]} s, "
+          f"optimizer {[round(x, 4) for x in run['opt_s']]} s; {MC_BATCH * DT_SEQ / med:.1f} "
+          f"train tok/s (median step); weights {weights:.2f} GiB, peak {run['peak']:.2f} GiB; "
+          f"no kernel launched; MlaChunked calls a step {run['mla'][0]} (forwards, backwards) "
+          f"= mla_train_calls; no plain version reached; {time.perf_counter() - t0:.1f} s")
     del run, tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -5379,14 +5689,185 @@ def dist_train_full(comm, dev, rank: int, world: int, layout: str | None = None)
     return out
 
 
+# DeepSeek-V3-671B train_4k at one EP rank a card (EP 4 over data, 64 experts
+# a card; HT flat, fp8 dispatch, capacities 1.25, remat), bf16 moments: a
+# global batch of DS_TRAIN_BATCH x DT_SEQ in DS_TRAIN_MICRO micro-batches
+# (one row a card in each), DS_TRAIN_STEPS steps of the Trainer on the
+# repeated batch. MTP off: its MoE layer would add about 37 GB of state a
+# card (the MTP gradient is held on the CPU). Depth: one MoE layer
+# (first_k_dense 0: 4.905 B parameters a card, 54.8 GiB of state) probed
+# with one step, then one dense layer before it (first_k_dense 1: 5.488 B,
+# 61.3 GiB) if the probe's peak reserved by the allocator (its allocated
+# peak and the free blocks it could not reuse) plus the dense layer's
+# reckoned state stays within DT_MAX_GIB on every card. With the allocated
+# peak instead (61.67 + 6.52 = 68.19 GiB) the dense layer was taken and the
+# third step ran out of memory with 65.31 GiB allocated and 10.08 GiB held
+# in blocks none of which fit a 2 GiB score tile (H100 80GB HBM3, 700 W)
+DS_TRAIN_BATCH, DS_TRAIN_MICRO, DS_TRAIN_STEPS = 8, 2, 3
+
+
+def ds_train_config(dense: int):
+    """(the train_4k preset, its cut: ``dense`` dense layers and one MoE
+    layer, MTP off, DS_TRAIN_MICRO micro-batches)."""
+    full = ds_full_config("train_4k")
+    return full, dataclasses.replace(full, num_layers=dense + 1, mtp=False,
+                                     microbatch=DS_TRAIN_MICRO,
+                                     moe=dataclasses.replace(full.moe, first_k_dense=dense))
+
+
+def ds_train_full(comm, dev, rank: int, world: int) -> dict:
+    """The Trainer on DeepSeek-V3-671B train_4k at full width with one EP
+    rank a card (``ds_train_config``; the depth by a one-step probe of
+    the reserved peak): the
+    losses finite and falling, the gradient norms finite, every replicated
+    leaf bitwise equal on every process after the steps, each step's
+    launches exact for one hosted rank (``train_launches``: B1 in fp8
+    mode, B2, B3, ``grouped_gemm_dw``, B4 and its backward; MLA launches
+    none), ``MlaChunked``'s calls exact (``mla_train_calls``), no plain
+    version reached; then the backward's GEMMs at the step's shapes
+    (``ds_train_kernels``) and one micro-batch traced on rank 0."""
+    t = time.perf_counter()
+    full, probe = ds_train_config(0)
+    tr = dist_trainer(probe, comm, dev, 1, DS_TRAIN_BATCH, DT_SEQ)
+    params, opt = tr.init_state()
+    gc.collect()
+    torch.cuda.empty_cache()             # the init's one-layer expert draw
+    r = run_trainer(tr, params, opt, tr.data.batch_at(0))
+    probe_peak, probe_reserved, probe_s = r["peak"], r["peak_reserved"], r["step_s"][0]
+    del tr, params, opt, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = tf_mod.lm_spec(ds_train_config(1)[1])["dense_stack"]
+    dense_gib = DT_STATE_PER_PARAM * 2 * sum(int(np.prod(s_.shape)) for s_ in leaves(spec)) / 2**30
+    reckoned = probe_reserved + dense_gib
+    worst = comm.control_max([int(reckoned * 1024)])[0] / 1024
+    dense = 1 if worst <= DT_MAX_GIB else 0
+    progress(rank, f"DeepSeek-V3's 1-layer probe step (peak {probe_peak:.2f} GiB allocated, "
+             f"{probe_reserved:.2f} reserved; with a dense layer reckoned at {reckoned:.2f}, at "
+             f"most {worst:.2f} on a card): first_k_dense {dense}", t)
+    _, cfg = ds_train_config(dense)
+    tr = dist_trainer(cfg, comm, dev, DS_TRAIN_STEPS, DS_TRAIN_BATCH, DT_SEQ)
+    params, opt = tr.init_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+    weights = tree_bytes(params) / 2**30
+    params_card = sum(t_.numel() for t_ in leaves(params)) / 1e9
+    batch = tr.data.batch_at(0)
+    r = run_trainer(tr, params, opt, batch)
+    losses = r["losses"]
+    check(len(losses) == DS_TRAIN_STEPS and all(np.isfinite(losses))
+          and all(np.isfinite(r["gnorms"])), f"DeepSeek-V3 four-card losses {losses}, grad "
+          f"norms {r['gnorms']}")
+    check(losses[-1] < losses[0], f"the DeepSeek-V3 loss did not fall over {DS_TRAIN_STEPS} "
+          f"steps on a repeated batch: {losses}")
+    want = train_launches(cfg, 1, "nccl_ep")
+    check_train_launches(r["launches"], want, "DeepSeek-V3 four-card train step")
+    rows = DS_TRAIN_BATCH // DS_TRAIN_MICRO // world
+    want_mla = mla_train_calls(cfg, rows)
+    check(all(c == want_mla for c in r["mla"]), f"DeepSeek-V3 train steps called MlaChunked "
+          f"{r['mla']} times (forwards, backwards), expected {want_mla} a step")
+    out = dict(dense=dense, probe_peak=probe_peak, probe_reserved=probe_reserved,
+               probe_s=probe_s, reckoned=reckoned,
+               worst=worst, weights_gib=weights, params_card=params_card,
+               layers=cfg.num_layers, full_layers=full.num_layers, ep=comm.size,
+               experts=cfg.moe.num_experts // comm.size, axes=comm.axes, rows=rows,
+               **{k: r[k] for k in ("losses", "gnorms", "step_s", "opt_s", "reduce_s",
+                                    "reduce_bytes", "peak", "peak_reserved")},
+               launches=r["launches"][0], mla=r["mla"][0])
+    params = r["params"]
+    del opt, r, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["replicated"] = replicated_equal(params, cfg, comm)
+    with torch.no_grad():
+        ds_train_kernels(cfg, params, comm, dev, rank)
+    sl = comm.batch_rows(DS_TRAIN_BATCH // DS_TRAIN_MICRO)
+    out["trace"] = train_trace(cfg, params, {k: v[:, sl] for k, v in batch.items()}, comm,
+                               traced=rank == 0)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def ds_train_kernels(cfg, params, comm, dev, rank: int) -> None:
+    """The training backward's GEMMs at the four-card step's shapes: every
+    process dispatches one row of DT_SEQ tokens (seeded by its rank)
+    through MoE layer 0's router over ``comm``, so each card holds its 64
+    experts' rows at the step's capacity; rank 0 then runs
+    ``grouped_gemm_dw`` at the gate and down projections (``dw_case``) and
+    B3 as dX on the Wᵀ copy (``dx_case``), each against its plain version
+    and timed beside ``torch.bmm`` and its bound, while the others wait."""
+    p = _index(params["moe_stack"]["moe"], 0)
+    d, dt, F_ = cfg.d_model, cfg.dtype, cfg.moe.d_ff_expert
+    group = ep_group(cfg, comm, DT_SEQ)
+    gen = torch.Generator(device=dev).manual_seed(71 + rank)
+    x = torch.randn((DT_SEQ, d), generator=gen, device=dev).to(dt)
+    r = route(x.float() @ p["router"], router_config(cfg.moe), p.get("sel_bias"))
+    hs = ep_create_handle(group, [r.topk_idx], [r.topk_weights])
+    (y3d, counts_), = ep_complete(group, hs, ep_dispatch(group, hs, [x], send_only=True))
+    dist.barrier()
+    if rank == 0:
+        L, A = y3d.shape[:2]
+        print(f"DeepSeek-V3 backward GEMMs at the four-card step's shapes (rank 0, {L} experts, "
+              f"capacity {A} rows, {int(counts_.clamp(max=A).sum())} live):")
+        for label, x_, w in (("gate", y3d, p["w_gate"]), ("down", None, p["w_down"])):
+            if x_ is None:
+                x_ = torch.randn((L, A, F_), generator=gen, device=dev).to(dt)
+            dy = (torch.randn((L, A, w.shape[2]), generator=gen, device=dev) * 0.1).to(dt)
+            dw_case(f"DeepSeek-V3 {label}", x_, dy, counts_)
+            dx_case(f"DeepSeek-V3 {label} dX (B3 on dY, Wᵀ)", dy, w, counts_)
+            del dy, x_
+    del y3d, hs
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def ds_train_line(f: dict, who: str, label: str, card: str) -> None:
+    """The DeepSeek-V3 four-card Trainer's lines (``ds_train_full``)."""
+    micro = [(s_ - o - rd) / DS_TRAIN_MICRO for s_, o, rd in zip(f["step_s"], f["opt_s"],
+                                                                f["reduce_s"])]
+    med = float(np.median(f["step_s"]))
+    tok = DS_TRAIN_BATCH * DT_SEQ
+    print(f"dist ({label}) Trainer(comm=DistComm), {who}, DeepSeek-V3-671B train_4k at full "
+          f"width, EP extent {f['ep']} over {f['axes']} ({f['experts']} experts a card), HT "
+          f"flat, fp8 dispatch, capacity 1.25, remat, MLA through MlaChunked ({card}); cut "
+          f"(reduced): num_layers {f['full_layers']} -> {f['layers']} (first_k_dense 3 -> "
+          f"{f['dense']}), mtp on -> off, the mesh {f['ep']} cards one EP rank each, the "
+          f"batch {DS_TRAIN_BATCH} x {DT_SEQ} global in {DS_TRAIN_MICRO} micro-batches "
+          f"({f['rows']} row a card each; the preset's microbatch 8): losses "
+          f"{[round(x, 6) for x in f['losses']]} over {DS_TRAIN_STEPS} steps on a repeated "
+          f"batch (falling); grad norms {[round(g_, 4) for g_ in f['gnorms']]} (finite); "
+          f"{f['replicated']} replicated leaves bitwise equal on every process; step "
+          f"{[round(x, 4) for x in f['step_s']]} s, per micro-batch (forward + backward, the "
+          f"norm) {[round(x, 4) for x in micro]} s, gradient reduce "
+          f"{[round(x, 4) for x in f['reduce_s']]} s of {f['reduce_bytes'][0] / 2**30:.3f} "
+          f"GiB, optimizer {[round(x, 4) for x in f['opt_s']]} s; {tok / med:.1f} train tok/s "
+          f"over the mesh, {tok / med / f['ep']:.1f} a card (median step); "
+          f"{f['params_card']:.3f} B parameters a card, weights {f['weights_gib']:.2f} GiB, "
+          f"peak {f['peak']:.2f} GiB a card ({f['peak_reserved']:.2f} reserved; the "
+          f"1-MoE-layer probe {f['probe_peak']:.2f}, {f['probe_reserved']:.2f} reserved, its "
+          f"step {f['probe_s']:.3f} s; with a dense layer reckoned at {f['reckoned']:.2f} "
+          f"reserved, at most {f['worst']:.2f} on a card, limit {DT_MAX_GIB}); launches per step "
+          f"{f['launches']} = train_launches for one hosted rank; MlaChunked calls a step "
+          f"{f['mla']} (forwards, backwards) = mla_train_calls; no plain version reached; "
+          f"{f['seconds']:.1f} s")
+    if f["trace"]:
+        print(f"dist ({label}) Trainer(comm=DistComm), {who}, DeepSeek-V3 ({card}): "
+              f"{f['trace']['line']}")
+
+
 def dist_train_phase(out: dict, comm, hcomm, dev, rank: int, world: int, backend: str,
                      t0: float) -> None:
     """The training sub-phases of one rank, into ``out``: at EP extent > 1
     the HT flat check (``dist_train_check``); at world DS_DIST_WORLD over
     NCCL then the four-card Trainer in HT flat (``dist_train_full``), and,
     every tensor of the flat runs freed, the check in each of DT_LAYOUTS
-    (the hierarchical one over ``hcomm``, a DistComm of DIST_HIER_AXES) and
-    the four-card Trainer on the hierarchical path."""
+    (the hierarchical one over ``hcomm``, a DistComm of DIST_HIER_AXES),
+    the four-card Trainer on the hierarchical path and, DBRX freed,
+    DeepSeek-V3's four-card Trainer (``ds_train_full``)."""
     if comm.size == 1:
         return
     out["train"] = dist_train_check(comm, dev, rank, world)
@@ -5406,6 +5887,10 @@ def dist_train_phase(out: dict, comm, hcomm, dev, rank: int, world: int, backend
     torch.cuda.empty_cache()
     out["train_hier_full"] = dist_train_full(hcomm, dev, rank, world, "hierarchical HT")
     progress(rank, "DBRX's four-card hierarchical Trainer", t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train_ds"] = ds_train_full(comm, dev, rank, world)
+    progress(rank, "DeepSeek-V3's four-card Trainer", t0)
 
 
 def dist_train_lines(out: dict, who: str, label: str, card: str, gloo: bool) -> None:
@@ -5428,6 +5913,9 @@ def dist_train_lines(out: dict, who: str, label: str, card: str, gloo: bool) -> 
         print(f"dist ({label}) Trainer(comm=DistComm), {who} ({card}): hierarchical / flat "
               f"median step {ratio:.3f} ({h['layers']} and {f['layers']} layers; one NVLink "
               f"node, where the reference expects flat to win)")
+    d = out.get("train_ds")
+    if d is not None:
+        ds_train_line(d, who, label, card)
 
 
 def dist_check_line(c: dict, who: str, label: str, card: str, gloo: bool) -> None:
@@ -6136,10 +6624,14 @@ def main(argv=None) -> int:
     # spawned processes that share the card in dist_phase
     gc.collect()
     torch.cuda.empty_cache()
+    mla_phase(card)
     train_layout_phase(card)
     gc.collect()
     torch.cuda.empty_cache()
     train_rows = train_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    minicpm_train_phase(card)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values()) + ds_rows + dense_rows + train_rows}))
     print(json.dumps({"ok": True, "device": {

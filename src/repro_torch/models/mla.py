@@ -5,7 +5,8 @@ Without a cache (training, prefill): queries through the low-rank q path;
 keys and values decompressed from the shared latent ``c_kv`` plus one shared
 RoPE key head. At ``S >= CHUNKED_ATTN_THRESHOLD`` the keys and values are
 decompressed one KV chunk at a time under an online softmax
-(``_mla_chunked``), so only the compressed latents stay resident.
+(``_mla_chunked``), so only the compressed latents stay resident; under
+autograd through ``MlaChunked``, whose backward recomputes each chunk.
 
 Decode is the *absorbed* form: the cache holds only [c_kv (r_kv) | k_rope]
 per token, W_uk is absorbed into the query and W_uv into the output
@@ -91,11 +92,9 @@ def _latents(p, x, cfg: ArchConfig, positions):
     return ckv, k_rope
 
 
-def _mla_chunked(p, q_nope, q_rope, ckv, k_rope, scale, out_dtype, chunk=1024):
-    """Causal online-softmax MLA attention, K/V decompressed one chunk of
-    ``chunk`` (``AttnSpec.kv_chunk``) at a time. A ragged tail (S % chunk)
-    is zero-padded and masked out exactly; probabilities are cast to
-    ``out_dtype`` before the P·V product. Returns [B, Sq, H, dv] f32."""
+def _mla_loop(q_nope, q_rope, ckv, k_rope, wk_b, wv_b, scale, out_dtype, chunk):
+    """The chunk loop of ``_mla_chunked`` -> (out [B, H, Sq, dv] f32
+    normalised, the row max m and the row sum l [B, H, Sq] f32)."""
     B, Sq, H, _ = q_nope.shape
     S = ckv.shape[1]
     pad = (-S) % chunk
@@ -104,15 +103,15 @@ def _mla_chunked(p, q_nope, q_rope, ckv, k_rope, scale, out_dtype, chunk=1024):
         k_rope = F.pad(k_rope, (0, 0, 0, pad))
     dev = q_nope.device
     q_pos = torch.arange(Sq, device=dev)
-    dv = p["wv_b"].shape[-1]
+    dv = wv_b.shape[-1]
     m = torch.full((B, H, Sq), -1e30, device=dev)
     l = torch.zeros((B, H, Sq), device=dev)
     acc = torch.zeros((B, H, Sq, dv), device=dev)
     for ci in range((S + pad) // chunk):
         ck = ckv[:, ci * chunk:(ci + 1) * chunk]
         kr = k_rope[:, ci * chunk:(ci + 1) * chunk]
-        k_nope = torch.einsum("bsr,rhk->bshk", ck, p["wk_b"])
-        v = torch.einsum("bsr,rhk->bshk", ck, p["wv_b"])
+        k_nope = torch.einsum("bsr,rhk->bshk", ck, wk_b)
+        v = torch.einsum("bsr,rhk->bshk", ck, wv_b)
         s = (_dot32("bqhk,bshk->bhqs", q_nope, k_nope)
              + _dot32("bqhk,bsk->bhqs", q_rope, kr)) * scale
         k_pos = ci * chunk + torch.arange(chunk, device=dev)
@@ -124,8 +123,109 @@ def _mla_chunked(p, q_nope, q_rope, ckv, k_rope, scale, out_dtype, chunk=1024):
         l = l * corr + pb.sum(-1)
         acc = acc * corr[..., None] + _dot32("bhqs,bshk->bhqk", pb.to(out_dtype), v)
         m = m2
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]            # [B, H, Sq, dv]
+        # the scores go before the next chunk's are made (the arithmetic
+        # is the same; without grad a chunk's tiles are 2 GiB each at
+        # DeepSeek-V3's 128 heads and Sq 4096)
+        del s, pb
+    return acc / torch.clamp_min(l, 1e-30)[..., None], m, l
+
+
+def _mla_chunked(p, q_nope, q_rope, ckv, k_rope, scale, out_dtype, chunk=1024):
+    """Causal online-softmax MLA attention, K/V decompressed one chunk of
+    ``chunk`` (``AttnSpec.kv_chunk``) at a time. A ragged tail (S % chunk)
+    is zero-padded and masked out exactly; probabilities are cast to
+    ``out_dtype`` before the P·V product. Returns [B, Sq, H, dv] f32.
+
+    The plain loop: under autograd it keeps every chunk's scores and
+    probabilities (about 6 GiB a chunk a row at DeepSeek-V3's widths).
+    ``mla_attention`` runs it through ``MlaChunked``, whose forward is this
+    loop and whose backward recomputes; the tests hold the two together."""
+    out, _, _ = _mla_loop(q_nope, q_rope, ckv, k_rope, p["wk_b"], p["wv_b"], scale,
+                          out_dtype, chunk)
     return out.permute(0, 2, 1, 3)
+
+
+# calls of MlaChunked's forward and of its backward (chip_smoke.py reads
+# them to show the training path went through the Function)
+mla_chunked_calls = 0
+mla_chunked_bwd_calls = 0
+
+
+class MlaChunked(torch.autograd.Function):
+    """``_mla_chunked`` with a recomputing backward, as FlashAttention-2's.
+
+    The forward is the plain loop, bitwise, and saves only its inputs, the
+    normalised f32 output and the row log-sum-exp ``m + log l``. The
+    backward walks the KV chunks and, inside each, blocks of ``chunk``
+    queries (a block wholly before the chunk is skipped: the causal mask
+    leaves it nothing), recomputing the chunk's keys and values from its
+    latents: P = exp(S - lse) under the forward's mask, dV = Pᵀ dO with P
+    cast to ``out_dtype`` as the forward casts it into P·V, dS = P ∘ (dO Vᵀ
+    - rowsum(dO ∘ O)) · scale; the queries', the rope keys', the latents'
+    and ``wk_b`` / ``wv_b``'s gradients summed in f32 and returned in each
+    input's dtype. Its transient memory is a few [B, H, chunk, chunk] f32
+    tiles."""
+
+    @staticmethod
+    def forward(ctx, q_nope, q_rope, ckv, k_rope, wk_b, wv_b, scale, out_dtype, chunk):
+        global mla_chunked_calls
+        mla_chunked_calls += 1
+        out, m, l = _mla_loop(q_nope, q_rope, ckv, k_rope, wk_b, wv_b, scale, out_dtype,
+                              chunk)
+        if any(ctx.needs_input_grad[:6]):
+            ctx.save_for_backward(q_nope, q_rope, ckv, k_rope, wk_b, wv_b, out,
+                                  m + torch.log(l))
+            ctx.opts = (scale, out_dtype, chunk)
+        return out.permute(0, 2, 1, 3)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        global mla_chunked_bwd_calls
+        mla_chunked_bwd_calls += 1
+        q_nope, q_rope, ckv, k_rope, wk_b, wv_b, out, lse = ctx.saved_tensors
+        scale, out_dtype, chunk = ctx.opts
+        Sq, S = q_nope.shape[1], ckv.shape[1]
+        dev = q_nope.device
+        do = d_out.float().permute(0, 2, 1, 3)                  # [B, H, Sq, dv]
+        delta = (do * out).sum(-1)                              # [B, H, Sq]
+        dqn = torch.zeros(q_nope.shape, device=dev)
+        dqr = torch.zeros(q_rope.shape, device=dev)
+        dckv = torch.zeros(ckv.shape, device=dev)
+        dkr = torch.zeros(k_rope.shape, device=dev)
+        dwk = torch.zeros(wk_b.shape, device=dev)
+        dwv = torch.zeros(wv_b.shape, device=dev)
+        for k0 in range(0, S, chunk):
+            k1 = min(S, k0 + chunk)
+            ck, kr = ckv[:, k0:k1], k_rope[:, k0:k1]
+            k_nope = torch.einsum("bsr,rhk->bshk", ck, wk_b)
+            v = torch.einsum("bsr,rhk->bshk", ck, wv_b)
+            dkn = torch.zeros(k_nope.shape, device=dev)
+            dvv = torch.zeros(v.shape, device=dev)
+            k_pos = torch.arange(k0, k1, device=dev)
+            for q0 in range(k0, Sq, chunk):
+                q1 = min(Sq, q0 + chunk)
+                qn, qr = q_nope[:, q0:q1], q_rope[:, q0:q1]
+                s = (_dot32("bqhk,bshk->bhqs", qn, k_nope)
+                     + _dot32("bqhk,bsk->bhqs", qr, kr)) * scale
+                msk = k_pos[None, :] <= torch.arange(q0, q1, device=dev)[:, None]
+                p = torch.where(msk[None, None], torch.exp(s - lse[:, :, q0:q1, None]), 0.0)
+                del s
+                dob = do[:, :, q0:q1]
+                dvv += _dot32("bhqs,bhqk->bshk", p.to(out_dtype), dob)
+                ds = p * (_dot32("bhqk,bshk->bhqs", dob, v) - delta[:, :, q0:q1, None]) * scale
+                del p
+                dqn[:, q0:q1] += _dot32("bhqs,bshk->bqhk", ds, k_nope)
+                dqr[:, q0:q1] += _dot32("bhqs,bsk->bqhk", ds, kr)
+                dkn += _dot32("bhqs,bqhk->bshk", ds, qn)
+                dkr[:, k0:k1] += _dot32("bhqs,bqhk->bsk", ds, qr)
+                del ds
+            dckv[:, k0:k1] = (_dot32("bshk,rhk->bsr", dkn, wk_b)
+                              + _dot32("bshk,rhk->bsr", dvv, wv_b))
+            dwk += _dot32("bsr,bshk->rhk", ck, dkn)
+            dwv += _dot32("bsr,bshk->rhk", ck, dvv)
+        return (dqn.to(q_nope.dtype), dqr.to(q_rope.dtype), dckv.to(ckv.dtype),
+                dkr.to(k_rope.dtype), dwk.to(wk_b.dtype), dwv.to(wv_b.dtype),
+                None, None, None)
 
 
 def mla_attention(p, x: torch.Tensor, cfg: ArchConfig, *, positions=None,
@@ -150,10 +250,12 @@ def mla_attention(p, x: torch.Tensor, cfg: ArchConfig, *, positions=None,
             # one batch row at a time: a chunk step's f32 scores are [rows,
             # H, Sq, chunk], 2 GiB a row at 128 heads, Sq 4096 and chunk 1024,
             # and the sum, mask and exp copy them. Every row's arithmetic is
-            # the same as in one call over the batch
-            o = torch.cat([_mla_chunked(p, q_nope[b:b + 1], q_rope[b:b + 1], ckv[b:b + 1],
-                                        k_rope[b:b + 1], scale, x.dtype,
-                                        chunk=cfg.attn.kv_chunk) for b in range(B)])
+            # the same as in one call over the batch. Under autograd the
+            # Function keeps a row's inputs, output and log-sum-exp, and its
+            # backward recomputes the chunks
+            o = torch.cat([MlaChunked.apply(q_nope[b:b + 1], q_rope[b:b + 1], ckv[b:b + 1],
+                                            k_rope[b:b + 1], p["wk_b"], p["wv_b"], scale,
+                                            x.dtype, cfg.attn.kv_chunk) for b in range(B)])
         else:
             k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["wk_b"])
             v = torch.einsum("bsr,rhk->bshk", ckv, p["wv_b"])

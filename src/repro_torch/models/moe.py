@@ -34,10 +34,9 @@ The dispatch and combine run as ``core/ll.py``'s ``EpDispatch`` and
 ``EpCombine`` and the grouped GEMMs as ``kernels/autograd.py``'s: with no
 input that requires grad they record nothing, and under autograd every
 parameter gets its gradient through the EP path, in every mode and layout
-(HT flat and hierarchical, LL ``nccl_ep`` and ``deepep``, the baseline).
-Hierarchical HT under autograd with a ``model`` axis (expert-TP or the
-sequence split) is refused (ROADMAP A11e): no test holds that composition
-against the reference's AD yet.
+(HT flat and hierarchical, LL ``nccl_ep`` and ``deepep``, the baseline),
+hierarchical HT with a ``model`` axis too, expert-TP or the sequence split
+(``tests/test_torch_dist_train_hier.py``).
 """
 from __future__ import annotations
 
@@ -204,11 +203,6 @@ def moe_block(p, x: torch.Tensor, cfg: ArchConfig, comm, *, with_heat: bool = Fa
     Bl, Sl, D = parts[0].shape
     T = Bl * Sl
     group = ep_group(cfg, comm, T)
-    if (group.hierarchical and (comm.tp_axis or comm.seq_axis) and torch.is_grad_enabled()
-            and (x.requires_grad or p["router"].requires_grad)):
-        raise NotImplementedError(
-            "training hierarchical HT with a model axis (expert-TP or the sequence split) "
-            "is not held against the reference yet (ROADMAP A11e)")
     L = group.local_experts
     xs = [xp.reshape(T, D) for xp in parts]
     rcfg = router_config(m)

@@ -25,8 +25,10 @@ stream's single-stream result (its split-tile counters are per stream).
 The training backward: ``grouped_gemm_dw`` within the GEMM's limits,
 ``combine_gather_reduce_bwd``'s row gradient bitwise and its weight
 gradient within 1e-5, flash attention's LSE within 1e-4 and its dQ / dK-dV
-pair within 1e-4 (f32) or 5e-3 (bf16) relative, each deterministic; a
-kernel entry refuses a CUDA input that requires grad outside
+pair within 1e-4 (f32) or 5e-3 (bf16) relative, each deterministic; MLA's
+``MlaChunked`` at DeepSeek-V3's widths, its forward bitwise the plain
+loop's, its gradients within 2e-2 of autograd through the loop at a third
+of its peak memory or less; a kernel entry refuses a CUDA input that requires grad outside
 ``kernels/autograd.py``; ``moe_block``'s gradients through the kernels
 within 1e-4 of the same layer on the plain versions; the EP round trip's
 gradients in every layout (HT flat, ``deepep`` with and without fp8, the
@@ -1444,3 +1446,44 @@ def test_cuda_ep_roundtrip_backward_matches_cpu(hopper, layout):
     want = _ep_roundtrip_grads(opts, torch.device("cpu"), x, topk, w, cot)
     for a, b in zip(got, want):
         assert _rel(a, b) < 1e-5
+
+
+@pytest.mark.gpu
+def test_cuda_mla_chunked_backward_matches_the_loop(hopper):
+    """``MlaChunked`` at DeepSeek-V3's train_4k widths on the card (one row
+    of 4096 tokens, 128 heads, nope 128, rope 64, kv_lora 512, v 128, chunk
+    1024, bf16): its forward bitwise the plain loop's; each gradient within
+    2e-2 of its largest value of autograd through the loop (both sum in f32
+    from the same bf16 inputs, in another order); its peak above the inputs
+    at most a third of the loop's."""
+    from repro_torch.models import mla
+    S, H, dn, dr, r, dv, chunk = 4096, 128, 128, 64, 512, 128, 1024
+    scale = (dn + dr) ** -0.5
+    # unit queries, keys and latents; the up-projections at init scale
+    shapes = [((1, S, H, dn), 1.0), ((1, S, H, dr), 1.0), ((1, S, r), 1.0), ((1, S, dr), 1.0),
+              ((r, H, dn), r ** -0.5), ((r, H, dv), r ** -0.5)]
+    ins = [_rand(s, torch.bfloat16, hopper, sc, seed=i) for i, (s, sc) in enumerate(shapes)]
+    cot = _rand((1, S, H, dv), torch.bfloat16, hopper, seed=9).float()
+
+    def loop(qn, qr, ck, kr, wk, wv):
+        return mla._mla_chunked({"wk_b": wk, "wv_b": wv}, qn, qr, ck, kr, scale,
+                                torch.bfloat16, chunk=chunk)
+
+    def fn(*a):
+        return mla.MlaChunked.apply(*a, scale, torch.bfloat16, chunk)
+    with torch.no_grad():
+        assert torch.equal(fn(*ins), loop(*ins))
+    out = {}
+    for name, f in (("loop", loop), ("fn", fn)):
+        xs = [t.clone().requires_grad_() for t in ins]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        f(*xs).backward(cot)
+        torch.cuda.synchronize()
+        out[name] = ([t.grad for t in xs], torch.cuda.max_memory_allocated() - base)
+        del xs
+    for a, b in zip(out["fn"][0], out["loop"][0]):
+        assert a.dtype == b.dtype
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * float(b.float().abs().max())
+    assert out["fn"][1] <= out["loop"][1] / 3

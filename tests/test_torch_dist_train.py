@@ -16,7 +16,9 @@ sequence split over ``model`` (EP over data and model), hierarchical HT
 (2 chunks, capacity 1.25) on (pod 2, data 2) with EP over both, and the
 baseline and LL ``deepep`` on mesh data 4 (``deepep`` against
 ``LocalComm`` only: the reference's ``deepep`` layer is faulty, ROADMAP
-Queue C):
+Queue C); and DeepSeek-V3's smoke config in f32, HT flat on mesh data 4
+(MLA through ``MlaChunked`` over KV chunks of 16, the reference's MLA on its
+chunked branch too; nonzero selection biases; the MTP layer):
 
 * ``make_grad_step`` on micro-batch 0 (the forward, the backward and the
   gradient reduce) against ``jax.value_and_grad`` of the reference's
@@ -46,7 +48,7 @@ import pytest
 import torch
 
 from repro_torch.comm import DistComm, LocalComm
-from repro_torch.configs import dbrx_132b
+from repro_torch.configs import dbrx_132b, deepseek_v3_671b
 from repro_torch.launch.mesh import init_process, spawn
 from repro_torch.models.transformer import lm_spec
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -74,7 +76,11 @@ CASES = {
     "hier_ht": (POD_DATA, ("pod", "data"), HIER, 4),
     "data4_baseline": (WORLD, ("data",), dict(ep_mode="baseline"), 4),
     "data4_deepep": (WORLD, ("data",), dict(ep_mode="ll", ll_layout="deepep"), 4),
+    "ds_data4_ht": (WORLD, ("data",), HT, 4),
 }
+# the cases on DeepSeek-V3's smoke config (the others: DBRX's)
+DS_CASES = ("ds_data4_ht",)
+DS_KV_CHUNK = 16
 # the reference's deepep layer is faulty (ROADMAP Queue C): held against
 # LocalComm only
 NO_JAX = ("data4_deepep",)
@@ -93,19 +99,26 @@ TRAIN = dict(steps=3, global_batch=8, seq_len=16, log_every=1)
 
 
 def config(name: str):
-    """DBRX's smoke config in f32, two micro-batches, the case's MoE."""
+    """DBRX's smoke config in f32 (DeepSeek-V3's for DS_CASES, KV chunks of
+    DS_KV_CHUNK), two micro-batches, the case's MoE."""
     _, ep, moe, _ = CASES[name]
-    cfg = dataclasses.replace(dbrx_132b.smoke_config(), dtype=torch.float32, microbatch=MICRO)
+    cfg = (deepseek_v3_671b if name in DS_CASES else dbrx_132b).smoke_config()
+    cfg = dataclasses.replace(cfg, dtype=torch.float32, microbatch=MICRO)
+    if name in DS_CASES:
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn, kv_chunk=DS_KV_CHUNK))
     return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_axis=ep, **moe))
 
 
 def np_params(cfg, seed: int) -> dict:
     """A numpy parameter tree for ``cfg`` (the reference's names and
-    layouts) from a numpy seed."""
+    layouts) from a numpy seed; selection biases drawn nonzero (their
+    initializer is zeros), so that their weight decay shows."""
     rng = np.random.default_rng(seed)
     tree: dict = {}
     for path, s in _leaves(lm_spec(cfg)):
-        if s.init in ("zeros", "ones"):
+        if path[-1] == "sel_bias":
+            a = 0.1 * rng.standard_normal(s.shape)
+        elif s.init in ("zeros", "ones"):
             a = np.full(s.shape, 0.0 if s.init == "zeros" else 1.0)
         else:
             fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
@@ -137,8 +150,12 @@ def flat(tree) -> dict:
 
 def train_case(comm, name: str, tree, batches) -> dict:
     """This process's gradients of micro-batch 0 and its STEPS train steps
-    from ``tree``; over a LocalComm the whole batch, else its rows."""
+    from ``tree``; over a LocalComm the whole batch, else its rows. MLA
+    takes its chunked branch, MlaChunked."""
+    from repro_torch.models import mla
+    mla.CHUNKED_ATTN_THRESHOLD = 1
     cfg = config(name)
+    calls = mla.mla_chunked_bwd_calls
     params = shard_params(params_from_jax(tree, cfg, device="cpu"), cfg, comm)
     rows = comm.batch_rows(BATCH // MICRO)
     local = [{k: torch.from_numpy(v[:, rows]) for k, v in b.items()} for b in batches]
@@ -150,6 +167,7 @@ def train_case(comm, name: str, tree, batches) -> dict:
         params, opt, m = step(params, opt, b)
         out["steps"].append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                                  lr=float(m["lr"]), params=flat(params)))
+    out["mla_bwd_calls"] = mla.mla_chunked_bwd_calls - calls
     return out
 
 
@@ -204,13 +222,17 @@ def jax_case(name: str, tree, batches) -> dict:
     from jax.sharding import NamedSharding
     from jax.sharding import PartitionSpec as P
 
-    from repro.configs.dbrx_132b import smoke_config as j_smoke
+    import repro.models.attention as j_attention
+    from repro.configs import get_smoke as j_get_smoke
     from repro.models import get_model as j_get_model
     from repro.optim import AdamWConfig as JAdamW
     from repro.optim import adamw_init as j_adamw_init
     from repro.runtime.steps import make_train_step as j_make_train_step
     mesh_axes, ep, moe, _ = CASES[name]
-    jcfg = dataclasses.replace(j_smoke(), dtype=jnp.float32, microbatch=MICRO)
+    jcfg = j_get_smoke("deepseek-v3-671b" if name in DS_CASES else "dbrx-132b")
+    jcfg = dataclasses.replace(jcfg, dtype=jnp.float32, microbatch=MICRO,
+                               attn=dataclasses.replace(jcfg.attn,
+                                                        kv_chunk=config(name).attn.kv_chunk))
     jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, ep_axis=ep, **moe))
     mesh = jax.make_mesh(tuple(s for _, s in mesh_axes), tuple(a for a, _ in mesh_axes),
                          axis_types=(jax.sharding.AxisType.Auto,) * len(mesh_axes),
@@ -224,16 +246,23 @@ def jax_case(name: str, tree, batches) -> dict:
     # first one's executable
     rep = NamedSharding(mesh, P())
     micro0 = {k: v[0] for k, v in batches[0].items()}
-    (loss, _), grads = jax.jit(jax.value_and_grad(
-        lambda p, b: fwd(p, b, jcfg, mesh), has_aux=True))(tree, micro0)
-    out = dict(loss=float(loss), grads=named(grads), steps=[])
-    step = jax.jit(j_make_train_step(jcfg, mesh, JAdamW(**OPT)), in_shardings=rep,
-                   out_shardings=rep)
-    params, opt = jax.device_put((tree, j_adamw_init(tree, JAdamW(**OPT))), rep)
-    for b in batches:
-        params, opt, m = step(params, opt, jax.device_put(b, rep))
-        out["steps"].append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                                 lr=float(m["lr"]), params=named(jax.device_get(params))))
+    # the reference's MLA on its chunked branch (its short branch masks with
+    # the transposed causal mask, tests/test_torch_mla.py)
+    threshold = j_attention.CHUNKED_ATTN_THRESHOLD
+    j_attention.CHUNKED_ATTN_THRESHOLD = 1 if name in DS_CASES else threshold
+    try:
+        (loss, _), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: fwd(p, b, jcfg, mesh), has_aux=True))(tree, micro0)
+        out = dict(loss=float(loss), grads=named(grads), steps=[])
+        step = jax.jit(j_make_train_step(jcfg, mesh, JAdamW(**OPT)), in_shardings=rep,
+                       out_shardings=rep)
+        params, opt = jax.device_put((tree, j_adamw_init(tree, JAdamW(**OPT))), rep)
+        for b in batches:
+            params, opt, m = step(params, opt, jax.device_put(b, rep))
+            out["steps"].append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                                     lr=float(m["lr"]), params=named(jax.device_get(params))))
+    finally:
+        j_attention.CHUNKED_ATTN_THRESHOLD = threshold
     return out
 
 
@@ -253,7 +282,9 @@ def run(tmp_path_factory):
 
     def go():
         try:
-            box["ranks"] = spawn(worker, N, inp, timeout=240, workdir=work)
+            # under the suite's parallel workers the spawn took 222 s of the
+            # old 240 (DeepSeek-V3's case included); a hang still ends
+            box["ranks"] = spawn(worker, N, inp, timeout=420, workdir=work)
         except BaseException as e:               # re-raised in the test process
             box["error"] = e
     th = threading.Thread(target=go)
@@ -261,7 +292,7 @@ def run(tmp_path_factory):
     try:
         jref = {name: jax_case(name, *inp[name]) for name in JAX_CASES}
     finally:
-        th.join(300)
+        th.join(480)
         try:
             launch_out, _ = launch.communicate(timeout=120)
         except subprocess.TimeoutExpired:
@@ -357,7 +388,8 @@ def test_train_steps_match_local_comm(run, case):
 def test_replicated_leaves_bitwise_equal(run, case):
     """After each step every leaf a process holds whole is bitwise equal on
     the four processes, and so are the loss and the gradient norm; the
-    cut leaves (the experts) differ between EP ranks."""
+    cut leaves are the three expert leaves of each MoE layer stack (and of
+    DeepSeek-V3's MTP layer)."""
     ranks = run["ranks"]
     for i in range(STEPS):
         steps = [r["cases"][case]["steps"][i] for r in ranks]
@@ -369,7 +401,18 @@ def test_replicated_leaves_bitwise_equal(run, case):
                 continue
             for s in steps[1:]:
                 np.testing.assert_array_equal(s["params"][path], a, err_msg=path)
-        assert cut == 3
+        assert cut == 3 * (1 + config(case).mtp)
+
+
+def test_deepseek_trains_through_mla_chunked(run):
+    """The DeepSeek-V3 case's MLA backward is MlaChunked's: one call a row
+    and a layer (the MTP layer's too), in the gradient step and in each
+    micro-batch of the two train steps, on every process."""
+    cfg = config("ds_data4_ht")
+    per_row = cfg.num_layers + cfg.mtp
+    for r in run["ranks"]:
+        assert r["cases"]["ds_data4_ht"]["mla_bwd_calls"] == per_row * (1 + STEPS * MICRO)
+        assert r["cases"]["data4_ht"]["mla_bwd_calls"] == 0
 
 
 def test_trainer_over_dist_comm(run):

@@ -10,9 +10,9 @@ CPU path ``_sdpa_chunked``, and ``LocalComm``'s exchange against
 flat and LL ``nccl_ep`` against ``jax.grad`` of the reference's layer on a
 4-device mesh; every floating parameter of ``lm_forward`` getting a
 gradient; ``jax.value_and_grad`` of the reference's forward against the
-port's at S 32 and at S 2048 (the flash route); the refusal of training
-hierarchical HT with a model axis (A11e; the other modes' and layouts'
-gradients: ``tests/test_torch_train_layouts.py``). The reference's fp8
+port's at S 32 and at S 2048 (the flash route). The other modes' and
+layouts' gradients: ``tests/test_torch_train_layouts.py``; hierarchical HT
+with a model axis: ``tests/test_torch_dist_train_hier.py``. The reference's fp8
 dispatch gradient is pinned as degenerate (its AD casts the cotangent to
 e4m3 without a scale, ROADMAP Queue C) and the port's is straight-through:
 bitwise the bf16 dispatch's.
@@ -227,29 +227,6 @@ def test_every_parameter_gets_a_gradient(mode):
     _, ps = _lm_grads(tcfg, params, toks, LocalComm(N))
     for path, t in ps.items():
         assert t.grad is not None and t.grad.abs().sum() > 0, "/".join(path)
-
-
-class _ModelAxisComm(LocalComm):
-    """A LocalComm that reports a ``model`` axis as a DistComm mesh with
-    one does: expert-TP (``tp_axis``) or the sequence split (``seq_axis``)."""
-
-    def __init__(self, n, axes, kind):
-        super().__init__(n, axes=axes)
-        setattr(self, kind, "model")
-
-
-@pytest.mark.parametrize("kind", ["tp_axis", "seq_axis"])
-def test_hier_with_a_model_axis_refuses_training(kind):
-    """Every EP mode trains (tests/test_torch_train_layouts.py); hierarchical
-    HT with a model axis, expert-TP or the sequence split, is refused under
-    autograd with NotImplementedError naming A11e, before any exchange."""
-    _, tcfg = _cfgs(ep_mode="ht", ht_hierarchical=True, ep_axis=("pod", "data"))
-    from repro_torch.weights import init_params
-    params = init_params(tcfg, 0, "cpu")
-    comm = _ModelAxisComm(N, (("pod", 2), ("data", 2)), kind)
-    toks = np.random.default_rng(8).integers(0, tcfg.vocab, (N, 16)).astype(np.int32)
-    with pytest.raises(NotImplementedError, match="hierarchical HT with a model axis.*A11e"):
-        _lm_grads(tcfg, params, toks, comm)
 
 
 @pytest.mark.parametrize("S", [32, 2048])

@@ -11,8 +11,9 @@ Builds the kernels and spawns the children, each of which runs
 ``LocalComm`` on card 0) and, at four cards over NCCL,
 ``dist_train_full`` (the ``Trainer`` at EP 4, seq 4096, its peak probed at
 1 layer first, one micro-batch traced), then the check in the
-hierarchical (two pods of two), ``deepep`` and baseline layouts and the
-hierarchical ``Trainer``, printing the same lines as ``chip_smoke.py``. Exits non-zero
+hierarchical (two pods of two), ``deepep`` and baseline layouts, the
+hierarchical ``Trainer`` and DeepSeek-V3-671B's four-card ``Trainer``
+(``ds_train_full``), printing the same lines as ``chip_smoke.py``. Exits non-zero
 without a card or when a child fails.
 """
 import datetime

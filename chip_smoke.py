@@ -221,6 +221,30 @@
    (within 1e-4; 5e-3 relative and 2e-2), timed beside SDPA for B7; their
    rows join the kernels JSON.
 
+10b. The ``gemma3`` and ``vlm`` families (A12a), one model at a time, each
+   freed before the next. Gemma3-27B whole at full width (``gemma3_phase``:
+   62 layers, 10 super-blocks of 5 windowed local layers and a causal
+   global one, a tail of 2 local; 50.31 GiB): ``DecodeServer`` at 16 x (8 +
+   16) over caches of 2048 (cut from ``decode_32k``'s 128 x 32768, whose
+   global caches alone would take 320 GiB; ring caches of 1024 rows in the
+   local layers), captured and eager, tokens bitwise equal, no kernel
+   launched, the replayed step traced; the ``train_4k`` forward at 2 x 4096
+   (cut from 8 rows), B7 in all 62 layers, bitwise on a repeat, its peak
+   against the reckoned one, traced (B7's share), B7's windowed launches
+   counted apart. Its ring check at 8 layers (``gemma3_ring_phase``): 4 x
+   (1100 + 16), every ring wrapping, captured and eager bitwise equal; the
+   first local layer's ring rows against keys and values recomputed from
+   the tokens; every local layer's mask keeping exactly the window's
+   positions; the served sequence through the captured ring step against
+   a linear-cache reference with the window as a mask, the last logits
+   within 2e-2 with wq and wk tempered (f32 and bf16), printed at the
+   drawn weights. Phi-3-vision-4.2B whole (``phi3v_phase``):
+   ``dense_config_phase`` with the forward's ``img_embeds`` [4, 576, 3072]
+   (B7 at head width 96 once a layer; B6 at dk 96, G 1, on the CUDA-core
+   path). B7 at Gemma3's local and global shapes and at d 96 in three
+   masks at G 1 and 2, and B6 at dk 96, against their plain versions and
+   timed beside SDPA; their rows join the kernels JSON.
+
 11. One EP rank per process (``comm.DistComm``), in spawned child processes
    once every weight of the main process is freed (``dist_phase``). (a)
    NCCL at world = the card count, one process per card: the primitives
@@ -432,7 +456,8 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf_mod  # noqa: E402
 from repro_torch.models.moe import (_expert_ffn, _moe_dense_fallback,  # noqa: E402
                                     ep_group, moe_block, router_config)
-from repro_torch.models.layers import logits_out  # noqa: E402
+from repro_torch.models import attention as ATT  # noqa: E402
+from repro_torch.models.layers import apply_rope, ffn_apply, logits_out, rmsnorm  # noqa: E402
 from repro_torch.models.transformer import (_decode_splits, _index,  # noqa: E402
                                             init_decode_state,
                                             init_paged_decode_state,
@@ -531,6 +556,7 @@ KERNELS = {
                        "src/repro/kernels/combine_reduce.py:32"),
 }
 PAGED, FLASH = "paged_decode_attention", "flash_attention"
+FLASH_W = "flash_attention (window)"   # B7's launches with a window, among FLASH's
 DP_QUANT = "dispatch_pack (quant mode)"
 # launch counter -> (wrapper module, its attribute)
 COUNTERS = {
@@ -541,7 +567,8 @@ COUNTERS = {
     "combine_gather_reduce": (cg_mod, "launches"),
     PAGED: (da_mod, "launches"),
     "paged_decode_attention (stage 2)": (da_mod, "stage2_launches"),
-    FLASH: (fa_mod, "launches"), "quantize_fp8": (fp8_mod, "quantize_launches"),
+    FLASH: (fa_mod, "launches"), FLASH_W: (fa_mod, "window_launches"),
+    "quantize_fp8": (fp8_mod, "quantize_launches"),
     "dequantize_fp8": (fp8_mod, "dequantize_launches"),
     "combine_reduce": (cr_mod, "launches"),
     # the training backward
@@ -607,6 +634,11 @@ def leaves(tree) -> list:
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in leaves(v)]
     return [tree]
+
+
+def tree_map(fn, tree):
+    """A nested dict of ``fn`` of each tensor."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1069,9 +1101,9 @@ def trace_phase(label: str, run, itl_s: float, untraced: str = "ITL mean"):
     return iv, wall_us / 1e6, prof
 
 
-def serve_prompts(vocab: int) -> torch.Tensor:
+def serve_prompts(vocab: int, batch: int = BATCH) -> torch.Tensor:
     """The fixed-batch serves' prompts, the same for every server."""
-    return torch.randint(0, vocab, (BATCH, PROMPT), dtype=torch.int32,
+    return torch.randint(0, vocab, (batch, PROMPT), dtype=torch.int32,
                          generator=torch.Generator().manual_seed(2))
 
 
@@ -1108,7 +1140,7 @@ def serve_run(srv: DecodeServer, card: str, path: str, mode: str) -> tuple[dict,
     metrics."""
     cfg = srv.cfg
     reset_counts()
-    metrics = srv.serve(serve_prompts(cfg.vocab), GEN)
+    metrics = srv.serve(serve_prompts(cfg.vocab, srv.batch), GEN)
     launches = counts()
     if path != "dense":
         check_ep_counts(launches, cfg, PROMPT + GEN if mode == "eager" else 2,
@@ -1119,7 +1151,7 @@ def serve_run(srv: DecodeServer, card: str, path: str, mode: str) -> tuple[dict,
         check(not any(launches.values()), f"the {cfg.name} serve without EP launched "
               f"{ {k: n for k, n in launches.items() if n} }")
     toks = srv.last_tokens
-    check(toks.shape == (BATCH, GEN + 1) and toks.min() >= 0 and toks.max() < cfg.vocab,
+    check(toks.shape == (srv.batch, GEN + 1) and toks.min() >= 0 and toks.max() < cfg.vocab,
           f"bad token stream {toks.shape}")
     # the fault fields count recoveries, of which a serve without faults has none
     faults = ("degraded_steps", "recovery_count", "checkpoint_restores", "preempted")
@@ -1143,7 +1175,7 @@ def trace_fixed(path: str, srv: DecodeServer, itl: float) -> None:
     """One replayed step of a captured fixed-batch server under the
     profiler, against its captured ITL mean; its EP launches, read from the
     kernels' names, must be the path's."""
-    tok = torch.zeros((BATCH, 1), dtype=torch.int32, device=DEV)
+    tok = torch.zeros((srv.batch, 1), dtype=torch.int32, device=DEV)
     iv, _, _ = trace_phase(f"replayed {srv.cfg.name} {path} decode step", lambda: srv.step(tok),
                         itl, "captured ITL mean")
     if path != "dense":
@@ -1152,7 +1184,7 @@ def trace_fixed(path: str, srv: DecodeServer, itl: float) -> None:
 
 
 def fixed_serve_phase(cfg, params, card: str, paths=FIXED_PATHS, serves: int = SERVES,
-                      keep: bool = True) -> dict:
+                      keep: bool = True, batch: int = BATCH, max_len: int = MAX_LEN) -> dict:
     """The fixed-batch main paths: DecodeServer.serve in each of ``paths``
     (for DBRX the preset's LL nccl_ep layout, whose first captured serve is
     the main path, the LL deepep layout with fp8 dispatch, the baseline
@@ -1166,7 +1198,7 @@ def fixed_serve_phase(cfg, params, card: str, paths=FIXED_PATHS, serves: int = S
     kept (for the traced replay); without it, its replayed step is traced at
     once and the server closed, so that one server at a time is alive.
     Returns, per path, that server (or None), that serve's launches and the
-    ITLs of both modes."""
+    ITLs of both modes. ``batch`` x PROMPT prompts, caches of ``max_len``."""
     out = {}
     for path in paths:
         c = layout_cfg(cfg, path)
@@ -1175,7 +1207,7 @@ def fixed_serve_phase(cfg, params, card: str, paths=FIXED_PATHS, serves: int = S
         kept, first, toks = None, None, None
         for _ in range(serves):
             for mode in ("captured", "eager"):
-                srv = DecodeServer(c, BATCH, MAX_LEN, ep_size=ep, params=params)
+                srv = DecodeServer(c, batch, max_len, ep_size=ep, params=params)
                 if mode == "eager":
                     eager(srv)
                 launches, m = serve_run(srv, card, path, mode)
@@ -1833,14 +1865,15 @@ def hier_comm() -> LocalComm:
 
 
 def prefill_run(label: str, params, cfg, comm, card: str, path: str,
-                rows: int = PF_BATCH, seq: int = PF_SEQ) -> dict:
+                rows: int = PF_BATCH, seq: int = PF_SEQ, extra: dict | None = None) -> dict:
     """One prefill forward, ``get_model(cfg).forward``, on the seeded batch
     of ``rows`` x ``seq`` tokens with every launch counter read (the EP
     counts must be ``path``'s over the MoE layers and the MTP layer, flash
     attention once per GQA layer and never under MLA), then a second after
     it, timed: its loss must be bitwise equal to the first's. Returns the
     launches, the loss, the wall time, tokens per second, peak memory, the
-    dropped shares, the plan's host time and the batch."""
+    dropped shares, the plan's host time and the batch. ``extra``: more
+    batch entries (a vlm's ``img_embeds``)."""
     m = cfg.moe
     ranks, nmoe = (1 if comm is None else comm.size), forward_moe_layers(cfg)
     if m is None:
@@ -1858,7 +1891,7 @@ def prefill_run(label: str, params, cfg, comm, card: str, path: str,
           f"tokens over {ranks} hosted ranks ({rows * seq // ranks} per rank); {ep}")
     rng = np.random.default_rng(10)
     batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (rows, seq))
-                                        .astype(np.int32)).to(DEV)}
+                                        .astype(np.int32)).to(DEV), **(extra or {})}
     forward = get_model(cfg).forward
     probes: list = []
     reset_counts()
@@ -1886,7 +1919,8 @@ def prefill_run(label: str, params, cfg, comm, card: str, path: str,
                plan_s=sum(dt for _, dt in probes), batch=batch)
     per = {k: v / (nmoe * ranks) for k, v in launches.items()
            if k in EP_LAUNCHES[path] and nmoe}
-    print(f"{label} ({card}): loss {loss.item():.6f} (aux {aux['aux'].item():.6f}; "
+    print(f"{label} ({card}): loss {loss.item():.6f} (aux "
+          f"{aux['aux'].item() if 'aux' in aux else 0.0:.6f}; "
           f"ln of the vocabulary {np.log(cfg.vocab):.4f}), repeat bitwise equal; wall "
           f"{wall:.3f} s after a warm-up, {out['tok_s']:.1f} prefill tok/s; peak device "
           f"memory {out['peak_gib']:.2f} GiB; dropped-entry share by MoE layer "
@@ -2980,6 +3014,8 @@ def deepseek_forward_phase(card: str) -> None:
 # id -> the name their kernel rows carry
 DENSE_ARCHS = {"chatglm3-6b": "ChatGLM3-6B", "internlm2-20b": "InternLM2-20B",
                "minicpm3-4b": "MiniCPM3-4B"}
+G3_ARCH, VLM_ARCH = "gemma3-27b", "phi-3-vision-4.2b"
+MODEL_NAMES = {**DENSE_ARCHS, G3_ARCH: "Gemma3-27B", VLM_ARCH: "Phi-3-vision-4.2B"}
 
 
 def dense_paged_row(cfg, model: str, table: tuple, launches: int) -> dict:
@@ -3001,7 +3037,10 @@ def dense_paged_row(cfg, model: str, table: tuple, launches: int) -> dict:
     else:
         a = cfg.attn
         Hkv, dk, dv, share = a.n_kv, a.head_dim, a.head_dim, False
-        scale, want_kernel = a.head_dim ** -0.5, "paged_gqa_kernel"
+        # the tensor-core GQA path takes head widths 64 and 128; Phi-3-vision's
+        # 96 takes the CUDA-core path
+        scale, want_kernel = a.head_dim ** -0.5, ("paged_gqa_kernel" if dk in (64, 128)
+                                                  else "paged_stage1_kernel")
     q, kp, vp, tbl, lt, unused = paged_case(rng, BATCH, Hq, Hkv, dk, dv, mp, lens, share,
                                             num_pages=num_pages)
     kw = dict(scale=scale, num_kv_splits=_decode_splits(cfg, mp), dv=dv if share else None)
@@ -3026,17 +3065,30 @@ def dense_paged_row(cfg, model: str, table: tuple, launches: int) -> dict:
     return row
 
 
-def dense_flash_row(cfg, model: str, rows: int, launches: int) -> dict:
-    """B7 at a dense GQA config's forward shapes ([rows, PF_SEQ, H, d],
-    causal) against the plain version, two calls bitwise, SDPA within TOL;
-    the kernel, the plain version and SDPA timed."""
-    a = cfg.attn
-    Hq, Hkv, d = cfg.padded_heads(), a.n_kv, a.head_dim
+def live_pairs(S: int, causal: bool = True, window: int | None = None) -> int:
+    """(query, key) pairs of one head that a mask leaves live, over S x S."""
+    if not causal:
+        return S * S
+    W = window or S
+    return sum(min(i + 1, W) for i in range(S))
+
+
+def flash_row(model: str, label: str, rows: int, Hq: int, Hkv: int, d: int,
+              launches: int, **extra) -> dict:
+    """B7 at [rows, PF_SEQ, H, d] bf16 (seed 33) under ``extra`` (a window,
+    or causal=False) against the plain version (FLASH_REL relative, TOL per
+    element), two calls bitwise, SDPA within TOL: ``is_causal`` with
+    ``enable_gqa``, or for a window a boolean band mask on the
+    memory-efficient backend, K/V repeated to the query heads outside the
+    timed call. The kernel, the plain version and SDPA timed; the bound
+    from the mask's live pairs."""
     gen = torch.Generator(device=DEV).manual_seed(33)
     q, k, v = (torch.randn((rows, PF_SEQ, h, d), generator=gen, device=DEV).to(torch.bfloat16)
                for h in (Hq, Hkv, Hkv))
-    kw = dict(scale=d ** -0.5)
-    err = flash_case(f"{model} forward, causal, G {Hq // Hkv}", q, k, v, TOL, **kw)
+    kw = dict(scale=d ** -0.5, **extra)
+    G, W, causal = Hq // Hkv, extra.get("window"), extra.get("causal", True)
+    err = flash_case(f"{model} {label}" + ("" if "G " in label else f", G {G}"), q, k, v, TOL,
+                     **kw)
 
     def kernel():
         return fa_mod.flash_attention_bshd(q, k, v, **kw)
@@ -3044,25 +3096,46 @@ def dense_flash_row(cfg, model: str, rows: int, launches: int) -> dict:
     def plain():
         return ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if W:
+        pos = torch.arange(PF_SEQ, device=DEV)
+        band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
+        kr, vr = (t.repeat_interleave(G, dim=1) for t in (kt, vt))
+        lib_label = "SDPA, a boolean band mask, memory-efficient backend"
 
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True, **kw)
+        def library():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(qt, kr, vr, attn_mask=band,
+                                                      scale=kw["scale"])
+    else:
+        lib_label = f"SDPA, is_causal={causal}, enable_gqa"
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True,
+                                                  scale=kw["scale"])
     out = kernel()
-    check(torch.equal(kernel(), out), f"flash_attention at {model}'s shapes: two calls differ")
+    check(torch.equal(kernel(), out), f"flash_attention at {model}'s {label}: two calls differ")
     check(torch.allclose(library().transpose(1, 2).float(), out.float(), rtol=TOL, atol=TOL),
-          f"scaled_dot_product_attention disagrees with the kernel at {model}'s shapes")
+          f"scaled_dot_product_attention disagrees with the kernel at {model}'s {label}")
     del out
     ms, plain_ms, library_ms = device_ms(kernel, 10), device_ms(plain, 2), device_ms(library, 10)
-    ops = 4 * rows * Hq * d * (PF_SEQ * (PF_SEQ + 1) // 2)
+    ops = 4 * rows * Hq * d * live_pairs(PF_SEQ, causal, W)
     bnd = bound(ref.hbm_bytes(rows, Hq, Hkv, PF_SEQ, PF_SEQ, d, 2), ops, BF16_OPS_S)
-    print(f"{FLASH} [{model} forward] q {list(q.shape)}, k/v {list(k.shape)}: kernel {ms:.4f} ms "
+    print(f"{FLASH} [{model} {label}] q {list(q.shape)}, k/v {list(k.shape)}: kernel {ms:.4f} ms "
           f"({ops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library "
-          f"{library_ms:.4f} ms (SDPA, is_causal, enable_gqa; {ms / library_ms:.3f}x), bound "
-          f"{bnd[0]:.4f} ms ({bnd[1]}); {launches} launches in the forward")
-    row = model_record(FLASH, "forward", err, ms, plain_ms, bnd, library_ms, launches, model)
+          f"{library_ms:.4f} ms ({lib_label}; {ms / library_ms:.3f}x), bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}, {ops / 1e12:.4f} TFLOP); {launches} launches in the "
+          f"forward")
+    row = model_record(FLASH, label, err, ms, plain_ms, bnd, library_ms, launches, model)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return row
+
+
+def dense_flash_row(cfg, model: str, rows: int, launches: int) -> dict:
+    """B7 at a dense GQA config's forward shapes ([rows, PF_SEQ, H, d],
+    causal): ``flash_row``."""
+    a = cfg.attn
+    return flash_row(model, "forward", rows, cfg.padded_heads(), a.n_kv, a.head_dim, launches)
 
 
 def dense_config_phase(arch: str, card: str) -> list:
@@ -3073,10 +3146,12 @@ def dense_config_phase(arch: str, card: str) -> list:
     captured and eager (B6 once a layer and step, streams bitwise equal);
     each traced on one replayed step; the train_4k forward at the preset's
     microbatch of PF_SEQ tokens (B7 once a GQA layer, none under MLA: S >=
-    2048 takes MlaChunked), bitwise on a repeat. Then, the weights
-    freed, B6 at the serve's shapes and B7 at the forward's against their
-    plain versions, timed. Returns the kernels JSON rows."""
-    model = DENSE_ARCHS[arch]
+    2048 takes MlaChunked), bitwise on a repeat; a vlm's with seeded
+    ``img_embeds`` [rows, img_tokens, d_model] in place of the first
+    positions' embeddings. Then, the weights freed, B6 at the serve's
+    shapes and B7 at the forward's against their plain versions, timed.
+    Returns the kernels JSON rows."""
+    model = MODEL_NAMES[arch]
     cfg, pcfg = get_config(arch, "decode_32k"), get_config(arch, "train_4k")
     a = cfg.attn
     attn = (f"MLA over {a.n_heads} heads (padded to {cfg.padded_heads()}; q_lora "
@@ -3097,10 +3172,17 @@ def dense_config_phase(arch: str, card: str) -> list:
     fixed_serve_phase(cfg, params, card, ("dense",), 1, keep=False)
     _, claunches, _, _, _, table = continuous_phase(cfg, params, card, REQUESTS, 4, 1, keep=False)
     label = f"{model} prefill forward"
+    extra = None
+    if cfg.family == "vlm":
+        gen = torch.Generator(device=DEV).manual_seed(35)
+        extra = {"img_embeds": torch.randn((pcfg.microbatch, pcfg.img_tokens, pcfg.d_model),
+                                           generator=gen, device=DEV).to(pcfg.dtype)}
+        label += f" with img_embeds {list(extra['img_embeds'].shape)}"
     flash = prefill_run(label, params, pcfg, None, card, "nccl_ep", pcfg.microbatch,
-                        PF_SEQ)["launches"][FLASH]
+                        PF_SEQ, extra)["launches"][FLASH]
     print(f"{label}: {pcfg.microbatch} x {PF_SEQ} tokens, the train_4k preset's microbatch, "
           f"not cut")
+    del extra
     peak = torch.cuda.max_memory_allocated() / 2**30
     del params
     gc.collect()
@@ -3121,6 +3203,363 @@ def dense_phase(card: str) -> list:
         rows += dense_config_phase(arch, card)
         gc.collect()
         torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the gemma3 and vlm families (A12a) on one card
+# ---------------------------------------------------------------------------
+
+# Gemma3-27B's fixed-batch serve, cut from decode_32k's 128 x 32768 (its 10
+# global layers' caches alone would take 320 GiB): 16 rows, caches of 2048
+G3_BATCH, G3_MAX_LEN = 16, 2048
+G3_PF_ROWS = 2               # the forward's rows, cut from train_4k's 8 (the f32
+#                              logits alone are 8 GiB for 2 rows of 4096)
+# the ring check: one super-block and the tail at full width, a prompt past
+# the local window so that every ring wraps
+G3_RING_BATCH, G3_RING_PROMPT = 4, 1100
+G3_RING_TOL = 2e-2           # the ring path against its linear-cache reference
+
+
+def gemma3_peak_gib(cfg, rows: int, seq: int, weights: int) -> float:
+    """The forward's reckoned peak: the weights, the tied table's f32 copy
+    and the f32 logits of rows x seq tokens, two CE_ROWS blocks of f32
+    log-sum-exp temporaries, and one layer's FFN activations (three
+    [tokens, d_ff] bf16)."""
+    v, d = cfg.padded_vocab(), cfg.d_model
+    return (weights + 4 * v * d + 4 * rows * seq * v + 2 * 4 * 1024 * v
+            + 3 * 2 * rows * seq * cfg.d_ff) / 2**30
+
+
+def gemma3_phase(card: str) -> list:
+    """Gemma3-27B whole at full width (62 layers: 10 super-blocks of 5
+    local + 1 global, a tail of 2 local; random weights drawn on the card):
+    the fixed-batch DecodeServer, G3_BATCH x (PROMPT + GEN) over caches of
+    G3_MAX_LEN (ring caches of 1024 rows in the local layers), captured and
+    eager, tokens bitwise equal, no kernel launched (the dense-cache decode
+    is plain torch), the replayed step traced; then the train_4k forward at
+    G3_PF_ROWS x PF_SEQ: B7 once a layer (windowed in the local ones), the
+    loss finite and bitwise on a repeat, its peak against the reckoned one,
+    one forward traced (B7's share of the busy time). Then, the weights
+    freed, B7 at the local and global layers' shapes against its plain
+    version, timed beside SDPA. Returns the kernels JSON rows."""
+    model = MODEL_NAMES[G3_ARCH]
+    cfg, pcfg = get_config(G3_ARCH, "decode_32k"), get_config(G3_ARCH, "train_4k")
+    a, (loc, glob) = cfg.attn, cfg.local_global
+    counts_ = tf_mod._g3_counts(cfg)
+    print(f"{model} at full width and depth: {cfg.num_layers} layers ({counts_[2]} super-block(s) "
+          f"of {loc} local + {glob} global, a tail of {counts_[3]} local), d_model "
+          f"{cfg.d_model}, {a.n_heads}/{a.n_kv} heads of {a.head_dim}, qk-norm {a.qk_norm}, "
+          f"local window {cfg.local_window}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied "
+          f"embeddings, {cfg.dtype}; dense, no EP; the serve cut from decode_32k's 128 x 32768 "
+          f"to {G3_BATCH} x {G3_MAX_LEN}, the forward from train_4k's {pcfg.microbatch} rows "
+          f"to {G3_PF_ROWS}")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, DEV)
+    torch.cuda.synchronize()
+    weights = sum(t.nbytes for t in leaves(params))
+    n = sum(t.numel() for t in leaves(params))
+    print(f"{model} init: random weights on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{n / 1e9:.3f} B parameters, {weights / 2**30:.2f} GiB")
+    cache = sum(c.k.nbytes + c.v.nbytes for c in tf_mod.init_decode_state(
+        cfg, G3_BATCH, G3_MAX_LEN, "meta").values())
+    print(f"{model} serve: decode caches {cache / 2**30:.2f} GiB ({G3_BATCH} rows: rings of "
+          f"{min(cfg.local_window, G3_MAX_LEN)} in {counts_[2] * loc + counts_[3]} local "
+          f"layers, {G3_MAX_LEN} in {counts_[2] * glob} global)")
+    fixed = fixed_serve_phase(cfg, params, card, ("dense",), 1, keep=False, batch=G3_BATCH,
+                              max_len=G3_MAX_LEN)["dense"]
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{model} serve: ITL captured {fixed['itl']:.5f} s, eager {fixed['itl_eager']:.5f} s; "
+          f"peak device memory {serve_peak:.2f} GiB")
+    label = f"{model} prefill forward"
+    want_peak = gemma3_peak_gib(pcfg, G3_PF_ROWS, PF_SEQ, weights)
+    print(f"{label}: reckoned peak {want_peak:.2f} GiB (weights, the tied table in f32, the "
+          f"f32 logits, the cross-entropy's blocks, one layer's FFN activations)")
+    torch.cuda.reset_peak_memory_stats()
+    run = prefill_run(label, params, pcfg, None, card, "nccl_ep", G3_PF_ROWS, PF_SEQ)
+    flash, windowed = run["launches"][FLASH], run["launches"][FLASH_W]
+    nloc, nglob = counts_[2] * loc + counts_[3], counts_[2] * glob
+    check(flash == pcfg.num_layers, f"{label}: B7 launched {flash} times, not once a layer")
+    check(windowed == nloc and flash - windowed == nglob, f"{label}: B7 launched {windowed} "
+          f"times with a window and {flash - windowed} without, expected {nloc} and {nglob}")
+    prefill_trace_phase(params, pcfg, run["batch"], run["wall"], LocalComm(1), label)
+    print(f"{label}: {G3_PF_ROWS} x {PF_SEQ} tokens, {flash} B7 launches ({windowed} "
+          f"windowed, {flash - windowed} causal); wall {run['wall']:.3f} s, "
+          f"{run['tok_s']:.1f} tok/s; peak {run['peak_gib']:.2f} GiB (reckoned {want_peak:.2f})")
+    del params, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    Hq = cfg.padded_heads()
+    rows = [flash_row(model, f"local layers (window {cfg.local_window})", G3_PF_ROWS, Hq,
+                      a.n_kv, a.head_dim, windowed, window=cfg.local_window),
+            flash_row(model, "global layers (causal)", G3_PF_ROWS, Hq, a.n_kv, a.head_dim,
+                      flash - windowed)]
+    print(f"{model} phase: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def ring_positions(length: int, wlen: int) -> torch.Tensor:
+    """The position each of a ring's ``wlen`` rows holds once ``length``
+    tokens were written in order, row p % wlen for position p: the largest
+    p < length congruent to the row."""
+    rows = torch.arange(wlen, device=DEV)
+    return (length - 1) - torch.remainder(length - 1 - rows, wlen)
+
+
+def ring_contents_err(params, cfg, cache, tokens: torch.Tensor, wlen: int) -> float:
+    """The first local layer's ring rows against the keys and values
+    recomputed from the tokens at the positions the rows must hold
+    (``ring_positions``): that layer's K and V depend on its own token
+    alone, so a row holding another position is off by the whole key. The
+    largest error over K and V relative to their largest entry."""
+    a, length = cfg.attn, tokens.shape[1]
+    p0 = _index(_index(params["super"], 0), 0)
+    h = rmsnorm(tf_mod._g3_embed(params, tokens, cfg), p0["ln1"], cfg.norm_eps)
+    pos = torch.arange(length, device=DEV)[None].expand(tokens.shape[0], length)
+    k = apply_rope(torch.einsum("bsd,dhk->bshk", h, p0["attn"]["wk"]), pos, a.rope_base,
+                   a.rope_fraction)
+    v = torch.einsum("bsd,dhk->bshk", h, p0["attn"]["wv"])
+    at = ring_positions(length, wlen)
+    return max(float((c.float() - w[:, at].float()).abs().max() / w[:, at].float().abs().max())
+               for c, w in ((cache.k[0, 0], k), (cache.v[0, 0], v)))
+
+
+def ring_live_sets(params, cfg, state, token: torch.Tensor, length: int, wlen: int) -> int:
+    """One decode step at position ``length`` on a copy of ``state``, the
+    mask each local layer hands its attention recorded: every one must keep
+    exactly the ring rows that hold positions length - wlen + 1 to length
+    (``ring_positions``, reckoned apart from the decode's arithmetic), the
+    rows a linear cache's window keeps, however the scores fall. Returns
+    the number of local layers seen."""
+    copy = {k: ATT.KVCache(k=c.k.clone(), v=c.v.clone(), length=c.length.clone())
+            for k, c in state.items()}
+    sdpa, masks = ATT._sdpa, []
+
+    def recorded(q, k, v, mask, *rest):
+        if k.shape[1] == wlen:               # a ring; the global caches are longer
+            masks.append(mask.clone())
+        return sdpa(q, k, v, mask, *rest)
+    ATT._sdpa = recorded
+    try:
+        tf_mod.gemma3_decode_step(params, copy, {"tokens": token}, cfg, None)
+    finally:
+        ATT._sdpa = sdpa
+    held = ring_positions(length + 1, wlen)
+    want = torch.arange(length + 1 - wlen, length + 1, device=DEV)
+    for i, m in enumerate(masks):
+        check(m.shape == (1, wlen) and torch.equal(held[m[0]].sort().values, want),
+              f"local layer {i}'s ring mask keeps positions other than {length + 1 - wlen} "
+              f"to {length}")
+    del copy
+    return len(masks)
+
+
+def ring_teacher_logits(params, cfg, seq: torch.Tensor, max_len: int) -> torch.Tensor:
+    """The logits [B, V] f32 of the last of ``seq``'s tokens, each fed in
+    turn through ``gemma3_decode_step`` captured (``CompiledStep``) over
+    fresh ring and linear caches of ``max_len``: the ring path, past the
+    wrap when ``seq`` is longer than the window."""
+    state = init_decode_state(cfg, seq.shape[0], max_len, DEV)
+    step = CompiledStep(lambda p, st, b: tf_mod.gemma3_decode_step(p, st, b, cfg, None))
+    batch = {"tokens": seq[:, :1].clone()}
+    for i in range(seq.shape[1]):
+        batch["tokens"].copy_(seq[:, i:i + 1])
+        out, _ = step(params, state, batch)
+    del step, state
+    return out[:, -1].float()
+
+
+def linear_window_logits(params, cfg, seq: torch.Tensor, wlen: int,
+                         reverse: bool = False) -> torch.Tensor:
+    """The same logits from the whole of ``seq`` at once, every layer's
+    keys laid out linearly (position p at row p, as in a linear cache):
+    the local layers in the ring decode's arithmetic (no qk-norm, RoPE at
+    each position) with the window as a mask, the global ones through
+    ``layer_apply``, causal, as the decode's. ``reverse``: the local
+    layers' keys and values summed in reverse order, the same function."""
+    loc, glob, n_super, tail = tf_mod._g3_counts(cfg)
+    a, (B, S) = cfg.attn, seq.shape
+    pos = torch.arange(S, device=DEV)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < wlen)
+
+    def local(p, x):
+        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = (torch.einsum("bsd,dhk->bshk", h, p["attn"][w]) for w in ("wq", "wk", "wv"))
+        q, k = (apply_rope(t, pos[None].expand(B, S), a.rope_base, a.rope_fraction)
+                for t in (q, k))
+        m = mask
+        if reverse:
+            k, v, m = k.flip(1), v.flip(1), mask.flip(1)
+        y = x + torch.einsum("bshk,hkd->bsd",
+                             ATT._sdpa(q, k, v, m, a.logit_softcap, a.head_dim ** -0.5),
+                             p["attn"]["wo"])
+        return y + ffn_apply(p["ffn"], rmsnorm(y, p["ln2"], cfg.norm_eps), cfg.act)
+    x = tf_mod._g3_embed(params, seq, cfg)
+    for i in range(n_super):
+        sp = _index(params["super"], i)
+        for j in range(loc + glob):
+            pj = _index(sp, j)
+            x = local(pj, x) if j < loc else tf_mod.layer_apply(pj, x, cfg, None,
+                                                                window=None)[0]
+    for i in range(tail):
+        x = local(_index(params["tail"], i), x)
+    return tf_mod._head(params, x[:, -1:], cfg)[:, -1].float()
+
+
+def local_score_std(params, cfg, seq: torch.Tensor) -> float:
+    """The std of the first local layer's scaled scores q.k (no qk-norm,
+    as the ring decode computes them) over the first 256 positions, one
+    query head of each group."""
+    a, p0 = cfg.attn, _index(_index(params["super"], 0), 0)
+    h = rmsnorm(tf_mod._g3_embed(params, seq[:, :256], cfg), p0["ln1"], cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, p0["attn"]["wq"])
+    k = torch.einsum("bsd,dhk->bshk", h, p0["attn"]["wk"])
+    q = q[:, :, ::q.shape[2] // k.shape[2]]          # one query head of each group
+    return float((torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+                  * a.head_dim ** -0.5).std())
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def temper_qk(params) -> None:
+    """Every layer's wq and wk scaled in place to std 1/sqrt(d_model).
+    ``init_params`` takes the reference's fan-in, the heads axis, so they
+    are drawn at 1/sqrt(heads) and the ring layers' scores (no qk-norm)
+    spread to a std of about 240 at Gemma3-27B's widths; scaled, to about
+    1, where a trained model's qk-norm keeps them."""
+    for stack in ("super", "tail"):
+        at = params[stack]["attn"]
+        for w in ("wq", "wk"):
+            at[w].mul_((at[w].shape[-2] / at[w].shape[-3]) ** 0.5)
+
+
+def gemma3_ring_phase(card: str) -> None:
+    """Gemma3-27B at full width, one super-block and the tail (8 layers):
+    DecodeServer over G3_RING_BATCH rows, a G3_RING_PROMPT-token prompt
+    through the captured step (every local ring of 1024 rows wraps) and GEN
+    new tokens, captured and eager, tokens bitwise equal. On the captured
+    server's state: the first local layer's ring rows against the keys and
+    values recomputed from the tokens at the positions the ring arithmetic
+    assigns them; one more step, every local layer's mask keeping exactly
+    the window's positions (``ring_live_sets``). Then the chained check:
+    the served sequence fed token by token through the captured ring step
+    (``ring_teacher_logits``) against a linear-cache reference of the same
+    arithmetic (``linear_window_logits``), the last token's logits, in f32
+    at the drawn weights (printed with the reference against itself in
+    reverse key order: with no qk-norm in the ring layers, their scores
+    spread so far that the sum's order alone moves the logits), then with
+    wq and wk tempered (``temper_qk``) in f32 and in bf16, each within
+    G3_RING_TOL of the reference's largest logit."""
+    full = get_config(G3_ARCH, "decode_32k")
+    cfg = dataclasses.replace(full, num_layers=sum(full.local_global) + 2)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, DEV)
+    n = sum(t.numel() for t in leaves(params))
+    max_len = G3_RING_PROMPT + GEN + 2
+    wlen = min(cfg.local_window, max_len)
+    prompts = torch.randint(0, cfg.vocab, (G3_RING_BATCH, G3_RING_PROMPT), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(7))
+    print(f"Gemma3-27B ring check: {cfg.num_layers} of {full.num_layers} layers at full width "
+          f"(one super-block and the tail of 2; {n / 1e9:.3f} B parameters), "
+          f"{G3_RING_BATCH} x ({G3_RING_PROMPT} + {GEN}), caches of {max_len}, rings of {wlen}")
+    srvs, toks = {}, {}
+    for mode in ("captured", "eager"):
+        srv = DecodeServer(cfg, G3_RING_BATCH, max_len, params=params)
+        if mode == "eager":
+            eager(srv)
+        reset_counts()
+        m = srv.serve(prompts, GEN)
+        check(not any(counts().values()), f"the ring serve ({mode}) launched {counts()}")
+        if mode == "captured":
+            check(srv._serve_step.graph is not None, "the ring serve captured no graph")
+        toks[mode], srvs[mode] = srv.last_tokens, srv
+        print(f"Gemma3-27B ring serve, {mode} ({card}): ttft {m.ttft_s:.3f} s "
+              f"({G3_RING_PROMPT} prompt steps), itl mean {m.itl_mean_s:.5f} s, p99 "
+              f"{m.itl_p99_s:.5f} s")
+    check(np.array_equal(toks["captured"], toks["eager"]),
+          "the ring serve's captured tokens differ from the eager ones")
+    srv = srvs["captured"]
+    length = G3_RING_PROMPT + GEN
+    check(all(int(c.length) == length for c in srv.state.values()),
+          f"ring serve lengths {[int(c.length) for c in srv.state.values()]}, not {length}")
+    stream = torch.from_numpy(toks["captured"]).to(DEV)
+    seq = torch.cat([prompts.to(DEV), stream], dim=1)            # positions 0 .. length
+    loc, glob, n_super, tail = tf_mod._g3_counts(cfg)
+    with torch.no_grad():
+        rows_err = ring_contents_err(params, cfg, srv.state["local"], seq[:, :length], wlen)
+        nlive = ring_live_sets(params, cfg, srv.state, seq[:, length:], length, wlen)
+    print(f"Gemma3-27B ring check ({card}): layer 0's ring rows hold positions "
+          f"{length - wlen} to {length - 1}, {rows_err:.3g} off the keys and values recomputed "
+          f"from the tokens (relative to their largest; limit {G3_RING_TOL}); at the step of "
+          f"position {length} (written at ring row {length % wlen}) each of {nlive} local "
+          f"layers' masks keeps exactly positions {length + 1 - wlen} to {length}")
+    check(rows_err <= G3_RING_TOL, f"the ring's rows are {rows_err} off their positions' keys")
+    check(nlive == n_super * loc + tail, f"{nlive} ring masks seen, not one a local layer")
+    for srv in srvs.values():
+        srv.close()
+    del srvs, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the chained check: the served sequence, positions 0 .. length, through
+    # the ring step and through the linear reference
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    errs = {}
+    with torch.no_grad():
+        for weights in ("drawn", "tempered"):
+            if weights == "tempered":
+                temper_qk(p32)
+            std = local_score_std(p32, cfg32, seq)
+            t1 = time.perf_counter()
+            want = linear_window_logits(p32, cfg32, seq, wlen)
+            ring = ring_teacher_logits(p32, cfg32, seq, max_len)
+            errs[weights, "f32"] = rel_err(ring, want)
+            line = (f"Gemma3-27B chained ring check, {weights} weights (local scores' std "
+                    f"{std:.4g}; {card}): {seq.shape[1]} tokens through the captured ring step "
+                    f"against the linear-cache reference, the last token's logits in f32 "
+                    f"{errs[weights, 'f32']:.4g} off relative to the reference's largest")
+            if weights == "drawn":
+                errs["reversed"] = rel_err(linear_window_logits(p32, cfg32, seq, wlen, True),
+                                           want)
+                line += (f"; the reference against itself with the local keys in reverse "
+                         f"order {errs['reversed']:.4g} off")
+            else:
+                pbf = tree_map(lambda t: t.to(cfg.dtype), p32)
+                errs[weights, "bf16"] = rel_err(ring_teacher_logits(pbf, cfg, seq, max_len),
+                                                want)
+                del pbf
+                line += f"; the ring step in bf16 {errs[weights, 'bf16']:.4g} off"
+            print(f"{line} (limit {G3_RING_TOL}); {time.perf_counter() - t1:.1f} s")
+    for key in (("tempered", "f32"), ("tempered", "bf16")):
+        check(errs[key] <= G3_RING_TOL, f"the ring path's logits ({', '.join(key)}) are "
+              f"{errs[key]} off the linear-cache reference's")
+    print(f"Gemma3-27B ring phase: {time.perf_counter() - t0:.1f} s")
+    del p32, want, ring, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phi3v_phase(card: str) -> list:
+    """Phi-3-vision-4.2B whole (its vlm backbone; the CLIP tower is a stub
+    in the reference too): ``dense_config_phase`` (both servers, the
+    forward at the preset's 4 x 4096 with img_embeds [4, 576, 3072], B7 at
+    head width 96 once a layer, B6 at dk 96, G 1 on the CUDA-core path);
+    then B7 at d 96 windowed and non-causal, and at G 2 in the three masks,
+    against its plain version, timed beside SDPA. Returns the kernels JSON
+    rows."""
+    rows = dense_config_phase(VLM_ARCH, card)
+    cfg = get_config(VLM_ARCH, "train_4k")
+    model, a, Hq = MODEL_NAMES[VLM_ARCH], cfg.attn, cfg.padded_heads()
+    W = 1024
+    cases = [("window 1024", Hq, dict(window=W)), ("non-causal", Hq, dict(causal=False)),
+             ("causal, G 2", Hq // 2, {}), ("window 1024, G 2", Hq // 2, dict(window=W)),
+             ("non-causal, G 2", Hq // 2, dict(causal=False))]
+    for label, hkv, extra in cases:
+        rows.append(flash_row(model, label, cfg.microbatch, Hq, hkv, a.head_dim, 0, **extra))
     return rows
 
 
@@ -4358,7 +4797,7 @@ def dist_serve(cfg, params, comm, dev, mode: str) -> tuple:
     m = srv.serve(serve_prompts(cfg.vocab), GEN)
     launches = {k: n for k, n in counts().items() if n}
     toks = srv.last_tokens
-    check(toks.shape == (BATCH, GEN + 1) and toks.min() >= 0 and toks.max() < cfg.vocab,
+    check(toks.shape == (srv.batch, GEN + 1) and toks.min() >= 0 and toks.max() < cfg.vocab,
           f"bad token stream {toks.shape}")
     graphed = mode == "compiled" and srv._serve_step.graph is not None
     srv.close()
@@ -6619,6 +7058,13 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dense_rows = dense_phase(card)
+    dense_rows += gemma3_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma3_ring_phase(card)
+    dense_rows += phi3v_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     dist_phase(card)
     # training last: what its allocator keeps cached cannot crowd the
     # spawned processes that share the card in dist_phase

@@ -41,7 +41,13 @@
 //     [B, Hq, Sq], which the backward (flash_attention_bwd.cu) reads.
 //   kernels/flash_attention.py mirrors the walk (tile_coords, kv_tiles,
 //   lane_tiles) for the CPU tests.
-// f32: a plain shared-memory kernel on the CUDA cores, exact f32.
+//   Head width 96 (Phi-3-vision) runs the D = 128 instance over maps whose
+//   inner extent is the real 96 columns: the second 64-column box of a load
+//   reads columns 64 to 127 and TMA fills 96 to 127 with zeros, so Q·Kᵀ is
+//   exact and P·V's last 32 columns are zero; the store of that box clips at
+//   column 96. It spends a third more tensor-core work than a native 96 would.
+// f32: a plain shared-memory kernel on the CUDA cores, exact f32 (d 64, 96
+// or 128).
 // GQA reads kv head h / G; nothing is repeated in memory. Masked scores are
 // the finite -1e30 of the reference, so a row with no live key yet in a tile
 // gets p = 1 on garbage that the first live key wipes exactly (corr = 0),
@@ -482,11 +488,12 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int MAX_DEVICES = 64;
 
-// A 4-D bf16 map over [B, S, H, d] (dims d, H, S, B) with boxes of 64
-// columns by `rows` rows of one head of one batch.
-bool encode_bshd(CUtensorMap* map, const void* base, int B, int S, int H, int D,
+// A 4-D bf16 map over [B, S, H, cols] (dims cols, H, S, B) with boxes of 64
+// columns by `rows` rows of one head of one batch; a box past `cols` loads
+// zeros and stores nothing there.
+bool encode_bshd(CUtensorMap* map, const void* base, int B, int S, int H, int cols,
                  int64_t sb, int64_t sh, int64_t ss, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh * 2),
                                  static_cast<cuuint64_t>(ss * 2),
@@ -496,10 +503,10 @@ bool encode_bshd(CUtensorMap* map, const void* base, int B, int S, int H, int D,
 }
 
 // The shared-memory limit is raised, and the SM count read, once per device
-// and instance before its first launch.
+// and instance before its first launch. The tensors hold `cols` <= D columns.
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                        int Hkv, Geometry g, cudaStream_t st) {
+                        int Hkv, Geometry g, int cols, cudaStream_t st) {
   static bool sized[MAX_DEVICES] = {};
   static int sms[MAX_DEVICES] = {};
   int dev = 0;
@@ -518,11 +525,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   g.m_tiles = (g.Sq + BQ - 1) / BQ;
   g.tiles = g.bh * g.m_tiles;
   CUtensorMap tq{}, tk{}, tv{}, to{};
-  if (!encode_bshd(&tq, q, B, g.Sq, g.Hq, D, g.qsb, g.qsh, g.qss, BQ) ||
-      !encode_bshd(&to, o, B, g.Sq, g.Hq, D, g.qsb, g.qsh, g.qss, 64))
+  if (!encode_bshd(&tq, q, B, g.Sq, g.Hq, cols, g.qsb, g.qsh, g.qss, BQ) ||
+      !encode_bshd(&to, o, B, g.Sq, g.Hq, cols, g.qsb, g.qsh, g.qss, 64))
     return cudaErrorInvalidValue;
-  if (g.Sk > 0 && (!encode_bshd(&tk, k, B, g.Sk, Hkv, D, g.ksb, g.ksh, g.kss, BKV) ||
-                   !encode_bshd(&tv, v, B, g.Sk, Hkv, D, g.ksb, g.ksh, g.kss, BKV)))
+  if (g.Sk > 0 && (!encode_bshd(&tk, k, B, g.Sk, Hkv, cols, g.ksb, g.ksh, g.kss, BKV) ||
+                   !encode_bshd(&tv, v, B, g.Sk, Hkv, cols, g.ksb, g.ksh, g.kss, BKV)))
     return cudaErrorInvalidValue;
   const int lanes = g.tiles < sms[dev] ? g.tiles : sms[dev];
   flash_bf16_kernel<D><<<lanes, THREADS, Cfg<D>::SMEM, st>>>(tq, tk, tv, to, g);
@@ -532,7 +539,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Hkv,
            const Geometry& geo, int dt, cudaStream_t s) {
-  if (dt == BF16) return static_cast<int>(launch_bf16<D>(q, k, v, o, B, Hkv, geo, s));
+  // bf16 at d 96 takes the D = 128 instance over 96-column maps
+  if (dt == BF16)
+    return static_cast<int>(launch_bf16<D == 96 ? 128 : D>(q, k, v, o, B, Hkv, geo, D, s));
   if (dt != F32) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(B * geo.Hq, (geo.Sq + FQ - 1) / FQ);
   flash_f32_kernel<D><<<grid, FTHREADS, 0, s>>>(
@@ -554,6 +563,7 @@ extern "C" int ep_flash_attention(const void* q, const void* k, const void* v, v
                      causal != 0, 0, 0, 0, static_cast<float*>(lse)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 128) return launch<128>(q, k, v, o, B, Hkv, geo, dt, s);
+  if (D == 96) return launch<96>(q, k, v, o, B, Hkv, geo, dt, s);
   if (D == 64) return launch<64>(q, k, v, o, B, Hkv, geo, dt, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

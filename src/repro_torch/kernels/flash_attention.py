@@ -12,9 +12,12 @@ an mbarrier ring; two consumer warpgroups of 64 rows multiply on
 ``wgmma`` (S = Q·Kᵀ from shared memory, O += P·V with P in registers,
 rounded to bf16 where the reference keeps it in f32), overlap one tile's
 softmax with the next products and ping-pong the tensor cores between them;
-only the KV tiles that cross a mask edge test each element. f32 inputs take
-a CUDA-core path in exact f32. It reads q, k and v through their strides,
-so it needs no transposes.
+only the KV tiles that cross a mask edge test each element. Head widths
+64 and 128 have instances of their own; 96 (Phi-3-vision) runs the 128
+instance over tensor maps 96 columns wide, whose loads fill the last 32
+columns with zeros and whose stores clip them. f32 inputs take a CUDA-core
+path in exact f32. It reads q, k and v through their strides, so it needs
+no transposes. The backward pair takes 64 and 128 only.
 
 ``tile_coords``, ``kv_tiles`` and ``lane_tiles`` mirror the bf16 kernel's
 walk, so that the CPU tests can hold it against the reference's masks;
@@ -27,10 +30,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0   # kernel launches by this wrapper (chip_smoke reads it)
+launches = 0          # kernel launches by this wrapper (chip_smoke reads it)
+window_launches = 0   # those of them with a window
 
 _DT = (torch.bfloat16, torch.float32)
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 96, 128)   # the forward's; 96 runs the 128 instance over 96-column maps
+_BWD_HEAD_DIMS = (64, 128)   # the backward pair's (d 96: ROADMAP A12a-train)
 
 BQ = 128      # query rows per work tile of the bf16 kernel
 BKV = 128     # keys per KV tile
@@ -84,8 +89,9 @@ def kv_tiles(q0: int, Sq: int, Sk: int, causal: bool = True,
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int | None) -> int:
-    """The shapes, dtype and alignment both kernels take; the dtype code."""
+           window: int | None, head_dims: tuple[int, ...], why: str = "") -> int:
+    """The shapes, dtype and alignment a kernel takes, its head widths
+    ``head_dims``; the dtype code."""
     _build.check_cuda(name, q, k, v)
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"{name}: want 4-d q and k/v of one shape, got "
@@ -98,8 +104,8 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"{name}: q, k, v must share a dtype, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
     dt = _build.dtype_code(name, q.dtype, _DT)
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not supported (takes {_HEAD_DIMS})")
+    if d not in head_dims:
+        raise ValueError(f"{name}: head dim {d} not supported (takes {head_dims}){why}")
     if not _build.aligned16(q, k, v):
         raise ValueError(f"{name}: q, k and v must be 16-byte aligned")
     if window is not None and window < 1:
@@ -111,12 +117,12 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          scale: float, window: int | None = None,
                          causal: bool = True, with_lse: bool = False):
     """q [B, Sq, Hq, d], k/v [B, Sk, Hkv, d] on the card, bf16 or f32, d in
-    (64, 128); returns [B, Sq, Hq, d], and with ``with_lse`` also each
+    (64, 96, 128); returns [B, Sq, Hq, d], and with ``with_lse`` also each
     row's log-sum-exp [B, Hq, Sq] f32 (what the backward reads). The
     function of ``ref.flash_attention`` (``ref.flash_attention_fwd``) on the
     [B, H, S, d] transposes."""
-    global launches
-    dt = _check("flash_attention", q, k, v, window)
+    global launches, window_launches
+    dt = _check("flash_attention", q, k, v, window, _HEAD_DIMS)
     B, Sq, Hq, d = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -129,6 +135,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   ks[0], ks[2], ks[1], float(scale), int(window or 0),
                   int(causal), dt, None if lse is None else lse.data_ptr())
     launches += 1
+    window_launches += window is not None
     return (out, lse) if with_lse else out
 
 
@@ -193,7 +200,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float, window: int | None = None, causal: bool = True):
     """The backward pair on the card (``csrc/flash_attention_bwd.cu``): q, o,
     do [B, Sq, Hq, d] and k, v [B, Sk, Hkv, d], contiguous, bf16 or f32,
-    lse [B, Hq, Sq] f32 from the forward -> (dq, dk, dv) of the inputs'
+    d in (64, 128), lse [B, Hq, Sq] f32 from the forward -> (dq, dk, dv) of the inputs'
     shapes and dtype. Same contract as ``ref.flash_attention_bwd`` on the
     transposes. Two launches: the dQ kernel computes rowsum(do * o) (delta)
     and dq, then the dK/dV kernel reads delta.
@@ -214,7 +221,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inputs take two CUDA-core kernels in exact f32."""
     global bwd_launches
     name = "flash_attention_bwd"
-    dt = _check(name, q, k, v, window)
+    dt = _check(name, q, k, v, window, _BWD_HEAD_DIMS,
+                "; the pair at d 96 waits for ROADMAP A12a-train")
     _build.check_cuda(name, o, do, lse)
     B, Sq, Hq, d = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]

@@ -15,6 +15,9 @@ that mesh and spawns nothing:
 
 Without ``--mesh`` one process serves the whole batch, the MoE layers on
 the dense path. Rank 0 prints the reference's metric line, on its own clock.
+``--arch`` takes every id of ``repro_torch.configs.ARCH_IDS``: the ``lm``
+configs, ``gemma3-27b`` and ``phi-3-vision-4.2b`` (the new families are not
+held over a ``DistComm`` yet, ROADMAP A12a-train).
 """
 from __future__ import annotations
 

@@ -25,7 +25,10 @@ nothing:
       --smoke --mesh 4
 
 Rank 0 prints the reference's metric lines. A checkpoint over a mesh is
-refused (ROADMAP A10d).
+refused (ROADMAP A10d). ``--arch`` takes every id of
+``repro_torch.configs.ARCH_IDS``: the ``lm`` configs, ``gemma3-27b`` and
+``phi-3-vision-4.2b`` (the new families are not held over a ``DistComm``
+yet, ROADMAP A12a-train).
 """
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
 """Model registry (port of ``src/repro/models/registry.py``): family ->
-(params_spec, forward, decode_state_spec, decode_step, and the paged decode
-pair), for the families the port has."""
+(params_spec, forward, decode_state_spec, decode_step, and the paged
+decode pair where the family has one), for the families the port has:
+``lm``, ``vlm`` (``lm``'s functions) and ``gemma3`` (no paged path, as in
+the reference)."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,14 +22,19 @@ class ModelFns:
     paged_decode_step: Callable | None = None
 
 
+_LM = ModelFns(T.lm_spec, T.lm_forward, T.lm_decode_state_spec, T.lm_decode_step,
+               T.lm_paged_decode_state_spec, T.lm_paged_decode_step)
 _REGISTRY = {
-    "lm": ModelFns(T.lm_spec, T.lm_forward, T.lm_decode_state_spec, T.lm_decode_step,
-                   T.lm_paged_decode_state_spec, T.lm_paged_decode_step),
+    "lm": _LM,
+    "vlm": _LM,
+    "gemma3": ModelFns(T.gemma3_spec, T.gemma3_forward, T.gemma3_decode_state_spec,
+                       T.gemma3_decode_step),
 }
 
 
 def get_model(cfg: ArchConfig) -> ModelFns:
-    if cfg.family not in _REGISTRY:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(ROADMAP A12)")
+    """The family's functions; refuses what the port lacks
+    (``transformer.check_supported``: a family's queue item, an attention
+    the family cannot take)."""
+    T.check_supported(cfg)
     return _REGISTRY[cfg.family]

@@ -1,8 +1,19 @@
-"""Decoder LM, family ``lm`` (port of the training/prefill forward and the
-dense and paged decode paths of ``src/repro/models/transformer.py``): GQA or
-MLA attention, dense or MoE FFNs, an optional dense prefix
+"""Decoder LMs (port of ``src/repro/models/transformer.py``), families
+``lm``, ``vlm`` and ``gemma3``.
+
+``lm``: the training/prefill forward and the dense and paged decode paths:
+GQA or MLA attention, dense or MoE FFNs, an optional dense prefix
 (``MoESpec.first_k_dense``) and DeepSeek-V3's depth-1 multi-token
-prediction (MTP) term in the forward.
+prediction (MTP) term in the forward. ``vlm`` is ``lm`` whose forward takes
+precomputed patch embeddings ``batch["img_embeds"]`` [B, P, D] in place of
+the first P positions' token embeddings (the vision tower is a stub in the
+reference too). ``gemma3``: super-blocks of ``local_global`` = (local,
+global) layers and a tail of local layers; local layers attend within
+``local_window`` keys, global ones causally; the embedding is scaled by
+sqrt(d_model) rounded to the activation dtype; the head is tied. Its decode
+state holds a ring KV cache of ``min(local_window, max_len)`` rows per
+local layer (``_ring_local_decode``) and a linear one per global layer; it
+has no paged path (nor has the reference).
 
 Parameters keep the JAX layout: per-layer trees stacked along a leading
 [n_layers] axis in ``dense_stack`` and ``moe_stack`` (the expert-stacked
@@ -20,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -28,9 +40,10 @@ from repro_torch.models import kv_pages as KVP
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import ArchConfig, ParamSpec
-from repro_torch.models.layers import (cross_entropy_sum, embed_lookup, embed_spec,
-                                       ffn_apply, ffn_spec, head_cross_entropy_sum,
-                                       logits_out, mean_of_sum, rmsnorm, rmsnorm_spec)
+from repro_torch.models.layers import (apply_rope, cross_entropy_sum, embed_lookup,
+                                       embed_spec, ffn_apply, ffn_spec,
+                                       head_cross_entropy_sum, logits_out, mean_of_sum,
+                                       rmsnorm, rmsnorm_spec)
 
 
 def _stack_sizes(cfg: ArchConfig) -> tuple[int, int]:
@@ -39,13 +52,21 @@ def _stack_sizes(cfg: ArchConfig) -> tuple[int, int]:
     return n_dense, n_moe
 
 
+# the families this port has; ssm and hybrid wait for ROADMAP A12b, encdec
+# for A12c
+FAMILIES = ("lm", "vlm", "gemma3")
+
+
 def check_supported(cfg: ArchConfig) -> None:
     """Refuse what this slice does not port."""
-    if cfg.family != "lm":
+    if cfg.family not in FAMILIES:
+        item = "A12c" if cfg.family == "encdec" else "A12b"
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(ROADMAP A12)")
+                                  f"(ROADMAP {item})")
     if cfg.attn is None:
-        raise NotImplementedError("an lm without attention is not ported")
+        raise NotImplementedError("a decoder without attention is not ported")
+    if cfg.family == "gemma3" and (cfg.local_global is None or _is_mla(cfg)):
+        raise ValueError("gemma3 needs ArchConfig.local_global and GQA attention")
     if _is_mla(cfg) and cfg.mla is None:
         raise ValueError("attention kind 'mla' needs ArchConfig.mla")
 
@@ -120,17 +141,26 @@ def _with_heat(cfg: ArchConfig, state: dict, device: torch.device) -> dict:
     return state
 
 
+def _caches(cfg: ArchConfig, spec: dict, device: torch.device) -> dict:
+    """One zeroed stacked cache per entry of a decode-state spec (a KVCache,
+    or an MLACache for MLA), each with its filled length as a 0-dim int32
+    tensor on ``device``."""
+    cache = MLA.MLACache if _is_mla(cfg) else ATT.KVCache
+    return {name: cache(**{k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                           for k, s in arrays.items()},
+                        length=torch.zeros((), dtype=torch.int32, device=device))
+            for name, arrays in spec.items()}
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device: torch.device):
-    """Zeroed stacked caches, one per layer stack (a KVCache, or an
-    MLACache for MLA), each with its filled length as a 0-dim int32 tensor
-    on ``device``; and ``expert_heat`` when the config tracks it."""
-    cache = MLA.MLACache if _is_mla(cfg) else ATT.KVCache
-    return _with_heat(cfg, {
-        name: cache(**{k: torch.zeros(s.shape, dtype=s.dtype, device=device)
-                       for k, s in arrays.items()},
-                    length=torch.zeros((), dtype=torch.int32, device=device))
-        for name, arrays in lm_decode_state_spec(cfg, batch, max_len).items()}, device)
+    """Zeroed stacked caches of the family's decode-state spec (``gemma3``'s
+    rings among them), one per layer stack, with their lengths on
+    ``device`` (``_caches``); and ``expert_heat`` when the config tracks
+    it."""
+    from repro_torch.models.registry import get_model   # the registry imports this module
+    spec = get_model(cfg).decode_state_spec(cfg, batch, max_len)
+    return _with_heat(cfg, _caches(cfg, spec, device), device)
 
 
 def _index(tree, i: int):
@@ -162,14 +192,15 @@ def _ffn_half(p, x, cfg: ArchConfig, comm, heat=None):
     return x + f, aux
 
 
-def layer_apply(p, x, cfg: ArchConfig, comm, *, cache=None, heat=None):
+def layer_apply(p, x, cfg: ArchConfig, comm, *, cache=None, window="cfg", heat=None):
     """One decoder layer -> (x, new_cache, aux); without a cache it attends
-    over x itself and new_cache is None. ``heat`` as in ``_ffn_half``."""
+    over x itself and new_cache is None. ``window``: GQA's attention window
+    ("cfg": the config's; None: causal). ``heat`` as in ``_ffn_half``."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if _is_mla(cfg):
         a, new_cache = MLA.mla_attention(p["attn"], h, cfg, cache=cache)
     else:
-        a, new_cache = ATT.attention(p["attn"], h, cfg, cache=cache)
+        a, new_cache = ATT.attention(p["attn"], h, cfg, cache=cache, window=window)
     x, aux = _ffn_half(p, x + a, cfg, comm, heat)
     return x, new_cache, aux
 
@@ -201,32 +232,55 @@ def _tensors(tree):
         yield tree
 
 
-def _remat_layer(p, x, cfg: ArchConfig, comm):
-    x, _, a = layer_apply(p, x, cfg, comm)
+def _remat_layer(p, x, cfg: ArchConfig, comm, window):
+    x, _, a = layer_apply(p, x, cfg, comm, window=window)
     return x, a
 
 
-def _stack_apply(x, stack, cfg: ArchConfig, comm):
+def _stack_apply(x, stack, cfg: ArchConfig, comm, windows=None):
     """Every layer of a stacked parameter tree in order, without caches
-    (JAX: ``_scan_stack``) -> (x, the layers' summed aux). With
+    (JAX: ``_scan_stack``) -> (x, the layers' summed aux); ``windows``, one
+    per layer, as ``layer_apply`` takes it (default: the config's). With
     ``cfg.remat`` under autograd each layer keeps only its input and is
     recomputed in the backward."""
     aux = torch.zeros((), device=x.device)
     remat = cfg.remat and _tracks(x, stack)
     for i in range(stack["ln1"].shape[0]):
         p = _index(stack, i)
+        w = "cfg" if windows is None else windows[i]
         if remat:
-            x, a = checkpoint(_remat_layer, p, x, cfg, comm, use_reentrant=False)
+            x, a = checkpoint(_remat_layer, p, x, cfg, comm, w, use_reentrant=False)
         else:
-            x, _, a = layer_apply(p, x, cfg, comm)
+            x, _, a = layer_apply(p, x, cfg, comm, window=w)
         aux = aux + a
     return x, aux
+
+
+def _targets(batch: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """``batch["targets"]``, by default the tokens shifted left, wrapping."""
+    targets = batch.get("targets")
+    if targets is None:
+        targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    return targets
+
+
+def _ce(h, head, targets, mask, comm) -> torch.Tensor:
+    """The mean next-token cross-entropy of hidden states ``h`` through the
+    f32 head ``head``: under autograd in recomputed blocks of rows
+    (``head_cross_entropy_sum``), and over a ``DistComm`` summed with the
+    other processes' rows."""
+    if _tracks(h, head):
+        sc = head_cross_entropy_sum(h, head, targets, mask)
+    else:
+        sc = cross_entropy_sum(logits_out(h, head), targets, mask)
+    return mean_of_sum(sc if comm is None else comm.sum_over_batch(sc))
 
 
 def lm_forward(params, batch, cfg: ArchConfig, comm):
     """Training/prefill forward. batch: {tokens [B, S], optional targets
     [B, S] (default: tokens shifted left, wrapping), optional loss_mask
-    [B, S]}. Returns (loss, {"aux": aux}): the mean next-token cross-entropy
+    [B, S], for ``vlm`` optional img_embeds [B, P, D] (the first P
+    positions' embeddings, cast to the activation dtype)}. Returns (loss, {"aux": aux}): the mean next-token cross-entropy
     plus the MoE layers' router aux and z losses, and with ``cfg.mtp`` 0.3
     times the MTP layer's cross-entropy against the token after next (that
     layer's aux added to the aux).
@@ -239,6 +293,9 @@ def lm_forward(params, batch, cfg: ArchConfig, comm):
     check_supported(cfg)
     tokens = batch["tokens"]
     x = embed_lookup(params["embed"], tokens)
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        P = batch["img_embeds"].shape[1]
+        x = torch.cat([batch["img_embeds"].to(x.dtype), x[:, P:]], dim=1)
     aux = torch.zeros((), device=x.device)
     for name in ("dense", "moe"):
         if f"{name}_stack" in params:
@@ -246,19 +303,9 @@ def lm_forward(params, batch, cfg: ArchConfig, comm):
             aux = aux + a
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     head = _head_table(params, cfg)
-    targets = batch.get("targets")
-    if targets is None:
-        targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    targets = _targets(batch, tokens)
     mask = batch.get("loss_mask")
-
-    def ce(h, tg):
-        if _tracks(h, head):
-            sc = head_cross_entropy_sum(h, head, tg, mask)
-        else:
-            sc = cross_entropy_sum(logits_out(h, head), tg, mask)
-        return mean_of_sum(sc if comm is None else comm.sum_over_batch(sc))
-
-    loss = ce(x, targets)
+    loss = _ce(x, head, targets, mask, comm)
     if cfg.mtp:
         # depth-1 MTP: predict t+2 from [h_t ; emb(t+1)]
         nxt = embed_lookup(params["embed"], targets)
@@ -267,7 +314,7 @@ def lm_forward(params, batch, cfg: ArchConfig, comm):
         h2, _, a2 = layer_apply(params["mtp_layer"], h2, cfg, comm)
         aux = aux + a2
         t2 = torch.cat([targets[:, 1:], targets[:, :1]], dim=1)
-        loss = loss + 0.3 * ce(h2, t2)
+        loss = loss + 0.3 * _ce(h2, head, t2, mask, comm)
     return loss + aux, dict(aux=aux)
 
 
@@ -352,4 +399,158 @@ def lm_paged_decode_step(params, state, batch, cfg: ArchConfig, comm):
             x, _, _ = paged_layer_apply(_index(stack, i), x, cfg, comm,
                                         _index(pools, i), tbl, lens, act,
                                         num_kv_splits=splits, heat=heat)
+    return _head(params, x, cfg), state
+
+
+# ---------------------------------------------------------------------------
+# family "gemma3": super-blocks of local_global = (local, global) layers
+# ---------------------------------------------------------------------------
+
+def _g3_counts(cfg: ArchConfig) -> tuple[int, int, int, int]:
+    """(local, global layers a super-block, super-blocks, tail of local
+    layers)."""
+    loc, glob = cfg.local_global
+    per = loc + glob
+    n_super = cfg.num_layers // per
+    return loc, glob, n_super, cfg.num_layers - n_super * per
+
+
+def gemma3_spec(cfg: ArchConfig):
+    """{embed, ln_f, super [n_super, per, ...], tail [tail, ...]}: JAX's
+    names and layout."""
+    loc, glob, n_super, tail = _g3_counts(cfg)
+    sp = dict(embed=embed_spec(cfg.padded_vocab(), cfg.d_model, cfg.dtype),
+              ln_f=rmsnorm_spec(cfg.d_model, cfg.dtype),
+              super=_stack(_stack(layer_spec(cfg, moe_layer=False), loc + glob), n_super))
+    if tail:
+        sp["tail"] = _stack(layer_spec(cfg, moe_layer=False), tail)
+    return sp
+
+
+def _round_to(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` (nearest, ties to even), as a Python
+    float: a scalar the step multiplies by without making a tensor."""
+    bits = int(np.float32(value).view(np.uint32))
+    if dtype == torch.bfloat16:
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        return float(np.uint32(bits).view(np.float32))
+    if dtype == torch.float16:
+        return float(np.float16(value))
+    return float(np.float32(value))
+
+
+def _g3_embed(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The embedding times sqrt(d_model), the scale rounded to the
+    activation dtype first (73.5 in bf16 at d_model 5376), as the reference
+    does."""
+    x = embed_lookup(params["embed"], tokens)
+    return x * _round_to(cfg.d_model ** 0.5, x.dtype)
+
+
+def gemma3_forward(params, batch, cfg: ArchConfig, comm):
+    """Training/prefill forward: every super-block's local layers windowed
+    at ``cfg.local_window``, its global layers causal, the tail windowed;
+    the tied head's mean cross-entropy (``_ce``, shared with
+    ``lm_forward``). batch as ``lm_forward``'s. Returns (loss, {})."""
+    check_supported(cfg)
+    loc, glob, n_super, tail = _g3_counts(cfg)
+    tokens = batch["tokens"]
+    x = _g3_embed(params, tokens, cfg)
+    windows = [cfg.local_window] * loc + [None] * glob
+    for i in range(n_super):
+        x, _ = _stack_apply(x, _index(params["super"], i), cfg, comm, windows)
+    if tail:
+        x, _ = _stack_apply(x, params["tail"], cfg, comm, [cfg.local_window] * tail)
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return _ce(x, params["embed"], _targets(batch, tokens), batch.get("loss_mask"), comm), {}
+
+
+def gemma3_decode_state_spec(cfg: ArchConfig, batch: int, max_len: int):
+    """{stack: {"k", "v"}}: ``local`` [n_super, local, B, wlen, n_kv, hd]
+    rings (wlen = min(local_window, max_len)), ``globl`` [n_super, global,
+    B, max_len, n_kv, hd] linear caches, ``tail`` [tail, B, wlen, ...]
+    rings."""
+    loc, glob, n_super, tail = _g3_counts(cfg)
+    wlen = min(cfg.local_window, max_len)
+
+    def kv(rows, *lead):
+        shape = tuple(lead) + ATT.kv_cache_shape(cfg, batch, rows)
+        return {k: ParamSpec(shape, cfg.dtype, init="zeros") for k in ("k", "v")}
+    st = dict(local=kv(wlen, n_super, loc), globl=kv(max_len, n_super, glob))
+    if tail:
+        st["tail"] = kv(wlen, tail)
+    return st
+
+
+def _cache_at(stacked: ATT.KVCache, *idx) -> ATT.KVCache:
+    """One layer's view of a stacked KVCache, sharing its length."""
+    return ATT.KVCache(k=stacked.k[idx], v=stacked.v[idx], length=stacked.length)
+
+
+def _ring_mask(pos: torch.Tensor, wlen: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A ring of ``wlen`` rows at the step of absolute position ``pos`` (a
+    0-dim device tensor): (each row's position, the largest <= pos that is
+    the row modulo wlen; which rows the window keeps)."""
+    k_pos = pos - torch.remainder(pos - torch.arange(wlen, device=pos.device), wlen)
+    return k_pos, (k_pos >= 0) & (k_pos <= pos) & (pos - k_pos < wlen)
+
+
+def _ring_local_decode(p, x, cfg: ArchConfig, cache: ATT.KVCache, wlen: int):
+    """A local layer's decode step over a ring KV cache of ``wlen`` rows:
+    this step's K/V written (in place) at row ``length % wlen``, every
+    row's absolute position rebuilt from the ring arithmetic and masked to
+    the window. -> (x, cache with the advanced length). As the reference's:
+    the step's S tokens share position ``length``, and q and k take no
+    qk-norm (the reference's forward applies it, its ring decode does not;
+    the port keeps the reference's arithmetic)."""
+    a = cfg.attn
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    B, S, _ = x.shape
+    pos = cache.length                                      # absolute position
+    q = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wq"])
+    k = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wk"])
+    v = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wv"])
+    pvec = pos.expand(B, S)
+    q = apply_rope(q, pvec, a.rope_base, a.rope_fraction)
+    k = apply_rope(k, pvec, a.rope_base, a.rope_fraction)
+    # rows slot.. of the ring, clamped so that S rows fit (JAX's
+    # dynamic_update_slice), written with device indices: no host read
+    rows = (pos % wlen).clamp(0, wlen - S).long() + torch.arange(S, device=x.device)
+    cache.k.index_copy_(1, rows, k.to(cache.k.dtype))
+    cache.v.index_copy_(1, rows, v.to(cache.v.dtype))
+    mask = _ring_mask(pos, wlen)[1]
+    o = ATT._sdpa(q, cache.k, cache.v, mask[None, :].expand(S, wlen), a.logit_softcap,
+                  a.head_dim ** -0.5)
+    x = x + torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"])
+    x = x + ffn_apply(p["ffn"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act)
+    return x, ATT.KVCache(k=cache.k, v=cache.v, length=pos + S)
+
+
+def gemma3_decode_step(params, state, batch, cfg: ArchConfig, comm):
+    """One decode step. batch: {tokens [B, 1]} -> (logits [B, 1, V], state):
+    local layers through their rings (``_ring_local_decode``), global
+    layers through ``layer_apply`` over their linear caches, causal. The
+    caches are written in place and every stack's length advanced in place
+    after the last layer, as ``lm_decode_step`` does, so the step can be
+    captured."""
+    loc, glob, n_super, tail = _g3_counts(cfg)
+    x = _g3_embed(params, batch["tokens"], cfg)
+    wlen = state["local"].k.shape[3]
+    new_len = None
+    for i in range(n_super):
+        sp = _index(params["super"], i)
+        for j in range(loc + glob):
+            pj = _index(sp, j)
+            if j < loc:
+                x, c = _ring_local_decode(pj, x, cfg, _cache_at(state["local"], i, j), wlen)
+            else:
+                x, c, _ = layer_apply(pj, x, cfg, comm, window=None,
+                                      cache=_cache_at(state["globl"], i, j - loc))
+            new_len = c.length
+    for i in range(tail):
+        x, c = _ring_local_decode(_index(params["tail"], i), x, cfg,
+                                  _cache_at(state["tail"], i), wlen)
+        new_len = c.length
+    for c in state.values():
+        c.length.copy_(new_len)
     return _head(params, x, cfg), state

@@ -3,11 +3,13 @@
 decoding with the serving metrics of the paper's Table VII (output tok/s,
 TTFT, ITL).
 
-``DecodeServer`` decodes a fixed batch against dense KV caches.
-``ContinuousDecodeServer`` overrides its two engine hooks (``_init_state``,
-``_step_factory``) to decode over per-layer page pools, and adds
-``serve_requests``: continuous batching, where requests join and leave
-between steps.
+``DecodeServer`` decodes a fixed batch against the family's dense decode
+state (``models/registry.py``: KV caches, and for ``gemma3`` ring caches in
+its local layers). ``ContinuousDecodeServer`` overrides its two engine
+hooks (``_init_state``, ``_step_factory``) to decode over per-layer page
+pools, and adds ``serve_requests``: continuous batching, where requests
+join and leave between steps. It refuses a family without a paged path
+(``gemma3``), as the reference does.
 
 The EP ranks of the MoE layers are hosted in this process by a
 ``LocalComm(ep_size)``; with ``ep_size=1`` the MoE layers take the dense
@@ -115,8 +117,9 @@ from repro_torch.core import placement as PL
 from repro_torch.device import disable_tf32, resolve_device, synchronize
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.kv_pages import PageAllocator, pages_for_tokens
+from repro_torch.models.registry import get_model
 from repro_torch.models.transformer import (check_supported, init_decode_state,
-                                            init_paged_decode_state, lm_spec)
+                                            init_paged_decode_state)
 from repro_torch.runtime.fault import (DegradedRecovery, FaultDetector, FaultReport,
                                       PreemptionGuard, StragglerWatchdog)
 from repro_torch.runtime.scheduler import ContinuousScheduler
@@ -318,7 +321,8 @@ class DecodeServer:
     # ---- engine hooks (ContinuousDecodeServer overrides both) ----
 
     def _init_state(self, batch: int, max_len: int):
-        """Zeroed decode state for this engine's layout (dense KV caches)."""
+        """Zeroed decode state for this engine's layout: the family's dense
+        caches (``gemma3``'s rings among them)."""
         return init_decode_state(self.cfg, batch, max_len, self.device)
 
     def _step_factory(self):
@@ -432,7 +436,7 @@ class DecodeServer:
         axis."""
         cfg = dataclasses.replace(self.cfg, moe=dataclasses.replace(
             self.cfg.moe, params_physical=False))
-        return lm_spec(cfg)
+        return get_model(cfg).params_spec(cfg)
 
     def _maybe_rebalance(self, step_idx: int) -> None:
         """Every ``rebalance_every`` steps: drain the heat counter into the
@@ -628,8 +632,8 @@ class DecodeServer:
         with self.tracer.span("checkpoint", restore=True, ckpt_step=ck):
             self.params = None               # the old tree goes before the new loads
             self.params, _ = restore_checkpoint(
-                self.ckpt_dir, ck, lm_spec(new_cfg), placement=new_cfg.moe.placement,
-                device=self.device)
+                self.ckpt_dir, ck, get_model(new_cfg).params_spec(new_cfg),
+                placement=new_cfg.moe.placement, device=self.device)
         event["phases"]["restore_s"] = time.perf_counter() - tp
         event["restored_from"] = ck
         self._ckpt_restores += 1
@@ -830,6 +834,8 @@ class ContinuousDecodeServer(DecodeServer):
 
     def __init__(self, cfg: ArchConfig, batch: int, max_len: int, *,
                  page_size: int = 8, num_pages: int | None = None, **kwargs):
+        if get_model(cfg).paged_decode_step is None:
+            raise NotImplementedError(f"family {cfg.family!r} has no paged decode path")
         a = cfg.attn
         if a is None or a.window is not None:
             raise NotImplementedError(

@@ -28,7 +28,6 @@ import torch
 from repro_torch.comm import DistComm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.registry import get_model
-from repro_torch.models.transformer import lm_decode_step, lm_paged_decode_step
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.optim.adamw import sq_sum
 from repro_torch.weights import _leaves, is_cut
@@ -198,14 +197,15 @@ def _greedy(decode_step, cfg: ArchConfig, comm):
 
 
 def make_serve_step(cfg: ArchConfig, comm):
-    """Greedy step over the dense KV caches. batch: {tokens [B, 1]}."""
-    return _greedy(lm_decode_step, cfg, comm)
+    """Greedy step over the family's dense decode state. batch: {tokens
+    [B, 1]}."""
+    return _greedy(get_model(cfg).decode_step, cfg, comm)
 
 
 def make_paged_serve_step(cfg: ArchConfig, comm):
     """Greedy step over the paged pools. batch: {tokens [B, 1], page_tbl
     [B, max_pages], kv_lens [B], active [B]}."""
-    return _greedy(lm_paged_decode_step, cfg, comm)
+    return _greedy(get_model(cfg).paged_decode_step, cfg, comm)
 
 
 # one capture stream per card, shared by every capture: a stream's first

@@ -36,7 +36,7 @@ from repro_torch.core import placement as PL
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.moe import ep_active
-from repro_torch.models.transformer import check_supported, lm_spec
+from repro_torch.models.registry import get_model
 
 # numpy dtypes torch.from_numpy does not know, by name -> (bit view, torch dtype)
 _BIT_VIEWS = {"bfloat16": (np.uint16, torch.bfloat16),
@@ -133,7 +133,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None, comm=None):
     layer is adopted into the physical slot order (under
     ``params_physical``) and cut to the shard at once, so a process never
     holds more than one full layer of it beside its shard."""
-    check_supported(cfg)
+    spec = get_model(cfg).params_spec
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     placement = _physical(cfg)
@@ -141,7 +141,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None, comm=None):
     logical = cfg if placement is None else dataclasses.replace(
         cfg, moe=dataclasses.replace(cfg.moe, params_physical=False))
     params: dict = {}
-    for path, s in _leaves(lm_spec(logical)):
+    for path, s in _leaves(spec(logical)):
         if path[-1] in _EXPERT_F_DIM and len(path) >= 2 and path[-2] == "moe" \
                 and len(s.shape) == 4:
             t = None
@@ -177,9 +177,8 @@ def params_from_jax(tree, cfg: ArchConfig, device=None):
     """The JAX package's parameter tree (numpy arrays, e.g. from
     ``jax.device_get``) as the port's parameters: same names, same layouts,
     each leaf checked against the port's spec."""
-    check_supported(cfg)
     dev = resolve_device(device)
-    specs = dict(_leaves(lm_spec(cfg)))
+    specs = dict(_leaves(get_model(cfg).params_spec(cfg)))
     got = dict(_leaves(tree))
     if specs.keys() != got.keys():
         raise ValueError(f"parameter trees differ: missing "

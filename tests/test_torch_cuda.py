@@ -350,7 +350,7 @@ def test_cuda_dispatch_pack_copy_dtype_change(hopper, dt, od):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,d", [(1, 128), (6, 128), (4, 64)])
+@pytest.mark.parametrize("G,d", [(1, 128), (6, 128), (4, 64), (1, 96), (2, 96)])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 77), (False, None),
                                            (False, 150)])
 def test_cuda_flash_attention(hopper, dt, G, d, causal, window):
@@ -359,7 +359,8 @@ def test_cuda_flash_attention(hopper, dt, G, d, causal, window):
     call, two calls bitwise equal. bf16: relative error (Frobenius norm)
     within 5e-3, about twice
     what rounding p and the output to bf16 gives, and every element within
-    2e-2."""
+    2e-2. Head width 96 (Phi-3-vision; bf16 on the 128 instance over
+    96-column maps) at G 1 and 2."""
     bshd, kw = _flash_case(hopper, dt, G, d, causal, window, 200, 328)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_bshd(*(a[..., :32].contiguous() for a in bshd), **kw)
@@ -376,6 +377,65 @@ def test_cuda_flash_attention_many_query_tiles(hopper, dt, causal, window):
     and more work tiles than a persistent lane takes at once; the limits
     of test_cuda_flash_attention."""
     _flash_case(hopper, dt, 6, 128, causal, window, 1000, 1000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 1024), (False, None)])
+def test_cuda_flash_attention_d96_with_lse(hopper, dt, G, causal, window):
+    """Head width 96 with the row LSE (what the forward under grad asks
+    for) over 4 query tiles and 17 KV tiles, the last ragged: the output
+    as test_cuda_flash_attention holds it, the LSE within 1e-4, the
+    output bitwise that of the call without it; the backward pair refuses
+    96, naming the queue item that ports it."""
+    B, Hkv, S, d = 2, 2, 2100, 96
+    q = _rand((B, S, Hkv * G, d), dt, hopper, 1.0, 21)
+    k = _rand((B, S, Hkv, d), dt, hopper, 1.0, 22)
+    v = _rand((B, S, Hkv, d), dt, hopper, 1.0, 23)
+    kw = dict(scale=d ** -0.5, window=window, causal=causal)
+    out, lse = fa.flash_attention_bshd(q, k, v, with_lse=True, **kw)
+    assert torch.equal(fa.flash_attention_bshd(q, k, v, **kw), out)
+    want, want_lse = ref.flash_attention_fwd(*(a.transpose(1, 2) for a in (q, k, v)), **kw)
+    want = want.transpose(1, 2)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    if dt == torch.bfloat16:
+        assert _rel(out, want) <= 5e-3
+        torch.testing.assert_close(out, want, rtol=2e-2, atol=2e-2)
+    else:
+        torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="A12a-train"):
+        fa.flash_attention_bwd(q, k, v, out, out, lse, **kw)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 4])
+def test_cuda_paged_decode_attention_dk96(hopper, dt, splits):
+    """Phi-3-vision's paged decode: dk = dv = 96, G 1 (the CUDA-core
+    path), shuffled tables, ragged and idle rows, long enough rows to
+    split: within 1e-4 of the plain version, idle rows exactly 0, two
+    calls bitwise equal."""
+    B, Hkv, d, page, max_pages = 6, 4, 96, 16, 40
+    lens = torch.tensor([1, 600, 0, 640, 37, 255], dtype=torch.int32)
+    P = B * max_pages
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(24))
+    tbl = torch.full((B, max_pages), P, dtype=torch.int32)
+    for b in range(B):
+        n = -(-int(lens[b]) // page)
+        tbl[b, :n] = perm[b * max_pages:b * max_pages + n].int()
+    kp = _rand((P + 1, page, Hkv, d), dt, hopper, 1.0, 25)
+    vp = _rand((P + 1, page, Hkv, d), dt, hopper, 1.0, 26)
+    q = _rand((B, Hkv, d), dt, hopper, 1.0, 27)
+    tbl, lens = tbl.to(hopper), lens.to(hopper)
+    kw = dict(scale=d ** -0.5, num_kv_splits=splits)
+    got = da.paged_decode_attention(q, kp, vp, tbl, lens, **kw)
+    want = ref.paged_decode_attention(q, kp, vp, tbl, lens, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert not got[2].any()
+    assert torch.equal(da.paged_decode_attention(q, kp, vp, tbl, lens, **kw), got)
+    torch.cuda.synchronize()
 
 
 def _flash_case(dev, dt, G, d, causal, window, Sq, Sk):

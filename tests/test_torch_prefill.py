@@ -183,11 +183,12 @@ def test_get_model_refuses_unported_families():
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError, match="A12"):
         get_model(dataclasses.replace(tcfg, family="ssm"))
-    # MLA and MTP are ported (tests/test_torch_deepseek.py); the forward
-    # still refuses a family other than lm before it reads a parameter
+    # MLA and MTP are ported (tests/test_torch_deepseek.py), vlm and gemma3
+    # too (tests/test_torch_gemma3_vlm.py); the forward still refuses a
+    # family the port lacks before it reads a parameter
     with pytest.raises(NotImplementedError, match="A12"):
         get_model(tcfg).forward({}, {"tokens": torch.zeros((1, 2), dtype=torch.int32)},
-                                dataclasses.replace(tcfg, family="vlm"), None)
+                                dataclasses.replace(tcfg, family="encdec"), None)
 
 
 def test_prefill_moe_bitwise_equal_to_sequential():
